@@ -1,0 +1,206 @@
+"""Federated-learning experiment configuration (paper §2, §4).
+
+A copy of the reference's ``FLConfig`` and its ``validate()``: the same
+fields, defaults and checks, so a config written for the reference means
+the same experiment here.  The one default that differs is
+``batch_clients`` (False here): the horizon-batched engine is not ported
+yet, and :class:`repro_torch.core.safl.FLEngine` refuses every setting it
+does not run (see ``FLEngine.PORTED``) instead of ignoring it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class FLConfig:
+    """One SAFL/SFL experiment.  Field meanings follow the reference
+    ``FLConfig``; the knobs this package runs are the paper's main path:
+    ``mode`` sync/semi_async, ``aggregation`` fedsgd/fedavg, the f32
+    wire, the ``k`` horizon, static timing, full participation, one
+    device, no faults, tracing off."""
+
+    n_clients: int = 50
+    k: int = 10  # aggregation buffer size / activation count
+    horizon: str = "k"  # "k" | "queue" | "timeout" | "hybrid"
+    horizon_queue: int = 0  # queue/hybrid: uploads per horizon (0 -> k)
+    horizon_timeout_s: float = 0.0  # timeout/hybrid: horizon wall-clock
+    # "auto" (streaming for semi_async, buffered for sync), "streaming"
+    # (O(D) accumulate-on-arrival), "buffered" (resident (K, D) rows)
+    server_channel: str = "auto"
+    mode: str = "semi_async"  # "sync" | "semi_async"
+    aggregation: str = "fedsgd"  # fedsgd | fedavg | sdga | fedasync | fedbuff | fedopt
+    local_epochs: int = 1
+    local_batch_size: int = 32
+    client_lr: float = 0.05
+    server_lr: float = 1.0  # eta in Eq. (5)
+    staleness_alpha: float = 0.5  # polynomial discount (1+tau)^-alpha
+    server_momentum: float = 0.0
+    ema_anchor: float = 0.0
+    fedasync_alpha: float = 0.6
+    speed_sigma: float = 0.6
+    comm_mean_s: float = 1.0
+    seed: int = 0
+    sched_timing: str = "static"  # static | lognormal | markov
+    sched_jitter_sigma: float = 0.25
+    sched_drop_p: float = 0.1
+    sched_off_mean_s: float = 5.0
+    sched_policy: str = "full"  # full | uniform | seafl | fedqs | ratelimit
+    sched_c: int = 0
+    sched_stale_cap: int = 4
+    sched_qs_beta: float = 1.0
+    sched_rate_limit: int = 0
+    sched_seed: int = 0
+    wire: str = "f32"  # f32 | q8 | q4 | topk
+    topk_frac: float = 0.1
+    compress_updates: bool = False  # legacy alias for wire="q8"
+    quant_block: int = 512
+    error_feedback: bool = True
+    # horizon-batched engine: not ported yet, so the default here is the
+    # sequential per-upload engine (the reference's parity oracle)
+    batch_clients: bool = False
+    devices: int = 1
+    mesh_shape: Optional[Tuple[int, int]] = None
+    wave_impl: str = "auto"
+    wave_buckets: bool = True
+    eval_every: int = 1
+    fault_crash_p: float = 0.0
+    fault_straggler_p: float = 0.0
+    fault_straggler_mult: float = 8.0
+    fault_corrupt_p: float = 0.0
+    fault_byzantine_p: float = 0.0
+    fault_byzantine_rescale: float = 10.0
+    fault_seed: int = 7
+    fault_retry_backoff_s: float = 1.0
+    fault_retry_cap: int = 5
+    defense: str = "none"  # none | screen | clip
+    defense_norm_cap: float = 0.0
+    trace_level: str = "off"  # off | round | upload
+    trace_dir: str = ""
+    target_accuracy: float = 0.5  # Acc_t for T_f / T_s
+    oscillation_thresholds: Tuple[float, ...] = (0.02, 0.05, 0.10, 0.15)
+
+    @property
+    def mesh_devices(self) -> int:
+        """Total mesh shard count: E*P under ``mesh_shape``, else the 1-D
+        ``devices`` count."""
+        if self.mesh_shape is not None:
+            return self.mesh_shape[0] * self.mesh_shape[1]
+        return self.devices
+
+    def validate(self) -> None:
+        assert self.mode in ("sync", "semi_async")
+        assert 1 <= self.k <= self.n_clients
+        assert self.aggregation in (
+            "fedsgd", "fedavg", "sdga", "fedasync", "fedbuff", "fedopt")
+        assert self.local_epochs >= 1, "local_epochs must be >= 1"
+        assert self.local_batch_size >= 1
+        assert (8 <= self.quant_block <= 2048
+                and self.quant_block & (self.quant_block - 1) == 0), \
+            "quant_block must be a power of two in [8, 2048]"
+        assert self.wire in ("f32", "q8", "q4", "topk"), self.wire
+        if self.compress_updates:
+            assert self.wire in ("f32", "q8"), \
+                (f"compress_updates=True is the legacy alias for "
+                 f"wire='q8' — it conflicts with wire='{self.wire}'")
+        assert 0.0 < self.topk_frac <= 1.0, \
+            f"topk_frac={self.topk_frac} must be in (0, 1]"
+        if self.wire == "topk":
+            assert self.aggregation not in ("fedavg", "fedasync"), \
+                ("wire='topk' is gradient-only: fedavg/fedasync upload "
+                 "weights, and a sparse weight average would zero every "
+                 "untransmitted coordinate")
+        assert self.eval_every >= 1, "eval_every must be >= 1"
+        assert self.sched_timing in ("static", "lognormal", "markov"), \
+            self.sched_timing
+        assert self.sched_policy in (
+            "full", "uniform", "seafl", "fedqs", "ratelimit"), \
+            self.sched_policy
+        assert self.sched_rate_limit >= 0, "sched_rate_limit must be >= 0"
+        assert self.trace_level in ("off", "round", "upload"), \
+            self.trace_level
+        if self.sched_policy == "ratelimit" and self.horizon in ("k",
+                                                                 "queue"):
+            target = (self.k if self.horizon == "k"
+                      else (self.horizon_queue or self.k))
+            limit = self.sched_rate_limit or self.k
+            assert limit >= target, \
+                (f"sched_rate_limit={limit} cannot fill a "
+                 f"{self.horizon} horizon of {target} uploads")
+        assert self.horizon in ("k", "queue", "timeout", "hybrid"), \
+            self.horizon
+        assert self.horizon_queue >= 0, "horizon_queue must be >= 0 (0 -> k)"
+        if self.horizon in ("timeout", "hybrid"):
+            assert self.horizon_timeout_s > 0.0, \
+                f"horizon={self.horizon} needs horizon_timeout_s > 0"
+            assert self.mode == "semi_async", \
+                "timeout/hybrid horizons are semi-async constructs"
+        assert self.server_channel in ("auto", "streaming", "buffered"), \
+            self.server_channel
+        if self.server_channel == "buffered":
+            assert self.horizon in ("k", "queue"), \
+                "buffered channel needs a fixed horizon (k or queue)"
+        if self.server_channel == "streaming":
+            assert self.mode == "semi_async", \
+                "streaming accumulation is a semi-async construct (the " \
+                "sync round produces its (K, D) rows as one program)"
+        assert self.sched_jitter_sigma >= 0.0
+        assert 0.0 <= self.sched_drop_p < 1.0, \
+            "sched_drop_p must be in [0, 1) (1 would end every schedule)"
+        assert self.sched_off_mean_s > 0.0
+        assert self.sched_stale_cap >= 0
+        assert 0 <= self.sched_c <= self.n_clients, \
+            f"sched_c={self.sched_c} must be in [0, n_clients]"
+        assert isinstance(self.batch_clients, bool)
+        assert self.wave_impl in ("vmap", "map", "auto"), self.wave_impl
+        assert isinstance(self.wave_buckets, bool)
+        for p in (self.fault_crash_p, self.fault_straggler_p,
+                  self.fault_corrupt_p, self.fault_byzantine_p):
+            assert 0.0 <= p <= 1.0, f"fault probability {p} not in [0, 1]"
+        if (self.fault_crash_p or self.fault_straggler_p
+                or self.fault_corrupt_p or self.fault_byzantine_p):
+            assert self.mode == "semi_async", \
+                ("fault injection rides the semi-async event heap; the "
+                 "sync round has no per-upload schedule to perturb")
+        assert self.fault_straggler_mult >= 1.0, \
+            "fault_straggler_mult must be >= 1 (a spike, not a speedup)"
+        assert self.fault_byzantine_rescale > 0.0
+        assert self.fault_retry_backoff_s > 0.0
+        assert self.fault_retry_cap >= 1, \
+            "fault_retry_cap must be >= 1 (caps the backoff exponent)"
+        assert self.defense in ("none", "screen", "clip"), self.defense
+        if self.defense != "none":
+            assert self.mode == "semi_async", \
+                "defense screening guards the semi-async upload channel"
+        if self.defense == "clip":
+            assert self.defense_norm_cap > 0.0, \
+                "defense='clip' needs defense_norm_cap > 0 (the norm cap)"
+        assert self.defense_norm_cap >= 0.0
+        assert self.devices >= 1, "devices must be >= 1"
+        if self.mesh_shape is not None:
+            assert (isinstance(self.mesh_shape, tuple)
+                    and len(self.mesh_shape) == 2), \
+                f"mesh_shape={self.mesh_shape!r} must be an (edges, pods) " \
+                "pair"
+            e, p = self.mesh_shape
+            assert e >= 1 and p >= 1, self.mesh_shape
+            assert p & (p - 1) == 0, \
+                (f"mesh_shape pods={p} must be a power of two (the "
+                 "intra-edge tree reduce pairs shards by XOR rounds)")
+            assert self.devices == 1 or self.devices == e * p, \
+                (f"devices={self.devices} conflicts with mesh_shape="
+                 f"{self.mesh_shape} ({e * p} devices); set one knob, or "
+                 "make them agree")
+        n_sh = self.mesh_devices
+        if n_sh > 1:
+            assert self.k % n_sh == 0, \
+                (f"k={self.k} must be a multiple of the mesh device count "
+                 f"{n_sh} (devices/mesh_shape: the channel rows shard "
+                 "evenly over the row axes)")
+            if self.horizon == "queue":
+                q = self.horizon_queue or self.k
+                assert q % n_sh == 0, \
+                    (f"queue horizon of {q} uploads must be a multiple of "
+                     f"the mesh device count {n_sh} (the channel rows "
+                     "shard evenly over the row axes)")

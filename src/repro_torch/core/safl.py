@@ -1,0 +1,409 @@
+"""SFL / SAFL engine (paper §2.2, Fig. 1): discrete-event simulation.
+
+Only *simulated* wall-clock (per-client compute speeds + communication
+latency) is event-driven; simulated time orders the events and defers no
+computation.
+
+Synchronous (SFL, Fig. 1a): each round the server activates K random
+clients, waits for all of them (round time = slowest active client, the
+straggler effect), aggregates, broadcasts.  The K clients train one after
+another into the (K, D) buffer, and the round is one
+:func:`repro_torch.kernels.safl_agg.safl_aggregate`.
+
+Semi-asynchronous (SAFL, Fig. 1b): clients train continuously at their
+own pace and upload after each local epoch; every upload is folded into
+an O(D) running sum the moment it lands (``safl_fold``, the streaming
+channel), and the server aggregates as soon as K uploads are in.  A
+client adopts the newest global model at its next upload boundary,
+otherwise it continues training its local one, so uploads carry
+staleness tau = t_now - t_client_version.
+
+This is the reference's sequential per-upload engine (its parity oracle),
+with its host arithmetic copied exactly: np.float32 weight vectors, the
+simulated-time model, the byte envelopes, the ``rng.choice`` of the sync
+round.  So bytes, staleness and participation match the reference bit for
+bit.  Parameters live on ``device`` (CUDA unless the caller asks for the
+CPU); the global model is a flat (D,) row in the reference's layout.
+
+Ported: the settings in :data:`FLEngine.PORTED`.  Anything else raises
+``NotImplementedError`` rather than running something else.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import sched as schedmod
+from repro_torch.core import flatbuf
+from repro_torch.core.aggregation import FlatServer
+from repro_torch.core.client import (ClientState, evaluate, local_epoch,
+                                     make_loss_fn, pytree_bytes)
+from repro_torch.core.metrics import MetricsLog
+
+# width of the reference's device-resident staleness histogram (filled
+# only by its horizon-batched path; zeros here, as on its sequential path)
+_STALE_BINS = 32
+
+# simulated samples/second at speed 1.0
+_BASE_RATE = 500.0
+# serialization envelope: full-model upload (FedAvg) carries the layer
+# structure; gradient upload (FedSGD) is a bare tensor list (paper §5.1.2)
+_MODEL_ENVELOPE = 0.010
+_GRAD_ENVELOPE = 0.002
+
+# aggregation targets that upload model weights (vs cumulative gradients)
+_MODEL_TARGETS = ("fedavg", "fedasync")
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; a CUDA device with no GPU visible raises
+    instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' but no CUDA device is visible; pass "
+            "device='cpu' to run on the CPU")
+    return dev
+
+
+@dataclasses.dataclass
+class FLResult:
+    metrics: MetricsLog
+    final_params: Dict
+    staleness_hist: Dict[int, int]
+    idle_time: float  # SFL: total simulated idle seconds across clients
+    participation: Optional[np.ndarray] = None
+    sched_stats: Optional[Dict] = None
+
+
+class FLEngine:
+    """One experiment = FLEngine(...).run(n_rounds)."""
+
+    #: FLConfig fields this slice runs, with the values it takes.  The
+    #: engine refuses any other value with "not ported yet".
+    PORTED = {
+        "aggregation": ("fedsgd", "fedavg"),
+        "wire": ("f32",),
+        "compress_updates": (False,),
+        "horizon": ("k",),
+        "sched_timing": ("static",),
+        "sched_policy": ("full",),
+        "batch_clients": (False,),
+        "devices": (1,),
+        "mesh_shape": (None,),
+        "fault_crash_p": (0.0,),
+        "fault_straggler_p": (0.0,),
+        "fault_corrupt_p": (0.0,),
+        "fault_byzantine_p": (0.0,),
+        "defense": ("none",),
+        "trace_level": ("off",),
+    }
+
+    def __init__(self, fl_cfg, apply_fn: Callable, kind: str,
+                 init_params: Dict, init_state,
+                 client_shards: Sequence[Dict[str, np.ndarray]],
+                 test_x: np.ndarray, test_y: np.ndarray, *,
+                 device="cuda"):
+        fl_cfg.validate()
+        for field, ok in self.PORTED.items():
+            val = getattr(fl_cfg, field)
+            if val not in ok:
+                raise NotImplementedError(
+                    f"FLConfig.{field}={val!r} is not ported yet "
+                    f"(ported: {ok})")
+        if init_state:
+            raise NotImplementedError(
+                "non-trainable model state (BatchNorm) is not ported yet")
+        self.device = dev = resolve_device(device)
+        self.cfg = fl_cfg
+        self.kind = kind
+        self.apply_fn = apply_fn
+        self.loss_fn = make_loss_fn(apply_fn, kind)
+        self.test_x = torch.as_tensor(np.asarray(test_x, np.float32),
+                                      device=dev)
+        self.test_y = torch.as_tensor(np.asarray(test_y, np.int64),
+                                      device=dev)
+        init_params = {k: v.to(dev) for k, v in init_params.items()}
+
+        rng = np.random.default_rng(fl_cfg.seed)
+        self.clients: List[ClientState] = []
+        for cid, shard in enumerate(client_shards):
+            speed = float(np.exp(rng.normal(0.0, fl_cfg.speed_sigma)))
+            comm = float(fl_cfg.comm_mean_s
+                         * np.exp(rng.normal(0.0, 0.3)))
+            self.clients.append(ClientState(
+                cid=cid, params=init_params, model_state=init_state,
+                version=0, n_samples=int(shard["n"]), speed=speed,
+                comm_time=comm, rng=np.random.default_rng(
+                    fl_cfg.seed * 7919 + cid)))
+        # shards move to the device once; which batches hold a real
+        # sample is kept on the host
+        self.shards = [{
+            "xs": torch.as_tensor(np.asarray(s["xs"], np.float32),
+                                  device=dev),
+            "ys": torch.as_tensor(np.asarray(s["ys"], np.int64), device=dev),
+            "mask": torch.as_tensor(np.asarray(s["mask"], np.float32),
+                                    device=dev),
+            "valid": np.asarray(s["mask"]).max(axis=1) > 0,
+        } for s in client_shards]
+        self.global_params = init_params
+        self.global_state = init_state
+        self.t_global = 0
+        self.rng = rng
+
+        self.sched = schedmod.build_scheduler(fl_cfg, self.clients,
+                                              self._base_compute)
+        self.metrics = MetricsLog(fl_cfg.target_accuracy,
+                                  fl_cfg.oscillation_thresholds)
+        self.tx_bytes = 0
+        self.rx_bytes = 0
+        self.staleness_hist: Dict[int, int] = {}
+        self.idle_time = 0.0
+        self._params_bytes = pytree_bytes(init_params)
+        self._state_bytes = pytree_bytes(init_state)
+        self._last_update_norm = 0.0
+
+        self.codec = flatbuf.PytreeCodec(init_params)
+        self._flat_params = self.codec.ravel(init_params)
+        self._server = FlatServer(fl_cfg.aggregation, self.codec.d,
+                                  server_lr=fl_cfg.server_lr, device=dev)
+        self._opt = self._server.init_opt(self._flat_params)
+        # server channel: "auto" is streaming for semi-async (uploads
+        # trickle in) and buffered for sync (a round's rows come together)
+        self._channel = fl_cfg.server_channel
+        if self._channel == "auto":
+            self._channel = ("streaming" if fl_cfg.mode == "semi_async"
+                             else "buffered")
+        self._streaming = self._channel == "streaming"
+        self._horizon_target = fl_cfg.k
+        self._accum = None
+        self._buf = None
+        if self._streaming:
+            self._accum = flatbuf.AccumBuffer(
+                self.codec.d, self._server.fold_program, dev)
+        else:
+            self._buf = flatbuf.alloc_buffer(self._horizon_target,
+                                             self.codec.d, dev)
+
+    # ------------------------------------------------------------------
+    def _base_compute(self, c: ClientState) -> float:
+        """Deterministic simulated compute seconds for one upload period
+        (local_epochs) of c."""
+        per_epoch = c.n_samples / (_BASE_RATE * c.speed)
+        return per_epoch * self.cfg.local_epochs
+
+    def _agg_overhead(self) -> float:
+        # weighted aggregation bookkeeping costs 0.05 simulated seconds per
+        # buffered update; FedSGD's unweighted mean a flat 0.01 s
+        return 0.05 * self.cfg.k if self.cfg.aggregation != "fedsgd" else 0.01
+
+    def _horizon_due(self, count: int) -> bool:
+        """The ``k`` horizon: close after exactly K admitted uploads
+        (clock-triggered horizons are not ported yet)."""
+        return count >= self._horizon_target
+
+    def _run_local(self, c: ClientState):
+        """Run one local upload period (local_epochs) for client c.  The
+        returned loss is a device scalar, never fetched in the loop."""
+        shard = self.shards[c.cid]
+        params, state = c.params, c.model_state
+        loss = torch.zeros((), device=self.device)
+        for _ in range(self.cfg.local_epochs):
+            params, state, loss = local_epoch(
+                self.loss_fn, params, state, shard["xs"], shard["ys"],
+                shard["mask"], shard["valid"], self.cfg.client_lr)
+        return params, state, loss
+
+    # ------------------------------------------------------------------
+    def _upload_nbytes(self) -> int:
+        """Channel cost of one f32 upload: the dense payload plus the
+        serialization envelope of its target (model weights carry the
+        state and the layer structure)."""
+        payload = self._params_bytes
+        if self.cfg.aggregation in _MODEL_TARGETS:
+            return int((payload + self._state_bytes)
+                       * (1 + _MODEL_ENVELOPE))
+        return int(payload * (1 + _GRAD_ENVELOPE))
+
+    def _enqueue_upload(self, buffer: List[Dict], c: ClientState,
+                        w_end, s_end, staleness: int) -> None:
+        """Serialize one upload.  Streaming channel: fold it into the
+        running O(D) sum with its FINAL weight (discount-at-ingest).
+        Buffered channel: write it into the next free row.  Must run
+        before ``c.params`` is refreshed (gradient targets diff against
+        the client's round-start weights)."""
+        cfg = self.cfg
+        entry: Dict = {"staleness": staleness, "cid": c.cid,
+                       "n": c.n_samples}
+        if cfg.aggregation in _MODEL_TARGETS:
+            vec = self.codec.ravel(w_end)
+        else:
+            vec = self.codec.ravel_delta(c.params, w_end, cfg.client_lr)
+        if self._streaming:
+            w = self._weight_vector([staleness], [c.n_samples])[0]
+            self._accum.fold((vec,), w=w)
+        else:
+            flatbuf.write_slot(self._buf, vec, len(buffer))
+        entry["state"] = s_end
+        self.tx_bytes += self._upload_nbytes()
+        buffer.append(entry)
+
+    # ------------------------------------------------------------------
+    def _weight_vector(self, staleness: Sequence[int],
+                       sizes: Sequence[int]) -> np.ndarray:
+        """FINAL per-upload aggregation weights, np.float32 on host
+        (discount-at-ingest): fedavg data sizes, fedsgd units.  The
+        streaming channel folds weight i when upload i lands, the
+        buffered one applies the whole vector in its reduction."""
+        if self.cfg.aggregation == "fedavg":
+            return np.asarray(sizes, np.float32)
+        return np.ones((len(staleness),), np.float32)
+
+    def _record_staleness(self, staleness: Sequence[int]) -> None:
+        for s in staleness:
+            s = int(s)
+            self.staleness_hist[s] = self.staleness_hist.get(s, 0) + 1
+
+    def _broadcast_bytes(self) -> None:
+        # broadcast of the new global model to all clients
+        self.rx_bytes += int((self._params_bytes + self._state_bytes)
+                             * len(self.clients))
+
+    def _server_round(self, staleness: Sequence[int],
+                      sizes: Sequence[int]) -> Dict:
+        """Buffered-channel round: one ``safl_aggregate`` over the rows."""
+        self._record_staleness(staleness)
+        w = self._weight_vector(staleness, sizes)
+        self._flat_params, self._opt, m = self._server.step(
+            self._flat_params, self._buf, w, self._opt)
+        self.t_global += 1
+        self._broadcast_bytes()
+        return m
+
+    def _server_round_streaming(self, staleness: Sequence[int]) -> Dict:
+        """Streaming-channel round: seal the bank (swap in the spare),
+        finalize from the partial sum, release the zeroed bank."""
+        self._record_staleness(staleness)
+        bank, wvec = self._accum.seal()
+        self._flat_params, self._opt, m, zeroed = self._server.finalize(
+            self._flat_params, bank, wvec, self._opt)
+        self._accum.release(zeroed)
+        self.t_global += 1
+        self._broadcast_bytes()
+        return m
+
+    def _aggregate(self, buffer: List[Dict]) -> Dict:
+        """Server round + unravel of the global model (views into the new
+        flat row).  The paper CNN has no non-trainable state to merge."""
+        stal = [b["staleness"] for b in buffer]
+        if self._streaming:
+            m = self._server_round_streaming(stal)
+        else:
+            m = self._server_round(stal, [b["n"] for b in buffer])
+        self.global_params = self.codec.unravel(self._flat_params)
+        self._last_update_norm = m["update_norm"]
+        return m
+
+    def _eval_due(self, rnd: int, n_rounds: int) -> bool:
+        """Evaluate every eval_every-th aggregation + always the last."""
+        return rnd % self.cfg.eval_every == 0 or rnd == n_rounds
+
+    def _eval_and_record(self, now: float, stale_vals: Sequence[int]) -> None:
+        acc, loss = evaluate(self.apply_fn, self.kind, self.global_params,
+                             self.global_state, self.test_x, self.test_y)
+        acc, loss = float(acc), float(loss)
+        self.metrics.record(
+            round=self.t_global, sim_time=now, accuracy=acc, loss=loss,
+            tx_bytes=self.tx_bytes, rx_bytes=self.rx_bytes,
+            mean_staleness=float(np.mean(stale_vals)) if stale_vals else 0.0,
+            max_staleness=int(max(stale_vals)) if stale_vals else 0,
+            nan_event=not np.isfinite(loss),
+            update_norm=float(self._last_update_norm))
+
+    # ------------------------------------------------------------------
+    def run(self, n_rounds: int, log_every: int = 0) -> FLResult:
+        if self.cfg.mode == "sync":
+            self._run_sync(n_rounds, log_every)
+        else:
+            self._run_semi_async(n_rounds, log_every)
+        stats = self.sched.stats()
+        stats["staleness_bins"] = np.zeros(_STALE_BINS, np.int64)
+        stats["screened_uploads"] = 0
+        stats["clipped_uploads"] = 0
+        stats["corrupted_uploads"] = 0
+        stats["byzantine_uploads"] = 0
+        return FLResult(self.metrics, self.global_params,
+                        self.staleness_hist, self.idle_time,
+                        participation=self.sched.participation.copy(),
+                        sched_stats=stats)
+
+    # ----- SFL -----
+    def _run_sync(self, n_rounds: int, log_every: int) -> None:
+        cfg = self.cfg
+        now = 0.0
+        for _ in range(n_rounds):
+            active = self.rng.choice(len(self.clients), cfg.k,
+                                     replace=False)
+            buffer: List[Dict] = []
+            durations = []
+            for cid in active:
+                c = self.clients[cid]
+                c.params, c.model_state = (self.global_params,
+                                           self.global_state)
+                c.version = self.t_global
+                w_end, s_end, _ = self._run_local(c)
+                self._enqueue_upload(buffer, c, w_end, s_end, 0)
+                durations.append(self.sched.timing.sync_duration(c))
+                self.sched.participation[cid] += 1
+            round_t = max(durations) + self._agg_overhead()
+            self.idle_time += sum(round_t - d for d in durations)
+            now += round_t
+            self._aggregate(buffer)
+            if self._eval_due(self.t_global, n_rounds):
+                self._eval_and_record(now, [0] * len(buffer))
+                if log_every and self.t_global % log_every == 0:
+                    r = self.metrics.records[-1]
+                    print(f"  [SFL-{cfg.aggregation}] round {r.round} "
+                          f"acc={r.accuracy:.4f} loss={r.loss:.4f}")
+
+    # ----- SAFL: sequential per-upload path -----
+    def _run_semi_async(self, n_rounds: int, log_every: int) -> None:
+        """Per-upload loop over the scheduler's event stream (every pop
+        schedules the client's successor event; the full policy admits
+        every upload)."""
+        self.sched.resume()
+        buffer: List[Dict] = []
+        now = 0.0
+        while self.t_global < n_rounds:
+            ev = self.sched.pop(self.t_global)
+            if ev is None:
+                break
+            now, c = ev.time, self.clients[ev.cid]
+            w_end, s_end, _ = self._run_local(c)
+            self._enqueue_upload(buffer, c, w_end, s_end, ev.staleness)
+            # client-side refresh (paper §2.2.2): adopt the newest global
+            # model if one arrived since this client's version, else
+            # continue local
+            if c.version < self.t_global:
+                c.params, c.model_state = (self.global_params,
+                                           self.global_state)
+                c.version = self.t_global
+            else:
+                c.params, c.model_state = w_end, s_end
+
+            if self._horizon_due(len(buffer)):
+                stale_vals = [b["staleness"] for b in buffer]
+                self._aggregate(buffer)
+                if self._eval_due(self.t_global, n_rounds):
+                    self._eval_and_record(now + self._agg_overhead(),
+                                          stale_vals)
+                    if log_every and self.t_global % log_every == 0:
+                        r = self.metrics.records[-1]
+                        print(f"  [SAFL-{self.cfg.aggregation}] "
+                              f"round {r.round} acc={r.accuracy:.4f} "
+                              f"loss={r.loss:.4f} "
+                              f"stale={r.mean_staleness:.2f}")
+                buffer = []
