@@ -16,10 +16,12 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
     """One SAFL/SFL experiment.  Field meanings follow the reference
-    ``FLConfig``; the knobs this package runs are the paper's main path:
-    ``mode`` sync/semi_async, ``aggregation`` fedsgd/fedavg, the f32
-    wire, the ``k`` horizon, static timing, full participation, one
-    device, no faults, tracing off."""
+    ``FLConfig``; the knobs this package runs: ``mode`` sync/semi_async,
+    every ``aggregation`` of the study (fedsgd, fedavg, fedbuff,
+    fedasync, fedopt, sdga), the f32 and q8 wires (``compress_updates``
+    is the q8 alias), either ``server_channel``, the ``k`` horizon,
+    static timing, full participation, one device, no faults, tracing
+    off."""
 
     n_clients: int = 50
     k: int = 10  # aggregation buffer size / activation count

@@ -1,28 +1,53 @@
-"""Flat-buffer server round for the f32 wire (paper §3, Eq. 4-6).
+"""Flat-buffer server round (paper §3, Eq. 4-6, and the study's variants).
 
-:class:`FlatServer` runs the server side of both channels over flat (D,)
-rows in the :class:`repro_torch.core.flatbuf.PytreeCodec` layout:
+:class:`FlatServer` runs the server side of both channels over flat rows
+in the :class:`repro_torch.core.flatbuf.PytreeCodec` layout, for every
+aggregation scheme of the study on the f32 and q8 wires:
 
-  * buffered (``step``): one :func:`repro_torch.kernels.safl_agg.
-    safl_aggregate` over the resident (K, D) rows, with the server step
-    fused (``fedsgd``: p - lr * mean; ``fedavg``: the weighted mean);
+  * ``fedsgd`` (Eq. 4-5): p - lr * (weighted gradient mean)
+  * ``fedavg`` (Eq. 6): the data-size-weighted model mean
+  * ``fedbuff``: fedsgd over staleness-discounted weights
+  * ``fedopt``: server Adam over the weighted gradient mean
+  * ``sdga``: discounted mean + server momentum + EMA anchor
+  * ``fedasync``: K sequential mixes p <- (1 - a_i) p + a_i w_i
+
+Two channels:
+
+  * buffered (``step``): the resident (K, D) rows (f32) or (K, Dq) int8
+    rows + scales (q8) reduced by one kernel with the server step fused
+    (:func:`~repro_torch.kernels.safl_agg.safl_aggregate` for fedsgd /
+    fedbuff / fedavg and the mean of fedopt, :func:`sdga_aggregate` for
+    sdga, their ``_q8`` siblings on the q8 wire); fedasync runs its K
+    mixes as K folds with beta = 1 - a_i into a zeroed row;
   * streaming (``fold_program`` + ``finalize``): each upload folded into
-    a running sum bank the moment it lands (``safl_fold``), then one
-    finalize from the bank's sum and the host's ingest weights.
+    a running sum bank the moment it lands (``safl_fold`` /
+    ``safl_fold_q8``), then one finalize from the bank's sum and the
+    host's ingest weights (the reference's ``_from_sums``).
 
 The engine always hands over the FINAL per-upload weights
-(discount-at-ingest, ``external_discount=True`` in the reference), so the
-kernels run with ``discount="none"``.  Only ``fedsgd`` and ``fedavg`` are
-ported; the other modes, the lossy wires and the meshes come later.
+(discount-at-ingest, ``external_discount=True, fedasync_rates=True`` in
+the reference), so the kernels run with ``discount="none"``.  The two
+channels agree bitwise in every mode and on both wires.  The q4 and topk
+wires and the meshes come later.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.safl_agg import safl_aggregate, safl_fold
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ref
+from repro_torch.kernels.quantize import BLOCK as QBLOCK
+from repro_torch.kernels.safl_agg import (safl_aggregate, safl_aggregate_q8,
+                                          safl_fold, safl_fold_q8,
+                                          sdga_aggregate, sdga_aggregate_q8)
+
+# The reference FlatServer's defaults, which its engine never overrides:
+# sdga's EMA decay and fedopt's Adam betas and epsilon.
+EMA_DECAY = 0.95
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.99, 1e-8
 
 
 def staleness_poly(tau: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -30,10 +55,39 @@ def staleness_poly(tau: torch.Tensor, alpha: float) -> torch.Tensor:
     return torch.pow(1.0 + tau.to(torch.float32), -alpha)
 
 
+def staleness_hinge(tau: torch.Tensor, a: float = 4.0,
+                    b: float = 1.0) -> torch.Tensor:
+    """1 up to staleness a, then 1 / (b*(tau - a) + 1)."""
+    tau = tau.to(torch.float32)
+    return torch.where(tau <= a, torch.ones_like(tau),
+                       1.0 / (b * (tau - a) + 1.0))
+
+
+def staleness_const(tau: torch.Tensor) -> torch.Tensor:
+    return torch.ones_like(tau, dtype=torch.float32)
+
+
+def fedasync_coefficients(staleness: Sequence[int], fedasync_alpha: float,
+                          alpha: float, score=None) -> np.ndarray:
+    """K sequential fedasync mixes as one linear combination: with
+    a_i = fedasync_alpha * (1 + tau_i)^-alpha (times ``score``, clipped to
+    [0, 1]) the coefficients are c_i = a_i * prod_{j>i} (1 - a_j), and
+    (1 - sum(c)) p + c @ u is the mixed model (the kernels' ``mix``
+    mode).  Host numpy, np.float32 (K,)."""
+    a = fedasync_alpha * np.power(
+        1.0 + np.asarray(staleness, np.float32), -np.float32(alpha))
+    if score is not None:
+        a = np.clip(a * np.asarray(score, np.float32), 0.0, 1.0)
+    one_minus = (1.0 - a).astype(np.float32)
+    tail = np.concatenate(
+        [np.cumprod(one_minus[::-1])[::-1][1:], [np.float32(1.0)]])
+    return np.asarray(a * tail, np.float32)
+
+
 def sum_in_order(w: np.ndarray) -> np.float32:
     """np.float32 sum of ``w`` taken k = 0..K-1, the order the aggregate
-    kernel and its plain version sum their weights in (numpy's own sum
-    is pairwise above 8 elements)."""
+    kernels and their plain versions sum their weights in (numpy's own
+    sum is pairwise above 8 elements)."""
     s = np.float32(0.0)
     for x in np.asarray(w, np.float32):
         s = np.float32(s + x)
@@ -51,67 +105,186 @@ def edge_traffic(partial_nbytes: int) -> Dict:
 
 
 class FlatServer:
-    """Server round over flat f32 rows on one device."""
+    """Server round over flat rows on one device (the GPU unless the
+    caller asks for the CPU).
 
-    MODES = ("fedsgd", "fedavg")
+    ``step`` takes the buffered channel's rows: the f32 (K, D) tensor, or
+    on ``wire="q8"`` the ``(q int8 (K, Dq), scales (K, Dq/qblock))`` pair
+    (:class:`repro_torch.core.flatbuf.QuantBuffer` views).  The streaming
+    bank is (1, D) f32, (1, Dq) on q8.  Slow state (:meth:`init_opt`):
+    sdga's momentum and EMA, fedopt's Adam moments, each a (D,) f32
+    tensor, and a host step count."""
+
+    MODES = ("fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync")
+    WIRES = ("f32", "q8")
 
     def __init__(self, mode: str, d: int, *, server_lr: float,
-                 device="cpu"):
+                 momentum: float = 0.8, ema_anchor: float = 0.05,
+                 wire: str = "f32", qblock: int = QBLOCK,
+                 device="cuda"):
         if mode not in self.MODES:
+            raise ValueError(f"aggregation {mode!r} not in {self.MODES}")
+        if wire not in self.WIRES:
             raise NotImplementedError(
-                f"aggregation {mode!r} is not ported yet "
-                f"(ported: {self.MODES})")
+                f"wire {wire!r} is not ported yet (ported: {self.WIRES})")
         self.mode = mode
+        self.wire = wire
         self.d = int(d)
+        self.qblock = int(qblock)
+        self.dq = -(-self.d // self.qblock) * self.qblock
         self.server_lr = float(server_lr)
-        self.device = torch.device(device)
-        self.traffic = edge_traffic(4 * self.d)
+        self.momentum = float(momentum)
+        self.ema_anchor = float(ema_anchor)
+        self.device = resolve_device(device)
+        # the unit of exchange: the padded (Dq,) partial on q8
+        self.traffic = edge_traffic(
+            4 * (self.dq if wire == "q8" else self.d))
+
+    @property
+    def bank_width(self) -> int:
+        """Lanes of the streaming bank: Dq on q8 (folds dequantize onto
+        the padded grid), D on f32."""
+        return self.dq if self.wire == "q8" else self.d
 
     def init_opt(self, params_flat: torch.Tensor) -> Dict:
-        """Slow server state: none for fedsgd / fedavg."""
+        """Mode-matched slow state: sdga's zero momentum and an EMA that
+        starts as a copy of the params, fedopt's zero Adam moments."""
+        def z():
+            return torch.zeros(self.d, dtype=torch.float32,
+                               device=self.device)
+        if self.mode == "sdga":
+            return {"momentum": z(),
+                    "ema": params_flat.to(torch.float32).clone(), "step": 0}
+        if self.mode == "fedopt":
+            return {"m": z(), "v": z(), "step": 0}
         return {}
+
+    def _scalar(self, x) -> torch.Tensor:
+        """A 0-dim f32 device tensor: dividing by it is a true division
+        (PyTorch turns a division by a Python number on CUDA into a
+        multiply by its reciprocal, which rounds differently)."""
+        return torch.full((), float(np.float32(x)), dtype=torch.float32,
+                          device=self.device)
 
     def _metrics(self, new, p0, wsum) -> Dict:
         upd = new - p0
         return {"update_norm": torch.sqrt(torch.sum(upd * upd)),
                 "weight_sum": wsum}
 
-    def step(self, params_flat: torch.Tensor, buf: torch.Tensor,
-             wvec: np.ndarray, opt: Dict):
-        """Buffered round: (D,) params, (K, D) rows, (K,) np.float32 final
-        weights -> (new params, opt, {update_norm, weight_sum})."""
-        w = torch.from_numpy(np.asarray(wvec, np.float32)).to(self.device)
-        if self.mode == "fedavg":
-            new = safl_aggregate(buf, w, mode="avg", discount="none")
-        else:
-            new = safl_aggregate(buf, w, params_flat,
-                                 server_lr=self.server_lr, mode="fedsgd",
-                                 discount="none")
+    def _adam(self, p0, g, opt):
+        """The reference's ``_adam_step``: bias-corrected Adam, the
+        corrections 1 - b^step computed in f32 on the host."""
+        step = opt["step"] + 1
+        m = ADAM_B1 * opt["m"] + (1 - ADAM_B1) * g
+        v = ADAM_B2 * opt["v"] + (1 - ADAM_B2) * torch.square(g)
+        sf = np.float32(step)
+        mh = m / self._scalar(1 - np.power(np.float32(ADAM_B1), sf))
+        vh = v / self._scalar(1 - np.power(np.float32(ADAM_B2), sf))
+        new = p0 - self.server_lr * mh / (torch.sqrt(vh) + ADAM_EPS)
+        return new, {"m": m, "v": v, "step": step}
+
+    def _sdga_opt(self, opt, m, e) -> Dict:
+        return {"momentum": m, "ema": e, "step": opt["step"] + 1}
+
+    def _mix(self, p0, s, pprod):
+        """fedasync's P*p + S; weight mass 1 - P."""
+        return (float(pprod) * p0 + s,
+                np.float32(np.float32(1.0) - np.float32(pprod)))
+
+    def step(self, params_flat: torch.Tensor, buf, wvec: np.ndarray,
+             opt: Dict):
+        """Buffered round: (D,) params, the channel's rows, (K,)
+        np.float32 final weights (fedasync: the raw mix rates a_i) ->
+        (new params, new opt, {update_norm, weight_sum})."""
+        wvec = np.asarray(wvec, np.float32)
+        q8 = self.wire == "q8"
+        if self.mode == "fedasync":
+            # the K sequential mixes as K folds into a zeroed row, the
+            # same fold program the streaming channel runs
+            bank = torch.zeros((1, self.bank_width), dtype=torch.float32,
+                               device=self.device)
+            pprod = np.float32(1.0)
+            for i, a in enumerate(wvec):
+                row = (buf[0][i], buf[1][i]) if q8 else (buf[i],)
+                beta = np.float32(1.0) - a
+                bank = self.fold_program(bank, *row, 0, a, beta)
+                pprod = np.float32(pprod * beta)
+            new, wsum = self._mix(params_flat, bank[0][:self.d], pprod)
+            return new, opt, self._metrics(new, params_flat, wsum)
+        w = torch.from_numpy(wvec).to(self.device)
+        lr, d = self.server_lr, self.d
+        if self.mode == "sdga":
+            kw = dict(server_lr=lr, momentum=self.momentum,
+                      ema_anchor=self.ema_anchor, ema_decay=EMA_DECAY,
+                      discount="none")
+            if q8:
+                new, m, e = sdga_aggregate_q8(
+                    *buf, w, params_flat, opt["momentum"], opt["ema"],
+                    qblock=self.qblock, **kw)
+            else:
+                new, m, e = sdga_aggregate(buf, w, params_flat,
+                                           opt["momentum"], opt["ema"], **kw)
+            opt = self._sdga_opt(opt, m, e)
+        elif self.mode in ("fedsgd", "fedbuff"):
+            if q8:
+                new = safl_aggregate_q8(*buf, w, params_flat, server_lr=lr,
+                                        mode="fedsgd", qblock=self.qblock)
+            else:
+                new = safl_aggregate(buf, w, params_flat, server_lr=lr,
+                                     mode="fedsgd")
+        else:  # fedavg's model mean, fedopt's gradient mean
+            if q8:
+                g = safl_aggregate_q8(*buf, w, mode="avg",
+                                      qblock=self.qblock)[:d]
+            else:
+                g = safl_aggregate(buf, w, mode="avg")
+            if self.mode == "fedopt":
+                new, opt = self._adam(params_flat, g, opt)
+            else:
+                new = g
         return new, opt, self._metrics(new, params_flat, sum_in_order(wvec))
 
-    def fold_program(self, bank: torch.Tensor, vec: torch.Tensor, ridx: int,
-                     w) -> torch.Tensor:
-        """bank[ridx] <- bank[ridx] + w*vec, in place (beta fixed at 1.0:
-        only fedasync folds with a live beta)."""
+    def fold_program(self, bank: torch.Tensor, *args) -> torch.Tensor:
+        """``fold_program(bank, *payload, ridx, w, beta)``: bank[ridx] <-
+        beta*bank[ridx] + w*payload, in place (payload = (vec,) f32 or
+        (q_row, s_row) q8).  Only fedasync folds with a live beta; every
+        other mode folds with beta = 1."""
+        *payload, ridx, w, beta = args
+        if self.mode != "fedasync":
+            beta = 1.0
         row = bank[ridx]
-        safl_fold(row, vec, w, 1.0, out=row)
+        if self.wire == "q8":
+            safl_fold_q8(row, *payload, w, beta, qblock=self.qblock, out=row)
+        else:
+            safl_fold(row, *payload, w, beta, out=row)
         return bank
 
-    def finalize(self, params_flat: torch.Tensor, bank: torch.Tensor,
-                 wvec: np.ndarray, opt: Dict):
-        """Streaming round from a sealed bank: the reference's
-        ``_from_sums`` in its op order, ``p0 - lr * (gsum / wsafe)``, so
-        the result equals the buffered ``step`` bitwise.  Returns (new
-        params, opt, metrics, the bank zeroed for reuse)."""
-        wsum = sum_in_order(wvec)
-        wsafe = torch.tensor(max(wsum, np.float32(1e-12)),
-                             dtype=torch.float32, device=self.device)
-        gsum = bank[0]
-        # divide by a device tensor: a Python-number divisor may become a
-        # multiply by its reciprocal, which rounds differently
-        g = gsum / wsafe
+    def _from_sums(self, p0, gsum, wsum, opt):
+        """The reference's ``_from_sums`` in its op order
+        (``p0 - lr * (gsum / wsafe)``), so the result equals the buffered
+        ``step`` bitwise."""
+        g = gsum / self._scalar(max(wsum, np.float32(1e-12)))
         if self.mode == "fedavg":
-            new = g
+            return g, opt
+        if self.mode in ("fedsgd", "fedbuff"):
+            return p0 - self.server_lr * g, opt
+        if self.mode == "sdga":
+            new, m, e = ref.sdga_step_from_mean(
+                g, p0, opt["momentum"], opt["ema"],
+                server_lr=self.server_lr, momentum=self.momentum,
+                ema_anchor=self.ema_anchor, ema_decay=EMA_DECAY)
+            return new, self._sdga_opt(opt, m, e)
+        return self._adam(p0, g, opt)
+
+    def finalize(self, params_flat: torch.Tensor, bank: torch.Tensor,
+                 wvec: np.ndarray, opt: Dict, pprod=1.0):
+        """Streaming round from a sealed bank, ``pprod`` fedasync's
+        host-tracked survival product.  Returns (new params, opt, metrics,
+        the bank zeroed for reuse)."""
+        gsum = bank[0][:self.d]
+        if self.mode == "fedasync":
+            new, wsum = self._mix(params_flat, gsum, pprod)
         else:
-            new = params_flat - self.server_lr * g
+            wsum = sum_in_order(wvec)
+            new, opt = self._from_sums(params_flat, gsum, wsum, opt)
         return new, opt, self._metrics(new, params_flat, wsum), bank.zero_()

@@ -7,13 +7,16 @@ computation.
 Synchronous (SFL, Fig. 1a): each round the server activates K random
 clients, waits for all of them (round time = slowest active client, the
 straggler effect), aggregates, broadcasts.  The K clients train one after
-another into the (K, D) buffer, and the round is one
-:func:`repro_torch.kernels.safl_agg.safl_aggregate`.
+another into the (K, D) buffer (int8 (K, Dq) rows on the q8 wire), and
+the round is one aggregate kernel (:func:`repro_torch.kernels.safl_agg.
+safl_aggregate`, ``sdga_aggregate`` or their ``_q8`` siblings; fedasync
+folds its K rows).
 
 Semi-asynchronous (SAFL, Fig. 1b): clients train continuously at their
 own pace and upload after each local epoch; every upload is folded into
-an O(D) running sum the moment it lands (``safl_fold``, the streaming
-channel), and the server aggregates as soon as K uploads are in.  A
+an O(D) running sum the moment it lands (``safl_fold`` /
+``safl_fold_q8``, the streaming channel), and the server aggregates as
+soon as K uploads are in.  A
 client adopts the newest global model at its next upload boundary,
 otherwise it continues training its local one, so uploads carry
 staleness tau = t_now - t_client_version.
@@ -42,6 +45,8 @@ from repro_torch.core.aggregation import FlatServer
 from repro_torch.core.client import (ClientState, evaluate, local_epoch,
                                      make_loss_fn, pytree_bytes)
 from repro_torch.core.metrics import MetricsLog
+from repro_torch.device import resolve_device
+from repro_torch.kernels.quantize import payload_nbytes
 
 # width of the reference's device-resident staleness histogram (filled
 # only by its horizon-batched path; zeros here, as on its sequential path)
@@ -56,17 +61,6 @@ _GRAD_ENVELOPE = 0.002
 
 # aggregation targets that upload model weights (vs cumulative gradients)
 _MODEL_TARGETS = ("fedavg", "fedasync")
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``; a CUDA device with no GPU visible raises
-    instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "device='cuda' but no CUDA device is visible; pass "
-            "device='cpu' to run on the CPU")
-    return dev
 
 
 @dataclasses.dataclass
@@ -85,9 +79,10 @@ class FLEngine:
     #: FLConfig fields this slice runs, with the values it takes.  The
     #: engine refuses any other value with "not ported yet".
     PORTED = {
-        "aggregation": ("fedsgd", "fedavg"),
-        "wire": ("f32",),
-        "compress_updates": (False,),
+        "aggregation": ("fedsgd", "fedavg", "fedbuff", "fedasync", "fedopt",
+                        "sdga"),
+        "wire": ("f32", "q8"),
+        "compress_updates": (False, True),
         "horizon": ("k",),
         "sched_timing": ("static",),
         "sched_policy": ("full",),
@@ -166,10 +161,24 @@ class FLEngine:
         self._state_bytes = pytree_bytes(init_state)
         self._last_update_norm = 0.0
 
-        self.codec = flatbuf.PytreeCodec(init_params)
+        self.codec = flatbuf.PytreeCodec(init_params,
+                                         qblock=fl_cfg.quant_block)
         self._flat_params = self.codec.ravel(init_params)
-        self._server = FlatServer(fl_cfg.aggregation, self.codec.d,
-                                  server_lr=fl_cfg.server_lr, device=dev)
+        # wire of the upload channel; compress_updates is the legacy q8
+        # alias
+        self._wire = fl_cfg.wire
+        if self._wire == "f32" and fl_cfg.compress_updates:
+            self._wire = "q8"
+        self._quant = self._wire == "q8"
+        # per-client error-feedback residuals (dq,), made at first upload
+        self._residuals: Dict[int, torch.Tensor] = {}
+        # a 0.0 momentum / anchor in the config means the default, as in
+        # the reference
+        self._server = FlatServer(
+            fl_cfg.aggregation, self.codec.d, server_lr=fl_cfg.server_lr,
+            momentum=fl_cfg.server_momentum or 0.8,
+            ema_anchor=fl_cfg.ema_anchor or 0.05, wire=self._wire,
+            qblock=fl_cfg.quant_block, device=dev)
         self._opt = self._server.init_opt(self._flat_params)
         # server channel: "auto" is streaming for semi-async (uploads
         # trickle in) and buffered for sync (a round's rows come together)
@@ -181,9 +190,14 @@ class FLEngine:
         self._horizon_target = fl_cfg.k
         self._accum = None
         self._buf = None
+        self._qbuf = None
         if self._streaming:
             self._accum = flatbuf.AccumBuffer(
-                self.codec.d, self._server.fold_program, dev)
+                self._server.bank_width, self._server.fold_program, dev)
+        elif self._quant:
+            self._qbuf = flatbuf.QuantBuffer(self._horizon_target,
+                                             self.codec.d,
+                                             fl_cfg.quant_block, device=dev)
         else:
             self._buf = flatbuf.alloc_buffer(self._horizon_target,
                                              self.codec.d, dev)
@@ -219,34 +233,68 @@ class FLEngine:
 
     # ------------------------------------------------------------------
     def _upload_nbytes(self) -> int:
-        """Channel cost of one f32 upload: the dense payload plus the
-        serialization envelope of its target (model weights carry the
-        state and the layer structure)."""
-        payload = self._params_bytes
+        """Channel cost of one upload: the wire's payload
+        (:func:`repro_torch.kernels.quantize.payload_nbytes`; q8: int8
+        values + block scales) plus the serialization envelope of its
+        target (model weights carry the state and the layer structure)."""
+        if self._quant:
+            payload = payload_nbytes("q8", d=self.codec.d, dq=self.codec.dq,
+                                     n_qblocks=self.codec.n_qblocks)
+        else:
+            payload = self._params_bytes
         if self.cfg.aggregation in _MODEL_TARGETS:
             return int((payload + self._state_bytes)
                        * (1 + _MODEL_ENVELOPE))
         return int(payload * (1 + _GRAD_ENVELOPE))
 
+    def _residual(self, cid: int) -> torch.Tensor:
+        """Client-side error-feedback residual (zeros before the client's
+        first upload)."""
+        res = self._residuals.get(cid)
+        if res is None:
+            res = self.codec.zero_residual(self.device)
+        return res
+
+    def _payload(self, c: ClientState, w_end) -> tuple:
+        """The upload's wire payload: ``(vec,)`` f32, or ``(q, scales)``
+        on q8, where gradient targets quantize with the client's
+        error-feedback residual (kept client-side) and model targets
+        without."""
+        cfg = self.cfg
+        if cfg.aggregation in _MODEL_TARGETS:
+            if self._quant:
+                return self.codec.ravel_q8_nores(w_end)
+            return (self.codec.ravel(w_end),)
+        if not self._quant:
+            return (self.codec.ravel_delta(c.params, w_end, cfg.client_lr),)
+        if not cfg.error_feedback:
+            return self.codec.ravel_delta_q8_nores(c.params, w_end,
+                                                   cfg.client_lr)
+        q, s, self._residuals[c.cid] = self.codec.ravel_delta_q8(
+            c.params, w_end, cfg.client_lr, self._residual(c.cid))
+        return q, s
+
     def _enqueue_upload(self, buffer: List[Dict], c: ClientState,
                         w_end, s_end, staleness: int) -> None:
         """Serialize one upload.  Streaming channel: fold it into the
-        running O(D) sum with its FINAL weight (discount-at-ingest).
-        Buffered channel: write it into the next free row.  Must run
-        before ``c.params`` is refreshed (gradient targets diff against
-        the client's round-start weights)."""
+        running O(D) sum with its FINAL weight (discount-at-ingest) and,
+        for fedasync, its survival factor beta = 1 - a_i.  Buffered
+        channel: write it into the next free row.  Must run before
+        ``c.params`` is refreshed (gradient targets diff against the
+        client's round-start weights)."""
         cfg = self.cfg
         entry: Dict = {"staleness": staleness, "cid": c.cid,
                        "n": c.n_samples}
-        if cfg.aggregation in _MODEL_TARGETS:
-            vec = self.codec.ravel(w_end)
-        else:
-            vec = self.codec.ravel_delta(c.params, w_end, cfg.client_lr)
+        payload = self._payload(c, w_end)
         if self._streaming:
             w = self._weight_vector([staleness], [c.n_samples])[0]
-            self._accum.fold((vec,), w=w)
+            beta = (np.float32(1.0) - w
+                    if cfg.aggregation == "fedasync" else 1.0)
+            self._accum.fold(payload, w=w, beta=beta)
+        elif self._quant:
+            self._qbuf.write(*payload, len(buffer))
         else:
-            flatbuf.write_slot(self._buf, vec, len(buffer))
+            flatbuf.write_slot(self._buf, payload[0], len(buffer))
         entry["state"] = s_end
         self.tx_bytes += self._upload_nbytes()
         buffer.append(entry)
@@ -255,12 +303,26 @@ class FLEngine:
     def _weight_vector(self, staleness: Sequence[int],
                        sizes: Sequence[int]) -> np.ndarray:
         """FINAL per-upload aggregation weights, np.float32 on host
-        (discount-at-ingest): fedavg data sizes, fedsgd units.  The
-        streaming channel folds weight i when upload i lands, the
-        buffered one applies the whole vector in its reduction."""
-        if self.cfg.aggregation == "fedavg":
+        (discount-at-ingest): fedavg data sizes, fedsgd units, the
+        (1+tau)^-alpha discount of fedbuff / fedopt / sdga, fedasync's raw
+        mix rates a_i = fedasync_alpha * (1+tau)^-alpha.  The streaming
+        channel folds weight i when upload i lands, the buffered one
+        applies the whole vector in its reduction (numpy's scalar and
+        vector kernels agree bitwise)."""
+        cfg = self.cfg
+        stal = np.asarray(staleness, np.float32)
+        if cfg.aggregation == "fedasync":
+            a = cfg.fedasync_alpha * np.power(
+                stal + 1.0, -np.float32(cfg.staleness_alpha))
+            return np.asarray(a, np.float32)
+        if cfg.aggregation == "fedavg":
             return np.asarray(sizes, np.float32)
-        return np.ones((len(staleness),), np.float32)
+        if cfg.aggregation == "fedsgd":
+            return np.ones((len(staleness),), np.float32)
+        # fedbuff / fedopt / sdga: the poly discount
+        return np.asarray(
+            np.power(stal + 1.0, -np.float32(cfg.staleness_alpha)),
+            np.float32)
 
     def _record_staleness(self, staleness: Sequence[int]) -> None:
         for s in staleness:
@@ -274,11 +336,12 @@ class FLEngine:
 
     def _server_round(self, staleness: Sequence[int],
                       sizes: Sequence[int]) -> Dict:
-        """Buffered-channel round: one ``safl_aggregate`` over the rows."""
+        """Buffered-channel round: one aggregate kernel over the rows."""
         self._record_staleness(staleness)
         w = self._weight_vector(staleness, sizes)
+        buf = self._qbuf.views if self._quant else self._buf
         self._flat_params, self._opt, m = self._server.step(
-            self._flat_params, self._buf, w, self._opt)
+            self._flat_params, buf, w, self._opt)
         self.t_global += 1
         self._broadcast_bytes()
         return m
@@ -287,9 +350,9 @@ class FLEngine:
         """Streaming-channel round: seal the bank (swap in the spare),
         finalize from the partial sum, release the zeroed bank."""
         self._record_staleness(staleness)
-        bank, wvec = self._accum.seal()
+        bank, wvec, stats = self._accum.seal()
         self._flat_params, self._opt, m, zeroed = self._server.finalize(
-            self._flat_params, bank, wvec, self._opt)
+            self._flat_params, bank, wvec, self._opt, pprod=stats["pprod"])
         self._accum.release(zeroed)
         self.t_global += 1
         self._broadcast_bytes()

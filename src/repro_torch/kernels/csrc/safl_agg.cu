@@ -1,27 +1,39 @@
 // SAFL server-channel kernels for Hopper (sm_90a), bound with ctypes
 // through a plain C interface (see kernels/build.py and kernels/safl_agg.py).
 //
-//   safl_fold_f32       o = beta*acc + w*vec over one (D,) f32 row
-//                       (replaces src/repro/kernels/safl_agg.py safl_fold)
-//   safl_aggregate_f32  K-way weighted reduction of (K, D) f32 rows with
-//                       the server step fused: modes fedsgd / avg / mix /
-//                       sum, optional (1+tau)^-alpha discount
-//                       (replaces src/repro/kernels/safl_agg.py
-//                       safl_aggregate)
+//   safl_fold_f32        o = beta*acc + w*vec over one (D,) f32 row
+//                        (replaces src/repro/kernels/safl_agg.py safl_fold)
+//   safl_fold_q8         the same fold of one int8 row with its per-block
+//                        scales, dequantized on the fly (replaces
+//                        safl_agg.py safl_fold_q8)
+//   safl_aggregate_f32   K-way weighted reduction of (K, D) f32 rows with
+//                        the server step fused: modes fedsgd / avg / mix /
+//                        sum, optional (1+tau)^-alpha discount
+//                        (replaces safl_agg.py safl_aggregate)
+//   safl_aggregate_q8    the same over (K, Dq) int8 rows + (K, Dq/qblock)
+//                        scales (replaces safl_agg.py safl_aggregate_q8)
+//   sdga_aggregate_f32   the SDGA round in one pass: weighted mean,
+//                        momentum, SGD step and EMA anchor, three outputs
+//                        (replaces safl_agg.py sdga_aggregate)
+//   sdga_aggregate_q8    the same over int8 rows (replaces safl_agg.py
+//                        sdga_aggregate_q8)
 //
-// Both are pure bandwidth: a handful of flops per element against 4 bytes
-// moved per operand.  The design is one coalesced streaming pass, each
-// thread owning output lanes in a grid-stride loop (the ragged end of D is
-// masked by the loop bound; nothing is padded), so the bytes moved are the
-// bound: fold 3*D*4, aggregate (K+2)*D*4 (fedsgd/mix) or (K+1)*D*4
-// (avg/sum).
+// All are pure bandwidth: a handful of flops per element against 1 (int8)
+// or 4 (f32) bytes moved per operand.  The design is one coalesced
+// streaming pass, each thread owning output lanes in a grid-stride loop
+// (the ragged end is masked by the loop bound; nothing is padded), so the
+// bytes moved are the bound.  The K reduction weights and their in-order
+// sum sit in shared memory.  The int8 rows are dequantized in registers as
+// (float)q * scale[lane >> qshift] (qblock = 1 << qshift), then weighted,
+// as the Pallas bodies do (_dequant_tile): f32 updates never touch memory.
 //
 // Floating-point order is part of the contract: every product and sum goes
 // through the _rn intrinsics, which nvcc never contracts into an FMA, so
 // the kernels round exactly like the plain PyTorch versions beside their
-// wrappers (acc + w*v, p - lr*(g/wsum), weights summed k = 0..K-1).  That
-// keeps the streaming channel (a chain of folds) bit-equal to the buffered
-// one (one aggregate), as in the reference.
+// wrappers (acc + w*v, p - lr*(g/wsum), weights summed k = 0..K-1, the
+// SDGA step in the reference's op order).  That keeps the streaming
+// channel (a chain of folds, then the step in PyTorch ops) bit-equal to
+// the buffered one (one aggregate).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,10 +45,61 @@ constexpr int64_t kMaxBlocks = 132 * 16;  // 16 resident blocks per SM
 
 enum AggMode { kFedsgd = 0, kAvg = 1, kMix = 2, kSum = 3 };
 
-inline int grid_for(int64_t d) {
-  int64_t blocks = (d + kThreads - 1) / kThreads;
+inline int grid_for(int64_t n) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   return static_cast<int>(blocks < 1 ? 1 : blocks);
+}
+
+// Row j, lane i of the f32 (K, stride) buffer.
+struct F32Rows {
+  const float* u;
+  int64_t stride;
+  __device__ float operator()(int64_t j, int64_t i) const {
+    return u[j * stride + i];
+  }
+};
+
+// Row j, lane i of the int8 (K, stride) buffer, dequantized with its
+// block's scale: (float)q * s (the int8 -> f32 conversion is exact).
+struct Q8Rows {
+  const int8_t* q;
+  const float* s;
+  int64_t stride;   // Dq
+  int64_t nblocks;  // Dq >> qshift
+  int qshift;
+  __device__ float operator()(int64_t j, int64_t i) const {
+    return __fmul_rn(static_cast<float>(q[j * stride + i]),
+                     s[j * nblocks + (i >> qshift)]);
+  }
+};
+
+// Thread 0 writes the K reduction weights (discounted when poly) and their
+// sum, taken k = 0..K-1, to shared memory: sw[0..K-1], sw[K].
+__device__ void load_weights(const float* w_in, int64_t k, float alpha,
+                             int poly, float* sw) {
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int64_t j = 0; j < k; ++j) {
+      float wj = w_in[j];
+      if (poly) wj = powf(__fadd_rn(1.f, wj), -alpha);
+      sw[j] = wj;
+      s = __fadd_rn(s, wj);
+    }
+    sw[k] = s;
+  }
+  __syncthreads();
+}
+
+// sum_j sw[j] * row_j[i], in the fold's order (acc = acc + w*u).
+template <class Rows>
+__device__ float weighted_sum(const Rows& rows, const float* sw, int64_t k,
+                              int64_t i) {
+  float acc = 0.f;
+  for (int64_t j = 0; j < k; ++j) {
+    acc = __fadd_rn(acc, __fmul_rn(sw[j], rows(j, i)));
+  }
+  return acc;
 }
 
 // acc and out may alias (the in-place fold into a bank row): each element
@@ -54,36 +117,39 @@ __global__ void fold_kernel(const float* acc, const float* __restrict__ vec,
   }
 }
 
-// Dynamic shared memory holds the K reduction weights and their sum,
-// computed once per block by thread 0 in a fixed order.
-__global__ void aggregate_kernel(const float* __restrict__ u,
-                                 const float* __restrict__ w_in,
+template <bool kUnitBeta>
+__global__ void fold_q8_kernel(const float* acc,
+                               const int8_t* __restrict__ q,
+                               const float* __restrict__ s, float* out,
+                               float w, float beta, int64_t dq, int qshift) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < dq; i += stride) {
+    const float u = __fmul_rn(static_cast<float>(q[i]), s[i >> qshift]);
+    const float wv = __fmul_rn(w, u);
+    const float a = acc[i];
+    out[i] = kUnitBeta ? __fadd_rn(a, wv) : __fadd_rn(__fmul_rn(beta, a), wv);
+  }
+}
+
+// Output lanes [0, n): n = D for fedsgd / mix (p has D lanes), the row
+// length for avg / sum.
+template <class Rows>
+__global__ void aggregate_kernel(Rows rows, const float* __restrict__ w_in,
                                  const float* __restrict__ p,
                                  float* __restrict__ out, int64_t k,
-                                 int64_t d, float lr, float alpha, int mode,
+                                 int64_t n, float lr, float alpha, int mode,
                                  int poly) {
   extern __shared__ float sw[];
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int64_t j = 0; j < k; ++j) {
-      float wj = w_in[j];
-      if (poly) wj = powf(__fadd_rn(1.f, wj), -alpha);
-      sw[j] = wj;
-      s = __fadd_rn(s, wj);
-    }
-    sw[k] = s;
-  }
-  __syncthreads();
+  load_weights(w_in, k, alpha, poly, sw);
   const float wsum = sw[k];
   const float wsafe = fmaxf(wsum, 1e-12f);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
-       i < d; i += stride) {
-    float acc = 0.f;
-    for (int64_t j = 0; j < k; ++j) {
-      acc = __fadd_rn(acc, __fmul_rn(sw[j], u[j * d + i]));
-    }
+       i < n; i += stride) {
+    const float acc = weighted_sum(rows, sw, k, i);
     float o;
     switch (mode) {
       case kFedsgd:
@@ -102,11 +168,50 @@ __global__ void aggregate_kernel(const float* __restrict__ u,
   }
 }
 
+// The SDGA round over lanes [0, d), in the reference's op order
+// (kernels/ref.py sdga_step_from_mean):
+//   g  = (w @ u) / max(sum w, 1e-12)
+//   m' = mu*m + g
+//   p' = (p - lr*m') + anchor*(e - p)
+//   e' = decay*e + omd*p'            (omd = 1 - decay, rounded on the host)
+template <class Rows>
+__global__ void sdga_kernel(Rows rows, const float* __restrict__ w_in,
+                            const float* __restrict__ p,
+                            const float* __restrict__ m,
+                            const float* __restrict__ e,
+                            float* __restrict__ op, float* __restrict__ om,
+                            float* __restrict__ oe, int64_t k, int64_t d,
+                            float lr, float alpha, float mu, float anchor,
+                            float decay, float omd, int poly) {
+  extern __shared__ float sw[];
+  load_weights(w_in, k, alpha, poly, sw);
+  const float wsafe = fmaxf(sw[k], 1e-12f);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < d; i += stride) {
+    const float g = __fdiv_rn(weighted_sum(rows, sw, k, i), wsafe);
+    const float mn = __fadd_rn(__fmul_rn(mu, m[i]), g);
+    const float pi = p[i];
+    const float ei = e[i];
+    const float pn = __fadd_rn(__fsub_rn(pi, __fmul_rn(lr, mn)),
+                               __fmul_rn(anchor, __fsub_rn(ei, pi)));
+    op[i] = pn;
+    om[i] = mn;
+    oe[i] = __fadd_rn(__fmul_rn(decay, ei), __fmul_rn(omd, pn));
+  }
+}
+
+inline size_t weights_smem(int64_t k) {
+  return static_cast<size_t>(k + 1) * sizeof(float);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Each returns cudaGetLastError() after the launch (0 = launched).
+
 int safl_fold_f32(const void* acc, const void* vec, void* out, float w,
                   float beta, int64_t d, void* stream) {
   const int blocks = grid_for(d);
@@ -123,16 +228,83 @@ int safl_fold_f32(const void* acc, const void* vec, void* out, float w,
   return static_cast<int>(cudaGetLastError());
 }
 
+int safl_fold_q8(const void* acc, const void* q, const void* scales,
+                 void* out, float w, float beta, int64_t dq, int qshift,
+                 void* stream) {
+  const int blocks = grid_for(dq);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (beta == 1.0f) {
+    fold_q8_kernel<true><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(acc), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scales), static_cast<float*>(out), w,
+        beta, dq, qshift);
+  } else {
+    fold_q8_kernel<false><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(acc), static_cast<const int8_t*>(q),
+        static_cast<const float*>(scales), static_cast<float*>(out), w,
+        beta, dq, qshift);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 int safl_aggregate_f32(const void* u, const void* w, const void* p,
                        void* out, int64_t k, int64_t d, float lr,
                        float alpha, int mode, int poly, void* stream) {
-  const int blocks = grid_for(d);
-  const size_t smem = static_cast<size_t>(k + 1) * sizeof(float);
-  aggregate_kernel<<<blocks, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(u), static_cast<const float*>(w),
-      static_cast<const float*>(p), static_cast<float*>(out), k, d, lr,
-      alpha, mode, poly);
+  const F32Rows rows{static_cast<const float*>(u), d};
+  aggregate_kernel<F32Rows><<<grid_for(d), kThreads, weights_smem(k),
+                              static_cast<cudaStream_t>(stream)>>>(
+      rows, static_cast<const float*>(w), static_cast<const float*>(p),
+      static_cast<float*>(out), k, d, lr, alpha, mode, poly);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n: output lanes (D for fedsgd / mix, Dq for avg / sum).
+int safl_aggregate_q8(const void* q, const void* scales, const void* w,
+                      const void* p, void* out, int64_t k, int64_t dq,
+                      int64_t n, float lr, float alpha, int mode, int poly,
+                      int qshift, void* stream) {
+  const Q8Rows rows{static_cast<const int8_t*>(q),
+                    static_cast<const float*>(scales), dq, dq >> qshift,
+                    qshift};
+  aggregate_kernel<Q8Rows><<<grid_for(n), kThreads, weights_smem(k),
+                             static_cast<cudaStream_t>(stream)>>>(
+      rows, static_cast<const float*>(w), static_cast<const float*>(p),
+      static_cast<float*>(out), k, n, lr, alpha, mode, poly);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sdga_aggregate_f32(const void* u, const void* w, const void* p,
+                       const void* m, const void* e, void* op, void* om,
+                       void* oe, int64_t k, int64_t d, float lr,
+                       float alpha, float mu, float anchor, float decay,
+                       float omd, int poly, void* stream) {
+  const F32Rows rows{static_cast<const float*>(u), d};
+  sdga_kernel<F32Rows><<<grid_for(d), kThreads, weights_smem(k),
+                         static_cast<cudaStream_t>(stream)>>>(
+      rows, static_cast<const float*>(w), static_cast<const float*>(p),
+      static_cast<const float*>(m), static_cast<const float*>(e),
+      static_cast<float*>(op), static_cast<float*>(om),
+      static_cast<float*>(oe), k, d, lr, alpha, mu, anchor, decay, omd,
+      poly);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int sdga_aggregate_q8(const void* q, const void* scales, const void* w,
+                      const void* p, const void* m, const void* e, void* op,
+                      void* om, void* oe, int64_t k, int64_t dq, int64_t d,
+                      float lr, float alpha, float mu, float anchor,
+                      float decay, float omd, int poly, int qshift,
+                      void* stream) {
+  const Q8Rows rows{static_cast<const int8_t*>(q),
+                    static_cast<const float*>(scales), dq, dq >> qshift,
+                    qshift};
+  sdga_kernel<Q8Rows><<<grid_for(d), kThreads, weights_smem(k),
+                        static_cast<cudaStream_t>(stream)>>>(
+      rows, static_cast<const float*>(w), static_cast<const float*>(p),
+      static_cast<const float*>(m), static_cast<const float*>(e),
+      static_cast<float*>(op), static_cast<float*>(om),
+      static_cast<float*>(oe), k, d, lr, alpha, mu, anchor, decay, omd,
+      poly);
   return static_cast<int>(cudaGetLastError());
 }
 

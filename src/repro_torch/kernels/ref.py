@@ -1,0 +1,108 @@
+"""Plain PyTorch copies of the reference's oracles (``repro/kernels/ref.py``)
+that the server and the codec build on.
+
+Each keeps the reference's op order as its jitted programs compute it:
+``x / scale`` is a true division by a tensor (PyTorch turns a division by
+a Python number on CUDA into a multiply by its reciprocal, which rounds
+differently), ``torch.round`` rounds half to even like ``jnp.round``, and
+the scale is ``max(absmax * f32(1/127), 1e-12)``.
+Host scalars (fold weights, survival factors) are np.float32 values.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def fold_ref(acc: torch.Tensor, vec: torch.Tensor, w,
+             beta=1.0) -> torch.Tensor:
+    """One streaming fold: beta*acc + w*vec (w, beta rounded to f32).
+    beta == 1 never multiplies acc, as the reference keeps beta a
+    compile-time constant outside fedasync."""
+    wv = float(np.float32(w)) * vec
+    if float(np.float32(beta)) == 1.0:
+        return acc + wv
+    return float(np.float32(beta)) * acc + wv
+
+
+def dequant_flat_ref(q: torch.Tensor, scales: torch.Tensor,
+                     qblock: int) -> torch.Tensor:
+    """Blockwise dequantize: q (..., Dq) int8 with scales (..., Dq/qblock)
+    -> (..., Dq) f32, each lane (float)q * its block's scale.  Padding
+    blocks carry scale 0 and dequantize to 0."""
+    shape = q.shape
+    nb = shape[-1] // qblock
+    return (q.to(torch.float32).reshape(*shape[:-1], nb, qblock)
+            * scales.unsqueeze(-1)).reshape(shape)
+
+
+def fold_q8_ref(acc: torch.Tensor, q_row: torch.Tensor, s_row: torch.Tensor,
+                w, qblock: int, beta=1.0) -> torch.Tensor:
+    """Streaming fold of one quantized row: dequantize, then
+    :func:`fold_ref`."""
+    return fold_ref(acc, dequant_flat_ref(q_row, s_row, qblock), w, beta)
+
+
+def _mix_rates(rows, rates, params: torch.Tensor):
+    """The sequential fedasync mix in (S, P) form over ``rows`` (a
+    sequence of (d,) f32 rows): S <- (1 - a_i)*S + a_i*u_i, P <- P*(1 -
+    a_i), then P*p + S.  Returns (mixed, 1 - P)."""
+    s = torch.zeros_like(params, dtype=torch.float32)
+    prod = np.float32(1.0)
+    for a, u in zip(np.asarray(rates, np.float32), rows):
+        beta = np.float32(1.0) - a
+        s = fold_ref(s, u, a, beta)
+        prod = np.float32(prod * beta)
+    return float(prod) * params.to(torch.float32) + s, \
+        np.float32(np.float32(1.0) - prod)
+
+
+def fedasync_rates_flat_ref(updates: torch.Tensor, rates,
+                            params: torch.Tensor):
+    """Sequential fedasync mix over a flat (K, D) buffer: K mixes
+    p <- (1 - a_i) p + a_i u_i as the fold recursion with beta = 1 - a_i
+    (S) and the host product P = prod(1 - a_i), final model P*p + S.
+    ``rates`` are the raw np.float32 per-upload rates a_i.  Returns
+    (mixed, weight_sum = 1 - P)."""
+    return _mix_rates(updates.to(torch.float32), rates, params)
+
+
+def fedasync_rates_flat_q8_ref(q: torch.Tensor, scales: torch.Tensor, rates,
+                               params: torch.Tensor, qblock: int):
+    """:func:`fedasync_rates_flat_ref` with each int8 row dequantized (and
+    cut to the params' d lanes) before its fold."""
+    d = params.shape[0]
+    rows = (dequant_flat_ref(q[i], scales[i], qblock)[:d]
+            for i in range(q.shape[0]))
+    return _mix_rates(rows, rates, params)
+
+
+def sdga_step_from_mean(g: torch.Tensor, params: torch.Tensor,
+                        mom: torch.Tensor, ema: torch.Tensor, *,
+                        server_lr: float, momentum: float,
+                        ema_anchor: float, ema_decay: float):
+    """The SDGA server step from the aggregated mean g (D,):
+    m' = mu*m + g, p' = p - lr*m' + anchor*(e - p),
+    e' = decay*e + (1 - decay)*p'.  Returns (p', m', e')."""
+    m_new = momentum * mom + g
+    p_new = params - server_lr * m_new + ema_anchor * (ema - params)
+    e_new = ema_decay * ema + (1.0 - ema_decay) * p_new
+    return p_new, m_new, e_new
+
+
+#: 1/127 rounded to f32: inside a jitted program XLA turns the reference's
+#: ``absmax / 127.0`` (a division by a constant) into a multiply by this
+#: reciprocal, and the reference's codec runs jitted
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def quantize_ref(x: torch.Tensor):
+    """Blockwise int8 absmax quantization: x (R, B) f32 -> (q int8 (R, B),
+    scales f32 (R,)), scale = max(absmax * f32(1/127), 1e-12) (the
+    reference's ``absmax / 127`` as its jitted codec computes it),
+    q = clip(round(x / scale), -127, 127) with a true division."""
+    x = x.to(torch.float32)
+    scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True) * INV_127,
+                        min=1e-12)
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale[:, 0]

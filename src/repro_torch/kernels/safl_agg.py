@@ -2,25 +2,36 @@
 its plain PyTorch version.
 
   * :func:`safl_fold` replaces ``repro/kernels/safl_agg.py:221 safl_fold``
-    (the streaming accumulate-on-arrival fold, once per semi-async upload).
-  * :func:`safl_aggregate` replaces ``repro/kernels/safl_agg.py:136
-    safl_aggregate`` (the buffered K-way reduction with the server step
-    fused, once per sync round).
+    (the streaming accumulate-on-arrival fold, once per semi-async upload;
+    with a live beta = 1 - a_i for fedasync).
+  * :func:`safl_fold_q8` replaces ``safl_agg.py:257 safl_fold_q8`` (the
+    same fold of one int8 row, once per semi-async upload on the q8 wire).
+  * :func:`safl_aggregate` replaces ``safl_agg.py:136 safl_aggregate``
+    (the buffered K-way reduction with the server step fused, once per
+    sync round of fedsgd / fedavg / fedbuff / fedopt).
+  * :func:`safl_aggregate_q8` replaces ``safl_agg.py:420
+    safl_aggregate_q8`` (the same over int8 rows, the q8 sync round).
+  * :func:`sdga_aggregate` replaces ``safl_agg.py:323 sdga_aggregate``
+    (the SDGA round in one pass: mean, momentum, step, EMA anchor).
+  * :func:`sdga_aggregate_q8` replaces ``safl_agg.py:488
+    sdga_aggregate_q8`` (the same over int8 rows).
 
 Routing: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel (``csrc/safl_agg.cu``, built at first use
 by :mod:`repro_torch.kernels.build`) or raises.  There is no other switch.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 
-Both kernels are bound by memory bandwidth: fold moves 3*D*4 bytes, the
-aggregate (K+2)*D*4 (fedsgd/mix) or (K+1)*D*4 (avg/sum), against a few
-flops per element.  The design is a simple coalesced streaming pass with
-a grid-stride loop; ``float4`` loads, TMA and ``wgmma`` buy nothing a
-bandwidth-bound pass needs first.  Every product and sum in the kernels
-uses round-to-nearest intrinsics that are never contracted into an FMA,
-and the plain versions below do the same operations in the same order,
-so kernel and plain version agree bitwise (the polynomial discount's
-``powf`` excepted), and a chain of folds equals one aggregate bitwise.
+Every kernel is bound by memory bandwidth (a few flops per element
+against 1 or 4 bytes per operand); the wrappers' docstrings give the
+bytes.  The design is a simple coalesced streaming pass with a
+grid-stride loop, the int8 rows dequantized in registers; ``float4``
+loads, TMA and ``wgmma`` buy nothing a bandwidth-bound pass needs first.
+Every product and sum in the kernels uses round-to-nearest intrinsics
+that are never contracted into an FMA, and the plain versions below do
+the same operations in the same order, so kernel and plain version agree
+bitwise (the polynomial discount's ``powf`` excepted), and a chain of
+folds followed by the server step in PyTorch ops equals one aggregate
+bitwise.
 """
 from __future__ import annotations
 
@@ -31,31 +42,45 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import ref
+from repro_torch.kernels.quantize import BLOCK
 
 DISCOUNTS = ("none", "poly")
 MODES = {"fedsgd": 0, "avg": 1, "mix": 2, "sum": 3}
-#: most rows the aggregate kernel takes: its K weights live in one block's
-#: shared memory (48 KB without an opt-in)
+#: most rows the aggregate kernels take: their K weights live in one
+#: block's shared memory (48 KB without an opt-in)
 MAX_K = 4096
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     """The built library with every function's C signature declared
-    (pointers and the stream as void*, D and K as int64)."""
+    (pointers and the stream as void*, lengths and K as int64)."""
     lib = build.load("safl_agg")
-    p, f, i64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
-    lib.safl_fold_f32.argtypes = [p, p, p, f, f, i64, p]
-    lib.safl_fold_f32.restype = ctypes.c_int
-    lib.safl_aggregate_f32.argtypes = [p, p, p, p, i64, i64, f, f,
-                                       ctypes.c_int, ctypes.c_int, p]
-    lib.safl_aggregate_f32.restype = ctypes.c_int
+    p, f, i64, i32 = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
+                      ctypes.c_int)
+    sigs = {
+        "safl_fold_f32": [p, p, p, f, f, i64, p],
+        "safl_fold_q8": [p, p, p, p, f, f, i64, i32, p],
+        "safl_aggregate_f32": [p, p, p, p, i64, i64, f, f, i32, i32, p],
+        "safl_aggregate_q8": [p, p, p, p, p, i64, i64, i64, f, f, i32, i32,
+                              i32, p],
+        "sdga_aggregate_f32": [p, p, p, p, p, p, p, p, i64, i64, f, f, f, f,
+                               f, f, i32, p],
+        "sdga_aggregate_q8": [p, p, p, p, p, p, p, p, p, i64, i64, i64, f, f,
+                              f, f, f, f, i32, i32, p],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
     return lib
 
 
-def _check_f32(name: str, t: torch.Tensor, shape, device) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype=torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):
@@ -70,18 +95,64 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
 
 
+def _on_cuda(t: torch.Tensor, kernel: str) -> bool:
+    """False for a CPU tensor (run the plain version), True for a CUDA one
+    (launch); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {t.device}")
+    return True
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _f32(x) -> float:
+    """A host scalar rounded to f32, as the kernels take it."""
+    return float(np.float32(x))
+
+
+def _qshift(qblock: int) -> int:
+    if qblock < 1 or qblock & (qblock - 1):
+        raise ValueError(f"qblock={qblock} must be a power of two")
+    return qblock.bit_length() - 1
+
+
+def _check_q8(q: torch.Tensor, scales: torch.Tensor, qblock: int):
+    """Shapes of a quantized (K, Dq) buffer -> (K, Dq)."""
+    if q.dim() != 2:
+        raise ValueError(f"q: expected (K, Dq), got {tuple(q.shape)}")
+    k, dq = q.shape
+    if dq % qblock:
+        raise ValueError(f"Dq={dq} is not a multiple of qblock={qblock}")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"K={k} outside [1, {MAX_K}]")
+    _check("q", q, (k, dq), q.device, torch.int8)
+    _check("scales", scales, (k, dq // qblock), q.device)
+    return k, dq
+
+
+def _check_discount(discount: str) -> None:
+    if discount not in DISCOUNTS:
+        raise ValueError(f"discount {discount!r} not in {DISCOUNTS}")
+
+
+def _check_mode(mode: str, discount: str, p) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
+    _check_discount(discount)
+    if mode in ("fedsgd", "mix") and p is None:
+        raise ValueError(f"mode={mode!r} needs params p")
+
+
 # ---------------------------------------------------------------------------
 # streaming fold: o = beta*acc + w*vec
 # ---------------------------------------------------------------------------
 
-
-def safl_fold_plain(acc: torch.Tensor, vec: torch.Tensor, w,
-                    beta=1.0) -> torch.Tensor:
-    """Plain version of :func:`safl_fold` (any device)."""
-    wv = float(np.float32(w)) * vec
-    if float(np.float32(beta)) == 1.0:
-        return acc + wv
-    return float(np.float32(beta)) * acc + wv
+#: Plain version of :func:`safl_fold` (any device).
+safl_fold_plain = ref.fold_ref
 
 
 def safl_fold(acc: torch.Tensor, vec: torch.Tensor, w, beta=1.0, *,
@@ -94,24 +165,21 @@ def safl_fold(acc: torch.Tensor, vec: torch.Tensor, w, beta=1.0, *,
     beta == 1 runs a separate kernel instantiation that never multiplies
     acc, as the reference keeps beta a compile-time constant outside
     fedasync.  Bound: 3*D*4 bytes."""
-    if acc.device.type == "cpu":
+    if not _on_cuda(acc, "safl_fold"):
         res = safl_fold_plain(acc, vec, w, beta)
         if out is None:
             return res
         out.copy_(res)
         return out
-    if acc.device.type != "cuda":
-        raise ValueError(f"safl_fold: unsupported device {acc.device}")
     d = acc.shape[0]
-    _check_f32("acc", acc, (d,), acc.device)
-    _check_f32("vec", vec, (d,), acc.device)
+    _check("acc", acc, (d,), acc.device)
+    _check("vec", vec, (d,), acc.device)
     if out is None:
         out = torch.empty_like(acc)
-    _check_f32("out", out, (d,), acc.device)
+    _check("out", out, (d,), acc.device)
     rc = _lib().safl_fold_f32(
-        acc.data_ptr(), vec.data_ptr(), out.data_ptr(),
-        float(np.float32(w)), float(np.float32(beta)), d,
-        torch.cuda.current_stream(acc.device).cuda_stream)
+        acc.data_ptr(), vec.data_ptr(), out.data_ptr(), _f32(w), _f32(beta),
+        d, _stream(acc))
     _raise_on(rc, "safl_fold")
     safl_fold.launches += 1
     return out
@@ -120,29 +188,58 @@ def safl_fold(acc: torch.Tensor, vec: torch.Tensor, w, beta=1.0, *,
 safl_fold.launches = 0
 
 
+def safl_fold_q8_plain(acc: torch.Tensor, q_row: torch.Tensor,
+                       s_row: torch.Tensor, w, beta=1.0, *,
+                       qblock: int = BLOCK) -> torch.Tensor:
+    """Plain version of :func:`safl_fold_q8` (any device)."""
+    return ref.fold_q8_ref(acc, q_row, s_row, w, qblock, beta)
+
+
+def safl_fold_q8(acc: torch.Tensor, q_row: torch.Tensor,
+                 s_row: torch.Tensor, w, beta=1.0, *, qblock: int = BLOCK,
+                 out: torch.Tensor = None) -> torch.Tensor:
+    """acc (Dq,) f32, q_row (Dq,) int8, s_row (Dq/qblock,) f32 scales ->
+    beta*acc + w*dequant(q_row), the dequantize ((float)q * scale) fused
+    into the pass.  Replaces ``repro/kernels/safl_agg.py:257
+    safl_fold_q8``.  ``out`` may be ``acc``.  Bound: 9*Dq + 4*Dq/qblock
+    bytes."""
+    if not _on_cuda(acc, "safl_fold_q8"):
+        res = safl_fold_q8_plain(acc, q_row, s_row, w, beta, qblock=qblock)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    dq = acc.shape[0]
+    qshift = _qshift(qblock)
+    if dq % qblock:
+        raise ValueError(f"Dq={dq} is not a multiple of qblock={qblock}")
+    _check("acc", acc, (dq,), acc.device)
+    _check("q_row", q_row, (dq,), acc.device, torch.int8)
+    _check("s_row", s_row, (dq // qblock,), acc.device)
+    if out is None:
+        out = torch.empty_like(acc)
+    _check("out", out, (dq,), acc.device)
+    rc = _lib().safl_fold_q8(
+        acc.data_ptr(), q_row.data_ptr(), s_row.data_ptr(), out.data_ptr(),
+        _f32(w), _f32(beta), dq, qshift, _stream(acc))
+    _raise_on(rc, "safl_fold_q8")
+    safl_fold_q8.launches += 1
+    return out
+
+
+safl_fold_q8.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # buffered K-way aggregate with the server step fused
 # ---------------------------------------------------------------------------
 
 
-def _check_mode(mode: str, discount: str, p) -> None:
-    if mode not in MODES:
-        raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
-    if discount not in DISCOUNTS:
-        raise ValueError(f"discount {discount!r} not in {DISCOUNTS}")
-    if mode in ("fedsgd", "mix") and p is None:
-        raise ValueError(f"mode={mode!r} needs params p")
-
-
-def safl_aggregate_plain(u: torch.Tensor, w: torch.Tensor,
-                         p: torch.Tensor = None, *, server_lr: float = 1.0,
-                         mode: str = "fedsgd", alpha: float = 0.5,
-                         discount: str = "none") -> torch.Tensor:
-    """Plain version of :func:`safl_aggregate` (any device).  Reduces over
-    K in the fold's order, ``acc = acc + w[k]*u[k]`` for k = 0..K-1, and
-    sums the weights in the same order, so a chain of
-    :func:`safl_fold_plain` calls equals this bitwise."""
-    _check_mode(mode, discount, p)
+def _weighted_sum_plain(u: torch.Tensor, w: torch.Tensor, alpha: float,
+                        discount: str):
+    """(sum_k w_k u_k, sum_k w_k) over the rows of u, one row at a time in
+    the fold's order (``acc = acc + w[k]*u[k]``), weights discounted to
+    (1+tau)^-alpha when ``discount="poly"``."""
     wv = w.to(torch.float32)
     if discount == "poly":
         wv = torch.pow(1.0 + wv, -alpha)
@@ -151,6 +248,18 @@ def safl_aggregate_plain(u: torch.Tensor, w: torch.Tensor,
     for k in range(u.shape[0]):
         acc = acc + wv[k] * u[k]
         wsum = wsum + wv[k]
+    return acc, wsum
+
+
+def safl_aggregate_plain(u: torch.Tensor, w: torch.Tensor,
+                         p: torch.Tensor = None, *, server_lr: float = 1.0,
+                         mode: str = "fedsgd", alpha: float = 0.5,
+                         discount: str = "none") -> torch.Tensor:
+    """Plain version of :func:`safl_aggregate` (any device).  Reduces over
+    K in the fold's order, so a chain of :func:`safl_fold_plain` calls
+    equals this bitwise."""
+    _check_mode(mode, discount, p)
+    acc, wsum = _weighted_sum_plain(u, w, alpha, discount)
     if mode == "sum":
         return acc
     if mode == "mix":
@@ -178,29 +287,215 @@ def safl_aggregate(u: torch.Tensor, w: torch.Tensor, p: torch.Tensor = None,
     safl_aggregate``.  Bound: (K+2)*D*4 bytes for fedsgd/mix, (K+1)*D*4
     for avg/sum."""
     _check_mode(mode, discount, p)
-    if u.device.type == "cpu":
+    if not _on_cuda(u, "safl_aggregate"):
         return safl_aggregate_plain(u, w, p, server_lr=server_lr, mode=mode,
                                     alpha=alpha, discount=discount)
-    if u.device.type != "cuda":
-        raise ValueError(f"safl_aggregate: unsupported device {u.device}")
     if u.dim() != 2:
         raise ValueError(f"u: expected (K, D), got {tuple(u.shape)}")
     k, d = u.shape
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K={k} outside [1, {MAX_K}]")
-    _check_f32("u", u, (k, d), u.device)
-    _check_f32("w", w, (k,), u.device)
+    _check("u", u, (k, d), u.device)
+    _check("w", w, (k,), u.device)
     if p is not None:
-        _check_f32("p", p, (d,), u.device)
+        _check("p", p, (d,), u.device)
     out = torch.empty(d, dtype=torch.float32, device=u.device)
     rc = _lib().safl_aggregate_f32(
         u.data_ptr(), w.data_ptr(), None if p is None else p.data_ptr(),
-        out.data_ptr(), k, d, float(np.float32(server_lr)),
-        float(np.float32(alpha)), MODES[mode], int(discount == "poly"),
-        torch.cuda.current_stream(u.device).cuda_stream)
+        out.data_ptr(), k, d, _f32(server_lr), _f32(alpha), MODES[mode],
+        int(discount == "poly"), _stream(u))
     _raise_on(rc, "safl_aggregate")
     safl_aggregate.launches += 1
     return out
 
 
 safl_aggregate.launches = 0
+
+
+def safl_aggregate_q8_plain(q: torch.Tensor, scales: torch.Tensor,
+                            w: torch.Tensor, p: torch.Tensor = None, *,
+                            server_lr: float = 1.0, mode: str = "fedsgd",
+                            alpha: float = 0.5, discount: str = "none",
+                            qblock: int = BLOCK) -> torch.Tensor:
+    """Plain version of :func:`safl_aggregate_q8` (any device): dequantize
+    the rows, then :func:`safl_aggregate_plain` over the D lanes of p
+    (fedsgd / mix) or all Dq lanes (avg / sum)."""
+    _check_mode(mode, discount, p)
+    u = ref.dequant_flat_ref(q, scales, qblock)
+    if mode in ("fedsgd", "mix"):
+        u = u[:, :p.shape[0]]
+    return safl_aggregate_plain(u, w, p, server_lr=server_lr, mode=mode,
+                                alpha=alpha, discount=discount)
+
+
+def safl_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
+                      p: torch.Tensor = None, *, server_lr: float = 1.0,
+                      mode: str = "fedsgd", alpha: float = 0.5,
+                      discount: str = "none",
+                      qblock: int = BLOCK) -> torch.Tensor:
+    """q (K, Dq) int8 rows, scales (K, Dq/qblock) f32, w (K,), p (D,)
+    params (D <= Dq) for fedsgd/mix -> (D,) for fedsgd/mix, (Dq,) for
+    avg/sum: :func:`safl_aggregate` with each row dequantized as
+    (float)q * scale before it is weighted.  Replaces
+    ``repro/kernels/safl_agg.py:420 safl_aggregate_q8``.  Bound:
+    K*Dq + K*Dq/qblock*4 bytes read, plus 2*D*4 (fedsgd/mix) or Dq*4
+    (avg/sum)."""
+    _check_mode(mode, discount, p)
+    if not _on_cuda(q, "safl_aggregate_q8"):
+        return safl_aggregate_q8_plain(q, scales, w, p, server_lr=server_lr,
+                                       mode=mode, alpha=alpha,
+                                       discount=discount, qblock=qblock)
+    qshift = _qshift(qblock)
+    k, dq = _check_q8(q, scales, qblock)
+    _check("w", w, (k,), q.device)
+    n = dq
+    if p is not None:
+        n = p.shape[0]
+        if n > dq:
+            raise ValueError(f"p has {n} lanes, more than Dq={dq}")
+        _check("p", p, (n,), q.device)
+    if mode in ("avg", "sum"):
+        n = dq
+    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    rc = _lib().safl_aggregate_q8(
+        q.data_ptr(), scales.data_ptr(), w.data_ptr(),
+        None if p is None else p.data_ptr(), out.data_ptr(), k, dq, n,
+        _f32(server_lr), _f32(alpha), MODES[mode], int(discount == "poly"),
+        qshift, _stream(q))
+    _raise_on(rc, "safl_aggregate_q8")
+    safl_aggregate_q8.launches += 1
+    return out
+
+
+safl_aggregate_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# SDGA: weighted mean + momentum + SGD step + EMA anchor, one pass
+# ---------------------------------------------------------------------------
+
+
+def sdga_aggregate_plain(u: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
+                         m: torch.Tensor, e: torch.Tensor, *,
+                         server_lr: float, alpha: float = 0.5,
+                         momentum: float = 0.8, ema_anchor: float = 0.05,
+                         ema_decay: float = 0.95, discount: str = "poly"):
+    """Plain version of :func:`sdga_aggregate` (any device): the weighted
+    mean in the fold's order, then :func:`ref.sdga_step_from_mean`."""
+    _check_discount(discount)
+    acc, wsum = _weighted_sum_plain(u, w, alpha, discount)
+    g = acc / torch.clamp(wsum, min=1e-12)
+    return ref.sdga_step_from_mean(g, p, m, e, server_lr=server_lr,
+                                   momentum=momentum, ema_anchor=ema_anchor,
+                                   ema_decay=ema_decay)
+
+
+def _sdga_scalars(server_lr, alpha, momentum, ema_anchor, ema_decay):
+    """The kernel's f32 scalars, each rounded from the Python float the
+    way JAX rounds a weakly typed constant (1 - decay in double first)."""
+    return (_f32(server_lr), _f32(alpha), _f32(momentum), _f32(ema_anchor),
+            _f32(ema_decay), _f32(1.0 - ema_decay))
+
+
+def sdga_aggregate(u: torch.Tensor, w: torch.Tensor, p: torch.Tensor,
+                   m: torch.Tensor, e: torch.Tensor, *, server_lr: float,
+                   alpha: float = 0.5, momentum: float = 0.8,
+                   ema_anchor: float = 0.05, ema_decay: float = 0.95,
+                   discount: str = "poly"):
+    """u (K, D) f32 rows, w (K,) weights (staleness with
+    ``discount="poly"``), p / m / e (D,) params, server momentum, EMA ->
+    (p', m', e'), all new (D,) tensors:
+
+      g  = (w@u)/max(sum w, 1e-12)
+      m' = momentum*m + g
+      p' = p - lr*m' + ema_anchor*(e - p)
+      e' = ema_decay*e + (1 - ema_decay)*p'
+
+    Replaces ``repro/kernels/safl_agg.py:323 sdga_aggregate``.  Bound:
+    (K+6)*D*4 bytes."""
+    _check_discount(discount)
+    if not _on_cuda(u, "sdga_aggregate"):
+        return sdga_aggregate_plain(
+            u, w, p, m, e, server_lr=server_lr, alpha=alpha,
+            momentum=momentum, ema_anchor=ema_anchor, ema_decay=ema_decay,
+            discount=discount)
+    if u.dim() != 2:
+        raise ValueError(f"u: expected (K, D), got {tuple(u.shape)}")
+    k, d = u.shape
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"K={k} outside [1, {MAX_K}]")
+    _check("u", u, (k, d), u.device)
+    _check("w", w, (k,), u.device)
+    for name, t in (("p", p), ("m", m), ("e", e)):
+        _check(name, t, (d,), u.device)
+    outs = [torch.empty(d, dtype=torch.float32, device=u.device)
+            for _ in range(3)]
+    rc = _lib().sdga_aggregate_f32(
+        u.data_ptr(), w.data_ptr(), p.data_ptr(), m.data_ptr(), e.data_ptr(),
+        *(o.data_ptr() for o in outs), k, d,
+        *_sdga_scalars(server_lr, alpha, momentum, ema_anchor, ema_decay),
+        int(discount == "poly"), _stream(u))
+    _raise_on(rc, "sdga_aggregate")
+    sdga_aggregate.launches += 1
+    return tuple(outs)
+
+
+sdga_aggregate.launches = 0
+
+
+def sdga_aggregate_q8_plain(q: torch.Tensor, scales: torch.Tensor,
+                            w: torch.Tensor, p: torch.Tensor,
+                            m: torch.Tensor, e: torch.Tensor, *,
+                            server_lr: float, alpha: float = 0.5,
+                            momentum: float = 0.8, ema_anchor: float = 0.05,
+                            ema_decay: float = 0.95, discount: str = "poly",
+                            qblock: int = BLOCK):
+    """Plain version of :func:`sdga_aggregate_q8` (any device)."""
+    u = ref.dequant_flat_ref(q, scales, qblock)[:, :p.shape[0]]
+    return sdga_aggregate_plain(
+        u, w, p, m, e, server_lr=server_lr, alpha=alpha, momentum=momentum,
+        ema_anchor=ema_anchor, ema_decay=ema_decay, discount=discount)
+
+
+def sdga_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
+                      p: torch.Tensor, m: torch.Tensor, e: torch.Tensor, *,
+                      server_lr: float, alpha: float = 0.5,
+                      momentum: float = 0.8, ema_anchor: float = 0.05,
+                      ema_decay: float = 0.95, discount: str = "poly",
+                      qblock: int = BLOCK):
+    """:func:`sdga_aggregate` over q (K, Dq) int8 rows with scales
+    (K, Dq/qblock), each row dequantized as (float)q * scale; p / m / e
+    are (D,) with D <= Dq.  Replaces ``repro/kernels/safl_agg.py:488
+    sdga_aggregate_q8``.  Bound: K*Dq + K*Dq/qblock*4 + 6*D*4 bytes."""
+    _check_discount(discount)
+    if not _on_cuda(q, "sdga_aggregate_q8"):
+        return sdga_aggregate_q8_plain(
+            q, scales, w, p, m, e, server_lr=server_lr, alpha=alpha,
+            momentum=momentum, ema_anchor=ema_anchor, ema_decay=ema_decay,
+            discount=discount, qblock=qblock)
+    qshift = _qshift(qblock)
+    k, dq = _check_q8(q, scales, qblock)
+    _check("w", w, (k,), q.device)
+    d = p.shape[0]
+    if d > dq:
+        raise ValueError(f"p has {d} lanes, more than Dq={dq}")
+    for name, t in (("p", p), ("m", m), ("e", e)):
+        _check(name, t, (d,), q.device)
+    outs = [torch.empty(d, dtype=torch.float32, device=q.device)
+            for _ in range(3)]
+    rc = _lib().sdga_aggregate_q8(
+        q.data_ptr(), scales.data_ptr(), w.data_ptr(), p.data_ptr(),
+        m.data_ptr(), e.data_ptr(), *(o.data_ptr() for o in outs), k, dq, d,
+        *_sdga_scalars(server_lr, alpha, momentum, ema_anchor, ema_decay),
+        int(discount == "poly"), qshift, _stream(q))
+    _raise_on(rc, "sdga_aggregate_q8")
+    sdga_aggregate_q8.launches += 1
+    return tuple(outs)
+
+
+sdga_aggregate_q8.launches = 0
+
+#: every kernel wrapper of this module, by name (each has ``.launches``)
+KERNELS = {f.__name__: f for f in (safl_fold, safl_fold_q8, safl_aggregate,
+                                   safl_aggregate_q8, sdga_aggregate,
+                                   sdga_aggregate_q8)}

@@ -7,8 +7,11 @@
 The reference launcher's flags and ``--json-out`` schema, plus
 ``--device`` (``cuda`` by default; raises when no GPU is visible).  The
 run is the sequential engine, which is what the reference runs with
-``--sequential``.  Flags for parts not ported yet are refused with a
-"not ported yet" error when given anything but their default.
+``--sequential``.  Every ``--aggregation`` of the study runs (fedsgd,
+fedavg, fedbuff, fedasync, fedopt, sdga), on the f32 wire or ``--wire
+q8`` (``--compress`` is its legacy alias).  Flags for parts not ported
+yet (the q4 and topk wires among them) are refused with a "not ported
+yet" error when given anything but their default.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import FLEngine
-from repro_torch.core.safl import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.data import build_client_shards, make_dataset, train_test_split
 from repro_torch.models.vision_cnn import build_paper_model
 
@@ -29,7 +32,7 @@ SUMMARY_SCHEMA = 1
 
 #: flags of parts not ported yet -> the only value accepted (the default)
 NOT_PORTED = {
-    "model": "cnn", "compress": False, "wire": "f32", "topk_frac": 0.1,
+    "model": "cnn", "topk_frac": 0.1,
     "devices": 1, "mesh": None, "wave_impl": "auto",
     "no_wave_buckets": False, "sched_timing": "static", "horizon": "k",
     "horizon_queue": 0, "horizon_timeout_s": 0.0, "sched_policy": "full",
@@ -40,7 +43,9 @@ NOT_PORTED = {
     "defense_norm_cap": 0.0, "ckpt_dir": "", "ckpt_every": 0,
     "resume": False, "trace_dir": "", "trace_jax": False,
 }
-PORTED_AGGREGATIONS = ("fedsgd", "fedavg")
+PORTED_WIRES = ("f32", "q8")
+#: server learning rate per aggregation (the reference launcher's table)
+SERVER_LR = {"fedsgd": 0.05, "sdga": 0.05, "fedbuff": 0.05, "fedopt": 0.005}
 
 
 def to_native(obj):
@@ -76,7 +81,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--n-labels", type=int, default=2)
     ap.add_argument("--mode", default="semi_async",
                     choices=["sync", "semi_async"])
-    ap.add_argument("--aggregation", default="fedsgd")
+    ap.add_argument("--aggregation", default="fedsgd",
+                    choices=["fedsgd", "fedavg", "fedbuff", "fedasync",
+                             "fedopt", "sdga"])
     ap.add_argument("--clients", type=int, default=16)
     ap.add_argument("--k", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=30)
@@ -145,9 +152,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                      f"{default!r})")
     if args.trace_level not in ("", "off"):
         ap.error(f"--trace-level={args.trace_level!r} is not ported yet")
-    if args.aggregation not in PORTED_AGGREGATIONS:
-        ap.error(f"--aggregation={args.aggregation!r} is not ported yet "
-                 f"(ported: {PORTED_AGGREGATIONS})")
+    if args.wire not in PORTED_WIRES:
+        ap.error(f"--wire={args.wire!r} is not ported yet "
+                 f"(ported: {PORTED_WIRES})")
     return args
 
 
@@ -180,10 +187,11 @@ def main(argv=None) -> dict:
                                    n_classes=ds.n_classes, in_ch=3,
                                    width=8, image_size=16)
 
-    slr = {"fedsgd": 0.05}.get(args.aggregation, 1.0)
     cfg = FLConfig(n_clients=args.clients, k=args.k, mode=args.mode,
                    aggregation=args.aggregation, client_lr=0.05,
-                   server_lr=slr, seed=args.seed, speed_sigma=0.8,
+                   server_lr=SERVER_LR.get(args.aggregation, 1.0),
+                   seed=args.seed, speed_sigma=0.8,
+                   compress_updates=args.compress, wire=args.wire,
                    eval_every=args.eval_every,
                    server_channel=args.server_channel)
     eng = FLEngine(cfg, fn, ds.kind, p0, s0, shards, te.x[:400], te.y[:400],

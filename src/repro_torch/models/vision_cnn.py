@@ -17,6 +17,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -63,10 +65,12 @@ def cnn_apply(params: Params, state, x: torch.Tensor, train: bool):
     return h @ params["f2"] + params["b2"], state
 
 
-def build_paper_model(name: str, g: torch.Generator, *, device="cpu", **kw):
-    """Returns (params, state, apply_fn) for the paper's models."""
+def build_paper_model(name: str, g: torch.Generator, *, device="cuda",
+                      **kw):
+    """Returns (params, state, apply_fn) for the paper's models, the
+    params on ``device`` (the GPU unless the caller asks for the CPU)."""
     if name == "cnn":
-        p, s = cnn_init(g, device=device, **kw)
+        p, s = cnn_init(g, device=resolve_device(device), **kw)
         return p, s, cnn_apply
     if name in ("resnet18", "vgg16"):
         raise NotImplementedError(f"model {name!r} is not ported yet")

@@ -114,8 +114,8 @@ def test_streaming_equals_buffered_bitwise(setup):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("aggregation", "sdga"), ("aggregation", "fedasync"), ("wire", "q8"),
-    ("compress_updates", True), ("batch_clients", True), ("horizon", "queue"),
+    ("wire", "q4"), ("wire", "topk"), ("sched_timing", "lognormal"),
+    ("sched_policy", "uniform"), ("batch_clients", True), ("horizon", "queue"),
     ("fault_crash_p", 0.1), ("defense", "screen"), ("trace_level", "round")])
 def test_unported_settings_raise(setup, field, value):
     shards, te, p_j, _ = setup
@@ -170,10 +170,10 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
         assert t[k] == j[k], k
 
 
-@pytest.mark.parametrize("flag", [["--wire", "q8"], ["--compress"],
+@pytest.mark.parametrize("flag", [["--wire", "q4"], ["--wire", "topk"],
                                   ["--devices", "2"], ["--horizon", "queue"],
                                   ["--sched-timing", "markov"],
-                                  ["--aggregation", "sdga"],
+                                  ["--sched-policy", "seafl"],
                                   ["--model", "resnet18"],
                                   ["--trace-dir", "x"],
                                   ["--fault-crash-p", "0.1"]])

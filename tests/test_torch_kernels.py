@@ -1,5 +1,7 @@
 """The plain versions of the ported kernels against the reference's Pallas
-kernels (interpret mode) and its jnp oracles, on the CPU.
+kernels (interpret mode) and its jnp oracles, on the CPU: ``safl_fold``,
+``safl_aggregate``, ``sdga_aggregate`` and the q8 wire's
+``safl_fold_q8``, ``safl_aggregate_q8``, ``sdga_aggregate_q8``.
 
 Tolerance against the reference: ``rtol=1e-5, atol=1e-5``.  The plain
 versions reduce over K one row at a time; the reference's einsum may sum
@@ -116,3 +118,173 @@ def test_aggregate_rejects_bad_arguments():
         tk.safl_aggregate(u, w, discount="hinge")
     with pytest.raises(ValueError):
         tk.safl_aggregate(u, w, None, mode="fedsgd")
+
+
+# ---------------------------------------------------------------------------
+# sdga_aggregate and the q8 kernels
+# ---------------------------------------------------------------------------
+
+QB = 512
+DQ_RAGGED = -(-D_RAGGED // QB) * QB  # 2560: the quantized row length
+SDGA_KW = dict(server_lr=0.3, alpha=0.5, momentum=0.8, ema_anchor=0.05,
+               ema_decay=0.95)
+
+
+def _q8_rows(k, seed=0):
+    """k rows quantized on the q8 grid: (q int8 (k, Dq), scales (k, Dq/QB))
+    with the padding lanes of each row at zero."""
+    u, _, _ = _rows(k, D_RAGGED, seed)
+    x = np.zeros((k, DQ_RAGGED), np.float32)
+    x[:, :D_RAGGED] = u
+    q, s = jref.quantize_ref(x.reshape(-1, QB))
+    return (np.asarray(q).reshape(k, DQ_RAGGED),
+            np.asarray(s).reshape(k, DQ_RAGGED // QB))
+
+
+def _slow_state(seed):
+    rng = np.random.default_rng(seed + 100)
+    return tuple(rng.normal(size=(D_RAGGED,)).astype(np.float32)
+                 for _ in range(3))
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.array(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("discount", ["none", "poly"])
+def test_sdga_plain_matches_reference(discount, k):
+    u, _, rng = _rows(k, D_RAGGED, seed=20 + k)
+    w = _weights(rng, k, "avg", discount)
+    p, m, e = _slow_state(k)
+    want = jk.sdga_aggregate(u, w, p, m, e, interpret=True,
+                             discount=discount, **SDGA_KW)
+    got = tk.sdga_aggregate_plain(*_t(u, w, p, m, e), discount=discount,
+                                  **SDGA_KW)
+    wd = np.power(1.0 + w, np.float32(-0.5)) if discount == "poly" else w
+    oracle = jref.sdga_step_from_mean(
+        jref.weighted_avg_ref(u, wd), p, m, e, server_lr=0.3, momentum=0.8,
+        ema_anchor=0.05, ema_decay=0.95)
+    for g, wnt, orc in zip(got, want, oracle):
+        assert g.shape == (D_RAGGED,) and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(orc), **TOL)
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.625])
+def test_fold_q8_plain_matches_reference(beta):
+    q, s = _q8_rows(1, seed=3)
+    acc = np.random.default_rng(4).normal(size=DQ_RAGGED).astype(np.float32)
+    w = np.float32(0.37)
+    want = np.asarray(jk.safl_fold_q8(acc, q[0], s[0], w, beta, qblock=QB,
+                                      interpret=True))
+    oracle = np.asarray(jref.fold_q8_ref(acc, q[0], s[0], w, QB, beta))
+    got = tk.safl_fold_q8_plain(*_t(acc, q[0], s[0]), w, beta,
+                                qblock=QB).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, oracle, **TOL)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("discount", ["none", "poly"])
+@pytest.mark.parametrize("mode", ["fedsgd", "avg", "mix", "sum"])
+def test_aggregate_q8_plain_matches_reference(mode, discount, k):
+    q, s = _q8_rows(k, seed=30 + k)
+    _, p, rng = _rows(1, D_RAGGED, seed=40 + k)
+    w = _weights(rng, k, mode, discount)
+    needs_p = mode in ("fedsgd", "mix")
+    kw = dict(server_lr=0.3, mode=mode, alpha=0.5, discount=discount)
+    want = np.asarray(jk.safl_aggregate_q8(
+        q, s, w, p if needs_p else None, qblock=QB, interpret=True, **kw))
+    got = tk.safl_aggregate_q8_plain(
+        *_t(q, s, w), torch.from_numpy(p) if needs_p else None, qblock=QB,
+        **kw).numpy()
+    assert got.shape == ((D_RAGGED,) if needs_p else (DQ_RAGGED,))
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("discount", ["none", "poly"])
+def test_sdga_q8_plain_matches_reference(discount, k):
+    q, s = _q8_rows(k, seed=50 + k)
+    rng = np.random.default_rng(k)
+    w = _weights(rng, k, "avg", discount)
+    p, m, e = _slow_state(k + 7)
+    want = jk.sdga_aggregate_q8(q, s, w, p, m, e, qblock=QB, interpret=True,
+                                discount=discount, **SDGA_KW)
+    got = tk.sdga_aggregate_q8_plain(*_t(q, s, w, p, m, e), qblock=QB,
+                                     discount=discount, **SDGA_KW)
+    for g, wnt in zip(got, want):
+        assert g.shape == (D_RAGGED,)
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
+
+
+@pytest.mark.parametrize("wire", ["f32", "q8"])
+def test_folds_then_sdga_step_equal_sdga_aggregate_bitwise(wire):
+    """The port's streaming sdga (folds, then the step in PyTorch ops)
+    equals its buffered sdga (one aggregate) bit for bit."""
+    from repro_torch.kernels import ref as tref
+    k = 4
+    rng = np.random.default_rng(5)
+    w = rng.uniform(0.2, 1.0, k).astype(np.float32)
+    p, m, e = _t(*_slow_state(5))
+    if wire == "q8":
+        q, s = _t(*_q8_rows(k, seed=6))
+        acc = torch.zeros(DQ_RAGGED)
+        for i in range(k):
+            tk.safl_fold_q8(acc, q[i], s[i], w[i], qblock=QB, out=acc)
+        want = tk.sdga_aggregate_q8(q, s, torch.from_numpy(w), p, m, e,
+                                    qblock=QB, discount="none", **SDGA_KW)
+    else:
+        u = torch.from_numpy(_rows(k, D_RAGGED, seed=6)[0])
+        acc = torch.zeros(D_RAGGED)
+        for i in range(k):
+            tk.safl_fold(acc, u[i], w[i], out=acc)
+        want = tk.sdga_aggregate(u, torch.from_numpy(w), p, m, e,
+                                 discount="none", **SDGA_KW)
+    wsum = np.float32(0.0)
+    for x in w:
+        wsum = np.float32(wsum + x)
+    g = acc[:D_RAGGED] / torch.tensor(wsum)
+    got = tref.sdga_step_from_mean(g, p, m, e, server_lr=0.3, momentum=0.8,
+                                   ema_anchor=0.05, ema_decay=0.95)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_q8_fold_chain_equals_aggregate_bitwise():
+    q, s = _t(*_q8_rows(5, seed=8))
+    w = np.random.default_rng(8).uniform(0.5, 40.0, 5).astype(np.float32)
+    acc = torch.zeros(DQ_RAGGED)
+    for k in range(5):
+        tk.safl_fold_q8(acc, q[k], s[k], w[k], qblock=QB, out=acc)
+    agg = tk.safl_aggregate_q8(q, s, torch.from_numpy(w), mode="sum",
+                               qblock=QB)
+    assert torch.equal(acc, agg)
+
+
+def test_new_kernels_cpu_calls_are_plain_and_not_counted():
+    k = 3
+    q, s = _t(*_q8_rows(k, seed=9))
+    u = torch.from_numpy(_rows(k, D_RAGGED, seed=9)[0])
+    w = torch.from_numpy(np.float32([0.5, 1.5, 2.0]))
+    p, m, e = _t(*_slow_state(9))
+    before = {n: f.launches for n, f in tk.KERNELS.items()}
+    out = torch.zeros(DQ_RAGGED)
+    assert tk.safl_fold_q8(out, q[0], s[0], 0.5, 0.75, out=out) is out
+    assert torch.equal(out, tk.safl_fold_q8_plain(
+        torch.zeros(DQ_RAGGED), q[0], s[0], 0.5, 0.75))
+    for mode in tk.MODES:
+        assert torch.equal(
+            tk.safl_aggregate_q8(q, s, w, p, mode=mode, server_lr=0.3),
+            tk.safl_aggregate_q8_plain(q, s, w, p, mode=mode,
+                                       server_lr=0.3))
+    for a, b in zip(tk.sdga_aggregate(u, w, p, m, e, **SDGA_KW),
+                    tk.sdga_aggregate_plain(u, w, p, m, e, **SDGA_KW)):
+        assert torch.equal(a, b)
+    for a, b in zip(tk.sdga_aggregate_q8(q, s, w, p, m, e, **SDGA_KW),
+                    tk.sdga_aggregate_q8_plain(q, s, w, p, m, e,
+                                               **SDGA_KW)):
+        assert torch.equal(a, b)
+    assert {n: f.launches for n, f in tk.KERNELS.items()} == before
+    assert set(before.values()) == {0}

@@ -70,8 +70,9 @@ def test_streaming_matches_reference_and_buffered_bitwise(mode):
     acc = AccumBuffer(D, ts.fold_program, "cpu")
     for i in range(k):
         acc.fold((torch.from_numpy(buf[i]),), w=w[i])
-    tbank, wvec = acc.seal()
+    tbank, wvec, stats = acc.seal()
     np.testing.assert_array_equal(wvec, w)
+    assert (stats["count"], stats["pprod"]) == (k, np.float32(1.0))
     p0 = torch.from_numpy(params)
     snew, _, sm, zeroed = ts.finalize(p0, tbank, wvec, {})
     assert float(zeroed.abs().sum()) == 0.0
@@ -99,9 +100,14 @@ def test_traffic_and_staleness_poly_match_reference():
 
 
 def test_unported_modes_raise():
-    for mode in ("sdga", "fedbuff", "fedopt", "fedasync"):
-        with pytest.raises(NotImplementedError):
-            tagg.FlatServer(mode, D, server_lr=0.1)
+    """Every aggregation mode is ported; the q4 and topk wires are not,
+    and an unknown mode is refused."""
+    for wire in ("q4", "topk"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tagg.FlatServer("fedsgd", D, server_lr=0.1, wire=wire,
+                            device="cpu")
+    with pytest.raises(ValueError):
+        tagg.FlatServer("median", D, server_lr=0.1, device="cpu")
 
 
 def test_sum_in_order_is_sequential():
