@@ -10,27 +10,42 @@ Phases, each of which exits non-zero on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 is switched off for convolutions and matrix products
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``
-  3. each of the six kernels against its plain PyTorch version on the
-     card, at the main path's shapes (D = 2,154,730, Dq = 2,155,008,
-     K = 4) and at a ragged D = 4099 (Dq = 4608) with K = 3, in every
-     mode, discount and beta: bitwise, except the poly discount
-     (``powf``): ``rtol=1e-5, atol=1e-6``
+  3. each of the six aggregation kernels against its plain PyTorch
+     version on the card, at the main path's shapes (D = 2,154,730,
+     Dq = 2,155,008, K = 4) and at a ragged D = 4099 (Dq = 4608) with
+     K = 3, in every mode, discount and beta: bitwise, except the poly
+     discount (``powf``): ``rtol=1e-5, atol=1e-6``.  The two screens at
+     the same D and Dq with K = 1, 3 and 4, on clean, corrupted,
+     Byzantine and all-zero rows: isfinite verdicts exact, finite sums
+     within ``rtol=1e-5``, and each row's sum bitwise the same alone
+     (K = 1) as inside K = 4, and in two launches
   4. timings at the main path's shapes: median of CUDA-event-timed
      launches with the 50 MB L2 flushed before each, beside the bytes
      bound at 3.35 TB/s, the plain version and, where one exists, one
-     PyTorch library call computing the same function
+     PyTorch library call computing the same function (the screens at
+     K = 1, the path's shape, and K = 4)
   5. the engine on the card against the engine on the CPU at a small size
-     in AS, SS, AS-fedasync, SS-sdga, AS-q8 and SS-sdga-q8 (exact bytes
-     and schedule; params within ``rtol=1e-4, atol=1e-5`` on f32 and
-     within 2e-2 of the run's own movement on q8), and the server's
-     streaming channel against its buffered one at full width in all six
-     aggregation modes on both wires, bitwise
+     in AS, SS, AS-fedasync, SS-sdga, AS-q8, SS-sdga-q8 and, with faults
+     and the screen, AS-chaos-screen and AS-chaos-screen-q8 (exact bytes,
+     schedule and fault / defense counts; params within ``rtol=1e-4,
+     atol=1e-5`` on f32 and within 2e-2 of the run's own movement on
+     q8), and the server's streaming channel against its buffered one at
+     full width in all six aggregation modes on both wires, with clean
+     rows and with corrupted and Byzantine rows screened or clipped
+     (``FlatServer.screen`` -> ``defense_factors`` -> skip / fold at
+     w*fac against zeroed rows / facs in the weights), bitwise
   6. the main path at full width: the paper CNN (width 32, 32x32 images,
      D = 2,154,730) on synthetic CIFAR-10, 2000 samples, 16 clients,
-     k = 4, hetero-Dirichlet alpha 0.3, 5 rounds in each of 17 settings
+     k = 4, hetero-Dirichlet alpha 0.3, 5 rounds in each of 21 settings
      (the paper's AS, AA, SS, SA; AS and SS with fedbuff, fedasync,
-     fedopt and sdga; AS, AA, SS, SA and SS-sdga on the q8 wire), with
-     every launch counter reset before each setting and read after
+     fedopt and sdga; AS, AA, SS, SA and SS-sdga on the q8 wire; AS
+     under the fault mix with the screen on f32, q8 and the buffered
+     channel; AS-fedbuff with Byzantine uploads clipped), with every
+     launch counter reset before each setting and read after, each
+     setting's launches held to the counts it names, every drawn fault
+     kind fired, ``screened == corrupted`` under the screen,
+     ``clipped >= byzantine`` under clip, and finite params after every
+     round
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -57,44 +72,68 @@ QB = 512
 ROUNDS = 5
 TIMED_LAUNCHES = 60
 KERNELS = ("safl_fold", "safl_aggregate", "sdga_aggregate", "safl_fold_q8",
-           "safl_aggregate_q8", "sdga_aggregate_q8")
+           "safl_aggregate_q8", "sdga_aggregate_q8", "screen_rows",
+           "screen_rows_q8")
 REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_aggregate": "src/repro/kernels/safl_agg.py:136",
             "sdga_aggregate": "src/repro/kernels/safl_agg.py:323",
             "safl_fold_q8": "src/repro/kernels/safl_agg.py:257",
             "safl_aggregate_q8": "src/repro/kernels/safl_agg.py:420",
-            "sdga_aggregate_q8": "src/repro/kernels/safl_agg.py:488"}
+            "sdga_aggregate_q8": "src/repro/kernels/safl_agg.py:488",
+            "screen_rows": "src/repro/kernels/safl_agg.py:887",
+            "screen_rows_q8": "src/repro/kernels/safl_agg.py:918"}
 SOURCE = "src/repro_torch/kernels/csrc/safl_agg.cu"
 SDGA_KW = dict(server_lr=0.05, momentum=0.8, ema_anchor=0.05,
                ema_decay=0.95)
 AGGREGATIONS = ("fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync")
-#: phase 6: (name, paper setting, FLConfig overrides, the kernel that must
-#: carry the setting, its launches: "uploads" or a count); every other
-#: counter must stay 0
+FAULT_COUNTS = ("crashed_uploads", "corrupted_uploads", "byzantine_uploads",
+                "screened_uploads", "clipped_uploads")
+#: the fault mix of the fault settings; fault_seed 19 fires every kind
+#: within 5 rounds on phase 6's schedule (crash 1, straggler 4, corrupt 3,
+#: byzantine 2: the schedule depends on the seeds, clients and counters
+#: only, so it was read off the scheduler on the CPU)
+CHAOS = dict(fault_crash_p=0.1, fault_straggler_p=0.1, fault_corrupt_p=0.15,
+             fault_byzantine_p=0.05, fault_seed=19)
+FAULT_KINDS = {"fault_crash_p": "crash", "fault_straggler_p": "straggler",
+               "fault_corrupt_p": "corrupt", "fault_byzantine_p": "byzantine"}
+#: phase 6: (name, paper setting, FLConfig overrides, the launches each
+#: kernel must make: "uploads" (admitted uploads), "uploads-screened", or
+#: a count); every other counter must stay 0.  ``defense="clip"`` gets its
+#: norm cap from a first clean round (3x the median upload norm).
 MAIN_SETTINGS = (
-    ("AS", "AS", {}, "safl_fold", "uploads"),
-    ("AA", "AA", {}, "safl_fold", "uploads"),
-    ("SS", "SS", {}, "safl_aggregate", ROUNDS),
-    ("SA", "SA", {}, "safl_aggregate", ROUNDS),
-    ("AS-fedbuff", "AS", {"aggregation": "fedbuff"}, "safl_fold",
-     "uploads"),
-    ("AS-fedasync", "AS", {"aggregation": "fedasync"}, "safl_fold",
-     "uploads"),
-    ("AS-fedopt", "AS", {"aggregation": "fedopt"}, "safl_fold", "uploads"),
-    ("AS-sdga", "AS", {"aggregation": "sdga"}, "safl_fold", "uploads"),
-    ("SS-fedbuff", "SS", {"aggregation": "fedbuff"}, "safl_aggregate",
-     ROUNDS),
-    ("SS-fedopt", "SS", {"aggregation": "fedopt"}, "safl_aggregate",
-     ROUNDS),
-    ("SS-fedasync", "SS", {"aggregation": "fedasync"}, "safl_fold",
-     ROUNDS * K_MAIN),
-    ("SS-sdga", "SS", {"aggregation": "sdga"}, "sdga_aggregate", ROUNDS),
-    ("AS-q8", "AS", {"wire": "q8"}, "safl_fold_q8", "uploads"),
-    ("AA-q8", "AA", {"wire": "q8"}, "safl_fold_q8", "uploads"),
-    ("SS-q8", "SS", {"wire": "q8"}, "safl_aggregate_q8", ROUNDS),
-    ("SA-q8", "SA", {"wire": "q8"}, "safl_aggregate_q8", ROUNDS),
+    ("AS", "AS", {}, {"safl_fold": "uploads"}),
+    ("AA", "AA", {}, {"safl_fold": "uploads"}),
+    ("SS", "SS", {}, {"safl_aggregate": ROUNDS}),
+    ("SA", "SA", {}, {"safl_aggregate": ROUNDS}),
+    ("AS-fedbuff", "AS", {"aggregation": "fedbuff"},
+     {"safl_fold": "uploads"}),
+    ("AS-fedasync", "AS", {"aggregation": "fedasync"},
+     {"safl_fold": "uploads"}),
+    ("AS-fedopt", "AS", {"aggregation": "fedopt"}, {"safl_fold": "uploads"}),
+    ("AS-sdga", "AS", {"aggregation": "sdga"}, {"safl_fold": "uploads"}),
+    ("SS-fedbuff", "SS", {"aggregation": "fedbuff"},
+     {"safl_aggregate": ROUNDS}),
+    ("SS-fedopt", "SS", {"aggregation": "fedopt"},
+     {"safl_aggregate": ROUNDS}),
+    ("SS-fedasync", "SS", {"aggregation": "fedasync"},
+     {"safl_fold": ROUNDS * K_MAIN}),
+    ("SS-sdga", "SS", {"aggregation": "sdga"}, {"sdga_aggregate": ROUNDS}),
+    ("AS-q8", "AS", {"wire": "q8"}, {"safl_fold_q8": "uploads"}),
+    ("AA-q8", "AA", {"wire": "q8"}, {"safl_fold_q8": "uploads"}),
+    ("SS-q8", "SS", {"wire": "q8"}, {"safl_aggregate_q8": ROUNDS}),
+    ("SA-q8", "SA", {"wire": "q8"}, {"safl_aggregate_q8": ROUNDS}),
     ("SS-sdga-q8", "SS", {"wire": "q8", "aggregation": "sdga"},
-     "sdga_aggregate_q8", ROUNDS),
+     {"sdga_aggregate_q8": ROUNDS}),
+    ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen"),
+     {"screen_rows": "uploads", "safl_fold": "uploads-screened"}),
+    ("AS-chaos-screen-q8", "AS", dict(CHAOS, defense="screen", wire="q8"),
+     {"screen_rows_q8": "uploads", "safl_fold_q8": "uploads-screened"}),
+    ("AS-byz-clip", "AS", {"aggregation": "fedbuff", "fault_byzantine_p": 0.2,
+                           "defense": "clip"},
+     {"screen_rows": "uploads", "safl_fold": "uploads"}),
+    ("AS-chaos-screen-buffered", "AS",
+     dict(CHAOS, defense="screen", server_channel="buffered"),
+     {"screen_rows": "uploads", "safl_aggregate": ROUNDS}),
 )
 
 
@@ -224,6 +263,90 @@ def check_kernels(torch, k_mod, report):
     return worst
 
 
+def poisoned(payload, kind, loc=0.37):
+    """One upload's payload ((vec,) f32 or (q_row, s_row) q8) with a
+    corrupt or Byzantine fault applied as the engine applies it (a K = 1
+    stack through the port's appliers); ``kind`` None leaves it clean."""
+    from repro_torch import faults
+    if kind is None:
+        return payload
+    rows = tuple(a[None] for a in payload)
+    c, b = [kind == "corrupt"], [kind == "byzantine"]
+    if len(rows) == 2:
+        rows = faults.apply_faults_q(*rows, c, b, [loc], 10.0)
+    else:
+        rows = (faults.apply_faults_flat(rows[0], c, b, [loc], 10.0),)
+    return tuple(a[0] for a in rows)
+
+
+def compare_sums(torch, report, worst, kernel, got, want, **info):
+    """A screen against its plain version: isfinite verdicts exact, finite
+    sums within rtol=1e-5."""
+    fin = torch.isfinite(want)
+    verdicts = torch.equal(torch.isfinite(got), fin)
+    g, w = got[fin], want[fin]
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    rel = (float(((g - w).abs() / w.abs().clamp_min(1e-30)).max())
+           if g.numel() else 0.0)
+    ok = verdicts and (not g.numel()
+                       or torch.allclose(g, w, rtol=1e-5, atol=0.0))
+    report.append(dict(kernel=kernel, max_abs_err=err, max_rel_err=rel,
+                       verdicts_equal=verdicts,
+                       finite=fin.tolist(), **info))
+    desc = " ".join(f"{k}={v}" for k, v in info.items())
+    print(f"  {kernel:<18} {desc:<38} verdicts "
+          f"{'equal' if verdicts else 'DIFFER'} {fin.tolist()} "
+          f"max|err|={err:.3e} max rel={rel:.3e}  (tolerance: rtol=1e-5)")
+    if not ok:
+        fail(f"{kernel} {desc} differs from its plain version")
+    worst[kernel] = max(worst.get(kernel, 0.0), err)
+
+
+def check_screens(torch, k_mod, report, worst):
+    """Both screens at the main path's and the ragged shape on K = 4 rows
+    (clean, corrupted, Byzantine, all zero), the first three of them, and
+    each alone: against the plain versions, and each row's sum bitwise
+    the same alone as in the stack and in a second launch."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    kinds = (None, "corrupt", "byzantine", None)
+    for d in (D_FULL, D_RAGGED):
+        u = torch.randn((4, d), device="cuda", generator=g)
+        q, s = q8_rows(torch, 4, d, g)
+        for i, kind in enumerate(kinds):
+            u[i], = poisoned((u[i],), kind)
+            q[i], s[i] = poisoned((q[i], s[i]), kind)
+        u[3].zero_()
+        q[3].zero_()
+        for name, args, plain, kw in (
+                ("screen_rows", (u,), k_mod.screen_rows_plain, {}),
+                ("screen_rows_q8", (q, s), k_mod.screen_rows_q8_plain,
+                 {"qblock": QB})):
+            fn = k_mod.KERNELS[name]
+            full = fn(*args, **kw)
+            again = fn(*args, **kw)
+            lanes = dict(d=d) if name == "screen_rows" else dict(dq=dq_of(d))
+            for k in (4, 3):
+                rows = tuple(a[:k] for a in args)
+                compare_sums(torch, report, worst, name, fn(*rows, **kw),
+                             plain(*rows, **kw), k=k, **lanes)
+            alone = torch.cat([fn(*(a[i:i + 1] for a in args), **kw)
+                               for i in range(4)])
+            compare_sums(torch, report, worst, name, alone,
+                         plain(*args, **kw), k=1, **lanes)
+            same = (torch.equal(alone.view(torch.int32),
+                                full.view(torch.int32))
+                    and torch.equal(again.view(torch.int32),
+                                    full.view(torch.int32)))
+            print(f"  {name:<18} {lanes}: K=1 rows vs K=4 stack and two "
+                  f"launches: {'bitwise equal' if same else 'DIFFER'}")
+            report.append(dict(kernel=name, row_independent_bitwise=same,
+                               **lanes))
+            if not same:
+                fail(f"{name} {lanes}: a row's sum depends on the stack or "
+                     "the launch")
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
@@ -328,6 +451,24 @@ def time_kernels(torch, k_mod):
                                                          e, **kw)),
         library_ms=None, bytes=k * dq + k * nb * 4 + 6 * d * 4,
         ops=3 * k * d + 10 * d, shape=f"K={k} Dq={dq}")
+    # the screens at K = 1 (one upload, the path's shape) and K = 4; the
+    # q8 screen's library column is "none": no PyTorch call fuses the
+    # dequantize into the reduction
+    for kk, sfx in ((1, ""), (k, "_k4")):
+        rows = u[:kk]
+        out["screen_rows" + sfx] = dict(
+            ms=t(lambda: k_mod.screen_rows(rows)),
+            plain_ms=t(lambda: k_mod.screen_rows_plain(rows)),
+            library_ms=t(lambda: torch.linalg.vecdot(rows, rows, dim=1)),
+            bytes=kk * d * 4 + kk * 4, ops=2 * kk * d,
+            shape=f"K={kk} D={d}")
+        qr, sr = q[:kk], s[:kk]
+        out["screen_rows_q8" + sfx] = dict(
+            ms=t(lambda: k_mod.screen_rows_q8(qr, sr, qblock=QB)),
+            plain_ms=t(lambda: k_mod.screen_rows_q8_plain(qr, sr,
+                                                          qblock=QB)),
+            library_ms=None, bytes=kk * dq + kk * nb * 4 + kk * 4,
+            ops=2 * kk * dq + 3 * kk * nb, shape=f"K={kk} Dq={dq}")
     for name, r in out.items():
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         o_ms = r["ops"] / F32_FLOPS * 1e3
@@ -389,7 +530,10 @@ def check_engine_small(torch):
             ("AS-fedasync", "AS", {"aggregation": "fedasync"}),
             ("SS-sdga", "SS", {"aggregation": "sdga"}),
             ("AS-q8", "AS", {"wire": "q8"}),
-            ("SS-sdga-q8", "SS", {"wire": "q8", "aggregation": "sdga"})):
+            ("SS-sdga-q8", "SS", {"wire": "q8", "aggregation": "sdga"}),
+            ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen")),
+            ("AS-chaos-screen-q8", "AS",
+             dict(CHAOS, defense="screen", wire="q8"))):
         res = {}
         for dev in ("cpu", "cuda"):
             eng = build_engine(torch, setup, setting, dev, **kw)
@@ -397,7 +541,10 @@ def check_engine_small(torch):
             r = eng.run(3)
             res[dev] = (eng, r)
         (ec, rc), (eg, rg) = res["cpu"], res["cuda"]
-        same_host = (ec.tx_bytes == eg.tx_bytes
+        counts = {key: (rc.sched_stats[key], rg.sched_stats[key])
+                  for key in FAULT_COUNTS}
+        same_host = (all(a == b for a, b in counts.values())
+                     and ec.tx_bytes == eg.tx_bytes
                      and ec.rx_bytes == eg.rx_bytes
                      and rc.staleness_hist == rg.staleness_hist
                      and list(rc.participation) == list(rg.participation)
@@ -414,11 +561,14 @@ def check_engine_small(torch):
         else:
             close = torch.allclose(pg, pc, rtol=1e-4, atol=1e-5)
             tol = "rtol=1e-4, atol=1e-5"
-        print(f"  {name} card vs CPU, 3 rounds: bytes/schedule "
-              f"{'equal' if same_host else 'DIFFER'}, params max|err|="
-              f"{err:.3e} ({tol})")
+        print(f"  {name} card vs CPU, 3 rounds: bytes/schedule/fault "
+              f"counts {'equal' if same_host else 'DIFFER'}, params "
+              f"max|err|={err:.3e} ({tol})")
+        if kw.get("defense"):
+            print("      (cpu, card) " + "  ".join(
+                f"{key.split('_')[0]} {v}" for key, v in counts.items()))
         rows.append(dict(setting=name, host_equal=same_host,
-                         params_max_abs_err=err))
+                         params_max_abs_err=err, fault_counts=counts))
         if not (same_host and close):
             fail(f"{name}: engine on the card disagrees with the CPU")
     return rows
@@ -428,71 +578,106 @@ def check_channels(torch):
     """The server's streaming channel (K folds + finalize) against its
     buffered channel (K row writes + one aggregate) on the card, at full
     width, in every aggregation mode on both wires, for two rounds (so
-    sdga's and fedopt's slow state is carried): bitwise, since the
-    kernels and the PyTorch ops of the finalize round the same operations
-    in the same order.  (Two engine runs on the card are not compared:
-    cuDNN's convolution gradients are not bitwise repeatable.)"""
+    sdga's and fedopt's slow state is carried): with clean rows, and with
+    row 1 corrupted and row 2 Byzantine under each defense (each row
+    screened alone through ``FlatServer.screen`` -> ``defense_factors``;
+    streaming: skip a factor-0 row, else fold at w*fac; buffered: zero a
+    factor-0 row's payload (the q8 scales), weights times the factors;
+    the clip cap 3x the median clean norm).  Bitwise, since the kernels
+    and the PyTorch ops of the finalize round the same operations in the
+    same order.  (Two engine runs on the card are not compared: cuDNN's
+    convolution gradients are not bitwise repeatable.)"""
     import numpy as np
 
     from repro_torch.core.aggregation import FlatServer
     from repro_torch.core.flatbuf import (AccumBuffer, QuantBuffer,
                                           alloc_buffer, write_slot)
+    from repro_torch.faults import defense_factors
     from repro_torch.launch.fl_sim import SERVER_LR
     g = torch.Generator(device="cuda").manual_seed(2)
     rng = np.random.default_rng(2)
+    kinds = (None, "corrupt", "byzantine", None)
     rows_out = []
     for wire in ("f32", "q8"):
         for mode in AGGREGATIONS:
-            srv = FlatServer(mode, D_FULL, server_lr=SERVER_LR.get(mode, 1.0),
-                             wire=wire, device="cuda")
-            p = torch.randn((D_FULL,), device="cuda", generator=g)
-            ps, pb = p, p
-            os_, ob = srv.init_opt(p), srv.init_opt(p)
-            for _ in range(2):
-                tau = rng.integers(0, 5, K_MAIN).astype(np.float32)
-                w = {"fedsgd": np.ones(K_MAIN, np.float32),
-                     "fedavg": np.float32([113, 58, 241, 77]),
-                     "fedasync": np.asarray(
-                         0.6 * np.power(tau + 1.0, -np.float32(0.5)),
-                         np.float32)}.get(mode, np.asarray(
-                             np.power(tau + 1.0, -np.float32(0.5)),
-                             np.float32))
-                acc = AccumBuffer(srv.bank_width, srv.fold_program, "cuda")
-                if wire == "q8":
-                    q, s = q8_rows(torch, K_MAIN, D_FULL, g)
-                    buf = QuantBuffer(K_MAIN, D_FULL, QB, device="cuda")
-                    payloads = [(q[i], s[i]) for i in range(K_MAIN)]
-                else:
-                    u = 0.1 * torch.randn((K_MAIN, D_FULL), device="cuda",
-                                          generator=g)
-                    buf = alloc_buffer(K_MAIN, D_FULL, "cuda")
-                    payloads = [(u[i],) for i in range(K_MAIN)]
-                for i, pl in enumerate(payloads):
-                    beta = (np.float32(1.0) - w[i] if mode == "fedasync"
-                            else 1.0)
-                    acc.fold(pl, w=w[i], beta=beta)
+            for defense in ("none", "screen", "clip"):
+                srv = FlatServer(mode, D_FULL,
+                                 server_lr=SERVER_LR.get(mode, 1.0),
+                                 wire=wire, device="cuda")
+                p = torch.randn((D_FULL,), device="cuda", generator=g)
+                ps, pb = p, p
+                os_, ob = srv.init_opt(p), srv.init_opt(p)
+                facs_seen = []
+                for _ in range(2):
+                    tau = rng.integers(0, 5, K_MAIN).astype(np.float32)
+                    w = {"fedsgd": np.ones(K_MAIN, np.float32),
+                         "fedavg": np.float32([113, 58, 241, 77]),
+                         "fedasync": np.asarray(
+                             0.6 * np.power(tau + 1.0, -np.float32(0.5)),
+                             np.float32)}.get(mode, np.asarray(
+                                 np.power(tau + 1.0, -np.float32(0.5)),
+                                 np.float32))
+                    acc = AccumBuffer(srv.bank_width, srv.fold_program,
+                                      "cuda")
                     if wire == "q8":
-                        buf.write(*pl, i)
+                        q, s = q8_rows(torch, K_MAIN, D_FULL, g)
+                        buf = QuantBuffer(K_MAIN, D_FULL, QB, device="cuda")
+                        payloads = [(q[i], s[i]) for i in range(K_MAIN)]
                     else:
-                        write_slot(buf, pl[0], i)
-                bank, wvec, stats = acc.seal()
-                ps, os_, _, _ = srv.finalize(ps, bank, wvec, os_,
-                                             pprod=stats["pprod"])
-                pb, ob, _ = srv.step(
-                    pb, buf.views if wire == "q8" else buf, w, ob)
-            exact = torch.equal(ps, pb) and all(
-                os_[key] == ob[key] if key == "step"
-                else torch.equal(os_[key], ob[key]) for key in ob)
-            err = float((ps - pb).abs().max())
-            print(f"  {mode:<8} {wire}: streaming vs buffered channel, "
-                  f"D={D_FULL} K={K_MAIN}, 2 rounds: "
-                  f"{'bitwise equal' if exact else 'DIFFER'} "
-                  f"(max|err|={err:.3e}, slow state {sorted(ob)})")
-            rows_out.append(dict(mode=mode, wire=wire, bitwise=exact,
-                                 max_abs_err=err))
-            if not exact:
-                fail(f"{mode}/{wire}: streaming channel differs from the "
-                     "buffered one")
+                        u = 0.1 * torch.randn((K_MAIN, D_FULL),
+                                              device="cuda", generator=g)
+                        buf = alloc_buffer(K_MAIN, D_FULL, "cuda")
+                        payloads = [(u[i],) for i in range(K_MAIN)]
+                    facs = np.ones(K_MAIN, np.float32)
+                    if defense != "none":
+                        payloads = [poisoned(pl, kind)
+                                    for pl, kind in zip(payloads, kinds)]
+                        sums = np.concatenate(
+                            [srv.screen(tuple(a[None] for a in pl))
+                             .cpu().numpy() for pl in payloads])
+                        clean = np.sqrt(sums[[0, 3]])
+                        cap = (float(3.0 * np.median(clean))
+                               if defense == "clip" else 0.0)
+                        facs = np.concatenate([defense_factors(
+                            sums[i:i + 1], defense, cap)[0]
+                            for i in range(K_MAIN)])
+                        facs_seen.append(facs.tolist())
+                    for i, pl in enumerate(payloads):
+                        if facs[i] == np.float32(0.0):
+                            acc.skip()
+                            pl = pl[:-1] + (torch.zeros_like(pl[-1]),)
+                        else:
+                            wi = np.float32(w[i] * facs[i])
+                            beta = (np.float32(1.0) - wi
+                                    if mode == "fedasync" else 1.0)
+                            acc.fold(pl, w=wi, beta=beta)
+                        if wire == "q8":
+                            buf.write(*pl, i)
+                        else:
+                            write_slot(buf, pl[0], i)
+                    bank, wvec, stats = acc.seal()
+                    ps, os_, _, _ = srv.finalize(ps, bank, wvec, os_,
+                                                 pprod=stats["pprod"])
+                    pb, ob, _ = srv.step(
+                        pb, buf.views if wire == "q8" else buf, w * facs,
+                        ob)
+                exact = torch.equal(ps, pb) and all(
+                    os_[key] == ob[key] if key == "step"
+                    else torch.equal(os_[key], ob[key]) for key in ob)
+                finite = bool(torch.isfinite(ps).all())
+                err = float((ps - pb).abs().max())
+                print(f"  {mode:<8} {wire} defense={defense:<6}: streaming "
+                      f"vs buffered channel, D={D_FULL} K={K_MAIN}, 2 "
+                      f"rounds: {'bitwise equal' if exact else 'DIFFER'} "
+                      f"(max|err|={err:.3e}, slow state {sorted(ob)}"
+                      + (f", factors {facs_seen}" if facs_seen else "")
+                      + ")")
+                rows_out.append(dict(mode=mode, wire=wire, defense=defense,
+                                     bitwise=exact, max_abs_err=err,
+                                     factors=facs_seen))
+                if not (exact and finite):
+                    fail(f"{mode}/{wire}/{defense}: streaming channel "
+                         "differs from the buffered one or is not finite")
     return rows_out
 
 
@@ -512,11 +697,47 @@ def timed(torch, eng, method, bucket, acc):
     setattr(eng, method, wrapper)
 
 
+def clean_clip_cap(torch, setup, setting, kw):
+    """defense_norm_cap for a clip setting: 3x the median upload norm of
+    a first clean round (the setting without its faults, screened for
+    integrity only)."""
+    import numpy as np
+    clean = {k: v for k, v in kw.items()
+             if not k.startswith("fault_") and k != "defense"}
+    eng = build_engine(torch, setup, setting, "cuda", defense="screen",
+                       **clean)
+    norms, inner = [], eng._server.screen
+
+    def screen(payload):
+        out = inner(payload)
+        norms.extend(torch.sqrt(out).tolist())
+        return out
+
+    eng._server.screen = screen
+    eng.run(1)
+    cap = float(3.0 * np.median(norms))
+    print(f"      clip cap {cap:.4f} = 3 x median of the first clean "
+          f"round's upload norms {[round(n, 4) for n in norms]}")
+    return cap
+
+
+def expected_launches(spec, uploads, screened):
+    """A setting's launch counts: every kernel 0 except those it names."""
+    out = dict.fromkeys(KERNELS, 0)
+    for name, want in spec.items():
+        out[name] = {"uploads": uploads,
+                     "uploads-screened": uploads - screened}.get(want, want)
+    return out
+
+
 def run_main_path(torch, k_mod):
     setup = make_setup(width=32, hw=32, samples=2000, clients=16)
     rows = []
     launches = dict.fromkeys(KERNELS, 0)
-    for name, setting, kw, kernel, want in MAIN_SETTINGS:
+    for name, setting, kw, spec in MAIN_SETTINGS:
+        if kw.get("defense") == "clip":
+            kw = dict(kw, defense_norm_cap=clean_clip_cap(torch, setup,
+                                                          setting, kw))
         eng = build_engine(torch, setup, setting, "cuda", **kw)
         if eng.codec.d != D_FULL:
             fail(f"full-width CNN has D={eng.codec.d}, expected {D_FULL}")
@@ -526,6 +747,26 @@ def run_main_path(torch, k_mod):
         timed(torch, eng, "_enqueue_upload", "server_ingest", split)
         timed(torch, eng, "_aggregate", "server_round", split)
         timed(torch, eng, "_eval_and_record", "eval", split)
+        # finite global params after every round, checked outside the
+        # timed span; the fault kinds the plan draws, tallied
+        finite, drawn = [], {}
+        agg = eng._aggregate
+
+        def aggregate(*a, _agg=agg, _eng=eng, _finite=finite):
+            out = _agg(*a)
+            _finite.append(bool(torch.isfinite(_eng._flat_params).all()))
+            return out
+
+        eng._aggregate = aggregate
+        if eng.sched.faults is not None:
+            draw = eng.sched.faults.draw
+
+            def tally(cid, _draw=draw, _drawn=drawn):
+                f = _draw(cid)
+                _drawn[f.kind] = _drawn.get(f.kind, 0) + 1
+                return f
+
+            eng.sched.faults.draw = tally
         for f in k_mod.KERNELS.values():
             f.launches = 0
         torch.cuda.synchronize()
@@ -535,27 +776,44 @@ def run_main_path(torch, k_mod):
         wall = time.perf_counter() - t0
         counts = {n: f.launches for n, f in k_mod.KERNELS.items()}
         uploads = int(res.participation.sum())
+        st = res.sched_stats
+        faults = {key.split("_")[0]: st[key] for key in FAULT_COUNTS}
         recs = res.metrics.records
         acc = [round(r.accuracy, 4) for r in recs]
         print(f"  {name}: acc/round {acc}  tx_bytes={eng.tx_bytes} "
               f"rx_bytes={eng.rx_bytes}  uploads={uploads}  launches "
               + " ".join(f"{n}={c}" for n, c in counts.items() if c))
+        if drawn:
+            print(f"      faults drawn {drawn}; counts {faults}")
         print(f"      wall {wall:.3f} s: " + "  ".join(
             f"{k} {v:.3f} s" for k, v in split.items()))
         rows.append(dict(setting=name, accuracy=acc,
                          loss=[r.loss for r in recs],
                          tx_bytes=eng.tx_bytes, rx_bytes=eng.rx_bytes,
                          uploads=uploads, launches=counts, wall_s=wall,
-                         split_s=split,
+                         split_s=split, faults_drawn=drawn,
+                         fault_counts=faults,
+                         defense_norm_cap=kw.get("defense_norm_cap", 0.0),
                          staleness_hist=res.staleness_hist))
         if len(recs) != ROUNDS or any(r.nan_event for r in recs):
             fail(f"{name}: non-finite eval loss or missing rounds")
-        if not bool(torch.isfinite(eng._flat_params).all()):
-            fail(f"{name}: non-finite global parameters")
-        expected = dict.fromkeys(KERNELS, 0)
-        expected[kernel] = uploads if want == "uploads" else want
-        if counts[kernel] == 0 or counts != expected:
+        if len(finite) != ROUNDS or not all(finite):
+            fail(f"{name}: non-finite global parameters after a round "
+                 f"({finite})")
+        expected = expected_launches(spec, uploads, st["screened_uploads"])
+        if counts != expected or not all(counts[n] for n in spec):
             fail(f"{name}: launches {counts}, expected {expected}")
+        for field, kind in FAULT_KINDS.items():
+            if kw.get(field) and not drawn.get(kind):
+                fail(f"{name}: no {kind} fault was drawn ({drawn})")
+        if kw.get("defense") == "screen" and \
+                st["screened_uploads"] != st["corrupted_uploads"]:
+            fail(f"{name}: screened {st['screened_uploads']} != corrupted "
+                 f"{st['corrupted_uploads']} under the screen with cap 0")
+        if kw.get("defense") == "clip" and \
+                st["clipped_uploads"] < st["byzantine_uploads"]:
+            fail(f"{name}: clipped {st['clipped_uploads']} < byzantine "
+                 f"{st['byzantine_uploads']}")
         for n, c in counts.items():
             launches[n] += c
     return rows, launches
@@ -589,6 +847,7 @@ def main() -> None:
     print("== phase 3: kernels against their plain versions")
     check_rows = []
     worst = check_kernels(torch, k_mod, check_rows)
+    check_screens(torch, k_mod, check_rows, worst)
 
     print("== phase 4: timings (L2 flushed before each launch)")
     timing = time_kernels(torch, k_mod)

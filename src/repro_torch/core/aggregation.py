@@ -24,6 +24,11 @@ Two channels:
     ``safl_fold_q8``), then one finalize from the bank's sum and the
     host's ingest weights (the reference's ``_from_sums``).
 
+``screen`` is the defense's per-row sum of squares of the wire payload
+(:func:`~repro_torch.kernels.safl_agg.screen_rows`, ``screen_rows_q8``
+on q8), whose ``isfinite`` is the integrity verdict and ``sqrt`` the
+norm.
+
 The engine always hands over the FINAL per-upload weights
 (discount-at-ingest, ``external_discount=True, fedasync_rates=True`` in
 the reference), so the kernels run with ``discount="none"``.  The two
@@ -42,6 +47,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import BLOCK as QBLOCK
 from repro_torch.kernels.safl_agg import (safl_aggregate, safl_aggregate_q8,
                                           safl_fold, safl_fold_q8,
+                                          screen_rows, screen_rows_q8,
                                           sdga_aggregate, sdga_aggregate_q8)
 
 # The reference FlatServer's defaults, which its engine never overrides:
@@ -145,6 +151,16 @@ class FlatServer:
         """Lanes of the streaming bank: Dq on q8 (folds dequantize onto
         the padded grid), D on f32."""
         return self.dq if self.wire == "q8" else self.d
+
+    def screen(self, payload) -> torch.Tensor:
+        """(K,) f32 sums of squares of the K payload rows, on the wire's
+        own format (``payload`` = ``(rows,)`` f32 (K, D), or ``(q,
+        scales)`` q8).  The sums are row-independent, so a row screened
+        alone (K = 1, every upload of the sequential engine) and inside a
+        stack get the same value bitwise."""
+        if self.wire == "q8":
+            return screen_rows_q8(*payload, qblock=self.qblock)
+        return screen_rows(*payload)
 
     def init_opt(self, params_flat: torch.Tensor) -> Dict:
         """Mode-matched slow state: sdga's zero momentum and an EMA that

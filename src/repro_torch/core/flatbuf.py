@@ -166,6 +166,15 @@ class AccumBuffer:
         self._pprod = np.float32(self._pprod * np.float32(beta))
         self.count += 1
 
+    def skip(self) -> None:
+        """Count a screened upload without touching the bank: an exact 0.0
+        ingest weight keeps ``wvec`` as long as the buffered channel's
+        weight vector, so the finalize sums the same weights in the same
+        order (adding 0.0 is exact).  Folding with weight 0 instead would
+        still poison the bank: 0 x NaN is NaN."""
+        self._w.append(np.float32(0.0))
+        self.count += 1
+
     def seal(self):
         """Close the horizon: returns ``(bank, wvec, stats)``, ``wvec`` the
         np.float32 ingest weights in arrival order and ``stats`` the

@@ -21,6 +21,17 @@ client adopts the newest global model at its next upload boundary,
 otherwise it continues training its local one, so uploads carry
 staleness tau = t_now - t_client_version.
 
+Faults and defense (semi-async only, as in the reference): the
+scheduler's counter-keyed fault plan crashes uploads (the client resyncs
+and retries after a backoff) and stretches stragglers; a corrupt or
+Byzantine draw poisons the serialized payload after the error-feedback
+residual update (:mod:`repro_torch.faults.payload`).  With ``defense``
+on, each upload is screened as it lands (``FlatServer.screen``, the
+``screen_rows`` / ``screen_rows_q8`` kernel, then
+:func:`repro_torch.faults.defense_factors`): a screened row is skipped
+by the streaming channel and zeroed on the buffered one, a clipped row
+keeps its payload at a reduced weight.
+
 This is the reference's sequential per-upload engine (its parity oracle),
 with its host arithmetic copied exactly: np.float32 weight vectors, the
 simulated-time model, the byte envelopes, the ``rng.choice`` of the sync
@@ -39,6 +50,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import faults as faultsmod
 from repro_torch import sched as schedmod
 from repro_torch.core import flatbuf
 from repro_torch.core.aggregation import FlatServer
@@ -89,11 +101,6 @@ class FLEngine:
         "batch_clients": (False,),
         "devices": (1,),
         "mesh_shape": (None,),
-        "fault_crash_p": (0.0,),
-        "fault_straggler_p": (0.0,),
-        "fault_corrupt_p": (0.0,),
-        "fault_byzantine_p": (0.0,),
-        "defense": ("none",),
         "trace_level": ("off",),
     }
 
@@ -188,6 +195,13 @@ class FLEngine:
                              else "buffered")
         self._streaming = self._channel == "streaming"
         self._horizon_target = fl_cfg.k
+        # defense layer (none | screen | clip) and the fault / defense
+        # counts of the run
+        self._defense = fl_cfg.defense
+        self.screened_uploads = 0
+        self.clipped_uploads = 0
+        self.corrupted_uploads = 0
+        self.byzantine_uploads = 0
         self._accum = None
         self._buf = None
         self._qbuf = None
@@ -274,27 +288,74 @@ class FLEngine:
             c.params, w_end, cfg.client_lr, self._residual(c.cid))
         return q, s
 
+    def _apply_payload_fault(self, payload: tuple, fault) -> tuple:
+        """A corrupt / byzantine draw applied to one upload's payload,
+        lifted to the appliers' K = 1 stack and back.  Untouched lanes
+        come back bitwise."""
+        corrupt = [fault.kind == "corrupt"]
+        byz = [fault.kind == "byzantine"]
+        self.corrupted_uploads += corrupt[0]
+        self.byzantine_uploads += byz[0]
+        rows = tuple(a[None] for a in payload)
+        resc = self.cfg.fault_byzantine_rescale
+        if self._quant:
+            rows = faultsmod.apply_faults_q(*rows, corrupt, byz, [fault.loc],
+                                            resc)
+        else:
+            rows = (faultsmod.apply_faults_flat(rows[0], corrupt, byz,
+                                                [fault.loc], resc),)
+        return tuple(a[0] for a in rows)
+
+    def _screen_factor(self, payload: tuple) -> np.float32:
+        """The defense's weight factor of one upload: the server's sum of
+        squares over the payload screened as a K = 1 stack (one host
+        fetch), then the host's screen / clip composition."""
+        sumsq = self._server.screen(tuple(a[None] for a in payload))
+        fac, ns, ncl = faultsmod.defense_factors(
+            sumsq.cpu().numpy(), self._defense, self.cfg.defense_norm_cap)
+        self.screened_uploads += ns
+        self.clipped_uploads += ncl
+        return fac[0]
+
     def _enqueue_upload(self, buffer: List[Dict], c: ClientState,
-                        w_end, s_end, staleness: int) -> None:
+                        w_end, s_end, staleness: int, fault=None) -> None:
         """Serialize one upload.  Streaming channel: fold it into the
         running O(D) sum with its FINAL weight (discount-at-ingest) and,
         for fedasync, its survival factor beta = 1 - a_i.  Buffered
         channel: write it into the next free row.  Must run before
         ``c.params`` is refreshed (gradient targets diff against the
-        client's round-start weights)."""
+        client's round-start weights).  ``fault`` is a corrupt / byzantine
+        draw applied to the serialized payload; with a defense on, the
+        row is screened before it touches the channel: a row with factor
+        0 is skipped (streaming) or zeroed (buffered: the f32 row, or the
+        q8 scales, since a zero scale dequantizes any int8 row to 0)."""
         cfg = self.cfg
         entry: Dict = {"staleness": staleness, "cid": c.cid,
                        "n": c.n_samples}
         payload = self._payload(c, w_end)
+        if fault is not None:
+            payload = self._apply_payload_fault(payload, fault)
+        fac = None
+        if self._defense != "none":
+            fac = entry["fac"] = self._screen_factor(payload)
+        dropped = fac is not None and fac == np.float32(0.0)
         if self._streaming:
-            w = self._weight_vector([staleness], [c.n_samples])[0]
-            beta = (np.float32(1.0) - w
-                    if cfg.aggregation == "fedasync" else 1.0)
-            self._accum.fold(payload, w=w, beta=beta)
-        elif self._quant:
-            self._qbuf.write(*payload, len(buffer))
+            if dropped:
+                self._accum.skip()
+            else:
+                w = self._weight_vector([staleness], [c.n_samples])[0]
+                if fac is not None:
+                    w = np.float32(w * fac)
+                beta = (np.float32(1.0) - w
+                        if cfg.aggregation == "fedasync" else 1.0)
+                self._accum.fold(payload, w=w, beta=beta)
         else:
-            flatbuf.write_slot(self._buf, payload[0], len(buffer))
+            if dropped:
+                payload = payload[:-1] + (torch.zeros_like(payload[-1]),)
+            if self._quant:
+                self._qbuf.write(*payload, len(buffer))
+            else:
+                flatbuf.write_slot(self._buf, payload[0], len(buffer))
         entry["state"] = s_end
         self.tx_bytes += self._upload_nbytes()
         buffer.append(entry)
@@ -334,11 +395,16 @@ class FLEngine:
         self.rx_bytes += int((self._params_bytes + self._state_bytes)
                              * len(self.clients))
 
-    def _server_round(self, staleness: Sequence[int],
-                      sizes: Sequence[int]) -> Dict:
-        """Buffered-channel round: one aggregate kernel over the rows."""
+    def _server_round(self, staleness: Sequence[int], sizes: Sequence[int],
+                      facs: Optional[Sequence[np.float32]] = None) -> Dict:
+        """Buffered-channel round: one aggregate kernel over the rows.
+        ``facs`` are the defense's per-row factors, multiplied into the
+        weights in f32 as the streaming channel does per upload, so both
+        channels reduce the same final weights."""
         self._record_staleness(staleness)
         w = self._weight_vector(staleness, sizes)
+        if facs is not None:
+            w = w * np.asarray(facs, np.float32)
         buf = self._qbuf.views if self._quant else self._buf
         self._flat_params, self._opt, m = self._server.step(
             self._flat_params, buf, w, self._opt)
@@ -365,7 +431,9 @@ class FLEngine:
         if self._streaming:
             m = self._server_round_streaming(stal)
         else:
-            m = self._server_round(stal, [b["n"] for b in buffer])
+            facs = ([b["fac"] for b in buffer]
+                    if self._defense != "none" else None)
+            m = self._server_round(stal, [b["n"] for b in buffer], facs)
         self.global_params = self.codec.unravel(self._flat_params)
         self._last_update_norm = m["update_norm"]
         return m
@@ -384,7 +452,9 @@ class FLEngine:
             mean_staleness=float(np.mean(stale_vals)) if stale_vals else 0.0,
             max_staleness=int(max(stale_vals)) if stale_vals else 0,
             nan_event=not np.isfinite(loss),
-            update_norm=float(self._last_update_norm))
+            update_norm=float(self._last_update_norm),
+            screened_uploads=self.screened_uploads,
+            clipped_uploads=self.clipped_uploads)
 
     # ------------------------------------------------------------------
     def run(self, n_rounds: int, log_every: int = 0) -> FLResult:
@@ -394,10 +464,10 @@ class FLEngine:
             self._run_semi_async(n_rounds, log_every)
         stats = self.sched.stats()
         stats["staleness_bins"] = np.zeros(_STALE_BINS, np.int64)
-        stats["screened_uploads"] = 0
-        stats["clipped_uploads"] = 0
-        stats["corrupted_uploads"] = 0
-        stats["byzantine_uploads"] = 0
+        stats["screened_uploads"] = self.screened_uploads
+        stats["clipped_uploads"] = self.clipped_uploads
+        stats["corrupted_uploads"] = self.corrupted_uploads
+        stats["byzantine_uploads"] = self.byzantine_uploads
         return FLResult(self.metrics, self.global_params,
                         self.staleness_hist, self.idle_time,
                         participation=self.sched.participation.copy(),
@@ -436,7 +506,7 @@ class FLEngine:
     def _run_semi_async(self, n_rounds: int, log_every: int) -> None:
         """Per-upload loop over the scheduler's event stream (every pop
         schedules the client's successor event; the full policy admits
-        every upload)."""
+        every upload the fault plan does not crash)."""
         self.sched.resume()
         buffer: List[Dict] = []
         now = 0.0
@@ -445,8 +515,16 @@ class FLEngine:
             if ev is None:
                 break
             now, c = ev.time, self.clients[ev.cid]
+            if not ev.admitted:
+                # a crash: the upload is lost, the rebooted client
+                # discards its local progress and resyncs
+                c.params, c.model_state = (self.global_params,
+                                           self.global_state)
+                c.version = self.t_global
+                continue
             w_end, s_end, _ = self._run_local(c)
-            self._enqueue_upload(buffer, c, w_end, s_end, ev.staleness)
+            self._enqueue_upload(buffer, c, w_end, s_end, ev.staleness,
+                                 fault=ev.fault)
             # client-side refresh (paper §2.2.2): adopt the newest global
             # model if one arrived since this client's version, else
             # continue local

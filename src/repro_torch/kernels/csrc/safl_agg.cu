@@ -17,6 +17,12 @@
 //                        (replaces safl_agg.py sdga_aggregate)
 //   sdga_aggregate_q8    the same over int8 rows (replaces safl_agg.py
 //                        sdga_aggregate_q8)
+//   screen_rows_f32      per-row sum of squares of (K, D) f32 rows, the
+//                        defense's integrity + norm pass (replaces
+//                        safl_agg.py screen_rows)
+//   screen_rows_q8       the same over (K, Dq) int8 rows + scales,
+//                        sum_b s_b^2 * sum_{j in b} q_j^2 (replaces
+//                        safl_agg.py screen_rows_q8)
 //
 // All are pure bandwidth: a handful of flops per element against 1 (int8)
 // or 4 (f32) bytes moved per operand.  The design is one coalesced
@@ -26,6 +32,17 @@
 // sum sit in shared memory.  The int8 rows are dequantized in registers as
 // (float)q * scale[lane >> qshift] (qblock = 1 << qshift), then weighted,
 // as the Pallas bodies do (_dequant_tile): f32 updates never touch memory.
+//
+// The screening reductions are bound by the same bytes (one read of the
+// rows) but are launch-bound at the engine's K = 1.  They must be
+// deterministic and row-independent: a row's sum is bitwise the same
+// whether it is screened alone or stacked, and in every launch.  So no
+// float atomics: each row is cut into a fixed number of chunks that
+// depends on its length only, each chunk reduced by one block in a fixed
+// tree (strided per-thread sums, warp shuffles, then the warp sums in
+// order) into a (K, chunks) scratch, and a second launch sums each row's
+// partials in the same fixed tree.  NaN and Inf propagate: no fast math,
+// no fmaxf, no lane is skipped.
 //
 // Floating-point order is part of the contract: every product and sum goes
 // through the _rn intrinsics, which nvcc never contracts into an FMA, so
@@ -202,6 +219,113 @@ __global__ void sdga_kernel(Rows rows, const float* __restrict__ w_in,
   }
 }
 
+// ---- defense screening: per-row sum of squares ----
+
+constexpr int kWarps = kThreads / 32;
+// f32 lanes per chunk of a row (32 per thread).  Keep in step with
+// SCREEN_CHUNK in kernels/safl_agg.py, which sizes the scratch.
+constexpr int64_t kScreenChunk = 8192;
+// q8 quantization blocks per warp, and per chunk (one block of threads).
+// Keep in step with SCREEN_QBLOCKS in kernels/safl_agg.py.
+constexpr int kQBlocksPerWarp = 4;
+constexpr int64_t kScreenQBlocks = kWarps * kQBlocksPerWarp;
+
+__device__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, off));
+  }
+  return v;  // lane 0 holds the warp's sum
+}
+
+// Thread 0 gets the block's sum of one value per thread: a shuffle tree
+// in each warp, then the same tree over the warp sums (padded with 0).
+__device__ float block_sum(float v, float* smem) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (warp == 0) s = warp_sum(lane < kWarps ? smem[lane] : 0.f);
+  return s;
+}
+
+// Block (c, row): the sum of squares of lanes [c*chunk, (c+1)*chunk) of
+// the row, masked at the ragged end.
+__global__ void screen_partial_f32(const float* __restrict__ u,
+                                   float* __restrict__ part, int64_t d,
+                                   int64_t chunks) {
+  __shared__ float smem[kWarps];
+  const int64_t c = blockIdx.x;
+  const int64_t row = blockIdx.y;
+  const float* r = u + row * d;
+  const int64_t lo = c * kScreenChunk;
+  const int64_t hi = lo + kScreenChunk < d ? lo + kScreenChunk : d;
+  float s = 0.f;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
+    const float x = r[i];
+    s = __fadd_rn(s, __fmul_rn(x, x));
+  }
+  s = block_sum(s, smem);
+  if (threadIdx.x == 0) part[row * chunks + c] = s;
+}
+
+// Block (c, row): warp w takes the kQBlocksPerWarp quantization blocks
+// b = (c*kWarps + w)*kQBlocksPerWarp + j in order.  sum q^2 over a block
+// is an int32 sum (exact and order-free: 512 * 128^2 < 2^24 converts to
+// f32 exactly), then (q2 * s) * s in f32 as the reference's oracle
+// forms it; thread 0 sums the warps' terms in warp order.  An Inf scale
+// gives Inf (or 0 * Inf = NaN over an all-zero block): non-finite.
+__global__ void screen_partial_q8(const int8_t* __restrict__ q,
+                                  const float* __restrict__ s,
+                                  float* __restrict__ part, int64_t dq,
+                                  int64_t nb, int qshift, int64_t chunks) {
+  __shared__ float smem[kWarps];
+  const int64_t c = blockIdx.x;
+  const int64_t row = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t qblock = int64_t{1} << qshift;
+  const int8_t* qr = q + row * dq;
+  const float* sr = s + row * nb;
+  float acc = 0.f;
+  for (int j = 0; j < kQBlocksPerWarp; ++j) {
+    const int64_t b = (c * kWarps + warp) * kQBlocksPerWarp + j;
+    if (b >= nb) break;  // uniform across the warp
+    int q2 = 0;
+    for (int64_t i = lane; i < qblock; i += 32) {
+      const int v = qr[(b << qshift) + i];
+      q2 += v * v;
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      q2 += __shfl_xor_sync(0xffffffffu, q2, off);
+    }
+    const float sb = sr[b];
+    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(static_cast<float>(q2), sb), sb));
+  }
+  if (lane == 0) smem[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w) t = __fadd_rn(t, smem[w]);
+    part[row * chunks + c] = t;
+  }
+}
+
+// Block row: out[row] = the sum of the row's partials, strided per thread
+// in index order, then block_sum.
+__global__ void screen_finish(const float* __restrict__ part,
+                              float* __restrict__ out, int64_t chunks) {
+  __shared__ float smem[kWarps];
+  const int64_t row = blockIdx.x;
+  float s = 0.f;
+  for (int64_t i = threadIdx.x; i < chunks; i += kThreads) {
+    s = __fadd_rn(s, part[row * chunks + i]);
+  }
+  s = block_sum(s, smem);
+  if (threadIdx.x == 0) out[row] = s;
+}
+
 inline size_t weights_smem(int64_t k) {
   return static_cast<size_t>(k + 1) * sizeof(float);
 }
@@ -305,6 +429,43 @@ int sdga_aggregate_q8(const void* q, const void* scales, const void* w,
       static_cast<float*>(op), static_cast<float*>(om),
       static_cast<float*>(oe), k, d, lr, alpha, mu, anchor, decay, omd,
       poly);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The screens return -1 when the caller's scratch has another number of
+// chunks per row than the kernels' constants give (it sizes nothing
+// then), else cudaGetLastError() after the two launches.
+int screen_rows_f32(const void* u, void* part, void* out, int64_t k,
+                    int64_t d, int64_t chunks, void* stream) {
+  if (chunks != (d + kScreenChunk - 1) / kScreenChunk) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  screen_partial_f32<<<dim3(static_cast<unsigned>(chunks),
+                            static_cast<unsigned>(k)),
+                       kThreads, 0, s>>>(static_cast<const float*>(u),
+                                         static_cast<float*>(part), d,
+                                         chunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  screen_finish<<<static_cast<unsigned>(k), kThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int screen_rows_q8(const void* q, const void* scales, void* part, void* out,
+                   int64_t k, int64_t dq, int qshift, int64_t chunks,
+                   void* stream) {
+  const int64_t nb = dq >> qshift;
+  if (chunks != (nb + kScreenQBlocks - 1) / kScreenQBlocks) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  screen_partial_q8<<<dim3(static_cast<unsigned>(chunks),
+                           static_cast<unsigned>(k)),
+                      kThreads, 0, s>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(part), dq, nb, qshift, chunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  screen_finish<<<static_cast<unsigned>(k), kThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

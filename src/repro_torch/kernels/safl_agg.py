@@ -15,6 +15,12 @@ its plain PyTorch version.
     (the SDGA round in one pass: mean, momentum, step, EMA anchor).
   * :func:`sdga_aggregate_q8` replaces ``safl_agg.py:488
     sdga_aggregate_q8`` (the same over int8 rows).
+  * :func:`screen_rows` replaces ``safl_agg.py:887 screen_rows`` (the
+    defense's per-row sum of squares, once per semi-async upload with
+    ``defense`` on: ``isfinite`` of it is the integrity verdict, its
+    square root the norm).
+  * :func:`screen_rows_q8` replaces ``safl_agg.py:918 screen_rows_q8``
+    (the same over int8 rows, dequantize fused blockwise).
 
 Routing: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel (``csrc/safl_agg.cu``, built at first use
@@ -31,7 +37,10 @@ that are never contracted into an FMA, and the plain versions below do
 the same operations in the same order, so kernel and plain version agree
 bitwise (the polynomial discount's ``powf`` excepted), and a chain of
 folds followed by the server step in PyTorch ops equals one aggregate
-bitwise.
+bitwise.  The screens are reductions over a row: they sum in a fixed
+tree that depends on the row length only (see ``csrc/safl_agg.cu``), so
+a row's sum is bitwise the same alone or stacked and in every launch,
+and within ``rtol=1e-5`` of the plain versions' ``torch.sum``.
 """
 from __future__ import annotations
 
@@ -50,6 +59,11 @@ MODES = {"fedsgd": 0, "avg": 1, "mix": 2, "sum": 3}
 #: most rows the aggregate kernels take: their K weights live in one
 #: block's shared memory (48 KB without an opt-in)
 MAX_K = 4096
+#: f32 lanes per chunk of a screened row, and q8 quantization blocks per
+#: chunk: the kernels' kScreenChunk and kScreenQBlocks, which size the
+#: (K, chunks) scratch of partial sums
+SCREEN_CHUNK = 8192
+SCREEN_QBLOCKS = 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,6 +83,8 @@ def _lib() -> ctypes.CDLL:
                                f, f, i32, p],
         "sdga_aggregate_q8": [p, p, p, p, p, p, p, p, p, i64, i64, i64, f, f,
                               f, f, f, f, i32, i32, p],
+        "screen_rows_f32": [p, p, p, i64, i64, i64, p],
+        "screen_rows_q8": [p, p, p, p, i64, i64, i32, i64, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -495,7 +511,97 @@ def sdga_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
 
 sdga_aggregate_q8.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# defense screening: per-row sum of squares
+# ---------------------------------------------------------------------------
+
+
+def _per_row(fn, *rows: torch.Tensor) -> torch.Tensor:
+    """``fn`` over (1, n) slices, one row at a time: PyTorch sums a (K, n)
+    tensor in another order than a (1, n) one once n is large, and a
+    row's sum must not depend on the stack."""
+    return torch.cat([fn(*(r[i:i + 1] for r in rows))
+                      for i in range(rows[0].shape[0])])
+
+
+def screen_rows_plain(rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`screen_rows` (any device), the reference
+    oracle's op order: ``(u*u).sum(1)``, row by row."""
+    def sumsq(r):
+        r = r.to(torch.float32)
+        return (r * r).sum(dim=1)
+    return _per_row(sumsq, rows)
+
+
+def screen_rows(rows: torch.Tensor) -> torch.Tensor:
+    """rows (K, D) f32 -> (K,) f32 sums of squares.  NaN/Inf lanes make a
+    row's sum non-finite.  Replaces ``repro/kernels/safl_agg.py:887
+    screen_rows``.  Bound: K*D*4 bytes read."""
+    if not _on_cuda(rows, "screen_rows"):
+        return screen_rows_plain(rows)
+    if rows.dim() != 2:
+        raise ValueError(f"rows: expected (K, D), got {tuple(rows.shape)}")
+    k, d = rows.shape
+    if not 1 <= k <= MAX_K or d < 1:
+        raise ValueError(f"rows: shape {(k, d)} outside [1, {MAX_K}] x "
+                         "[1, ...)")
+    _check("rows", rows, (k, d), rows.device)
+    chunks = -(-d // SCREEN_CHUNK)
+    part = torch.empty((k, chunks), dtype=torch.float32, device=rows.device)
+    out = torch.empty(k, dtype=torch.float32, device=rows.device)
+    rc = _lib().screen_rows_f32(rows.data_ptr(), part.data_ptr(),
+                                out.data_ptr(), k, d, chunks, _stream(rows))
+    _raise_on(rc, "screen_rows")
+    screen_rows.launches += 1
+    return out
+
+
+screen_rows.launches = 0
+
+
+def screen_rows_q8_plain(q: torch.Tensor, scales: torch.Tensor, *,
+                         qblock: int = BLOCK) -> torch.Tensor:
+    """Plain version of :func:`screen_rows_q8` (any device), the reference
+    oracle's blockwise form: ``q2_b = sum q^2`` over each block in int32,
+    then ``sum_b (q2_b * s_b) * s_b`` in f32, row by row."""
+    dq, nb = q.shape[1], scales.shape[1]
+    if dq != nb * qblock:
+        raise ValueError(f"Dq={dq} is not {nb} blocks of {qblock}")
+
+    def sumsq(qr, sr):
+        qi = qr.to(torch.int32)
+        q2 = (qi * qi).view(1, nb, qblock).sum(dim=2, dtype=torch.int32)
+        return (q2.to(torch.float32) * sr * sr).sum(dim=1)
+    return _per_row(sumsq, q, scales)
+
+
+def screen_rows_q8(q: torch.Tensor, scales: torch.Tensor, *,
+                   qblock: int = BLOCK) -> torch.Tensor:
+    """q (K, Dq) int8 rows with scales (K, Dq/qblock) -> (K,) f32 sums of
+    squares of the dequantized rows, ``sum_b s_b^2 * sum_{j in b} q_j^2``
+    without forming the f32 row.  An Inf scale makes a row's sum
+    non-finite.  Replaces ``repro/kernels/safl_agg.py:918
+    screen_rows_q8``.  Bound: K*Dq + K*Dq/qblock*4 bytes read."""
+    if not _on_cuda(q, "screen_rows_q8"):
+        return screen_rows_q8_plain(q, scales, qblock=qblock)
+    qshift = _qshift(qblock)
+    k, dq = _check_q8(q, scales, qblock)
+    chunks = -(-(dq // qblock) // SCREEN_QBLOCKS)
+    part = torch.empty((k, chunks), dtype=torch.float32, device=q.device)
+    out = torch.empty(k, dtype=torch.float32, device=q.device)
+    rc = _lib().screen_rows_q8(q.data_ptr(), scales.data_ptr(),
+                               part.data_ptr(), out.data_ptr(), k, dq,
+                               qshift, chunks, _stream(q))
+    _raise_on(rc, "screen_rows_q8")
+    screen_rows_q8.launches += 1
+    return out
+
+
+screen_rows_q8.launches = 0
+
 #: every kernel wrapper of this module, by name (each has ``.launches``)
 KERNELS = {f.__name__: f for f in (safl_fold, safl_fold_q8, safl_aggregate,
                                    safl_aggregate_q8, sdga_aggregate,
-                                   sdga_aggregate_q8)}
+                                   sdga_aggregate_q8, screen_rows,
+                                   screen_rows_q8)}

@@ -9,9 +9,11 @@ The reference launcher's flags and ``--json-out`` schema, plus
 run is the sequential engine, which is what the reference runs with
 ``--sequential``.  Every ``--aggregation`` of the study runs (fedsgd,
 fedavg, fedbuff, fedasync, fedopt, sdga), on the f32 wire or ``--wire
-q8`` (``--compress`` is its legacy alias).  Flags for parts not ported
-yet (the q4 and topk wires among them) are refused with a "not ported
-yet" error when given anything but their default.
+q8`` (``--compress`` is its legacy alias), with fault injection
+(``--fault-*``, semi-async only) and the server defense (``--defense
+screen|clip``, ``--defense-norm-cap``).  Flags for parts not ported yet
+(the q4 and topk wires among them) are refused with a "not ported yet"
+error when given anything but their default.
 """
 from __future__ import annotations
 
@@ -38,9 +40,7 @@ NOT_PORTED = {
     "horizon_queue": 0, "horizon_timeout_s": 0.0, "sched_policy": "full",
     "sched_rate_limit": 0, "sched_c": 0, "sched_stale_cap": 4,
     "sched_jitter_sigma": 0.25, "sched_drop_p": 0.1, "sched_seed": 0,
-    "fault_crash_p": 0.0, "fault_straggler_p": 0.0, "fault_corrupt_p": 0.0,
-    "fault_byzantine_p": 0.0, "fault_seed": 7, "defense": "none",
-    "defense_norm_cap": 0.0, "ckpt_dir": "", "ckpt_every": 0,
+    "ckpt_dir": "", "ckpt_every": 0,
     "resume": False, "trace_dir": "", "trace_jax": False,
 }
 PORTED_WIRES = ("f32", "q8")
@@ -128,14 +128,29 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sched-jitter-sigma", type=float, default=0.25)
     ap.add_argument("--sched-drop-p", type=float, default=0.1)
     ap.add_argument("--sched-seed", type=int, default=0)
-    ap.add_argument("--fault-crash-p", type=float, default=0.0)
-    ap.add_argument("--fault-straggler-p", type=float, default=0.0)
-    ap.add_argument("--fault-corrupt-p", type=float, default=0.0)
-    ap.add_argument("--fault-byzantine-p", type=float, default=0.0)
-    ap.add_argument("--fault-seed", type=int, default=7)
+    ap.add_argument("--fault-crash-p", type=float, default=0.0,
+                    help="P(an upload is lost and its client crashes; it "
+                         "resyncs and retries after a backoff)")
+    ap.add_argument("--fault-straggler-p", type=float, default=0.0,
+                    help="P(the client's next period is the config's "
+                         "fault_straggler_mult x slower)")
+    ap.add_argument("--fault-corrupt-p", type=float, default=0.0,
+                    help="P(NaN/Inf lanes, or flipped int8 bytes and an "
+                         "Inf scale, in the upload)")
+    ap.add_argument("--fault-byzantine-p", type=float, default=0.0,
+                    help="P(the upload is sign-flipped and rescaled by "
+                         "the config's fault_byzantine_rescale)")
+    ap.add_argument("--fault-seed", type=int, default=7,
+                    help="seed of the counter-keyed fault schedule")
     ap.add_argument("--defense", default="none",
-                    choices=["none", "screen", "clip"])
-    ap.add_argument("--defense-norm-cap", type=float, default=0.0)
+                    choices=["none", "screen", "clip"],
+                    help="server-side defense: screen drops non-finite "
+                         "(and, with a cap, over-norm) uploads; clip drops "
+                         "non-finite ones and down-weights over-norm ones "
+                         "to the cap")
+    ap.add_argument("--defense-norm-cap", type=float, default=0.0,
+                    help="L2 norm cap of the defense (0 with screen: "
+                         "integrity only)")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
@@ -193,7 +208,13 @@ def main(argv=None) -> dict:
                    seed=args.seed, speed_sigma=0.8,
                    compress_updates=args.compress, wire=args.wire,
                    eval_every=args.eval_every,
-                   server_channel=args.server_channel)
+                   server_channel=args.server_channel,
+                   fault_crash_p=args.fault_crash_p,
+                   fault_straggler_p=args.fault_straggler_p,
+                   fault_corrupt_p=args.fault_corrupt_p,
+                   fault_byzantine_p=args.fault_byzantine_p,
+                   fault_seed=args.fault_seed, defense=args.defense,
+                   defense_norm_cap=args.defense_norm_cap)
     eng = FLEngine(cfg, fn, ds.kind, p0, s0, shards, te.x[:400], te.y[:400],
                    device=device)
     res = eng.run(args.rounds, log_every=max(args.rounds // 10, 1))
@@ -212,6 +233,11 @@ def main(argv=None) -> dict:
     print(f"# device: {device}  sched[{ss['policy']}/{ss['timing']}] "
           f"participation per client: {ss['participation']}")
     print(f"# staleness hist: {ss['staleness_hist']}")
+    print(f"# faults: crashed {ss['crashed_uploads']}  corrupted "
+          f"{ss['corrupted_uploads']}  byzantine "
+          f"{ss['byzantine_uploads']}  defense[{args.defense}]: "
+          f"screened {ss['screened_uploads']}  clipped "
+          f"{ss['clipped_uploads']}")
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(summary, f, indent=1)

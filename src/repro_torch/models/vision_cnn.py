@@ -27,11 +27,14 @@ def _he_normal(g: torch.Generator, shape, fan_in: int) -> torch.Tensor:
 
 
 def cnn_init(g: torch.Generator, *, in_ch=3, n_classes=10, image_size=32,
-             width=32, device="cpu"):
+             width=32, device="cuda"):
     """He-normal init like the reference's ``_conv_init``/``_dense_init``,
-    drawn from ``g`` on the CPU (so a seed gives the same weights on any
-    device).  It cannot reproduce ``jax.random``: tests carry reference
-    weights across with :func:`repro_torch.convert.params_from_jax`."""
+    drawn from ``g`` on the CPU and moved to ``device`` (the GPU unless
+    the caller asks for the CPU; no GPU raises), so a seed gives the same
+    weights on any device.  It cannot reproduce ``jax.random``: tests
+    carry reference weights across with
+    :func:`repro_torch.convert.params_from_jax`."""
+    device = resolve_device(device)
     c1, c2, c3 = width, width * 2, width * 2
     feat = (image_size // 2) ** 2 * c3
     params = {
@@ -70,7 +73,7 @@ def build_paper_model(name: str, g: torch.Generator, *, device="cuda",
     """Returns (params, state, apply_fn) for the paper's models, the
     params on ``device`` (the GPU unless the caller asks for the CPU)."""
     if name == "cnn":
-        p, s = cnn_init(g, device=resolve_device(device), **kw)
+        p, s = cnn_init(g, device=device, **kw)
         return p, s, cnn_apply
     if name in ("resnet18", "vgg16"):
         raise NotImplementedError(f"model {name!r} is not ported yet")

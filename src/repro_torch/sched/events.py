@@ -5,8 +5,9 @@ Entries are ``(time, cid, kind, compute_s)``:
 
   * ``kind`` distinguishes UPLOAD events (a client finishes an upload
     period and contacts the server) from WAKE events (a client that went
-    offline under the Markov availability model rejoins and restarts
-    training) — the heap itself stays policy- and timing-agnostic;
+    offline under the Markov availability model, or crashed under the
+    fault plan, rejoins and restarts training) — the heap itself stays
+    policy- and timing-agnostic;
   * ``compute_s`` records the *compute* portion of the interval that
     produced the event (the part proportional to ``1 / ClientState.speed``),
     so a heap persisted across ``run()`` calls stays correct when client
@@ -25,7 +26,7 @@ from typing import List, Optional, Tuple
 
 # event kinds
 UPLOAD = 0  # the client finished an upload period and contacts the server
-WAKE = 1  # an offline client rejoins (Markov availability model)
+WAKE = 1  # an offline or crashed client rejoins and restarts training
 
 Entry = Tuple[float, int, int, float]  # (time, cid, kind, compute_s)
 

@@ -5,8 +5,8 @@ Only :class:`StaticTiming` is ported: the reference's deterministic model
 ``n_samples * local_epochs / (rate * speed) + comm_time``, with the small
 ``ClientState.rng`` uniform jitter on the very first event so clients do
 not all fire at t=0.  It needs no counter-keyed PRNG.  The lognormal and
-Markov models draw from ``jax.random`` in the reference and wait for a
-port of that generator.
+Markov models draw normals from ``jax.random`` in the reference and wait
+for ``normal`` in :mod:`repro_torch.prng`.
 """
 from __future__ import annotations
 
@@ -40,6 +40,11 @@ class StaticTiming:
     def after_upload(self, c, now: float) -> Entry:
         comp = self._compute(c)
         return (now + comp + c.comm_time, UPLOAD, comp)
+
+    def after_wake(self, c, now: float) -> Entry:
+        """The next training period of a client back from a WAKE (a crash
+        reboot): the same as after an upload."""
+        return self.after_upload(c, now)
 
     def sync_duration(self, c) -> float:
         """One SFL round's duration contribution for an active client."""

@@ -116,7 +116,8 @@ def test_streaming_equals_buffered_bitwise(setup):
 @pytest.mark.parametrize("field,value", [
     ("wire", "q4"), ("wire", "topk"), ("sched_timing", "lognormal"),
     ("sched_policy", "uniform"), ("batch_clients", True), ("horizon", "queue"),
-    ("fault_crash_p", 0.1), ("defense", "screen"), ("trace_level", "round")])
+    ("mesh_shape", (1, 1)), ("sched_policy", "seafl"),
+    ("trace_level", "round")])
 def test_unported_settings_raise(setup, field, value):
     shards, te, p_j, _ = setup
     p = params_from_jax(jax.tree_util.tree_map(np.asarray, p_j), "cpu")
@@ -176,7 +177,7 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
                                   ["--sched-policy", "seafl"],
                                   ["--model", "resnet18"],
                                   ["--trace-dir", "x"],
-                                  ["--fault-crash-p", "0.1"]])
+                                  ["--ckpt-every", "5"]])
 def test_fl_sim_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         tfl_sim.parse_args(flag)

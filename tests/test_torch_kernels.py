@@ -1,7 +1,10 @@
 """The plain versions of the ported kernels against the reference's Pallas
 kernels (interpret mode) and its jnp oracles, on the CPU: ``safl_fold``,
-``safl_aggregate``, ``sdga_aggregate`` and the q8 wire's
-``safl_fold_q8``, ``safl_aggregate_q8``, ``sdga_aggregate_q8``.
+``safl_aggregate``, ``sdga_aggregate``, the q8 wire's
+``safl_fold_q8``, ``safl_aggregate_q8``, ``sdga_aggregate_q8``, and the
+defense's ``screen_rows`` and ``screen_rows_q8`` (on clean, corrupted,
+Byzantine and all-zero rows: sums within ``rtol=1e-5``, since
+``torch.sum`` and XLA sum in other orders; the isfinite verdicts exact).
 
 Tolerance against the reference: ``rtol=1e-5, atol=1e-5``.  The plain
 versions reduce over K one row at a time; the reference's einsum may sum
@@ -18,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro import faults as jfaults  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels import safl_agg as jk  # noqa: E402
 from repro_torch.kernels import safl_agg as tk  # noqa: E402
@@ -288,3 +292,98 @@ def test_new_kernels_cpu_calls_are_plain_and_not_counted():
         assert torch.equal(a, b)
     assert {n: f.launches for n, f in tk.KERNELS.items()} == before
     assert set(before.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# screen_rows and screen_rows_q8 (the defense's sums of squares)
+# ---------------------------------------------------------------------------
+
+POISONS = ("clean", "corrupt", "byzantine", "zero")
+
+
+def _poison_masks(k, poison):
+    corrupt = [poison == "corrupt" and i % 2 == 0 for i in range(k)]
+    byz = [poison == "byzantine" and i % 2 == 1 for i in range(k)]
+    locs = np.linspace(0.05, 0.95, k).astype(np.float32)
+    return corrupt, byz, locs
+
+
+def _screen_inputs(k, poison, seed):
+    """K f32 rows and their q8 (q, scales), poisoned by the reference's
+    appliers (corrupt: NaN/Inf lanes, or flipped bytes and an Inf scale;
+    byzantine: x -10), or all zero."""
+    u, _, _ = _rows(k, D_RAGGED, seed)
+    q, s = _q8_rows(k, seed)
+    if poison == "zero":
+        return np.zeros_like(u), np.zeros_like(q), np.zeros_like(s)
+    corrupt, byz, locs = _poison_masks(k, poison)
+    u = np.asarray(jfaults.apply_faults_flat(u, corrupt, byz, locs, 10.0))
+    q, s = jfaults.apply_faults_q(q, s, corrupt, byz, locs, 10.0)
+    return u, np.asarray(q), np.asarray(s)
+
+
+def _assert_sums(got, *wants):
+    for want in wants:
+        want = np.asarray(want)
+        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5)
+
+
+@pytest.mark.parametrize("poison", POISONS)
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_screen_plain_matches_reference(k, poison):
+    """Against the reference's oracles and its Pallas kernels (interpret
+    mode): sums within rtol=1e-5, isfinite verdicts exact; each row alone
+    equals the same row in the stack bitwise."""
+    u, q, s = _screen_inputs(k, poison, seed=30 + k)
+    got = tk.screen_rows_plain(*_t(u)).numpy()
+    _assert_sums(got, jref.screen_sumsq_ref(u),
+                 jk.screen_rows(u, interpret=True))
+    got_q = tk.screen_rows_q8_plain(*_t(q, s), qblock=QB).numpy()
+    _assert_sums(got_q, jref.screen_sumsq_q8_ref(q, s, QB),
+                 jk.screen_rows_q8(q, s, qblock=QB, interpret=True))
+    assert got.dtype == got_q.dtype == np.float32 and got.shape == (k,)
+    if poison == "corrupt":
+        assert not np.isfinite(got[0]) and not np.isfinite(got_q[0])
+    if poison == "zero":
+        assert not got.any() and not got_q.any()
+    for i in range(k):
+        alone = tk.screen_rows(*_t(u[i:i + 1])).numpy()
+        alone_q = tk.screen_rows_q8(*_t(q[i:i + 1], s[i:i + 1]),
+                                    qblock=QB).numpy()
+        np.testing.assert_array_equal(alone.view(np.int32),
+                                      got[i:i + 1].view(np.int32))
+        np.testing.assert_array_equal(alone_q.view(np.int32),
+                                      got_q[i:i + 1].view(np.int32))
+
+
+def test_screen_q8_block_sums_are_exact():
+    """sum q^2 over a 512-lane block is exact in int32 and in f32: the
+    largest, 512 * 128^2 (flipped bytes reach -128), is below 2^24."""
+    q = np.full((1, QB), -128, np.int8)
+    s = np.ones((1, 1), np.float32)
+    assert float(tk.screen_rows_q8(*_t(q, s), qblock=QB)[0]) == \
+        float(QB * 128 ** 2)
+
+
+def test_screen_cpu_calls_are_plain_and_not_counted():
+    u, q, s = _screen_inputs(3, "corrupt", seed=40)
+    before = {n: f.launches for n, f in tk.KERNELS.items()}
+    # bit patterns: the corrupt rows' sums are NaN
+    a, b = tk.screen_rows(*_t(u)), tk.screen_rows_plain(*_t(u))
+    np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                  b.numpy().view(np.int32))
+    a = tk.screen_rows_q8(*_t(q, s), qblock=QB)
+    b = tk.screen_rows_q8_plain(*_t(q, s), qblock=QB)
+    np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                  b.numpy().view(np.int32))
+    assert {n: f.launches for n, f in tk.KERNELS.items()} == before
+    assert before["screen_rows"] == before["screen_rows_q8"] == 0
+    assert {"screen_rows", "screen_rows_q8"} <= set(tk.KERNELS)
+
+
+def test_screen_q8_plain_rejects_a_ragged_row():
+    q = torch.zeros((2, 700), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        tk.screen_rows_q8_plain(q, torch.ones(2, 1), qblock=QB)

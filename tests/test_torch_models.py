@@ -73,7 +73,7 @@ def test_codec_ravel_exact(setup):
 def test_full_width_layout():
     """The flat row of the full-width CNN: sorted-key leaf order and
     D = 2,154,730, as the reference's codec gives it."""
-    p, _ = tcnn.cnn_init(torch.Generator().manual_seed(0))
+    p, _ = tcnn.cnn_init(torch.Generator().manual_seed(0), device="cpu")
     codec = PytreeCodec(p)
     assert codec.keys == [
         "b1", "b2", "c1", "c2", "c3", "f1", "f2"]
@@ -86,8 +86,8 @@ def test_full_width_layout():
 
 def test_init_is_seeded_he_normal():
     g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
-    a, _ = tcnn.cnn_init(g1, width=4, image_size=8)
-    b, _ = tcnn.cnn_init(g2, width=4, image_size=8)
+    a, _ = tcnn.cnn_init(g1, width=4, image_size=8, device="cpu")
+    b, _ = tcnn.cnn_init(g2, width=4, image_size=8, device="cpu")
     for k in a:
         assert torch.equal(a[k], b[k])
     assert float(a["b1"].abs().sum()) == 0.0

@@ -292,6 +292,8 @@ def test_cuda_default_without_gpu_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcnn.build_paper_model("cnn", torch.Generator(), width=4,
                                image_size=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcnn.cnn_init(torch.Generator(), width=4, image_size=8)
 
 
 # ---------------------------------------------------------------------------
