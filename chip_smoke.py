@@ -10,37 +10,47 @@ Phases, each of which exits non-zero on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 is switched off for convolutions and matrix products
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``
-  3. each of the six aggregation kernels against its plain PyTorch
-     version on the card, at the main path's shapes (D = 2,154,730,
-     Dq = 2,155,008, K = 4) and at a ragged D = 4099 (Dq = 4608) with
-     K = 3, in every mode, discount and beta: bitwise, except the poly
-     discount (``powf``): ``rtol=1e-5, atol=1e-6``.  The two screens at
-     the same D and Dq with K = 1, 3 and 4, on clean, corrupted,
-     Byzantine and all-zero rows: isfinite verdicts exact, finite sums
-     within ``rtol=1e-5``, and each row's sum bitwise the same alone
-     (K = 1) as inside K = 4, and in two launches
+  3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
+     rows) against its plain PyTorch version on the card, at the main
+     path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
+     ragged D = 4099 (Dq = 4608) with K = 3, in every mode, discount and
+     beta, the q4 rows holding -8 nibbles (a 0x55-flipped span):
+     bitwise, except the poly discount (``powf``): ``rtol=1e-5,
+     atol=1e-6``.  The three screens at the same D and Dq with K = 1, 3
+     and 4 (5 on q4), on clean, corrupted (NaN lanes; flipped bytes and
+     an Inf scale), Byzantine, all-zero and (q4) flipped-only rows:
+     isfinite verdicts exact, finite sums within ``rtol=1e-5``, and each
+     row's sum bitwise the same alone (K = 1) as inside the stack, and in
+     two launches.  The q4 wire's stochastic-rounding draws made on the
+     card (``prng.uniform_torch``) against the numpy threefry at the
+     paper CNN's (4209, 512): bitwise
   4. timings at the main path's shapes: median of CUDA-event-timed
      launches with the 50 MB L2 flushed before each, beside the bytes
      bound at 3.35 TB/s, the plain version and, where one exists, one
      PyTorch library call computing the same function (the screens at
-     K = 1, the path's shape, and K = 4)
+     K = 1, the path's shape, and K = 4); and the q4 codec's time per
+     upload: the draws alone and the whole quantize
   5. the engine on the card against the engine on the CPU at a small size
-     in AS, SS, AS-fedasync, SS-sdga, AS-q8, SS-sdga-q8 and, with faults
-     and the screen, AS-chaos-screen and AS-chaos-screen-q8 (exact bytes,
-     schedule and fault / defense counts; params within ``rtol=1e-4,
-     atol=1e-5`` on f32 and within 2e-2 of the run's own movement on
-     q8), and the server's streaming channel against its buffered one at
-     full width in all six aggregation modes on both wires, with clean
-     rows and with corrupted and Byzantine rows screened or clipped
-     (``FlatServer.screen`` -> ``defense_factors`` -> skip / fold at
-     w*fac against zeroed rows / facs in the weights), bitwise
+     in AS, SS, AS-fedasync, SS-sdga, AS-q8, SS-sdga-q8, AS-q4,
+     SS-sdga-q4 and, with faults and the screen, AS-chaos-screen and its
+     q8 and q4 siblings (exact bytes, schedule and fault / defense
+     counts; params within ``rtol=1e-4, atol=1e-5`` on f32 and within
+     2e-2 of the run's own movement on q8 and q4); the q4 codec on the
+     card against the CPU on one full-width upload (packed bytes, scales
+     and residual bitwise); and the server's streaming channel against
+     its buffered one at full width in all six aggregation modes on the
+     three wires, with clean rows and with corrupted and Byzantine rows
+     screened or clipped (``FlatServer.screen`` -> ``defense_factors`` ->
+     skip / fold at w*fac against zeroed rows / facs in the weights),
+     bitwise
   6. the main path at full width: the paper CNN (width 32, 32x32 images,
      D = 2,154,730) on synthetic CIFAR-10, 2000 samples, 16 clients,
-     k = 4, hetero-Dirichlet alpha 0.3, 5 rounds in each of 21 settings
+     k = 4, hetero-Dirichlet alpha 0.3, 5 rounds in each of 28 settings
      (the paper's AS, AA, SS, SA; AS and SS with fedbuff, fedasync,
-     fedopt and sdga; AS, AA, SS, SA and SS-sdga on the q8 wire; AS
-     under the fault mix with the screen on f32, q8 and the buffered
-     channel; AS-fedbuff with Byzantine uploads clipped), with every
+     fedopt and sdga; AS, AA, SS, SA and SS-sdga on the q8 and on the q4
+     wire, AS-fedasync on q4; AS under the fault mix with the screen on
+     f32, q8, q4 and the buffered channel; AS-fedbuff with Byzantine
+     uploads clipped), with every
      launch counter reset before each setting and read after, each
      setting's launches held to the counts it names, every drawn fault
      kind fired, ``screened == corrupted`` under the screen,
@@ -73,7 +83,8 @@ ROUNDS = 5
 TIMED_LAUNCHES = 60
 KERNELS = ("safl_fold", "safl_aggregate", "sdga_aggregate", "safl_fold_q8",
            "safl_aggregate_q8", "sdga_aggregate_q8", "screen_rows",
-           "screen_rows_q8")
+           "screen_rows_q8", "safl_fold_q4", "safl_aggregate_q4",
+           "sdga_aggregate_q4", "screen_rows_q4")
 REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_aggregate": "src/repro/kernels/safl_agg.py:136",
             "sdga_aggregate": "src/repro/kernels/safl_agg.py:323",
@@ -81,7 +92,11 @@ REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_aggregate_q8": "src/repro/kernels/safl_agg.py:420",
             "sdga_aggregate_q8": "src/repro/kernels/safl_agg.py:488",
             "screen_rows": "src/repro/kernels/safl_agg.py:887",
-            "screen_rows_q8": "src/repro/kernels/safl_agg.py:918"}
+            "screen_rows_q8": "src/repro/kernels/safl_agg.py:918",
+            "safl_fold_q4": "src/repro/kernels/safl_agg.py:658",
+            "safl_aggregate_q4": "src/repro/kernels/safl_agg.py:599",
+            "sdga_aggregate_q4": "src/repro/kernels/safl_agg.py:709",
+            "screen_rows_q4": "src/repro/kernels/safl_agg.py:952"}
 SOURCE = "src/repro_torch/kernels/csrc/safl_agg.cu"
 SDGA_KW = dict(server_lr=0.05, momentum=0.8, ema_anchor=0.05,
                ema_decay=0.95)
@@ -134,7 +149,19 @@ MAIN_SETTINGS = (
     ("AS-chaos-screen-buffered", "AS",
      dict(CHAOS, defense="screen", server_channel="buffered"),
      {"screen_rows": "uploads", "safl_aggregate": ROUNDS}),
+    ("AS-q4", "AS", {"wire": "q4"}, {"safl_fold_q4": "uploads"}),
+    ("AA-q4", "AA", {"wire": "q4"}, {"safl_fold_q4": "uploads"}),
+    ("SS-q4", "SS", {"wire": "q4"}, {"safl_aggregate_q4": ROUNDS}),
+    ("SA-q4", "SA", {"wire": "q4"}, {"safl_aggregate_q4": ROUNDS}),
+    ("SS-sdga-q4", "SS", {"wire": "q4", "aggregation": "sdga"},
+     {"sdga_aggregate_q4": ROUNDS}),
+    ("AS-fedasync-q4", "AS", {"wire": "q4", "aggregation": "fedasync"},
+     {"safl_fold_q4": "uploads"}),
+    ("AS-chaos-screen-q4", "AS", dict(CHAOS, defense="screen", wire="q4"),
+     {"screen_rows_q4": "uploads", "safl_fold_q4": "uploads-screened"}),
 )
+#: the paper CNN's q4 draw per upload: (n_qblocks, qblock)
+DRAW_SHAPE = (-(-D_FULL // QB), QB)
 
 
 def fail(msg: str) -> None:
@@ -167,6 +194,27 @@ def q8_rows(torch, k, d, g):
     x[:, :d] = torch.randn((k, d), device="cuda", generator=g)
     q, s = ref.quantize_ref(x.view(-1, QB))
     return q.view(k, -1), s.view(k, -1)
+
+
+def q4_rows(torch, k, d, g, flip=False):
+    """k random rows on the packed int4 grid: (bytes int8 (k, Dq/2),
+    scales (k, Dq/QB)), padding lanes zero, quantized by the port's codec
+    math with draws made on the card; ``flip`` XORs a 64-byte span of
+    every row with 0x55, as a corrupt upload's, which puts -8 nibbles (a
+    level the quantizer never emits) into it."""
+    from repro_torch import prng
+    from repro_torch.kernels import ref
+    dq = dq_of(d)
+    x = torch.zeros((k, dq), device="cuda")
+    x[:, :d] = torch.randn((k, d), device="cuda", generator=g)
+    u = prng.uniform_torch(prng.prng_key(k), (k * dq // QB, QB), "cuda")
+    q, s = ref.quantize_q4_ref(x.view(-1, QB), u)
+    p = ref.pack_q4_ref(q.view(k, dq))
+    if flip:
+        p[:, 100:164] ^= 0x55
+        if not (ref.unpack_q4_ref(p) == -8).any(dim=1).all():
+            fail("a flipped q4 span holds no -8 nibble")
+    return p, s.view(k, -1)
 
 
 def compare(torch, report, worst, kernel, got, want, exact, **info):
@@ -210,17 +258,22 @@ def check_kernels(torch, k_mod, report):
         u = torch.randn((k, d), device="cuda", generator=g)
         p, m, e = (torch.randn((d,), device="cuda", generator=g)
                    for _ in range(3))
-        q, s = q8_rows(torch, k, d, g)
+        quant = {"q8": q8_rows(torch, k, d, g),
+                 "q4": q4_rows(torch, k, d, g, flip=True)}
         acc_q = torch.randn((dq_of(d),), device="cuda", generator=g)
+        lanes_q = dict(dq=dq_of(d))
         for beta in (1.0, 0.625):
             compare(torch, report, worst, "safl_fold",
                     k_mod.safl_fold(p, u[0], 0.37, beta),
                     k_mod.safl_fold_plain(p, u[0], 0.37, beta), True,
                     d=d, beta=beta)
-            compare(torch, report, worst, "safl_fold_q8",
-                    k_mod.safl_fold_q8(acc_q, q[0], s[0], 0.37, beta),
-                    k_mod.safl_fold_q8_plain(acc_q, q[0], s[0], 0.37, beta),
-                    True, dq=dq_of(d), beta=beta)
+            for wire, (q, s) in quant.items():
+                fold = k_mod.KERNELS["safl_fold_" + wire]
+                plain = getattr(k_mod, f"safl_fold_{wire}_plain")
+                compare(torch, report, worst, fold.__name__,
+                        fold(acc_q, q[0], s[0], 0.37, beta),
+                        plain(acc_q, q[0], s[0], 0.37, beta), True,
+                        beta=beta, **lanes_q)
         # in place into a bank row, as the engine folds: beta = 1 for
         # every mode's upload, a live beta for fedasync's
         for beta in (1.0, 0.75):
@@ -229,11 +282,14 @@ def check_kernels(torch, k_mod, report):
             compare(torch, report, worst, "safl_fold", row,
                     k_mod.safl_fold_plain(p, u[1], 0.5, beta), True, d=d,
                     beta=beta, in_place=True)
-            row = acc_q.clone()
-            k_mod.safl_fold_q8(row, q[1], s[1], 0.5, beta, out=row)
-            compare(torch, report, worst, "safl_fold_q8", row,
-                    k_mod.safl_fold_q8_plain(acc_q, q[1], s[1], 0.5, beta),
-                    True, dq=dq_of(d), beta=beta, in_place=True)
+            for wire, (q, s) in quant.items():
+                fold = k_mod.KERNELS["safl_fold_" + wire]
+                plain = getattr(k_mod, f"safl_fold_{wire}_plain")
+                row = acc_q.clone()
+                fold(row, q[1], s[1], 0.5, beta, out=row)
+                compare(torch, report, worst, fold.__name__, row,
+                        plain(acc_q, q[1], s[1], 0.5, beta), True,
+                        beta=beta, in_place=True, **lanes_q)
         for discount in k_mod.DISCOUNTS:
             exact = discount == "none"
             for mode in k_mod.MODES:
@@ -244,23 +300,52 @@ def check_kernels(torch, k_mod, report):
                         k_mod.safl_aggregate(u, w, p, **kw),
                         k_mod.safl_aggregate_plain(u, w, p, **kw), exact,
                         d=d, k=k, mode=mode, discount=discount)
-                compare(torch, report, worst, "safl_aggregate_q8",
-                        k_mod.safl_aggregate_q8(q, s, w, p, **kw),
-                        k_mod.safl_aggregate_q8_plain(q, s, w, p, **kw),
-                        exact, dq=dq_of(d), k=k, mode=mode,
-                        discount=discount)
+                for wire, (q, s) in quant.items():
+                    name = "safl_aggregate_" + wire
+                    compare(torch, report, worst, name,
+                            k_mod.KERNELS[name](q, s, w, p, **kw),
+                            getattr(k_mod, name + "_plain")(q, s, w, p,
+                                                            **kw),
+                            exact, k=k, mode=mode, discount=discount,
+                            **lanes_q)
             w = agg_weights(torch, k, "avg", discount, g)
             kw = dict(SDGA_KW, alpha=0.5, discount=discount)
             compare(torch, report, worst, "sdga_aggregate",
                     k_mod.sdga_aggregate(u, w, p, m, e, **kw),
                     k_mod.sdga_aggregate_plain(u, w, p, m, e, **kw), exact,
                     d=d, k=k, discount=discount)
-            compare(torch, report, worst, "sdga_aggregate_q8",
-                    k_mod.sdga_aggregate_q8(q, s, w, p, m, e, **kw),
-                    k_mod.sdga_aggregate_q8_plain(q, s, w, p, m, e, **kw),
-                    exact, dq=dq_of(d), k=k, discount=discount)
+            for wire, (q, s) in quant.items():
+                name = "sdga_aggregate_" + wire
+                compare(torch, report, worst, name,
+                        k_mod.KERNELS[name](q, s, w, p, m, e, **kw),
+                        getattr(k_mod, name + "_plain")(q, s, w, p, m, e,
+                                                        **kw),
+                        exact, k=k, discount=discount, **lanes_q)
     torch.cuda.synchronize()
     return worst
+
+
+def check_draws(torch, report):
+    """The q4 wire's draws made on the card against the numpy threefry
+    (itself equal to ``jax.random.uniform`` in the CPU tests), bitwise,
+    at the paper CNN's draw shape, for a few (seed, client, counter)
+    keys."""
+    import numpy as np
+
+    from repro_torch import prng
+    for seed, cid, ctr in ((0, 0, 0), (7, 5, 3), (2 ** 31 - 1, 15, 250)):
+        key = prng.fold_in(prng.fold_in(prng.prng_key(seed), cid), ctr)
+        got = prng.uniform_torch(key, DRAW_SHAPE, "cuda").cpu().numpy()
+        want = prng.uniform(key, DRAW_SHAPE)
+        same = bool(np.array_equal(got.view(np.uint32),
+                                    want.view(np.uint32)))
+        print(f"  q4 draws {DRAW_SHAPE} key ({seed}, {cid}, {ctr}): card "
+              f"vs numpy {'bitwise equal' if same else 'DIFFER'}")
+        report.append(dict(kernel="uniform_torch", key=[seed, cid, ctr],
+                           shape=list(DRAW_SHAPE), bitwise=same))
+        if not same:
+            fail(f"q4 draws on the card differ from numpy for key "
+                 f"({seed}, {cid}, {ctr})")
 
 
 def poisoned(payload, kind, loc=0.37):
@@ -303,41 +388,53 @@ def compare_sums(torch, report, worst, kernel, got, want, **info):
 
 
 def check_screens(torch, k_mod, report, worst):
-    """Both screens at the main path's and the ragged shape on K = 4 rows
-    (clean, corrupted, Byzantine, all zero), the first three of them, and
-    each alone: against the plain versions, and each row's sum bitwise
-    the same alone as in the stack and in a second launch."""
+    """The three screens at the main path's and the ragged shape on a
+    stack of rows (clean, corrupted, Byzantine, all zero; q4 adds a
+    row whose 0x55-flipped span holds -8 nibbles under finite scales),
+    its first three rows, and each row alone: against the plain versions,
+    and each row's sum bitwise the same alone as in the stack and in a
+    second launch."""
+    from repro_torch.kernels.ref import unpack_q4_ref as unpack_q4
     g = torch.Generator(device="cuda").manual_seed(3)
     kinds = (None, "corrupt", "byzantine", None)
     for d in (D_FULL, D_RAGGED):
         u = torch.randn((4, d), device="cuda", generator=g)
         q, s = q8_rows(torch, 4, d, g)
+        p4, s4 = q4_rows(torch, 5, d, g)
         for i, kind in enumerate(kinds):
             u[i], = poisoned((u[i],), kind)
             q[i], s[i] = poisoned((q[i], s[i]), kind)
+            p4[i], s4[i] = poisoned((p4[i], s4[i]), kind)
         u[3].zero_()
         q[3].zero_()
+        p4[3].zero_()
+        p4[4, 100:164] ^= 0x55
+        if not (unpack_q4(p4[4]) == -8).any():
+            fail("the flipped q4 row holds no -8 nibble")
         for name, args, plain, kw in (
                 ("screen_rows", (u,), k_mod.screen_rows_plain, {}),
                 ("screen_rows_q8", (q, s), k_mod.screen_rows_q8_plain,
+                 {"qblock": QB}),
+                ("screen_rows_q4", (p4, s4), k_mod.screen_rows_q4_plain,
                  {"qblock": QB})):
             fn = k_mod.KERNELS[name]
             full = fn(*args, **kw)
             again = fn(*args, **kw)
+            n = args[0].shape[0]
             lanes = dict(d=d) if name == "screen_rows" else dict(dq=dq_of(d))
-            for k in (4, 3):
+            for k in (n, 3):
                 rows = tuple(a[:k] for a in args)
                 compare_sums(torch, report, worst, name, fn(*rows, **kw),
                              plain(*rows, **kw), k=k, **lanes)
             alone = torch.cat([fn(*(a[i:i + 1] for a in args), **kw)
-                               for i in range(4)])
+                               for i in range(n)])
             compare_sums(torch, report, worst, name, alone,
                          plain(*args, **kw), k=1, **lanes)
             same = (torch.equal(alone.view(torch.int32),
                                 full.view(torch.int32))
                     and torch.equal(again.view(torch.int32),
                                     full.view(torch.int32)))
-            print(f"  {name:<18} {lanes}: K=1 rows vs K=4 stack and two "
+            print(f"  {name:<18} {lanes}: K=1 rows vs K={n} stack and two "
                   f"launches: {'bitwise equal' if same else 'DIFFER'}")
             report.append(dict(kernel=name, row_independent_bitwise=same,
                                **lanes))
@@ -469,6 +566,42 @@ def time_kernels(torch, k_mod):
                                                           qblock=QB)),
             library_ms=None, bytes=kk * dq + kk * nb * 4 + kk * 4,
             ops=2 * kk * dq + 3 * kk * nb, shape=f"K={kk} Dq={dq}")
+    # the q4 wire, packed int4 rows (none of these has a library call)
+    p4, s4 = q4_rows(torch, k, d, g)
+    out["safl_fold_q4"] = dict(
+        ms=t(lambda: k_mod.safl_fold_q4(acc_q, p4[0], s4[0], w_host,
+                                        out=acc_q)),
+        plain_ms=t(lambda: k_mod.safl_fold_q4_plain(acc_q, p4[0], s4[0],
+                                                    w_host)),
+        library_ms=None, bytes=8 * dq + dq // 2 + nb * 4, ops=3 * dq,
+        shape=f"Dq={dq}")
+    out["safl_aggregate_q4"] = dict(
+        ms=t(lambda: k_mod.safl_aggregate_q4(p4, s4, ones, p, server_lr=lr,
+                                             mode="fedsgd")),
+        plain_ms=t(lambda: k_mod.safl_aggregate_q4_plain(
+            p4, s4, ones, p, server_lr=lr, mode="fedsgd")),
+        library_ms=None, bytes=k * dq // 2 + k * nb * 4 + 2 * d * 4,
+        ops=3 * k * d + 3 * d, shape=f"K={k} Dq={dq} mode=fedsgd")
+    out["safl_aggregate_q4_avg"] = dict(
+        ms=t(lambda: k_mod.safl_aggregate_q4(p4, s4, sizes, mode="avg")),
+        plain_ms=t(lambda: k_mod.safl_aggregate_q4_plain(p4, s4, sizes,
+                                                         mode="avg")),
+        library_ms=None, bytes=k * dq // 2 + k * nb * 4 + dq * 4,
+        ops=3 * k * dq + dq, shape=f"K={k} Dq={dq} mode=avg")
+    out["sdga_aggregate_q4"] = dict(
+        ms=t(lambda: k_mod.sdga_aggregate_q4(p4, s4, disc, p, m, e, **kw)),
+        plain_ms=t(lambda: k_mod.sdga_aggregate_q4_plain(p4, s4, disc, p, m,
+                                                         e, **kw)),
+        library_ms=None, bytes=k * dq // 2 + k * nb * 4 + 6 * d * 4,
+        ops=3 * k * d + 10 * d, shape=f"K={k} Dq={dq}")
+    for kk, sfx in ((1, ""), (k, "_k4")):
+        qr, sr = p4[:kk], s4[:kk]
+        out["screen_rows_q4" + sfx] = dict(
+            ms=t(lambda: k_mod.screen_rows_q4(qr, sr, qblock=QB)),
+            plain_ms=t(lambda: k_mod.screen_rows_q4_plain(qr, sr,
+                                                          qblock=QB)),
+            library_ms=None, bytes=kk * dq // 2 + kk * nb * 4 + kk * 4,
+            ops=2 * kk * dq + 3 * kk * nb, shape=f"K={kk} Dq={dq}")
     for name, r in out.items():
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         o_ms = r["ops"] / F32_FLOPS * 1e3
@@ -481,6 +614,36 @@ def time_kernels(torch, k_mod):
               f"{r['bytes'] / 1e6:.1f} MB)  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  "
               f"achieved {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
+    del flush
+    return out
+
+
+def time_codec(torch):
+    """The q4 codec's cost per upload at full width, L2 flushed before
+    each: the (4209, 512) draws alone (threefry in int64 PyTorch ops) and
+    a whole gradient upload (ravel of the delta, the draws, the
+    stochastic-rounding quantize, the pack and the error-feedback
+    residual), beside the q8 upload's quantize."""
+    from repro_torch import prng
+    from repro_torch.core.flatbuf import PytreeCodec
+    from repro_torch.models.vision_cnn import build_paper_model
+    start, _, _ = build_paper_model("cnn", torch.Generator().manual_seed(0),
+                                    device="cuda", width=32, image_size=32)
+    end = {k: v * 0.99 for k, v in start.items()}
+    codec = PytreeCodec(start)
+    res = torch.zeros(codec.dq, device="cuda")
+    key = prng.fold_in(prng.fold_in(prng.prng_key(0), 3), 7)
+    flush = torch.zeros(64 * 2 ** 20, device="cuda")
+    out = {
+        "q4_draws": time_ms(torch, lambda: prng.uniform_torch(
+            key, DRAW_SHAPE, "cuda"), flush),
+        "q4_upload": time_ms(torch, lambda: codec.ravel_delta_q4(
+            start, end, 0.05, res, 0, 3, 7), flush),
+        "q8_upload": time_ms(torch, lambda: codec.ravel_delta_q8(
+            start, end, 0.05, res), flush),
+    }
+    for name, ms in out.items():
+        print(f"  {name:<22} D={codec.d} {ms:.4f} ms per upload")
     del flush
     return out
 
@@ -531,9 +694,13 @@ def check_engine_small(torch):
             ("SS-sdga", "SS", {"aggregation": "sdga"}),
             ("AS-q8", "AS", {"wire": "q8"}),
             ("SS-sdga-q8", "SS", {"wire": "q8", "aggregation": "sdga"}),
+            ("AS-q4", "AS", {"wire": "q4"}),
+            ("SS-sdga-q4", "SS", {"wire": "q4", "aggregation": "sdga"}),
             ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen")),
             ("AS-chaos-screen-q8", "AS",
-             dict(CHAOS, defense="screen", wire="q8"))):
+             dict(CHAOS, defense="screen", wire="q8")),
+            ("AS-chaos-screen-q4", "AS",
+             dict(CHAOS, defense="screen", wire="q4"))):
         res = {}
         for dev in ("cpu", "cuda"):
             eng = build_engine(torch, setup, setting, dev, **kw)
@@ -552,10 +719,10 @@ def check_engine_small(torch):
                      == [x.sim_time for x in rg.metrics.records])
         pc, pg = ec._flat_params, eg._flat_params.cpu()
         err = float((pc - pg).abs().max())
-        if kw.get("wire") == "q8":
+        if kw.get("wire") in ("q8", "q4"):
             # a gradient that differs in its last bits (cuDNN) can round
-            # to the next int8 level: hold the distance to the run's own
-            # movement, the reference's q8 bound
+            # to the next int8 / int4 level: hold the distance to the
+            # run's own movement, the reference's q8 bound
             rel = float((pc - pg).norm() / (pc - p0).norm())
             close, tol = rel <= 2e-2, f"relative {rel:.3e} <= 2e-2"
         else:
@@ -571,6 +738,41 @@ def check_engine_small(torch):
                          params_max_abs_err=err, fault_counts=counts))
         if not (same_host and close):
             fail(f"{name}: engine on the card disagrees with the CPU")
+    return rows
+
+
+def check_codec(torch):
+    """One full-width upload through the q4 codec on the card and on the
+    CPU, from the same weights, residual and (seed, client, counter) key:
+    packed bytes, scales and new residual bitwise equal (the draws, the
+    quantize and the f64 residual are exact on both), for a gradient
+    upload with error feedback and a model upload."""
+    from repro_torch.core.flatbuf import PytreeCodec
+    from repro_torch.models.vision_cnn import build_paper_model
+    start, _, _ = build_paper_model("cnn", torch.Generator().manual_seed(4),
+                                    device="cpu", width=32, image_size=32)
+    g = torch.Generator().manual_seed(5)
+    end = {k: v - 0.01 * torch.randn(v.shape, generator=g)
+           for k, v in start.items()}
+    codec = PytreeCodec(start)
+    res = 1e-3 * torch.randn(codec.dq, generator=g)
+    rows = []
+    for name, args in (
+            ("ravel_delta_q4", (start, end, 0.05, res, 0, 3, 7)),
+            ("ravel_q4_nores", (end, 11, 2, 0))):
+        fn = getattr(codec, name)
+        want = fn(*args)
+        got = fn(*(
+            {k: v.to("cuda") for k, v in a.items()} if isinstance(a, dict)
+            else a.to("cuda") if isinstance(a, torch.Tensor) else a
+            for a in args))
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+        print(f"  {name} D={codec.d}: card vs CPU (packed bytes, scales"
+              f"{', residual' if len(want) == 3 else ''}) "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        rows.append(dict(program=name, bitwise=same))
+        if not same:
+            fail(f"{name}: the q4 codec on the card differs from the CPU")
     return rows
 
 
@@ -598,7 +800,7 @@ def check_channels(torch):
     rng = np.random.default_rng(2)
     kinds = (None, "corrupt", "byzantine", None)
     rows_out = []
-    for wire in ("f32", "q8"):
+    for wire in ("f32", "q8", "q4"):
         for mode in AGGREGATIONS:
             for defense in ("none", "screen", "clip"):
                 srv = FlatServer(mode, D_FULL,
@@ -619,9 +821,11 @@ def check_channels(torch):
                                  np.float32))
                     acc = AccumBuffer(srv.bank_width, srv.fold_program,
                                       "cuda")
-                    if wire == "q8":
-                        q, s = q8_rows(torch, K_MAIN, D_FULL, g)
-                        buf = QuantBuffer(K_MAIN, D_FULL, QB, device="cuda")
+                    if wire != "f32":
+                        q, s = (q8_rows if wire == "q8" else q4_rows)(
+                            torch, K_MAIN, D_FULL, g)
+                        buf = QuantBuffer(K_MAIN, D_FULL, QB, device="cuda",
+                                          packed=wire == "q4")
                         payloads = [(q[i], s[i]) for i in range(K_MAIN)]
                     else:
                         u = 0.1 * torch.randn((K_MAIN, D_FULL),
@@ -651,7 +855,7 @@ def check_channels(torch):
                             beta = (np.float32(1.0) - wi
                                     if mode == "fedasync" else 1.0)
                             acc.fold(pl, w=wi, beta=beta)
-                        if wire == "q8":
+                        if wire != "f32":
                             buf.write(*pl, i)
                         else:
                             write_slot(buf, pl[0], i)
@@ -659,7 +863,7 @@ def check_channels(torch):
                     ps, os_, _, _ = srv.finalize(ps, bank, wvec, os_,
                                                  pprod=stats["pprod"])
                     pb, ob, _ = srv.step(
-                        pb, buf.views if wire == "q8" else buf, w * facs,
+                        pb, buf if wire == "f32" else buf.views, w * facs,
                         ob)
                 exact = torch.equal(ps, pb) and all(
                     os_[key] == ob[key] if key == "step"
@@ -844,17 +1048,20 @@ def main() -> None:
     if info["log"]:
         print("  " + info["log"].replace("\n", "\n  "))
 
-    print("== phase 3: kernels against their plain versions")
+    print("== phase 3: kernels against their plain versions; q4 draws")
     check_rows = []
     worst = check_kernels(torch, k_mod, check_rows)
     check_screens(torch, k_mod, check_rows, worst)
+    check_draws(torch, check_rows)
 
     print("== phase 4: timings (L2 flushed before each launch)")
     timing = time_kernels(torch, k_mod)
+    codec_ms = time_codec(torch)
 
-    print("== phase 5: engine on the card vs the CPU, small size; "
-          "server channels at full width")
+    print("== phase 5: engine on the card vs the CPU, small size; q4 codec "
+          "and server channels at full width")
     small = check_engine_small(torch)
+    codec = check_codec(torch)
     channels = check_channels(torch)
 
     print(f"== phase 6: main path, full-width CNN (D = {D_FULL:,}), "
@@ -875,8 +1082,9 @@ def main() -> None:
               "w") as f:
         json.dump(dict(smi=smi, torch=torch.__version__,
                        cuda=torch.version.cuda, build_s=info["seconds"],
-                       checks=check_rows, timing=timing, small=small,
-                       channels=channels, main_path=main_rows,
+                       checks=check_rows, timing=timing, codec_ms=codec_ms,
+                       small=small, codec=codec, channels=channels,
+                       main_path=main_rows,
                        kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

@@ -18,10 +18,10 @@ class FLConfig:
     """One SAFL/SFL experiment.  Field meanings follow the reference
     ``FLConfig``; the knobs this package runs: ``mode`` sync/semi_async,
     every ``aggregation`` of the study (fedsgd, fedavg, fedbuff,
-    fedasync, fedopt, sdga), the f32 and q8 wires (``compress_updates``
-    is the q8 alias), either ``server_channel``, the ``k`` horizon,
-    static timing, full participation, one device, no faults, tracing
-    off."""
+    fedasync, fedopt, sdga), the f32, q8 and q4 wires
+    (``compress_updates`` is the q8 alias), either ``server_channel``,
+    the ``k`` horizon, static timing, full participation, one device,
+    faults with the screen / clip defense (semi-async), tracing off."""
 
     n_clients: int = 50
     k: int = 10  # aggregation buffer size / activation count

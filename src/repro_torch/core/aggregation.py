@@ -2,7 +2,7 @@
 
 :class:`FlatServer` runs the server side of both channels over flat rows
 in the :class:`repro_torch.core.flatbuf.PytreeCodec` layout, for every
-aggregation scheme of the study on the f32 and q8 wires:
+aggregation scheme of the study on the f32, q8 and q4 wires:
 
   * ``fedsgd`` (Eq. 4-5): p - lr * (weighted gradient mean)
   * ``fedavg`` (Eq. 6): the data-size-weighted model mean
@@ -13,31 +13,34 @@ aggregation scheme of the study on the f32 and q8 wires:
 
 Two channels:
 
-  * buffered (``step``): the resident (K, D) rows (f32) or (K, Dq) int8
-    rows + scales (q8) reduced by one kernel with the server step fused
+  * buffered (``step``): the resident (K, D) rows (f32), (K, Dq) int8
+    rows + scales (q8) or (K, Dq/2) packed int4 bytes + scales (q4)
+    reduced by one kernel with the server step fused
     (:func:`~repro_torch.kernels.safl_agg.safl_aggregate` for fedsgd /
     fedbuff / fedavg and the mean of fedopt, :func:`sdga_aggregate` for
-    sdga, their ``_q8`` siblings on the q8 wire); fedasync runs its K
-    mixes as K folds with beta = 1 - a_i into a zeroed row;
+    sdga, their ``_q8`` / ``_q4`` siblings on the quantized wires);
+    fedasync runs its K mixes as K folds with beta = 1 - a_i into a
+    zeroed row;
   * streaming (``fold_program`` + ``finalize``): each upload folded into
-    a running sum bank the moment it lands (``safl_fold`` /
-    ``safl_fold_q8``), then one finalize from the bank's sum and the
-    host's ingest weights (the reference's ``_from_sums``).
+    a running sum bank the moment it lands (``safl_fold``,
+    ``safl_fold_q8``, ``safl_fold_q4``), then one finalize from the
+    bank's sum and the host's ingest weights (the reference's
+    ``_from_sums``).
 
 ``screen`` is the defense's per-row sum of squares of the wire payload
-(:func:`~repro_torch.kernels.safl_agg.screen_rows`, ``screen_rows_q8``
-on q8), whose ``isfinite`` is the integrity verdict and ``sqrt`` the
-norm.
+(:func:`~repro_torch.kernels.safl_agg.screen_rows`, ``screen_rows_q8`` /
+``screen_rows_q4`` on the quantized wires), whose ``isfinite`` is the
+integrity verdict and ``sqrt`` the norm.
 
 The engine always hands over the FINAL per-upload weights
 (discount-at-ingest, ``external_discount=True, fedasync_rates=True`` in
 the reference), so the kernels run with ``discount="none"``.  The two
-channels agree bitwise in every mode and on both wires.  The q4 and topk
-wires and the meshes come later.
+channels agree bitwise in every mode and on every wire.  The topk wire
+and the meshes come later.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -45,10 +48,25 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import BLOCK as QBLOCK
-from repro_torch.kernels.safl_agg import (safl_aggregate, safl_aggregate_q8,
-                                          safl_fold, safl_fold_q8,
-                                          screen_rows, screen_rows_q8,
-                                          sdga_aggregate, sdga_aggregate_q8)
+from repro_torch.kernels.safl_agg import (
+    safl_aggregate, safl_aggregate_q4, safl_aggregate_q8, safl_fold,
+    safl_fold_q4, safl_fold_q8, screen_rows, screen_rows_q4, screen_rows_q8,
+    sdga_aggregate, sdga_aggregate_q4, sdga_aggregate_q8)
+
+class _QuantKernels(NamedTuple):
+    """The kernels of one quantized wire."""
+    aggregate: Callable
+    sdga: Callable
+    fold: Callable
+    screen: Callable
+
+
+_QUANT_KERNELS = {
+    "q8": _QuantKernels(safl_aggregate_q8, sdga_aggregate_q8, safl_fold_q8,
+                        screen_rows_q8),
+    "q4": _QuantKernels(safl_aggregate_q4, sdga_aggregate_q4, safl_fold_q4,
+                        screen_rows_q4),
+}
 
 # The reference FlatServer's defaults, which its engine never overrides:
 # sdga's EMA decay and fedopt's Adam betas and epsilon.
@@ -115,14 +133,15 @@ class FlatServer:
     caller asks for the CPU).
 
     ``step`` takes the buffered channel's rows: the f32 (K, D) tensor, or
-    on ``wire="q8"`` the ``(q int8 (K, Dq), scales (K, Dq/qblock))`` pair
-    (:class:`repro_torch.core.flatbuf.QuantBuffer` views).  The streaming
-    bank is (1, D) f32, (1, Dq) on q8.  Slow state (:meth:`init_opt`):
+    on the quantized wires the ``(q, scales (K, Dq/qblock))`` pair
+    (:class:`repro_torch.core.flatbuf.QuantBuffer` views; q int8 (K, Dq)
+    on q8, packed (K, Dq/2) bytes on q4).  The streaming bank is (1, D)
+    f32, (1, Dq) on the quantized wires.  Slow state (:meth:`init_opt`):
     sdga's momentum and EMA, fedopt's Adam moments, each a (D,) f32
     tensor, and a host step count."""
 
     MODES = ("fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync")
-    WIRES = ("f32", "q8")
+    WIRES = ("f32", "q8", "q4")
 
     def __init__(self, mode: str, d: int, *, server_lr: float,
                  momentum: float = 0.8, ema_anchor: float = 0.05,
@@ -142,24 +161,25 @@ class FlatServer:
         self.momentum = float(momentum)
         self.ema_anchor = float(ema_anchor)
         self.device = resolve_device(device)
-        # the unit of exchange: the padded (Dq,) partial on q8
-        self.traffic = edge_traffic(
-            4 * (self.dq if wire == "q8" else self.d))
+        # the kernels of a quantized wire (None on f32)
+        self._qk = _QUANT_KERNELS.get(wire)
+        # the unit of exchange: the padded (Dq,) partial on q8 / q4
+        self.traffic = edge_traffic(4 * self.bank_width)
 
     @property
     def bank_width(self) -> int:
-        """Lanes of the streaming bank: Dq on q8 (folds dequantize onto
-        the padded grid), D on f32."""
-        return self.dq if self.wire == "q8" else self.d
+        """Lanes of the streaming bank: Dq on the quantized wires (folds
+        dequantize onto the padded grid), D on f32."""
+        return self.d if self.wire == "f32" else self.dq
 
     def screen(self, payload) -> torch.Tensor:
         """(K,) f32 sums of squares of the K payload rows, on the wire's
         own format (``payload`` = ``(rows,)`` f32 (K, D), or ``(q,
-        scales)`` q8).  The sums are row-independent, so a row screened
-        alone (K = 1, every upload of the sequential engine) and inside a
-        stack get the same value bitwise."""
-        if self.wire == "q8":
-            return screen_rows_q8(*payload, qblock=self.qblock)
+        scales)`` on q8 / q4).  The sums are row-independent, so a row
+        screened alone (K = 1, every upload of the sequential engine) and
+        inside a stack get the same value bitwise."""
+        if self._qk is not None:
+            return self._qk.screen(*payload, qblock=self.qblock)
         return screen_rows(*payload)
 
     def init_opt(self, params_flat: torch.Tensor) -> Dict:
@@ -213,7 +233,7 @@ class FlatServer:
         np.float32 final weights (fedasync: the raw mix rates a_i) ->
         (new params, new opt, {update_norm, weight_sum})."""
         wvec = np.asarray(wvec, np.float32)
-        q8 = self.wire == "q8"
+        quant = self._qk is not None
         if self.mode == "fedasync":
             # the K sequential mixes as K folds into a zeroed row, the
             # same fold program the streaming channel runs
@@ -221,7 +241,7 @@ class FlatServer:
                                device=self.device)
             pprod = np.float32(1.0)
             for i, a in enumerate(wvec):
-                row = (buf[0][i], buf[1][i]) if q8 else (buf[i],)
+                row = (buf[0][i], buf[1][i]) if quant else (buf[i],)
                 beta = np.float32(1.0) - a
                 bank = self.fold_program(bank, *row, 0, a, beta)
                 pprod = np.float32(pprod * beta)
@@ -233,8 +253,8 @@ class FlatServer:
             kw = dict(server_lr=lr, momentum=self.momentum,
                       ema_anchor=self.ema_anchor, ema_decay=EMA_DECAY,
                       discount="none")
-            if q8:
-                new, m, e = sdga_aggregate_q8(
+            if quant:
+                new, m, e = self._qk.sdga(
                     *buf, w, params_flat, opt["momentum"], opt["ema"],
                     qblock=self.qblock, **kw)
             else:
@@ -242,16 +262,16 @@ class FlatServer:
                                            opt["momentum"], opt["ema"], **kw)
             opt = self._sdga_opt(opt, m, e)
         elif self.mode in ("fedsgd", "fedbuff"):
-            if q8:
-                new = safl_aggregate_q8(*buf, w, params_flat, server_lr=lr,
-                                        mode="fedsgd", qblock=self.qblock)
+            if quant:
+                new = self._qk.aggregate(*buf, w, params_flat, server_lr=lr,
+                                         mode="fedsgd", qblock=self.qblock)
             else:
                 new = safl_aggregate(buf, w, params_flat, server_lr=lr,
                                      mode="fedsgd")
         else:  # fedavg's model mean, fedopt's gradient mean
-            if q8:
-                g = safl_aggregate_q8(*buf, w, mode="avg",
-                                      qblock=self.qblock)[:d]
+            if quant:
+                g = self._qk.aggregate(*buf, w, mode="avg",
+                                       qblock=self.qblock)[:d]
             else:
                 g = safl_aggregate(buf, w, mode="avg")
             if self.mode == "fedopt":
@@ -263,14 +283,14 @@ class FlatServer:
     def fold_program(self, bank: torch.Tensor, *args) -> torch.Tensor:
         """``fold_program(bank, *payload, ridx, w, beta)``: bank[ridx] <-
         beta*bank[ridx] + w*payload, in place (payload = (vec,) f32 or
-        (q_row, s_row) q8).  Only fedasync folds with a live beta; every
-        other mode folds with beta = 1."""
+        (q_row, s_row) on q8 / q4).  Only fedasync folds with a live beta;
+        every other mode folds with beta = 1."""
         *payload, ridx, w, beta = args
         if self.mode != "fedasync":
             beta = 1.0
         row = bank[ridx]
-        if self.wire == "q8":
-            safl_fold_q8(row, *payload, w, beta, qblock=self.qblock, out=row)
+        if self._qk is not None:
+            self._qk.fold(row, *payload, w, beta, qblock=self.qblock, out=row)
         else:
             safl_fold(row, *payload, w, beta, out=row)
         return bank

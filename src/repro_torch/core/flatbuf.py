@@ -7,15 +7,20 @@
     emits an upload as int8 blocks: pad to ``dq``, add the client's
     error-feedback residual, quantize each ``qblock`` block
     (:func:`repro_torch.kernels.ref.quantize_ref`), and keep what the
-    quantization dropped as the new residual.
+    quantization dropped as the new residual.  On the q4 wire it rounds
+    stochastically onto the int4 grid instead
+    (:func:`repro_torch.kernels.ref.quantize_q4_ref`), with draws keyed
+    by (seed, client, upload counter) and made on the row's device
+    (:func:`repro_torch.prng.uniform_torch`), and packs two lanes per
+    byte.
   * :func:`alloc_buffer` / :func:`write_slot` are the buffered f32
     channel's resident (K, D) rows and their in-place row write;
-    :class:`QuantBuffer` is its q8 counterpart (int8 (K, Dq) rows plus
-    (K, Dq/qblock) scales).
+    :class:`QuantBuffer` is its quantized counterpart (int8 (K, Dq) rows,
+    or (K, Dq/2) packed bytes on q4, plus (K, Dq/qblock) scales).
   * :class:`AccumBuffer` is the streaming channel: two O(D) sum banks
     and the host-side weights of the horizon in flight.
 
-The q4 and topk wires come in a later slice.
+The topk wire comes in a later slice.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import BLOCK as QBLOCK
 
@@ -56,10 +62,15 @@ class PytreeCodec:
 
     def ravel_delta(self, start, end, scale: float) -> torch.Tensor:
         """ravel((start - end) / scale): FedSGD's cumulative gradient
-        (Eq. 3) fused with the flatten."""
-        return torch.cat([(start[k].reshape(-1).to(torch.float32)
-                           - end[k].reshape(-1).to(torch.float32)) / scale
+        (Eq. 3) fused with the flatten.  ``scale`` divides as an f32
+        tensor on the rows' device: a true division, as the reference's
+        (PyTorch turns a division by a Python number on CUDA into a
+        multiply by its reciprocal, which rounds differently)."""
+        diff = torch.cat([start[k].reshape(-1).to(torch.float32)
+                          - end[k].reshape(-1).to(torch.float32)
                           for k in self.keys])
+        return diff / torch.tensor(scale, dtype=torch.float32,
+                                   device=diff.device)
 
     def unravel(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(D,) -> dict of VIEWS into ``flat`` (no copies).  The engine
@@ -71,13 +82,16 @@ class PytreeCodec:
 
     # ---- q8 wire ----
 
-    def _quantize_nores(self, flat: torch.Tensor):
-        """(D,) f32 -> int8 (dq,), scales (n_qblocks,)."""
+    def _quantize_nores(self, flat: torch.Tensor,
+                        quantize=ref.quantize_ref):
+        """(D,) f32 -> int8 (dq,), scales (n_qblocks,); ``quantize`` maps
+        the (n_qblocks, qblock) blocks to (q, scales)."""
         x = F.pad(flat, (0, self.dq - self.d))
-        q, s = ref.quantize_ref(x.view(self.n_qblocks, self.qblock))
+        q, s = quantize(x.view(self.n_qblocks, self.qblock))
         return q.view(self.dq), s
 
-    def _quantize(self, flat: torch.Tensor, residual: torch.Tensor):
+    def _quantize(self, flat: torch.Tensor, residual: torch.Tensor,
+                  quantize=ref.quantize_ref):
         """Error-feedback variant: quantizes input + carried residual and
         also returns the new residual, the quantization error
         x - q*scale rounded once to f32 (the product and the difference
@@ -85,7 +99,7 @@ class PytreeCodec:
         once XLA contracts the multiply-subtract into an FMA."""
         x = F.pad(flat, (0, self.dq - self.d)) + residual
         blocks = x.view(self.n_qblocks, self.qblock)
-        q, s = ref.quantize_ref(blocks)
+        q, s = quantize(blocks)
         new_res = (blocks.to(torch.float64) - q.to(torch.float64)
                    * s.to(torch.float64)[:, None]).to(torch.float32)
         return q.view(self.dq), s, new_res.view(self.dq)
@@ -104,6 +118,53 @@ class PytreeCodec:
         """Model-weights upload on the q8 wire (no error feedback: weights
         do not accumulate across rounds)."""
         return self._quantize_nores(self.ravel(tree))
+
+    # ---- q4 wire: stochastic rounding onto [-7, 7], two lanes per byte
+
+    def _q4(self, seed: int, cid: int, counter: int):
+        """The (n_qblocks, qblock) blocks -> (q, scales) quantizer of one
+        upload, its draws keyed by (seed, client, upload counter) and
+        made on the blocks' device."""
+        key = prng.fold_in(prng.fold_in(prng.prng_key(seed), cid), counter)
+
+        def quantize(blocks):
+            u = prng.uniform_torch(key, blocks.shape, blocks.device)
+            return ref.quantize_q4_ref(blocks, u)
+        return quantize
+
+    def _quantize_q4(self, flat, residual, seed, cid, counter):
+        q, s, new_res = self._quantize(flat, residual,
+                                       self._q4(seed, cid, counter))
+        return ref.pack_q4_ref(q), s, new_res
+
+    def _quantize_q4_nores(self, flat, seed, cid, counter):
+        q, s = self._quantize_nores(flat, self._q4(seed, cid, counter))
+        return ref.pack_q4_ref(q), s
+
+    def ravel_delta_q4(self, start, end, scale: float,
+                       residual: torch.Tensor, seed: int, cid: int,
+                       counter: int):
+        """Gradient upload on the q4 wire with error feedback -> (packed
+        int8 (dq/2,), scales (n_qblocks,), new residual (dq,))."""
+        return self._quantize_q4(self.ravel_delta(start, end, scale),
+                                 residual, seed, cid, counter)
+
+    def ravel_delta_q4_nores(self, start, end, scale: float, seed: int,
+                             cid: int, counter: int):
+        """Gradient upload on the q4 wire, error feedback off."""
+        return self._quantize_q4_nores(self.ravel_delta(start, end, scale),
+                                       seed, cid, counter)
+
+    def ravel_q4(self, tree, residual: torch.Tensor, seed: int, cid: int,
+                 counter: int):
+        """Model weights with a carried residual on the q4 wire (the
+        reference codec's ``ravel_q4``; the engine does not call it)."""
+        return self._quantize_q4(self.ravel(tree), residual, seed, cid,
+                                 counter)
+
+    def ravel_q4_nores(self, tree, seed: int, cid: int, counter: int):
+        """Model-weights upload on the q4 wire."""
+        return self._quantize_q4_nores(self.ravel(tree), seed, cid, counter)
 
     def zero_residual(self, device) -> torch.Tensor:
         """Initial (dq,) error-feedback residual of a client."""
@@ -196,14 +257,18 @@ class AccumBuffer:
 
 
 class QuantBuffer:
-    """Preallocated q8 update buffer: int8 (K, Dq) rows plus (K, n_qblocks)
-    f32 scales, written in place one slot at a time."""
+    """Preallocated quantized update buffer: (K, Dq) int8 rows, or with
+    ``packed=True`` (the q4 wire) (K, Dq/2) bytes of two int4 lanes each,
+    plus (K, n_qblocks) f32 scales, written in place one slot at a time."""
 
-    def __init__(self, k: int, d: int, qblock: int = QBLOCK, *, device):
+    def __init__(self, k: int, d: int, qblock: int = QBLOCK, *, device,
+                 packed: bool = False):
         self.qblock = int(qblock)
         self.n_qblocks = -(-int(d) // self.qblock)
         self.dq = self.n_qblocks * self.qblock
-        self.q = torch.zeros((k, self.dq), dtype=torch.int8, device=device)
+        self.packed = bool(packed)
+        row_bytes = self.dq // 2 if self.packed else self.dq
+        self.q = torch.zeros((k, row_bytes), dtype=torch.int8, device=device)
         self.scales = torch.zeros((k, self.n_qblocks), dtype=torch.float32,
                                   device=device)
 
@@ -214,5 +279,5 @@ class QuantBuffer:
 
     @property
     def views(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(q, scales) as the q8 server step takes them."""
+        """(q, scales) as the quantized server step takes them."""
         return self.q, self.scales

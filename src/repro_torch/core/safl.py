@@ -7,15 +7,16 @@ computation.
 Synchronous (SFL, Fig. 1a): each round the server activates K random
 clients, waits for all of them (round time = slowest active client, the
 straggler effect), aggregates, broadcasts.  The K clients train one after
-another into the (K, D) buffer (int8 (K, Dq) rows on the q8 wire), and
-the round is one aggregate kernel (:func:`repro_torch.kernels.safl_agg.
-safl_aggregate`, ``sdga_aggregate`` or their ``_q8`` siblings; fedasync
-folds its K rows).
+another into the (K, D) buffer (int8 (K, Dq) rows on the q8 wire, packed
+int4 (K, Dq/2) bytes on q4), and the round is one aggregate kernel
+(:func:`repro_torch.kernels.safl_agg.safl_aggregate`, ``sdga_aggregate``
+or their ``_q8`` / ``_q4`` siblings; fedasync folds its K rows).
 
 Semi-asynchronous (SAFL, Fig. 1b): clients train continuously at their
 own pace and upload after each local epoch; every upload is folded into
-an O(D) running sum the moment it lands (``safl_fold`` /
-``safl_fold_q8``, the streaming channel), and the server aggregates as
+an O(D) running sum the moment it lands (``safl_fold``,
+``safl_fold_q8``, ``safl_fold_q4``: the streaming channel), and the
+server aggregates as
 soon as K uploads are in.  A
 client adopts the newest global model at its next upload boundary,
 otherwise it continues training its local one, so uploads carry
@@ -27,7 +28,7 @@ and retries after a backoff) and stretches stragglers; a corrupt or
 Byzantine draw poisons the serialized payload after the error-feedback
 residual update (:mod:`repro_torch.faults.payload`).  With ``defense``
 on, each upload is screened as it lands (``FlatServer.screen``, the
-``screen_rows`` / ``screen_rows_q8`` kernel, then
+``screen_rows`` kernel or its ``_q8`` / ``_q4`` sibling, then
 :func:`repro_torch.faults.defense_factors`): a screened row is skipped
 by the streaming channel and zeroed on the buffered one, a clipped row
 keeps its payload at a reduced weight.
@@ -35,8 +36,9 @@ keeps its payload at a reduced weight.
 This is the reference's sequential per-upload engine (its parity oracle),
 with its host arithmetic copied exactly: np.float32 weight vectors, the
 simulated-time model, the byte envelopes, the ``rng.choice`` of the sync
-round.  So bytes, staleness and participation match the reference bit for
-bit.  Parameters live on ``device`` (CUDA unless the caller asks for the
+round, and the q4 wire's per-client upload counters, which key its
+stochastic-rounding draws.  So bytes, staleness and participation match
+the reference bit for bit.  Parameters live on ``device`` (CUDA unless the caller asks for the
 CPU); the global model is a flat (D,) row in the reference's layout.
 
 Ported: the settings in :data:`FLEngine.PORTED`.  Anything else raises
@@ -93,7 +95,7 @@ class FLEngine:
     PORTED = {
         "aggregation": ("fedsgd", "fedavg", "fedbuff", "fedasync", "fedopt",
                         "sdga"),
-        "wire": ("f32", "q8"),
+        "wire": ("f32", "q8", "q4"),
         "compress_updates": (False, True),
         "horizon": ("k",),
         "sched_timing": ("static",),
@@ -176,9 +178,12 @@ class FLEngine:
         self._wire = fl_cfg.wire
         if self._wire == "f32" and fl_cfg.compress_updates:
             self._wire = "q8"
-        self._quant = self._wire == "q8"
+        self._lossy = self._wire != "f32"
         # per-client error-feedback residuals (dq,), made at first upload
         self._residuals: Dict[int, torch.Tensor] = {}
+        # q4 stochastic rounding: per-client upload counters; upload n of
+        # client c draws with the key fold_in(fold_in(key(seed), c), n)
+        self._sr_counter: Dict[int, int] = {}
         # a 0.0 momentum / anchor in the config means the default, as in
         # the reference
         self._server = FlatServer(
@@ -208,10 +213,11 @@ class FLEngine:
         if self._streaming:
             self._accum = flatbuf.AccumBuffer(
                 self._server.bank_width, self._server.fold_program, dev)
-        elif self._quant:
+        elif self._lossy:
             self._qbuf = flatbuf.QuantBuffer(self._horizon_target,
                                              self.codec.d,
-                                             fl_cfg.quant_block, device=dev)
+                                             fl_cfg.quant_block, device=dev,
+                                             packed=self._wire == "q4")
         else:
             self._buf = flatbuf.alloc_buffer(self._horizon_target,
                                              self.codec.d, dev)
@@ -249,10 +255,12 @@ class FLEngine:
     def _upload_nbytes(self) -> int:
         """Channel cost of one upload: the wire's payload
         (:func:`repro_torch.kernels.quantize.payload_nbytes`; q8: int8
-        values + block scales) plus the serialization envelope of its
-        target (model weights carry the state and the layer structure)."""
-        if self._quant:
-            payload = payload_nbytes("q8", d=self.codec.d, dq=self.codec.dq,
+        values + block scales; q4: two lanes per byte + the same scales)
+        plus the serialization envelope of its target (model weights carry
+        the state and the layer structure)."""
+        if self._lossy:
+            payload = payload_nbytes(self._wire, d=self.codec.d,
+                                     dq=self.codec.dq,
                                      n_qblocks=self.codec.n_qblocks)
         else:
             payload = self._params_bytes
@@ -269,23 +277,40 @@ class FLEngine:
             res = self.codec.zero_residual(self.device)
         return res
 
+    def _next_counter(self, cid: int) -> int:
+        """q4 stochastic-rounding upload counter of client ``cid``: how
+        many q4 uploads the client made before this one."""
+        n = self._sr_counter.get(cid, 0)
+        self._sr_counter[cid] = n + 1
+        return n
+
     def _payload(self, c: ClientState, w_end) -> tuple:
         """The upload's wire payload: ``(vec,)`` f32, or ``(q, scales)``
-        on q8, where gradient targets quantize with the client's
+        on q8 / q4, where gradient targets quantize with the client's
         error-feedback residual (kept client-side) and model targets
-        without."""
-        cfg = self.cfg
+        without; q4 draws with the key of (seed, client, upload
+        counter)."""
+        cfg, codec = self.cfg, self.codec
+        if self._wire == "f32":
+            if cfg.aggregation in _MODEL_TARGETS:
+                return (codec.ravel(w_end),)
+            return (codec.ravel_delta(c.params, w_end, cfg.client_lr),)
+        if self._wire == "q4":
+            key = (cfg.seed, c.cid, self._next_counter(c.cid))
+            model, grad, grad_nores = (codec.ravel_q4_nores,
+                                       codec.ravel_delta_q4,
+                                       codec.ravel_delta_q4_nores)
+        else:
+            key = ()
+            model, grad, grad_nores = (codec.ravel_q8_nores,
+                                       codec.ravel_delta_q8,
+                                       codec.ravel_delta_q8_nores)
         if cfg.aggregation in _MODEL_TARGETS:
-            if self._quant:
-                return self.codec.ravel_q8_nores(w_end)
-            return (self.codec.ravel(w_end),)
-        if not self._quant:
-            return (self.codec.ravel_delta(c.params, w_end, cfg.client_lr),)
+            return model(w_end, *key)
         if not cfg.error_feedback:
-            return self.codec.ravel_delta_q8_nores(c.params, w_end,
-                                                   cfg.client_lr)
-        q, s, self._residuals[c.cid] = self.codec.ravel_delta_q8(
-            c.params, w_end, cfg.client_lr, self._residual(c.cid))
+            return grad_nores(c.params, w_end, cfg.client_lr, *key)
+        q, s, self._residuals[c.cid] = grad(
+            c.params, w_end, cfg.client_lr, self._residual(c.cid), *key)
         return q, s
 
     def _apply_payload_fault(self, payload: tuple, fault) -> tuple:
@@ -298,7 +323,7 @@ class FLEngine:
         self.byzantine_uploads += byz[0]
         rows = tuple(a[None] for a in payload)
         resc = self.cfg.fault_byzantine_rescale
-        if self._quant:
+        if self._lossy:
             rows = faultsmod.apply_faults_q(*rows, corrupt, byz, [fault.loc],
                                             resc)
         else:
@@ -328,7 +353,7 @@ class FLEngine:
         draw applied to the serialized payload; with a defense on, the
         row is screened before it touches the channel: a row with factor
         0 is skipped (streaming) or zeroed (buffered: the f32 row, or the
-        q8 scales, since a zero scale dequantizes any int8 row to 0)."""
+        q8 / q4 scales, since a zero scale dequantizes any row to 0)."""
         cfg = self.cfg
         entry: Dict = {"staleness": staleness, "cid": c.cid,
                        "n": c.n_samples}
@@ -352,7 +377,7 @@ class FLEngine:
         else:
             if dropped:
                 payload = payload[:-1] + (torch.zeros_like(payload[-1]),)
-            if self._quant:
+            if self._lossy:
                 self._qbuf.write(*payload, len(buffer))
             else:
                 flatbuf.write_slot(self._buf, payload[0], len(buffer))
@@ -405,7 +430,7 @@ class FLEngine:
         w = self._weight_vector(staleness, sizes)
         if facs is not None:
             w = w * np.asarray(facs, np.float32)
-        buf = self._qbuf.views if self._quant else self._buf
+        buf = self._qbuf.views if self._lossy else self._buf
         self._flat_params, self._opt, m = self._server.step(
             self._flat_params, buf, w, self._opt)
         self.t_global += 1

@@ -23,6 +23,13 @@
 //   screen_rows_q8       the same over (K, Dq) int8 rows + scales,
 //                        sum_b s_b^2 * sum_{j in b} q_j^2 (replaces
 //                        safl_agg.py screen_rows_q8)
+//   safl_fold_q4, safl_aggregate_q4, sdga_aggregate_q4, screen_rows_q4
+//                        the q8 kernels over packed int4 rows, (K, Dq/2)
+//                        bytes of two lanes each (lane 2j the low nibble
+//                        of byte j, 2j+1 the high one, two's complement),
+//                        unpacked in registers (replace safl_agg.py
+//                        safl_fold_q4, safl_aggregate_q4,
+//                        sdga_aggregate_q4, screen_rows_q4)
 //
 // All are pure bandwidth: a handful of flops per element against 1 (int8)
 // or 4 (f32) bytes moved per operand.  The design is one coalesced
@@ -32,6 +39,10 @@
 // sum sit in shared memory.  The int8 rows are dequantized in registers as
 // (float)q * scale[lane >> qshift] (qblock = 1 << qshift), then weighted,
 // as the Pallas bodies do (_dequant_tile): f32 updates never touch memory.
+// A packed int4 lane is read the same way from its byte (the two threads
+// of a byte's lanes read it once from memory between them), its nibble
+// sign-extended by shifts; a corrupted byte can hold the nibble -8, which
+// the quantizer never emits, and it reads as -8.
 //
 // The screening reductions are bound by the same bytes (one read of the
 // rows) but are launch-bound at the engine's K = 1.  They must be
@@ -91,6 +102,27 @@ struct Q8Rows {
   }
 };
 
+// Nibble ``high`` of byte b as a two's complement int4 in [-8, 7]: shift
+// it to the top of a 32-bit word, then back with an arithmetic shift.
+__device__ __forceinline__ int nibble(uint8_t b, int high) {
+  return static_cast<int>(static_cast<uint32_t>(b) << (high ? 24 : 28)) >>
+         28;
+}
+
+// Row j, lane i of the packed int4 (K, stride) buffer (stride = Dq/2
+// bytes), dequantized with its block's scale.
+struct Q4Rows {
+  const uint8_t* q;
+  const float* s;
+  int64_t stride;   // Dq / 2
+  int64_t nblocks;  // Dq >> qshift
+  int qshift;
+  __device__ float operator()(int64_t j, int64_t i) const {
+    const int v = nibble(q[j * stride + (i >> 1)], static_cast<int>(i & 1));
+    return __fmul_rn(static_cast<float>(v), s[j * nblocks + (i >> qshift)]);
+  }
+};
+
 // Thread 0 writes the K reduction weights (discounted when poly) and their
 // sum, taken k = 0..K-1, to shared memory: sw[0..K-1], sw[K].
 __device__ void load_weights(const float* w_in, int64_t k, float alpha,
@@ -134,17 +166,16 @@ __global__ void fold_kernel(const float* acc, const float* __restrict__ vec,
   }
 }
 
-template <bool kUnitBeta>
-__global__ void fold_q8_kernel(const float* acc,
-                               const int8_t* __restrict__ q,
-                               const float* __restrict__ s, float* out,
-                               float w, float beta, int64_t dq, int qshift) {
+// The fold of one quantized row (row 0 of ``row``: Q8Rows or Q4Rows),
+// dequantized on the fly; acc and out may alias, as in fold_kernel.
+template <class Rows, bool kUnitBeta>
+__global__ void fold_rows_kernel(const float* acc, Rows row, float* out,
+                                 float w, float beta, int64_t dq) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < dq; i += stride) {
-    const float u = __fmul_rn(static_cast<float>(q[i]), s[i >> qshift]);
-    const float wv = __fmul_rn(w, u);
+    const float wv = __fmul_rn(w, row(0, i));
     const float a = acc[i];
     out[i] = kUnitBeta ? __fadd_rn(a, wv) : __fadd_rn(__fmul_rn(beta, a), wv);
   }
@@ -272,30 +303,41 @@ __global__ void screen_partial_f32(const float* __restrict__ u,
 
 // Block (c, row): warp w takes the kQBlocksPerWarp quantization blocks
 // b = (c*kWarps + w)*kQBlocksPerWarp + j in order.  sum q^2 over a block
-// is an int32 sum (exact and order-free: 512 * 128^2 < 2^24 converts to
-// f32 exactly), then (q2 * s) * s in f32 as the reference's oracle
-// forms it; thread 0 sums the warps' terms in warp order.  An Inf scale
-// gives Inf (or 0 * Inf = NaN over an all-zero block): non-finite.
-__global__ void screen_partial_q8(const int8_t* __restrict__ q,
-                                  const float* __restrict__ s,
-                                  float* __restrict__ part, int64_t dq,
-                                  int64_t nb, int qshift, int64_t chunks) {
+// is an int32 sum (exact and order-free: 512 * 128^2 on q8, 512 * 8^2 on
+// the packed int4 rows (kPacked, two lanes per byte), both below 2^24, so
+// the sum converts to f32 exactly), then (q2 * s) * s in f32 as the
+// reference's oracle forms it; thread 0 sums the warps' terms in warp
+// order.  An Inf scale gives Inf (or 0 * Inf = NaN over an all-zero
+// block): non-finite.
+template <bool kPacked>
+__global__ void screen_partial_q(const uint8_t* __restrict__ q,
+                                 const float* __restrict__ s,
+                                 float* __restrict__ part, int64_t dq,
+                                 int64_t nb, int qshift, int64_t chunks) {
   __shared__ float smem[kWarps];
   const int64_t c = blockIdx.x;
   const int64_t row = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int64_t qblock = int64_t{1} << qshift;
-  const int8_t* qr = q + row * dq;
+  // bytes per quantization block and per row
+  const int64_t bbytes = (int64_t{1} << qshift) >> (kPacked ? 1 : 0);
+  const uint8_t* qr = q + row * (kPacked ? dq >> 1 : dq);
   const float* sr = s + row * nb;
   float acc = 0.f;
   for (int j = 0; j < kQBlocksPerWarp; ++j) {
     const int64_t b = (c * kWarps + warp) * kQBlocksPerWarp + j;
     if (b >= nb) break;  // uniform across the warp
     int q2 = 0;
-    for (int64_t i = lane; i < qblock; i += 32) {
-      const int v = qr[(b << qshift) + i];
-      q2 += v * v;
+    for (int64_t i = lane; i < bbytes; i += 32) {
+      const uint8_t byte = qr[b * bbytes + i];
+      if (kPacked) {
+        const int lo = nibble(byte, 0);
+        const int hi = nibble(byte, 1);
+        q2 += lo * lo + hi * hi;
+      } else {
+        const int v = static_cast<int8_t>(byte);
+        q2 += v * v;
+      }
     }
     for (int off = 16; off > 0; off >>= 1) {
       q2 += __shfl_xor_sync(0xffffffffu, q2, off);
@@ -330,6 +372,101 @@ inline size_t weights_smem(int64_t k) {
   return static_cast<size_t>(k + 1) * sizeof(float);
 }
 
+// The rows of a quantized (K, Dq) buffer: int8 lanes (Q8Rows) or packed
+// int4 bytes (Q4Rows).
+template <class Rows>
+Rows quant_rows(const void* q, const void* scales, int64_t dq, int qshift);
+
+template <>
+Q8Rows quant_rows<Q8Rows>(const void* q, const void* scales, int64_t dq,
+                          int qshift) {
+  return Q8Rows{static_cast<const int8_t*>(q),
+                static_cast<const float*>(scales), dq, dq >> qshift, qshift};
+}
+
+template <>
+Q4Rows quant_rows<Q4Rows>(const void* q, const void* scales, int64_t dq,
+                          int qshift) {
+  return Q4Rows{static_cast<const uint8_t*>(q),
+                static_cast<const float*>(scales), dq >> 1, dq >> qshift,
+                qshift};
+}
+
+template <class Rows>
+int launch_fold(const void* acc, const void* q, const void* scales,
+                void* out, float w, float beta, int64_t dq, int qshift,
+                void* stream) {
+  const Rows row = quant_rows<Rows>(q, scales, dq, qshift);
+  const int blocks = grid_for(dq);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (beta == 1.0f) {
+    fold_rows_kernel<Rows, true><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(acc), row, static_cast<float*>(out), w,
+        beta, dq);
+  } else {
+    fold_rows_kernel<Rows, false><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(acc), row, static_cast<float*>(out), w,
+        beta, dq);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Rows>
+int launch_aggregate(const void* q, const void* scales, const void* w,
+                     const void* p, void* out, int64_t k, int64_t dq,
+                     int64_t n, float lr, float alpha, int mode, int poly,
+                     int qshift, void* stream) {
+  const Rows rows = quant_rows<Rows>(q, scales, dq, qshift);
+  aggregate_kernel<Rows><<<grid_for(n), kThreads, weights_smem(k),
+                           static_cast<cudaStream_t>(stream)>>>(
+      rows, static_cast<const float*>(w), static_cast<const float*>(p),
+      static_cast<float*>(out), k, n, lr, alpha, mode, poly);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Rows>
+int launch_sdga(const void* q, const void* scales, const void* w,
+                const void* p, const void* m, const void* e, void* op,
+                void* om, void* oe, int64_t k, int64_t dq, int64_t d,
+                float lr, float alpha, float mu, float anchor, float decay,
+                float omd, int poly, int qshift, void* stream) {
+  const Rows rows = quant_rows<Rows>(q, scales, dq, qshift);
+  sdga_kernel<Rows><<<grid_for(d), kThreads, weights_smem(k),
+                      static_cast<cudaStream_t>(stream)>>>(
+      rows, static_cast<const float*>(w), static_cast<const float*>(p),
+      static_cast<const float*>(m), static_cast<const float*>(e),
+      static_cast<float*>(op), static_cast<float*>(om),
+      static_cast<float*>(oe), k, d, lr, alpha, mu, anchor, decay, omd,
+      poly);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A screen's second launch, once the first launched: cudaGetLastError()
+// after the two.
+inline int launch_finish(const void* part, void* out, int64_t k,
+                         int64_t chunks, cudaStream_t s) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  screen_finish<<<static_cast<unsigned>(k), kThreads, 0, s>>>(
+      static_cast<const float*>(part), static_cast<float*>(out), chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPacked>
+int launch_screen_q(const void* q, const void* scales, void* part,
+                    void* out, int64_t k, int64_t dq, int qshift,
+                    int64_t chunks, void* stream) {
+  const int64_t nb = dq >> qshift;
+  if (chunks != (nb + kScreenQBlocks - 1) / kScreenQBlocks) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  screen_partial_q<kPacked><<<dim3(static_cast<unsigned>(chunks),
+                                   static_cast<unsigned>(k)),
+                              kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(part), dq, nb, qshift, chunks);
+  return launch_finish(part, out, k, chunks, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -355,20 +492,16 @@ int safl_fold_f32(const void* acc, const void* vec, void* out, float w,
 int safl_fold_q8(const void* acc, const void* q, const void* scales,
                  void* out, float w, float beta, int64_t dq, int qshift,
                  void* stream) {
-  const int blocks = grid_for(dq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (beta == 1.0f) {
-    fold_q8_kernel<true><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(acc), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scales), static_cast<float*>(out), w,
-        beta, dq, qshift);
-  } else {
-    fold_q8_kernel<false><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(acc), static_cast<const int8_t*>(q),
-        static_cast<const float*>(scales), static_cast<float*>(out), w,
-        beta, dq, qshift);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_fold<Q8Rows>(acc, q, scales, out, w, beta, dq, qshift,
+                             stream);
+}
+
+// dq: lanes of acc (the packed row holds dq / 2 bytes).
+int safl_fold_q4(const void* acc, const void* q, const void* scales,
+                 void* out, float w, float beta, int64_t dq, int qshift,
+                 void* stream) {
+  return launch_fold<Q4Rows>(acc, q, scales, out, w, beta, dq, qshift,
+                             stream);
 }
 
 int safl_aggregate_f32(const void* u, const void* w, const void* p,
@@ -387,14 +520,16 @@ int safl_aggregate_q8(const void* q, const void* scales, const void* w,
                       const void* p, void* out, int64_t k, int64_t dq,
                       int64_t n, float lr, float alpha, int mode, int poly,
                       int qshift, void* stream) {
-  const Q8Rows rows{static_cast<const int8_t*>(q),
-                    static_cast<const float*>(scales), dq, dq >> qshift,
-                    qshift};
-  aggregate_kernel<Q8Rows><<<grid_for(n), kThreads, weights_smem(k),
-                             static_cast<cudaStream_t>(stream)>>>(
-      rows, static_cast<const float*>(w), static_cast<const float*>(p),
-      static_cast<float*>(out), k, n, lr, alpha, mode, poly);
-  return static_cast<int>(cudaGetLastError());
+  return launch_aggregate<Q8Rows>(q, scales, w, p, out, k, dq, n, lr, alpha,
+                                  mode, poly, qshift, stream);
+}
+
+int safl_aggregate_q4(const void* q, const void* scales, const void* w,
+                      const void* p, void* out, int64_t k, int64_t dq,
+                      int64_t n, float lr, float alpha, int mode, int poly,
+                      int qshift, void* stream) {
+  return launch_aggregate<Q4Rows>(q, scales, w, p, out, k, dq, n, lr, alpha,
+                                  mode, poly, qshift, stream);
 }
 
 int sdga_aggregate_f32(const void* u, const void* w, const void* p,
@@ -419,17 +554,20 @@ int sdga_aggregate_q8(const void* q, const void* scales, const void* w,
                       float lr, float alpha, float mu, float anchor,
                       float decay, float omd, int poly, int qshift,
                       void* stream) {
-  const Q8Rows rows{static_cast<const int8_t*>(q),
-                    static_cast<const float*>(scales), dq, dq >> qshift,
-                    qshift};
-  sdga_kernel<Q8Rows><<<grid_for(d), kThreads, weights_smem(k),
-                        static_cast<cudaStream_t>(stream)>>>(
-      rows, static_cast<const float*>(w), static_cast<const float*>(p),
-      static_cast<const float*>(m), static_cast<const float*>(e),
-      static_cast<float*>(op), static_cast<float*>(om),
-      static_cast<float*>(oe), k, d, lr, alpha, mu, anchor, decay, omd,
-      poly);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sdga<Q8Rows>(q, scales, w, p, m, e, op, om, oe, k, dq, d, lr,
+                             alpha, mu, anchor, decay, omd, poly, qshift,
+                             stream);
+}
+
+int sdga_aggregate_q4(const void* q, const void* scales, const void* w,
+                      const void* p, const void* m, const void* e, void* op,
+                      void* om, void* oe, int64_t k, int64_t dq, int64_t d,
+                      float lr, float alpha, float mu, float anchor,
+                      float decay, float omd, int poly, int qshift,
+                      void* stream) {
+  return launch_sdga<Q4Rows>(q, scales, w, p, m, e, op, om, oe, k, dq, d, lr,
+                             alpha, mu, anchor, decay, omd, poly, qshift,
+                             stream);
 }
 
 // The screens return -1 when the caller's scratch has another number of
@@ -444,29 +582,22 @@ int screen_rows_f32(const void* u, void* part, void* out, int64_t k,
                        kThreads, 0, s>>>(static_cast<const float*>(u),
                                          static_cast<float*>(part), d,
                                          chunks);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  screen_finish<<<static_cast<unsigned>(k), kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), chunks);
-  return static_cast<int>(cudaGetLastError());
+  return launch_finish(part, out, k, chunks, s);
 }
 
 int screen_rows_q8(const void* q, const void* scales, void* part, void* out,
                    int64_t k, int64_t dq, int qshift, int64_t chunks,
                    void* stream) {
-  const int64_t nb = dq >> qshift;
-  if (chunks != (nb + kScreenQBlocks - 1) / kScreenQBlocks) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  screen_partial_q8<<<dim3(static_cast<unsigned>(chunks),
-                           static_cast<unsigned>(k)),
-                      kThreads, 0, s>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(part), dq, nb, qshift, chunks);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  screen_finish<<<static_cast<unsigned>(k), kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), chunks);
-  return static_cast<int>(cudaGetLastError());
+  return launch_screen_q<false>(q, scales, part, out, k, dq, qshift, chunks,
+                                stream);
+}
+
+// dq: lanes per row (the packed row holds dq / 2 bytes).
+int screen_rows_q4(const void* q, const void* scales, void* part, void* out,
+                   int64_t k, int64_t dq, int qshift, int64_t chunks,
+                   void* stream) {
+  return launch_screen_q<true>(q, scales, part, out, k, dq, qshift, chunks,
+                               stream);
 }
 
 }  // extern "C"

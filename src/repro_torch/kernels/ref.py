@@ -5,7 +5,8 @@ Each keeps the reference's op order as its jitted programs compute it:
 ``x / scale`` is a true division by a tensor (PyTorch turns a division by
 a Python number on CUDA into a multiply by its reciprocal, which rounds
 differently), ``torch.round`` rounds half to even like ``jnp.round``, and
-the scale is ``max(absmax * f32(1/127), 1e-12)``.
+the scale is ``max(absmax * f32(1/127), 1e-12)`` (``f32(1/7)`` on the
+packed-int4 wire).
 Host scalars (fold weights, survival factors) are np.float32 values.
 """
 from __future__ import annotations
@@ -43,6 +44,38 @@ def fold_q8_ref(acc: torch.Tensor, q_row: torch.Tensor, s_row: torch.Tensor,
     return fold_ref(acc, dequant_flat_ref(q_row, s_row, qblock), w, beta)
 
 
+def unpack_q4_ref(p: torch.Tensor) -> torch.Tensor:
+    """(..., n) packed int8 -> (..., 2n) int8 lanes in [-8, 7]: lane 2j
+    is the low nibble of byte j, lane 2j+1 the high one, each
+    sign-extended (a nibble above 7 reads as itself minus 16)."""
+    u = p.view(torch.uint8).to(torch.int16)
+    lo, hi = u & 0xF, u >> 4
+    lanes = torch.stack([lo, hi], dim=-1).reshape(*p.shape[:-1],
+                                                  2 * p.shape[-1])
+    return torch.where(lanes > 7, lanes - 16, lanes).to(torch.int8)
+
+
+def pack_q4_ref(q: torch.Tensor) -> torch.Tensor:
+    """(..., 2n) int8 lanes in [-8, 7] -> (..., n) int8, two per byte in
+    :func:`unpack_q4_ref`'s layout (two's complement nibbles)."""
+    u = q.view(torch.uint8) & 0xF
+    return (u[..., 0::2] | (u[..., 1::2] << 4)).view(torch.int8)
+
+
+def dequant_q4_flat_ref(p: torch.Tensor, scales: torch.Tensor,
+                        qblock: int) -> torch.Tensor:
+    """Unpack, then :func:`dequant_flat_ref`: p (..., Dq/2) packed int8
+    with scales (..., Dq/qblock) -> (..., Dq) f32."""
+    return dequant_flat_ref(unpack_q4_ref(p), scales, qblock)
+
+
+def fold_q4_ref(acc: torch.Tensor, p_row: torch.Tensor, s_row: torch.Tensor,
+                w, qblock: int, beta=1.0) -> torch.Tensor:
+    """Streaming fold of one packed int4 row: unpack, dequantize, then
+    :func:`fold_ref`."""
+    return fold_ref(acc, dequant_q4_flat_ref(p_row, s_row, qblock), w, beta)
+
+
 def _mix_rates(rows, rates, params: torch.Tensor):
     """The sequential fedasync mix in (S, P) form over ``rows`` (a
     sequence of (d,) f32 rows): S <- (1 - a_i)*S + a_i*u_i, P <- P*(1 -
@@ -77,6 +110,13 @@ def fedasync_rates_flat_q8_ref(q: torch.Tensor, scales: torch.Tensor, rates,
     return _mix_rates(rows, rates, params)
 
 
+def fedasync_rates_flat_q4_ref(p: torch.Tensor, scales: torch.Tensor, rates,
+                               params: torch.Tensor, qblock: int):
+    """:func:`fedasync_rates_flat_q8_ref` over packed int4 rows."""
+    return fedasync_rates_flat_q8_ref(unpack_q4_ref(p), scales, rates,
+                                      params, qblock)
+
+
 def sdga_step_from_mean(g: torch.Tensor, params: torch.Tensor,
                         mom: torch.Tensor, ema: torch.Tensor, *,
                         server_lr: float, momentum: float,
@@ -106,3 +146,46 @@ def quantize_ref(x: torch.Tensor):
                         min=1e-12)
     q = torch.clamp(torch.round(x / scale), -127, 127)
     return q.to(torch.int8), scale[:, 0]
+
+
+#: 1/7 rounded to f32, the q4 twin of :data:`INV_127`
+INV_7 = float(np.float32(1.0) / np.float32(7.0))
+#: levels of the symmetric int4 grid [-7, 7] (-8 stays unused)
+Q4_LEVELS = 7
+
+
+def quantize_q4_ref(x: torch.Tensor, u: torch.Tensor):
+    """Blockwise int4 absmax quantization with stochastic rounding, as the
+    reference's jitted codec computes it: x (R, B) f32 and u (R, B)
+    uniform [0, 1) draws -> (q int8 (R, B) in [-7, 7], scales f32 (R,)),
+    scale = max(absmax * f32(1/7), 1e-12), y = clip(x / scale, -7, 7)
+    with a true division, q = floor(y) + (u < y - floor(y)), clipped."""
+    x = x.to(torch.float32)
+    scale = torch.clamp(x.abs().amax(dim=-1, keepdim=True) * INV_7,
+                        min=1e-12)
+    y = torch.clamp(x / scale, -Q4_LEVELS, Q4_LEVELS)
+    f = torch.floor(y)
+    q = torch.clamp(f + (u < (y - f)).to(torch.float32), -Q4_LEVELS,
+                    Q4_LEVELS)
+    return q.to(torch.int8), scale[:, 0]
+
+
+def screen_sumsq_q8_ref(q: torch.Tensor, scales: torch.Tensor,
+                        qblock: int) -> torch.Tensor:
+    """Sum of squares of each dequantized int8 row, blockwise: (K, Dq)
+    int8 + (K, Dq/qblock) scales -> (K,) f32, ``q2_b = sum q^2`` over
+    each block in int32 (exact), then ``sum_b (q2_b * s_b) * s_b`` in
+    f32.  An Inf scale poisons the sum (``0 * Inf`` is NaN)."""
+    k, dq = q.shape
+    nb = scales.shape[1]
+    if dq != nb * qblock:
+        raise ValueError(f"Dq={dq} is not {nb} blocks of {qblock}")
+    qi = q.to(torch.int32)
+    q2 = (qi * qi).view(k, nb, qblock).sum(dim=2, dtype=torch.int32)
+    return (q2.to(torch.float32) * scales * scales).sum(dim=1)
+
+
+def screen_sumsq_q4_ref(p: torch.Tensor, scales: torch.Tensor,
+                        qblock: int) -> torch.Tensor:
+    """Packed int4 screening: unpack the nibbles, then the q8 rule."""
+    return screen_sumsq_q8_ref(unpack_q4_ref(p), scales, qblock)

@@ -21,6 +21,13 @@ its plain PyTorch version.
     square root the norm).
   * :func:`screen_rows_q8` replaces ``safl_agg.py:918 screen_rows_q8``
     (the same over int8 rows, dequantize fused blockwise).
+  * :func:`safl_fold_q4`, :func:`safl_aggregate_q4`,
+    :func:`sdga_aggregate_q4` and :func:`screen_rows_q4` replace
+    ``safl_agg.py:658 safl_fold_q4``, ``:599 safl_aggregate_q4``,
+    ``:709 sdga_aggregate_q4`` and ``:952 screen_rows_q4``: their q8
+    siblings over packed int4 rows ((K, Dq/2) bytes of two lanes each,
+    :func:`repro_torch.kernels.ref.unpack_q4_ref`'s layout), the nibbles
+    unpacked and sign-extended in registers.
 
 Routing: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel (``csrc/safl_agg.cu``, built at first use
@@ -30,8 +37,9 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 Every kernel is bound by memory bandwidth (a few flops per element
 against 1 or 4 bytes per operand); the wrappers' docstrings give the
 bytes.  The design is a simple coalesced streaming pass with a
-grid-stride loop, the int8 rows dequantized in registers; ``float4``
-loads, TMA and ``wgmma`` buy nothing a bandwidth-bound pass needs first.
+grid-stride loop, the int8 and int4 rows dequantized in registers;
+``float4`` loads, TMA and ``wgmma`` buy nothing a bandwidth-bound pass
+needs first.
 Every product and sum in the kernels uses round-to-nearest intrinsics
 that are never contracted into an FMA, and the plain versions below do
 the same operations in the same order, so kernel and plain version agree
@@ -86,6 +94,10 @@ def _lib() -> ctypes.CDLL:
         "screen_rows_f32": [p, p, p, i64, i64, i64, p],
         "screen_rows_q8": [p, p, p, p, i64, i64, i32, i64, p],
     }
+    # the q4 kernels take the q8 kernels' arguments (Dq: lanes per row)
+    for name in ("safl_fold", "safl_aggregate", "sdga_aggregate",
+                 "screen_rows"):
+        sigs[name + "_q4"] = sigs[name + "_q8"]
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args
@@ -136,16 +148,19 @@ def _qshift(qblock: int) -> int:
     return qblock.bit_length() - 1
 
 
-def _check_q8(q: torch.Tensor, scales: torch.Tensor, qblock: int):
-    """Shapes of a quantized (K, Dq) buffer -> (K, Dq)."""
+def _check_q(q: torch.Tensor, scales: torch.Tensor, qblock: int,
+             packed: bool):
+    """Shapes of a quantized buffer, (K, Dq) int8 or (K, Dq/2) packed int4
+    bytes -> (K, Dq)."""
     if q.dim() != 2:
-        raise ValueError(f"q: expected (K, Dq), got {tuple(q.shape)}")
-    k, dq = q.shape
+        raise ValueError(f"q: expected (K, row bytes), got {tuple(q.shape)}")
+    k, nbytes = q.shape
+    dq = 2 * nbytes if packed else nbytes
     if dq % qblock:
         raise ValueError(f"Dq={dq} is not a multiple of qblock={qblock}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"K={k} outside [1, {MAX_K}]")
-    _check("q", q, (k, dq), q.device, torch.int8)
+    _check("q", q, (k, nbytes), q.device, torch.int8)
     _check("scales", scales, (k, dq // qblock), q.device)
     return k, dq
 
@@ -211,16 +226,20 @@ def safl_fold_q8_plain(acc: torch.Tensor, q_row: torch.Tensor,
     return ref.fold_q8_ref(acc, q_row, s_row, w, qblock, beta)
 
 
-def safl_fold_q8(acc: torch.Tensor, q_row: torch.Tensor,
-                 s_row: torch.Tensor, w, beta=1.0, *, qblock: int = BLOCK,
-                 out: torch.Tensor = None) -> torch.Tensor:
-    """acc (Dq,) f32, q_row (Dq,) int8, s_row (Dq/qblock,) f32 scales ->
-    beta*acc + w*dequant(q_row), the dequantize ((float)q * scale) fused
-    into the pass.  Replaces ``repro/kernels/safl_agg.py:257
-    safl_fold_q8``.  ``out`` may be ``acc``.  Bound: 9*Dq + 4*Dq/qblock
-    bytes."""
-    if not _on_cuda(acc, "safl_fold_q8"):
-        res = safl_fold_q8_plain(acc, q_row, s_row, w, beta, qblock=qblock)
+def safl_fold_q4_plain(acc: torch.Tensor, q_row: torch.Tensor,
+                       s_row: torch.Tensor, w, beta=1.0, *,
+                       qblock: int = BLOCK) -> torch.Tensor:
+    """Plain version of :func:`safl_fold_q4` (any device)."""
+    return ref.fold_q4_ref(acc, q_row, s_row, w, qblock, beta)
+
+
+def _fold_q(wrapper, plain, packed: bool, acc, q_row, s_row, w, beta,
+            qblock, out):
+    """A quantized fold: ``plain`` on the CPU, else the kernel named
+    like ``wrapper``, which counts the launch."""
+    name = wrapper.__name__
+    if not _on_cuda(acc, name):
+        res = plain(acc, q_row, s_row, w, beta, qblock=qblock)
         if out is None:
             return res
         out.copy_(res)
@@ -230,20 +249,46 @@ def safl_fold_q8(acc: torch.Tensor, q_row: torch.Tensor,
     if dq % qblock:
         raise ValueError(f"Dq={dq} is not a multiple of qblock={qblock}")
     _check("acc", acc, (dq,), acc.device)
-    _check("q_row", q_row, (dq,), acc.device, torch.int8)
+    _check("q_row", q_row, (dq // 2 if packed else dq,), acc.device,
+           torch.int8)
     _check("s_row", s_row, (dq // qblock,), acc.device)
     if out is None:
         out = torch.empty_like(acc)
     _check("out", out, (dq,), acc.device)
-    rc = _lib().safl_fold_q8(
+    rc = getattr(_lib(), name)(
         acc.data_ptr(), q_row.data_ptr(), s_row.data_ptr(), out.data_ptr(),
         _f32(w), _f32(beta), dq, qshift, _stream(acc))
-    _raise_on(rc, "safl_fold_q8")
-    safl_fold_q8.launches += 1
+    _raise_on(rc, name)
+    wrapper.launches += 1
     return out
 
 
+def safl_fold_q8(acc: torch.Tensor, q_row: torch.Tensor,
+                 s_row: torch.Tensor, w, beta=1.0, *, qblock: int = BLOCK,
+                 out: torch.Tensor = None) -> torch.Tensor:
+    """acc (Dq,) f32, q_row (Dq,) int8, s_row (Dq/qblock,) f32 scales ->
+    beta*acc + w*dequant(q_row), the dequantize ((float)q * scale) fused
+    into the pass.  Replaces ``repro/kernels/safl_agg.py:257
+    safl_fold_q8``.  ``out`` may be ``acc``.  Bound: 9*Dq + 4*Dq/qblock
+    bytes."""
+    return _fold_q(safl_fold_q8, safl_fold_q8_plain, False, acc, q_row,
+                   s_row, w, beta, qblock, out)
+
+
 safl_fold_q8.launches = 0
+
+
+def safl_fold_q4(acc: torch.Tensor, q_row: torch.Tensor,
+                 s_row: torch.Tensor, w, beta=1.0, *, qblock: int = BLOCK,
+                 out: torch.Tensor = None) -> torch.Tensor:
+    """:func:`safl_fold_q8` over one packed int4 row, q_row (Dq/2,) int8
+    bytes.  Replaces ``repro/kernels/safl_agg.py:658 safl_fold_q4``.
+    ``out`` may be ``acc``.  Bound: 8.5*Dq + 4*Dq/qblock bytes."""
+    return _fold_q(safl_fold_q4, safl_fold_q4_plain, True, acc, q_row,
+                   s_row, w, beta, qblock, out)
+
+
+safl_fold_q4.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -344,6 +389,45 @@ def safl_aggregate_q8_plain(q: torch.Tensor, scales: torch.Tensor,
                                 alpha=alpha, discount=discount)
 
 
+def safl_aggregate_q4_plain(q: torch.Tensor, scales: torch.Tensor,
+                            w: torch.Tensor, p: torch.Tensor = None,
+                            **kw) -> torch.Tensor:
+    """Plain version of :func:`safl_aggregate_q4` (any device): unpack,
+    then :func:`safl_aggregate_q8_plain`."""
+    return safl_aggregate_q8_plain(ref.unpack_q4_ref(q), scales, w, p, **kw)
+
+
+def _aggregate_q(wrapper, plain, packed: bool, q, scales, w, p, server_lr,
+                 mode, alpha, discount, qblock):
+    """A quantized aggregate: ``plain`` on the CPU, else the kernel named
+    like ``wrapper``, which counts the launch."""
+    name = wrapper.__name__
+    _check_mode(mode, discount, p)
+    if not _on_cuda(q, name):
+        return plain(q, scales, w, p, server_lr=server_lr, mode=mode,
+                     alpha=alpha, discount=discount, qblock=qblock)
+    qshift = _qshift(qblock)
+    k, dq = _check_q(q, scales, qblock, packed)
+    _check("w", w, (k,), q.device)
+    n = dq
+    if p is not None:
+        n = p.shape[0]
+        if n > dq:
+            raise ValueError(f"p has {n} lanes, more than Dq={dq}")
+        _check("p", p, (n,), q.device)
+    if mode in ("avg", "sum"):
+        n = dq
+    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    rc = getattr(_lib(), name)(
+        q.data_ptr(), scales.data_ptr(), w.data_ptr(),
+        None if p is None else p.data_ptr(), out.data_ptr(), k, dq, n,
+        _f32(server_lr), _f32(alpha), MODES[mode], int(discount == "poly"),
+        qshift, _stream(q))
+    _raise_on(rc, name)
+    wrapper.launches += 1
+    return out
+
+
 def safl_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
                       p: torch.Tensor = None, *, server_lr: float = 1.0,
                       mode: str = "fedsgd", alpha: float = 0.5,
@@ -356,34 +440,29 @@ def safl_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
     ``repro/kernels/safl_agg.py:420 safl_aggregate_q8``.  Bound:
     K*Dq + K*Dq/qblock*4 bytes read, plus 2*D*4 (fedsgd/mix) or Dq*4
     (avg/sum)."""
-    _check_mode(mode, discount, p)
-    if not _on_cuda(q, "safl_aggregate_q8"):
-        return safl_aggregate_q8_plain(q, scales, w, p, server_lr=server_lr,
-                                       mode=mode, alpha=alpha,
-                                       discount=discount, qblock=qblock)
-    qshift = _qshift(qblock)
-    k, dq = _check_q8(q, scales, qblock)
-    _check("w", w, (k,), q.device)
-    n = dq
-    if p is not None:
-        n = p.shape[0]
-        if n > dq:
-            raise ValueError(f"p has {n} lanes, more than Dq={dq}")
-        _check("p", p, (n,), q.device)
-    if mode in ("avg", "sum"):
-        n = dq
-    out = torch.empty(n, dtype=torch.float32, device=q.device)
-    rc = _lib().safl_aggregate_q8(
-        q.data_ptr(), scales.data_ptr(), w.data_ptr(),
-        None if p is None else p.data_ptr(), out.data_ptr(), k, dq, n,
-        _f32(server_lr), _f32(alpha), MODES[mode], int(discount == "poly"),
-        qshift, _stream(q))
-    _raise_on(rc, "safl_aggregate_q8")
-    safl_aggregate_q8.launches += 1
-    return out
+    return _aggregate_q(safl_aggregate_q8, safl_aggregate_q8_plain, False,
+                        q, scales, w, p, server_lr, mode, alpha, discount,
+                        qblock)
 
 
 safl_aggregate_q8.launches = 0
+
+
+def safl_aggregate_q4(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
+                      p: torch.Tensor = None, *, server_lr: float = 1.0,
+                      mode: str = "fedsgd", alpha: float = 0.5,
+                      discount: str = "none",
+                      qblock: int = BLOCK) -> torch.Tensor:
+    """:func:`safl_aggregate_q8` over packed int4 rows, q (K, Dq/2) int8
+    bytes.  Replaces ``repro/kernels/safl_agg.py:599 safl_aggregate_q4``.
+    Bound: K*Dq/2 + K*Dq/qblock*4 bytes read, plus 2*D*4 (fedsgd/mix) or
+    Dq*4 (avg/sum)."""
+    return _aggregate_q(safl_aggregate_q4, safl_aggregate_q4_plain, True,
+                        q, scales, w, p, server_lr, mode, alpha, discount,
+                        qblock)
+
+
+safl_aggregate_q4.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +552,45 @@ def sdga_aggregate_q8_plain(q: torch.Tensor, scales: torch.Tensor,
         ema_anchor=ema_anchor, ema_decay=ema_decay, discount=discount)
 
 
+def sdga_aggregate_q4_plain(q: torch.Tensor, scales: torch.Tensor,
+                            w: torch.Tensor, p: torch.Tensor,
+                            m: torch.Tensor, e: torch.Tensor, **kw):
+    """Plain version of :func:`sdga_aggregate_q4` (any device): unpack,
+    then :func:`sdga_aggregate_q8_plain`."""
+    return sdga_aggregate_q8_plain(ref.unpack_q4_ref(q), scales, w, p, m, e,
+                                   **kw)
+
+
+def _sdga_q(wrapper, plain, packed: bool, q, scales, w, p, m, e, server_lr,
+            alpha, momentum, ema_anchor, ema_decay, discount, qblock):
+    """A quantized SDGA round: ``plain`` on the CPU, else the kernel named
+    like ``wrapper``, which counts the launch."""
+    name = wrapper.__name__
+    _check_discount(discount)
+    if not _on_cuda(q, name):
+        return plain(q, scales, w, p, m, e, server_lr=server_lr, alpha=alpha,
+                     momentum=momentum, ema_anchor=ema_anchor,
+                     ema_decay=ema_decay, discount=discount, qblock=qblock)
+    qshift = _qshift(qblock)
+    k, dq = _check_q(q, scales, qblock, packed)
+    _check("w", w, (k,), q.device)
+    d = p.shape[0]
+    if d > dq:
+        raise ValueError(f"p has {d} lanes, more than Dq={dq}")
+    for label, t in (("p", p), ("m", m), ("e", e)):
+        _check(label, t, (d,), q.device)
+    outs = [torch.empty(d, dtype=torch.float32, device=q.device)
+            for _ in range(3)]
+    rc = getattr(_lib(), name)(
+        q.data_ptr(), scales.data_ptr(), w.data_ptr(), p.data_ptr(),
+        m.data_ptr(), e.data_ptr(), *(o.data_ptr() for o in outs), k, dq, d,
+        *_sdga_scalars(server_lr, alpha, momentum, ema_anchor, ema_decay),
+        int(discount == "poly"), qshift, _stream(q))
+    _raise_on(rc, name)
+    wrapper.launches += 1
+    return tuple(outs)
+
+
 def sdga_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
                       p: torch.Tensor, m: torch.Tensor, e: torch.Tensor, *,
                       server_lr: float, alpha: float = 0.5,
@@ -483,33 +601,29 @@ def sdga_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
     (K, Dq/qblock), each row dequantized as (float)q * scale; p / m / e
     are (D,) with D <= Dq.  Replaces ``repro/kernels/safl_agg.py:488
     sdga_aggregate_q8``.  Bound: K*Dq + K*Dq/qblock*4 + 6*D*4 bytes."""
-    _check_discount(discount)
-    if not _on_cuda(q, "sdga_aggregate_q8"):
-        return sdga_aggregate_q8_plain(
-            q, scales, w, p, m, e, server_lr=server_lr, alpha=alpha,
-            momentum=momentum, ema_anchor=ema_anchor, ema_decay=ema_decay,
-            discount=discount, qblock=qblock)
-    qshift = _qshift(qblock)
-    k, dq = _check_q8(q, scales, qblock)
-    _check("w", w, (k,), q.device)
-    d = p.shape[0]
-    if d > dq:
-        raise ValueError(f"p has {d} lanes, more than Dq={dq}")
-    for name, t in (("p", p), ("m", m), ("e", e)):
-        _check(name, t, (d,), q.device)
-    outs = [torch.empty(d, dtype=torch.float32, device=q.device)
-            for _ in range(3)]
-    rc = _lib().sdga_aggregate_q8(
-        q.data_ptr(), scales.data_ptr(), w.data_ptr(), p.data_ptr(),
-        m.data_ptr(), e.data_ptr(), *(o.data_ptr() for o in outs), k, dq, d,
-        *_sdga_scalars(server_lr, alpha, momentum, ema_anchor, ema_decay),
-        int(discount == "poly"), qshift, _stream(q))
-    _raise_on(rc, "sdga_aggregate_q8")
-    sdga_aggregate_q8.launches += 1
-    return tuple(outs)
+    return _sdga_q(sdga_aggregate_q8, sdga_aggregate_q8_plain, False, q,
+                   scales, w, p, m, e, server_lr, alpha, momentum,
+                   ema_anchor, ema_decay, discount, qblock)
 
 
 sdga_aggregate_q8.launches = 0
+
+
+def sdga_aggregate_q4(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
+                      p: torch.Tensor, m: torch.Tensor, e: torch.Tensor, *,
+                      server_lr: float, alpha: float = 0.5,
+                      momentum: float = 0.8, ema_anchor: float = 0.05,
+                      ema_decay: float = 0.95, discount: str = "poly",
+                      qblock: int = BLOCK):
+    """:func:`sdga_aggregate_q8` over packed int4 rows, q (K, Dq/2) int8
+    bytes.  Replaces ``repro/kernels/safl_agg.py:709 sdga_aggregate_q4``.
+    Bound: K*Dq/2 + K*Dq/qblock*4 + 6*D*4 bytes."""
+    return _sdga_q(sdga_aggregate_q4, sdga_aggregate_q4_plain, True, q,
+                   scales, w, p, m, e, server_lr, alpha, momentum,
+                   ema_anchor, ema_decay, discount, qblock)
+
+
+sdga_aggregate_q4.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -563,17 +677,39 @@ screen_rows.launches = 0
 def screen_rows_q8_plain(q: torch.Tensor, scales: torch.Tensor, *,
                          qblock: int = BLOCK) -> torch.Tensor:
     """Plain version of :func:`screen_rows_q8` (any device), the reference
-    oracle's blockwise form: ``q2_b = sum q^2`` over each block in int32,
-    then ``sum_b (q2_b * s_b) * s_b`` in f32, row by row."""
-    dq, nb = q.shape[1], scales.shape[1]
-    if dq != nb * qblock:
-        raise ValueError(f"Dq={dq} is not {nb} blocks of {qblock}")
+    oracle's blockwise form (:func:`ref.screen_sumsq_q8_ref`: ``q2_b =
+    sum q^2`` over each block in int32, then ``sum_b (q2_b * s_b) * s_b``
+    in f32), row by row."""
+    return _per_row(lambda qr, sr: ref.screen_sumsq_q8_ref(qr, sr, qblock),
+                    q, scales)
 
-    def sumsq(qr, sr):
-        qi = qr.to(torch.int32)
-        q2 = (qi * qi).view(1, nb, qblock).sum(dim=2, dtype=torch.int32)
-        return (q2.to(torch.float32) * sr * sr).sum(dim=1)
-    return _per_row(sumsq, q, scales)
+
+def screen_rows_q4_plain(q: torch.Tensor, scales: torch.Tensor, *,
+                         qblock: int = BLOCK) -> torch.Tensor:
+    """Plain version of :func:`screen_rows_q4` (any device):
+    :func:`ref.screen_sumsq_q4_ref` (unpack, then the q8 rule), row by
+    row."""
+    return _per_row(lambda qr, sr: ref.screen_sumsq_q4_ref(qr, sr, qblock),
+                    q, scales)
+
+
+def _screen_q(wrapper, plain, packed: bool, q, scales, qblock):
+    """A quantized screen: ``plain`` on the CPU, else the kernel named
+    like ``wrapper`` (two launches, counted as one)."""
+    name = wrapper.__name__
+    if not _on_cuda(q, name):
+        return plain(q, scales, qblock=qblock)
+    qshift = _qshift(qblock)
+    k, dq = _check_q(q, scales, qblock, packed)
+    chunks = -(-(dq // qblock) // SCREEN_QBLOCKS)
+    part = torch.empty((k, chunks), dtype=torch.float32, device=q.device)
+    out = torch.empty(k, dtype=torch.float32, device=q.device)
+    rc = getattr(_lib(), name)(q.data_ptr(), scales.data_ptr(),
+                               part.data_ptr(), out.data_ptr(), k, dq,
+                               qshift, chunks, _stream(q))
+    _raise_on(rc, name)
+    wrapper.launches += 1
+    return out
 
 
 def screen_rows_q8(q: torch.Tensor, scales: torch.Tensor, *,
@@ -583,25 +719,27 @@ def screen_rows_q8(q: torch.Tensor, scales: torch.Tensor, *,
     without forming the f32 row.  An Inf scale makes a row's sum
     non-finite.  Replaces ``repro/kernels/safl_agg.py:918
     screen_rows_q8``.  Bound: K*Dq + K*Dq/qblock*4 bytes read."""
-    if not _on_cuda(q, "screen_rows_q8"):
-        return screen_rows_q8_plain(q, scales, qblock=qblock)
-    qshift = _qshift(qblock)
-    k, dq = _check_q8(q, scales, qblock)
-    chunks = -(-(dq // qblock) // SCREEN_QBLOCKS)
-    part = torch.empty((k, chunks), dtype=torch.float32, device=q.device)
-    out = torch.empty(k, dtype=torch.float32, device=q.device)
-    rc = _lib().screen_rows_q8(q.data_ptr(), scales.data_ptr(),
-                               part.data_ptr(), out.data_ptr(), k, dq,
-                               qshift, chunks, _stream(q))
-    _raise_on(rc, "screen_rows_q8")
-    screen_rows_q8.launches += 1
-    return out
+    return _screen_q(screen_rows_q8, screen_rows_q8_plain, False, q, scales,
+                     qblock)
 
 
 screen_rows_q8.launches = 0
 
+
+def screen_rows_q4(q: torch.Tensor, scales: torch.Tensor, *,
+                   qblock: int = BLOCK) -> torch.Tensor:
+    """:func:`screen_rows_q8` over packed int4 rows, q (K, Dq/2) int8
+    bytes; a corrupted byte's nibble -8 counts as 64.  Replaces
+    ``repro/kernels/safl_agg.py:952 screen_rows_q4``.  Bound:
+    K*Dq/2 + K*Dq/qblock*4 bytes read."""
+    return _screen_q(screen_rows_q4, screen_rows_q4_plain, True, q, scales,
+                     qblock)
+
+
+screen_rows_q4.launches = 0
+
 #: every kernel wrapper of this module, by name (each has ``.launches``)
-KERNELS = {f.__name__: f for f in (safl_fold, safl_fold_q8, safl_aggregate,
-                                   safl_aggregate_q8, sdga_aggregate,
-                                   sdga_aggregate_q8, screen_rows,
-                                   screen_rows_q8)}
+KERNELS = {f.__name__: f for f in (
+    safl_fold, safl_fold_q8, safl_aggregate, safl_aggregate_q8,
+    sdga_aggregate, sdga_aggregate_q8, screen_rows, screen_rows_q8,
+    safl_fold_q4, safl_aggregate_q4, sdga_aggregate_q4, screen_rows_q4)}

@@ -8,12 +8,12 @@ The reference launcher's flags and ``--json-out`` schema, plus
 ``--device`` (``cuda`` by default; raises when no GPU is visible).  The
 run is the sequential engine, which is what the reference runs with
 ``--sequential``.  Every ``--aggregation`` of the study runs (fedsgd,
-fedavg, fedbuff, fedasync, fedopt, sdga), on the f32 wire or ``--wire
-q8`` (``--compress`` is its legacy alias), with fault injection
-(``--fault-*``, semi-async only) and the server defense (``--defense
-screen|clip``, ``--defense-norm-cap``).  Flags for parts not ported yet
-(the q4 and topk wires among them) are refused with a "not ported yet"
-error when given anything but their default.
+fedavg, fedbuff, fedasync, fedopt, sdga), on the f32 wire, ``--wire
+q8`` (``--compress`` is its legacy alias) or ``--wire q4``, with fault
+injection (``--fault-*``, semi-async only) and the server defense
+(``--defense screen|clip``, ``--defense-norm-cap``).  Flags for parts not
+ported yet (the topk wire among them) are refused with a "not ported
+yet" error when given anything but their default.
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ NOT_PORTED = {
     "ckpt_dir": "", "ckpt_every": 0,
     "resume": False, "trace_dir": "", "trace_jax": False,
 }
-PORTED_WIRES = ("f32", "q8")
+PORTED_WIRES = ("f32", "q8", "q4")
 #: server learning rate per aggregation (the reference launcher's table)
 SERVER_LR = {"fedsgd": 0.05, "sdga": 0.05, "fedbuff": 0.05, "fedopt": 0.005}
 

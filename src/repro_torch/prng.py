@@ -11,15 +11,22 @@
     the exponent of 1.0, minus 1.
 
 Draws are keyed by (seed, client, counter) only, never by the order in
-which they are made: the fault plan (:mod:`repro_torch.faults`) draws
-from it, and the q4 wire's stochastic rounding will.  Host numpy; the
-draws are a few lanes per upload.
+which they are made.  Keys are host numpy (:func:`prng_key` and
+:func:`fold_in` are one-lane threefry calls).  Two twins of the draws:
+
+  * :func:`uniform`, host numpy, for the fault plan
+    (:mod:`repro_torch.faults`), which draws a few lanes per upload;
+  * :func:`uniform_torch`, the same bits made by integer PyTorch ops on
+    a tensor's device, for the q4 wire's stochastic rounding, which
+    draws one lane per coordinate of every upload (2.15 M at the paper
+    CNN's width), so the draws never cross from the host.
 """
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 _U32 = np.uint32
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -83,3 +90,36 @@ def uniform(key: Key, shape) -> np.ndarray:
     bits = _random_bits(key, n)
     f = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32)
     return np.maximum(np.float32(0.0), f - np.float32(1.0)).reshape(shape)
+
+
+_MASK = 0xFFFFFFFF
+
+
+def _rotl_t(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def uniform_torch(key: Key, shape, device) -> torch.Tensor:
+    """:func:`uniform` made on ``device``: threefry2x32 in int64 PyTorch
+    ops, every word held in [0, 2**32) by masking after each add and
+    shift (integer ops are exact on every device, so the bits equal the
+    numpy twin's), then the top 23 bits put under the exponent of 1.0.
+    Returns f32 in [0, 1) of ``shape``."""
+    shape = tuple(int(x) for x in np.atleast_1d(shape))
+    n = int(np.prod(shape, dtype=np.int64))
+    if n >= 2 ** 32:
+        raise ValueError(f"{n} lanes exceed the 32-bit counter")
+    k0, k1 = (int(v) for v in np.asarray(key, _U32))
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x1 = torch.arange(n, dtype=torch.int64, device=device)
+    x0 = torch.full_like(x1, ks[0])
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl_t(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & _MASK
+    bits = (x0 ^ x1) >> 9 | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp(f, min=0.0).reshape(shape)

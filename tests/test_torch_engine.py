@@ -114,8 +114,9 @@ def test_streaming_equals_buffered_bitwise(setup):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("wire", "q4"), ("wire", "topk"), ("sched_timing", "lognormal"),
-    ("sched_policy", "uniform"), ("batch_clients", True), ("horizon", "queue"),
+    ("sched_timing", "markov"), ("wire", "topk"),
+    ("sched_timing", "lognormal"), ("sched_policy", "uniform"),
+    ("batch_clients", True), ("horizon", "queue"),
     ("mesh_shape", (1, 1)), ("sched_policy", "seafl"),
     ("trace_level", "round")])
 def test_unported_settings_raise(setup, field, value):
@@ -171,7 +172,7 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
         assert t[k] == j[k], k
 
 
-@pytest.mark.parametrize("flag", [["--wire", "q4"], ["--wire", "topk"],
+@pytest.mark.parametrize("flag", [["--horizon", "hybrid"], ["--wire", "topk"],
                                   ["--devices", "2"], ["--horizon", "queue"],
                                   ["--sched-timing", "markov"],
                                   ["--sched-policy", "seafl"],

@@ -5,7 +5,7 @@ reference, on the CPU:
     and ``defense_factors``: bitwise (NaN lanes compared by position);
   * ``FlatServer.screen`` and ``AccumBuffer.skip``;
   * the engine under chaos + ``screen`` and under Byzantine + ``clip``,
-    in all six aggregation modes on the f32 and q8 wires, against the
+    in all six aggregation modes on the f32, q8 and q4 wires, against the
     reference's sequential engine;
   * the port's streaming and buffered channels under chaos + screen,
     bitwise;
@@ -16,11 +16,12 @@ Setup as the reference's ``tests/test_faults.py``: width-4 CNN on 16x16
 images, 6 iid clients, k = 3, 4 rounds.  Tolerances, engine against the
 reference: crashed, corrupted, byzantine, screened and clipped counts,
 staleness, bytes, participation and simulated time exact; params on f32
-within ``rtol=1e-5, atol=1e-6`` (fedopt ``atol=1e-5``), on q8 within 1e-3
-of the run's own movement for gradient targets (the bounds of
-``test_torch_modes.py`` and ``test_torch_q8.py``; the tighter q8 bound
-catches a dropped error-feedback residual) and within the reference's own
-2e-2 for the model targets fedavg and fedasync, which carry no residual:
+within ``rtol=1e-5, atol=1e-6`` (fedopt ``atol=1e-5``), on q8 and q4
+within 1e-3 of the run's own movement for gradient targets (the bounds of
+``test_torch_modes.py``, ``test_torch_q8.py`` and ``test_torch_q4.py``;
+the tighter bound catches a dropped error-feedback residual) and within
+the reference's own 2e-2 for the model targets fedavg and fedasync,
+which carry no residual:
 a weight an ulp off can quantize to the next int8 level, and fedavg under
 chaos moves little (one level flip after a crash reads 3.8e-3 of its
 movement at round 3, 2.6e-6 again at round 4).  Under ``clip`` a
@@ -66,7 +67,7 @@ from test_torch_sched import _base, _clients  # noqa: E402
 
 MODES = ["fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync"]
 MODEL_TARGETS = ("fedavg", "fedasync")
-WIRES = ["f32", "q8"]
+WIRES = ["f32", "q8", "q4"]
 SLR = {"fedsgd": 0.05, "sdga": 0.05, "fedbuff": 0.05, "fedopt": 0.005}
 # the reference's chaos mix: every kind fires within 4 rounds x 6 clients
 # (the priority ladder lets Byzantine draws through only where the three
@@ -240,7 +241,13 @@ def test_flat_server_screen_matches_reference(wire):
     else:
         x = np.zeros((k, t.dq), np.float32)
         x[:, :d] = rows
-        q, s = jref.quantize_ref(jnp.asarray(x.reshape(-1, qb)))
+        blocks = jnp.asarray(x.reshape(-1, qb))
+        if wire == "q8":
+            q, s = jref.quantize_ref(blocks)
+        else:  # packed int4: a corrupt row's 64 flipped bytes are 128 lanes
+            u = rng.uniform(size=blocks.shape).astype(np.float32)
+            q, s = jax.jit(jref.quantize_q4_ref)(blocks, jnp.asarray(u))
+            q = jref.pack_q4_ref(q.reshape(k, t.dq))
         q, s = jfaults.apply_faults_q(q.reshape(k, -1), s.reshape(k, -1),
                                       CORRUPT[:k], BYZANTINE[:k], LOCS[:k],
                                       10.0)
@@ -342,7 +349,7 @@ def _assert_engine_close(jeng, jres, teng, tres, agg, wire, p_j,
     assert not any(r.nan_event for r in tres.metrics.records)
     ref = flat_reference(jres)
     got = teng._flat_params.numpy()
-    if wire == "q8":
+    if wire != "f32":
         p0 = np.concatenate([np.asarray(p_j[k]).ravel() for k in sorted(p_j)])
         rel = np.linalg.norm(got - ref) / np.linalg.norm(ref - p0)
         assert rel <= (2e-2 if agg in MODEL_TARGETS else 1e-3), rel
@@ -428,7 +435,8 @@ FL_SIM = ["--rounds", "3", "--samples", "240", "--clients", "6", "--k", "3",
 
 @pytest.mark.parametrize("extra", [["--defense", "screen"],
                                    ["--wire", "q8", "--defense", "clip",
-                                    "--defense-norm-cap", "5.0"]])
+                                    "--defense-norm-cap", "5.0"],
+                                   ["--wire", "q4", "--defense", "screen"]])
 def test_fl_sim_faults_and_defense(tmp_path, monkeypatch, capsys, extra):
     """The launcher takes the flags; its --json-out carries the counts,
     equal to the reference launcher's."""
@@ -438,7 +446,7 @@ def test_fl_sim_faults_and_defense(tmp_path, monkeypatch, capsys, extra):
         assert t["sched"][key] == j["sched"][key], key
     assert t["sched"]["crashed_uploads"] > 0
     assert t["sched"]["corrupted_uploads"] > 0
-    if extra[1] == "screen":
+    if extra[-1] == "screen":
         assert t["sched"]["screened_uploads"] == \
             t["sched"]["corrupted_uploads"]
 

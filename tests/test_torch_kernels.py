@@ -1,10 +1,13 @@
 """The plain versions of the ported kernels against the reference's Pallas
 kernels (interpret mode) and its jnp oracles, on the CPU: ``safl_fold``,
 ``safl_aggregate``, ``sdga_aggregate``, the q8 wire's
-``safl_fold_q8``, ``safl_aggregate_q8``, ``sdga_aggregate_q8``, and the
-defense's ``screen_rows`` and ``screen_rows_q8`` (on clean, corrupted,
-Byzantine and all-zero rows: sums within ``rtol=1e-5``, since
-``torch.sum`` and XLA sum in other orders; the isfinite verdicts exact).
+``safl_fold_q8``, ``safl_aggregate_q8``, ``sdga_aggregate_q8``, the q4
+wire's ``safl_fold_q4``, ``safl_aggregate_q4``, ``sdga_aggregate_q4``,
+and the defense's ``screen_rows``, ``screen_rows_q8`` and
+``screen_rows_q4`` (on clean, corrupted, Byzantine and all-zero rows:
+sums within ``rtol=1e-5``, since ``torch.sum`` and XLA sum in other
+orders; the isfinite verdicts exact; ``screen_rows_q4_plain`` bitwise
+equal to the port's oracle ``ref.screen_sumsq_q4_ref``).
 
 Tolerance against the reference: ``rtol=1e-5, atol=1e-5``.  The plain
 versions reduce over K one row at a time; the reference's einsum may sum
@@ -387,3 +390,183 @@ def test_screen_q8_plain_rejects_a_ragged_row():
     q = torch.zeros((2, 700), dtype=torch.int8)
     with pytest.raises(ValueError):
         tk.screen_rows_q8_plain(q, torch.ones(2, 1), qblock=QB)
+
+
+# ---------------------------------------------------------------------------
+# the q4 wire: packed int4 rows
+# ---------------------------------------------------------------------------
+
+
+def _q4_rows(k, seed=0):
+    """k rows quantized on the q4 grid by the reference (jitted, draws from
+    the port's threefry): (packed int8 (k, Dq/2), scales (k, Dq/QB))."""
+    from repro_torch import prng
+    import jax
+    u, _, _ = _rows(k, D_RAGGED, seed)
+    x = np.zeros((k, DQ_RAGGED), np.float32)
+    x[:, :D_RAGGED] = u
+    draws = prng.uniform(prng.fold_in(prng.prng_key(seed), k),
+                         (k * DQ_RAGGED // QB, QB))
+    q, s = jax.jit(jref.quantize_q4_ref)(x.reshape(-1, QB), draws)
+    return (np.asarray(jref.pack_q4_ref(q.reshape(k, DQ_RAGGED))),
+            np.asarray(s).reshape(k, DQ_RAGGED // QB))
+
+
+@pytest.mark.parametrize("beta", [1.0, 0.625])
+def test_fold_q4_plain_matches_reference(beta):
+    q, s = _q4_rows(1, seed=3)
+    acc = np.random.default_rng(4).normal(size=DQ_RAGGED).astype(np.float32)
+    w = np.float32(0.37)
+    want = np.asarray(jk.safl_fold_q4(acc, q[0], s[0], w, beta, qblock=QB,
+                                      interpret=True))
+    oracle = np.asarray(jref.fold_q4_ref(acc, q[0], s[0], w, QB, beta))
+    got = tk.safl_fold_q4_plain(*_t(acc, q[0], s[0]), w, beta,
+                                qblock=QB).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, oracle, **TOL)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("discount", ["none", "poly"])
+@pytest.mark.parametrize("mode", ["fedsgd", "avg", "mix", "sum"])
+def test_aggregate_q4_plain_matches_reference(mode, discount, k):
+    q, s = _q4_rows(k, seed=60 + k)
+    _, p, rng = _rows(1, D_RAGGED, seed=70 + k)
+    w = _weights(rng, k, mode, discount)
+    needs_p = mode in ("fedsgd", "mix")
+    kw = dict(server_lr=0.3, mode=mode, alpha=0.5, discount=discount)
+    want = np.asarray(jk.safl_aggregate_q4(
+        q, s, w, p if needs_p else None, qblock=QB, interpret=True, **kw))
+    got = tk.safl_aggregate_q4_plain(
+        *_t(q, s, w), torch.from_numpy(p) if needs_p else None, qblock=QB,
+        **kw).numpy()
+    assert got.shape == ((D_RAGGED,) if needs_p else (DQ_RAGGED,))
+    np.testing.assert_allclose(got, want, **TOL)
+    if mode == "fedsgd":
+        wd = np.power(1.0 + w, np.float32(-0.5)) if discount == "poly" \
+            else w
+        np.testing.assert_allclose(
+            got, np.asarray(jref.safl_agg_q4_ref(q, s, wd, p, 0.3, QB)),
+            **TOL)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("discount", ["none", "poly"])
+def test_sdga_q4_plain_matches_reference(discount, k):
+    q, s = _q4_rows(k, seed=80 + k)
+    rng = np.random.default_rng(k + 2)
+    w = _weights(rng, k, "avg", discount)
+    p, m, e = _slow_state(k + 11)
+    want = jk.sdga_aggregate_q4(q, s, w, p, m, e, qblock=QB, interpret=True,
+                                discount=discount, **SDGA_KW)
+    got = tk.sdga_aggregate_q4_plain(*_t(q, s, w, p, m, e), qblock=QB,
+                                     discount=discount, **SDGA_KW)
+    for g, wnt in zip(got, want):
+        assert g.shape == (D_RAGGED,)
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), **TOL)
+    if discount == "poly":
+        oracle = jref.sdga_flat_q4_ref(q, s, w, p, m, e, qblock=QB,
+                                       **SDGA_KW)
+        for g, orc in zip(got, oracle):
+            np.testing.assert_allclose(g.numpy(), np.asarray(orc), **TOL)
+
+
+def test_q4_fold_chain_equals_aggregate_and_sdga_bitwise():
+    """The port's streaming q4 channel (folds, then the step in PyTorch
+    ops) equals its buffered one (one aggregate) bit for bit."""
+    from repro_torch.kernels import ref as tref
+    k = 4
+    q, s = _t(*_q4_rows(k, seed=8))
+    w = np.random.default_rng(8).uniform(0.2, 1.0, k).astype(np.float32)
+    acc = torch.zeros(DQ_RAGGED)
+    for i in range(k):
+        tk.safl_fold_q4(acc, q[i], s[i], w[i], qblock=QB, out=acc)
+    assert torch.equal(acc, tk.safl_aggregate_q4(
+        q, s, torch.from_numpy(w), mode="sum", qblock=QB))
+    p, m, e = _t(*_slow_state(8))
+    want = tk.sdga_aggregate_q4(q, s, torch.from_numpy(w), p, m, e,
+                                qblock=QB, discount="none", **SDGA_KW)
+    wsum = np.float32(0.0)
+    for x in w:
+        wsum = np.float32(wsum + x)
+    g = acc[:D_RAGGED] / torch.tensor(wsum)
+    got = tref.sdga_step_from_mean(g, p, m, e, server_lr=0.3, momentum=0.8,
+                                   ema_anchor=0.05, ema_decay=0.95)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _screen_q4_inputs(k, poison, seed):
+    """K packed q4 rows poisoned by the reference's appliers (corrupt:
+    64 flipped bytes, 128 lanes, and an Inf scale; byzantine: scales
+    x -10), or all zero."""
+    q, s = _q4_rows(k, seed)
+    if poison == "zero":
+        return np.zeros_like(q), np.zeros_like(s)
+    corrupt, byz, locs = _poison_masks(k, poison)
+    q, s = jfaults.apply_faults_q(q, s, corrupt, byz, locs, 10.0)
+    return np.asarray(q), np.asarray(s)
+
+
+@pytest.mark.parametrize("poison", POISONS)
+@pytest.mark.parametrize("k", [1, 3, 4])
+def test_screen_q4_plain_matches_reference(k, poison):
+    """Bitwise equal to the port's oracle ``ref.screen_sumsq_q4_ref``;
+    against the reference's oracle and its Pallas kernel: sums within
+    rtol=1e-5, isfinite verdicts exact; each row alone equals the same
+    row in the stack bitwise."""
+    from repro_torch.kernels import ref as tref
+    q, s = _screen_q4_inputs(k, poison, seed=90 + k)
+    got = tk.screen_rows_q4_plain(*_t(q, s), qblock=QB).numpy()
+    np.testing.assert_array_equal(
+        got.view(np.int32),
+        tref.screen_sumsq_q4_ref(*_t(q, s), QB).numpy().view(np.int32))
+    _assert_sums(got, jref.screen_sumsq_q4_ref(q, s, QB),
+                 jk.screen_rows_q4(q, s, qblock=QB, interpret=True))
+    assert got.dtype == np.float32 and got.shape == (k,)
+    if poison == "corrupt":
+        assert not np.isfinite(got[0])
+    if poison == "zero":
+        assert not got.any()
+    for i in range(k):
+        alone = tk.screen_rows_q4(*_t(q[i:i + 1], s[i:i + 1]),
+                                  qblock=QB).numpy()
+        np.testing.assert_array_equal(alone.view(np.int32),
+                                      got[i:i + 1].view(np.int32))
+
+
+def test_screen_q4_counts_minus_eight():
+    """A byte 0x88 holds two -8 nibbles: 64 each, 512 * 64 per block."""
+    q = np.full((1, QB // 2), -120, np.int8)  # 0x88
+    s = np.ones((1, 1), np.float32)
+    assert float(tk.screen_rows_q4(*_t(q, s), qblock=QB)[0]) == \
+        float(QB * 64)
+
+
+def test_q4_kernels_cpu_calls_are_plain_and_not_counted():
+    k = 3
+    q, s = _t(*_q4_rows(k, seed=9))
+    w = torch.from_numpy(np.float32([0.5, 1.5, 2.0]))
+    p, m, e = _t(*_slow_state(9))
+    before = {n: f.launches for n, f in tk.KERNELS.items()}
+    out = torch.zeros(DQ_RAGGED)
+    assert tk.safl_fold_q4(out, q[0], s[0], 0.5, 0.75, out=out) is out
+    assert torch.equal(out, tk.safl_fold_q4_plain(
+        torch.zeros(DQ_RAGGED), q[0], s[0], 0.5, 0.75))
+    for mode in tk.MODES:
+        assert torch.equal(
+            tk.safl_aggregate_q4(q, s, w, p, mode=mode, server_lr=0.3),
+            tk.safl_aggregate_q4_plain(q, s, w, p, mode=mode,
+                                       server_lr=0.3))
+    for a, b in zip(tk.sdga_aggregate_q4(q, s, w, p, m, e, **SDGA_KW),
+                    tk.sdga_aggregate_q4_plain(q, s, w, p, m, e,
+                                               **SDGA_KW)):
+        assert torch.equal(a, b)
+    a = tk.screen_rows_q4(q, s, qblock=QB)
+    b = tk.screen_rows_q4_plain(q, s, qblock=QB)
+    np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                  b.numpy().view(np.int32))
+    assert {n: f.launches for n, f in tk.KERNELS.items()} == before
+    assert {"safl_fold_q4", "safl_aggregate_q4", "sdga_aggregate_q4",
+            "screen_rows_q4"} <= set(tk.KERNELS)
+    assert len(tk.KERNELS) == 12 and set(before.values()) == {0}

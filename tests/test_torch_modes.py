@@ -3,8 +3,9 @@ fedbuff, fedopt, sdga, fedasync), on the CPU:
 
   * repro_torch's FlatServer against repro's as the engine builds it
     (``backend="xla", external_discount=True, fedasync_rates=True``), on
-    the f32 and q8 wires, through both channels, for two rounds (so the
-    slow state of sdga and fedopt is carried);
+    the f32 and q8 wires (q4 in ``test_torch_q4.py``), through both
+    channels, for two rounds (so the slow state of sdga and fedopt is
+    carried);
   * the port's streaming channel against its buffered one, bitwise;
   * the server's helpers and slow state against the reference's;
   * the engine in SS and AS with each new mode against the reference's
@@ -69,14 +70,21 @@ def _weights(mode, rng):
 
 
 def _rows(wire, rng):
-    """K upload payloads: f32 rows, or q8 (q, scales) of the same rows."""
+    """K upload payloads: f32 rows, or the q8 (q, scales) or q4 (packed
+    bytes, scales) of the same rows, quantized by the reference."""
     u = (rng.normal(size=(K, D)) * 0.1).astype(np.float32)
     if wire == "f32":
         return u, [(u[i],) for i in range(K)]
     x = np.zeros((K, DQ), np.float32)
     x[:, :D] = u
-    q, s = jref.quantize_ref(jnp.asarray(x.reshape(-1, QB)))
-    q = np.asarray(q).reshape(K, DQ)
+    blocks = jnp.asarray(x.reshape(-1, QB))
+    if wire == "q8":
+        q, s = jref.quantize_ref(blocks)
+    else:
+        draws = rng.uniform(size=blocks.shape).astype(np.float32)
+        q, s = jax.jit(jref.quantize_q4_ref)(blocks, jnp.asarray(draws))
+        q = jref.pack_q4_ref(q.reshape(K, DQ))
+    q = np.asarray(q).reshape(K, -1)
     s = np.asarray(s).reshape(K, DQ // QB)
     return (q, s), [(q[i], s[i]) for i in range(K)]
 
@@ -99,8 +107,8 @@ def _opt_np(opt):
 
 
 def _port_buffered(ts, wire, buf, p, w, opt):
-    if wire == "q8":
-        qb = QuantBuffer(K, D, QB, device="cpu")
+    if wire != "f32":
+        qb = QuantBuffer(K, D, QB, device="cpu", packed=wire == "q4")
         for i in range(K):
             qb.write(_t(buf[0][i]), _t(buf[1][i]), i)
         rows = qb.views
@@ -124,7 +132,7 @@ def _port_streaming(ts, mode, payloads, p, w, opt):
 
 
 def _ref_streaming(js, mode, payloads, p, w, opt):
-    bank = jnp.zeros((1, DQ if js.wire == "q8" else D), jnp.float32)
+    bank = jnp.zeros((1, D if js.wire == "f32" else DQ), jnp.float32)
     pprod = np.float32(1.0)
     for i, pl in enumerate(payloads):
         beta = np.float32(1.0) - w[i] if mode == "fedasync" else 1.0
@@ -139,6 +147,10 @@ def _ref_streaming(js, mode, payloads, p, w, opt):
 @pytest.mark.parametrize("wire", ["f32", "q8"])
 @pytest.mark.parametrize("mode", MODES)
 def test_server_matches_reference_both_channels(mode, wire):
+    check_server_both_channels(mode, wire)
+
+
+def check_server_both_channels(mode, wire):
     """Two rounds through each channel of both servers: the port against
     the reference to tolerance, the port's two channels bitwise."""
     rng = np.random.default_rng(MODES.index(mode))
@@ -151,8 +163,8 @@ def test_server_matches_reference_both_channels(mode, wire):
     for _ in range(2):
         buf, payloads = _rows(wire, rng)
         w = _weights(mode, rng)
-        jbuf = tuple(jnp.asarray(a) for a in buf) if wire == "q8" \
-            else jnp.asarray(buf)
+        jbuf = jnp.asarray(buf) if wire == "f32" \
+            else tuple(jnp.asarray(a) for a in buf)
         jp["buf"], jo["buf"], jmb = js.step(jp["buf"], jbuf, jnp.asarray(w),
                                             jo["buf"])
         jp["str"], jo["str"], jms = _ref_streaming(js, mode, payloads,

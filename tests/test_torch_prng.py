@@ -1,7 +1,9 @@
-"""The port's counter-keyed PRNG (``repro_torch.prng``, numpy) against
+"""The port's counter-keyed PRNG (``repro_torch.prng``) against
 ``jax.random`` under JAX's defaults: the keys and the uniform draws equal
 bit for bit, for the fault plan's (5,) draws and for (n_qblocks, qblock)
-blocks of the shape the q4 wire's stochastic rounding draws."""
+blocks of the shape the q4 wire's stochastic rounding draws, from the
+numpy twin and from the torch-op twin the q4 codec uses (on the CPU
+here; ``chip_smoke.py`` holds it to the numpy twin on the card)."""
 import pytest
 
 pytest.importorskip("torch")
@@ -60,8 +62,29 @@ def test_block_draws_bitwise(shape):
         assert got.min() >= 0.0 and got.max() < 1.0
 
 
+@pytest.mark.parametrize("shape", [(4209, 512), (37, 64), (1,), (4099,),
+                                   (3, 5, 7)])
+def test_torch_draws_bitwise(shape):
+    """``uniform_torch`` equals the numpy twin and ``jax.random.uniform``
+    bit for bit; (4209, 512) is the paper CNN's q4 draw per upload."""
+    import torch
+    keys = ((0, 0, 0), (7, 5, 3), (2 ** 31 - 1, 15, 250))
+    for seed, cid, n in keys[:1] if shape == (4209, 512) else keys:
+        key = _port_key(seed, cid, n)
+        got = prng.uniform_torch(key, shape, "cpu")
+        assert got.dtype == torch.float32 and tuple(got.shape) == shape
+        want = np.asarray(jax.random.uniform(_jax_key(seed, cid, n), shape,
+                                             jnp.float32))
+        bits = got.numpy().view(np.uint32)
+        np.testing.assert_array_equal(bits, want.view(np.uint32))
+        np.testing.assert_array_equal(
+            bits, prng.uniform(key, shape).view(np.uint32))
+
+
 def test_out_of_range_arguments_raise():
     with pytest.raises(ValueError):
         prng.prng_key(2 ** 32)
     with pytest.raises(ValueError):
         prng.fold_in(prng.prng_key(0), -1)
+    with pytest.raises(ValueError):
+        prng.uniform_torch(prng.prng_key(0), (2 ** 16, 2 ** 16), "cpu")

@@ -100,9 +100,9 @@ def test_traffic_and_staleness_poly_match_reference():
 
 
 def test_unported_modes_raise():
-    """Every aggregation mode is ported; the q4 and topk wires are not,
-    and an unknown mode is refused."""
-    for wire in ("q4", "topk"):
+    """Every aggregation mode is ported; the topk wire is not, and an
+    unknown mode is refused."""
+    for wire in ("topk",):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             tagg.FlatServer("fedsgd", D, server_lr=0.1, wire=wire,
                             device="cpu")
