@@ -9,7 +9,9 @@ Phases, each of which exits non-zero on failure:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 is switched off for convolutions and matrix products
-  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``
+  2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+     ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``), started
+     together
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -23,39 +25,53 @@ Phases, each of which exits non-zero on failure:
      row's sum bitwise the same alone (K = 1) as inside the stack, and in
      two launches.  The q4 wire's stochastic-rounding draws made on the
      card (``prng.uniform_torch``) against the numpy threefry at the
-     paper CNN's (4209, 512): bitwise
+     paper CNN's (4209, 512): bitwise.  The two top-k kernels at the main
+     path's K = 4, nk = 215,552 (rows colliding on a coordinate in 4 and
+     in 3 uploads) and at the ragged D with K = 3, nk = Dq (pad lanes
+     ranked) and an empty row: the fold at beta 1 and 0.7, in place and
+     not, the K-row sum, and the chain of in-place folds against the K-row
+     sum, bitwise.  The int8 pair at (4209, 512) and 37 rows with a zero
+     row, exact .5 ties and a NaN row: bitwise (NaN scales in the same
+     rows)
   4. timings at the main path's shapes: median of CUDA-event-timed
      launches with the 50 MB L2 flushed before each, beside the bytes
      bound at 3.35 TB/s, the plain version and, where one exists, one
      PyTorch library call computing the same function (the screens at
-     K = 1, the path's shape, and K = 4); and the q4 codec's time per
-     upload: the draws alone and the whole quantize
+     K = 1, the path's shape, and K = 4), the top-k kernels and the int8
+     pair; and the codec's time per upload: the q4 draws alone and the
+     whole q4 quantize, the top-k ranking alone and the whole top-k
+     upload
   5. the engine on the card against the engine on the CPU at a small size
      in AS, SS, AS-fedasync, SS-sdga, AS-q8, SS-sdga-q8, AS-q4,
-     SS-sdga-q4 and, with faults and the screen, AS-chaos-screen and its
-     q8 and q4 siblings (exact bytes, schedule and fault / defense
-     counts; params within ``rtol=1e-4, atol=1e-5`` on f32 and within
-     2e-2 of the run's own movement on q8 and q4); the q4 codec on the
-     card against the CPU on one full-width upload (packed bytes, scales
-     and residual bitwise); and the server's streaming channel against
-     its buffered one at full width in all six aggregation modes on the
-     three wires, with clean rows and with corrupted and Byzantine rows
+     SS-sdga-q4, AS-topk, SS-topk, AS-sdga-topk, SS-sdga-topk and, with
+     faults and the screen, AS-chaos-screen and its q8 and q4 siblings
+     (exact bytes, schedule and fault / defense counts; params within
+     ``rtol=1e-4, atol=1e-5`` on f32 and within 2e-2 of the run's own
+     movement on q8, q4 and top-k); the q4 and top-k codecs on the card
+     against the CPU on full-width uploads (bitwise); the server's
+     streaming channel against its buffered one at full width in all six
+     aggregation modes on f32, q8 and q4 and the four gradient modes on
+     top-k, with clean rows and with corrupted and Byzantine rows
      screened or clipped (``FlatServer.screen`` -> ``defense_factors`` ->
      skip / fold at w*fac against zeroed rows / facs in the weights),
-     bitwise
+     bitwise; and ``quantize_pytree`` / ``dequantize_pytree`` of the
+     full-width CNN's parameters on the card against the CPU, bitwise
   6. the main path at full width: the paper CNN (width 32, 32x32 images,
      D = 2,154,730) on synthetic CIFAR-10, 2000 samples, 16 clients,
-     k = 4, hetero-Dirichlet alpha 0.3, 5 rounds in each of 28 settings
+     k = 4, hetero-Dirichlet alpha 0.3, 5 rounds in each of 33 settings
      (the paper's AS, AA, SS, SA; AS and SS with fedbuff, fedasync,
      fedopt and sdga; AS, AA, SS, SA and SS-sdga on the q8 and on the q4
-     wire, AS-fedasync on q4; AS under the fault mix with the screen on
-     f32, q8, q4 and the buffered channel; AS-fedbuff with Byzantine
-     uploads clipped), with every
+     wire, AS-fedasync on q4; AS, SS, AS-fedbuff and SS-sdga on top-k;
+     AS under the fault mix with the screen on f32, q8, q4, top-k and the
+     buffered channel; AS-fedbuff with Byzantine uploads clipped), with
+     every
      launch counter reset before each setting and read after, each
      setting's launches held to the counts it names, every drawn fault
      kind fired, ``screened == corrupted`` under the screen,
      ``clipped >= byzantine`` under clip, and finite params after every
-     round
+     round; then the int8 pair's own path, the compression helpers over
+     the full-width CNN's parameters, its counters reset before and read
+     after (one launch of each kernel per leaf)
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -84,7 +100,8 @@ TIMED_LAUNCHES = 60
 KERNELS = ("safl_fold", "safl_aggregate", "sdga_aggregate", "safl_fold_q8",
            "safl_aggregate_q8", "sdga_aggregate_q8", "screen_rows",
            "screen_rows_q8", "safl_fold_q4", "safl_aggregate_q4",
-           "sdga_aggregate_q4", "screen_rows_q4")
+           "sdga_aggregate_q4", "screen_rows_q4", "safl_fold_topk",
+           "safl_aggregate_topk", "quantize_int8", "dequantize_int8")
 REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_aggregate": "src/repro/kernels/safl_agg.py:136",
             "sdga_aggregate": "src/repro/kernels/safl_agg.py:323",
@@ -96,8 +113,16 @@ REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_fold_q4": "src/repro/kernels/safl_agg.py:658",
             "safl_aggregate_q4": "src/repro/kernels/safl_agg.py:599",
             "sdga_aggregate_q4": "src/repro/kernels/safl_agg.py:709",
-            "screen_rows_q4": "src/repro/kernels/safl_agg.py:952"}
-SOURCE = "src/repro_torch/kernels/csrc/safl_agg.cu"
+            "screen_rows_q4": "src/repro/kernels/safl_agg.py:952",
+            "safl_fold_topk": "src/repro/kernels/safl_agg.py:830",
+            "safl_aggregate_topk": "src/repro/kernels/safl_agg.py:779",
+            "quantize_int8": "src/repro/kernels/quantize.py:96",
+            "dequantize_int8": "src/repro/kernels/quantize.py:121"}
+#: the CUDA sources, each built by its own nvcc, all started together
+SOURCES = ("safl_agg", "quantize")
+#: the int8 pair lives in csrc/quantize.cu, every other kernel in
+#: csrc/safl_agg.cu
+INT8_KERNELS = ("quantize_int8", "dequantize_int8")
 SDGA_KW = dict(server_lr=0.05, momentum=0.8, ema_anchor=0.05,
                ema_decay=0.95)
 AGGREGATIONS = ("fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync")
@@ -159,9 +184,27 @@ MAIN_SETTINGS = (
      {"safl_fold_q4": "uploads"}),
     ("AS-chaos-screen-q4", "AS", dict(CHAOS, defense="screen", wire="q4"),
      {"screen_rows_q4": "uploads", "safl_fold_q4": "uploads-screened"}),
+    ("AS-topk", "AS", {"wire": "topk"}, {"safl_fold_topk": "uploads"}),
+    ("SS-topk", "SS", {"wire": "topk"}, {"safl_aggregate_topk": ROUNDS}),
+    ("AS-fedbuff-topk", "AS", {"wire": "topk", "aggregation": "fedbuff"},
+     {"safl_fold_topk": "uploads"}),
+    ("SS-sdga-topk", "SS", {"wire": "topk", "aggregation": "sdga"},
+     {"safl_aggregate_topk": ROUNDS}),
+    ("AS-chaos-screen-topk", "AS",
+     dict(CHAOS, defense="screen", wire="topk"),
+     {"screen_rows_q8": "uploads", "safl_fold_topk": "uploads-screened"}),
 )
 #: the paper CNN's q4 draw per upload: (n_qblocks, qblock)
 DRAW_SHAPE = (-(-D_FULL // QB), QB)
+#: kept coordinates of a full-width top-k upload at the default
+#: topk_frac 0.1: ceil(0.1 * D) = 215,473 rounded up to whole blocks
+NK_FULL = 421 * QB
+#: the aggregation modes the top-k wire carries (gradient targets)
+TOPK_AGGREGATIONS = ("fedsgd", "fedbuff", "fedopt", "sdga")
+#: rows of the int8 pair's checks and timings: the paper CNN's 4,209
+#: blocks of 512, and a ragged count (not a multiple of the 8 rows a
+#: quantize block takes)
+INT8_ROWS = (-(-D_FULL // QB), 37)
 
 
 def fail(msg: str) -> None:
@@ -348,16 +391,139 @@ def check_draws(torch, report):
                  f"({seed}, {cid}, {ctr})")
 
 
+def topk_rows(torch, k, d, nk, g, empty=()):
+    """k sparse rows by the port's codec math: the top-|x| nk lanes of
+    random padded (Dq,) rows, ranked by a stable descending sort, their
+    values int8-quantized in compacted blocks.  Coordinate 5 is the
+    largest lane of every row and coordinate 6 of all rows but the last,
+    so rows collide there (4 and 3 of them at K = 4); nk near Dq ranks pad
+    lanes >= d.  Rows in ``empty`` are the buffer's empty rows (idx = d,
+    values and scales 0).  Returns (idx int32, qv int8, scales)."""
+    from repro_torch.kernels import ref
+    x = torch.zeros((k, dq_of(d)), device="cuda")
+    x[:, :d] = torch.randn((k, d), device="cuda", generator=g)
+    x[:, 5] = 50.0 + torch.arange(k, device="cuda")
+    x[:-1, 6] = -40.0
+    idx = torch.sort(x.abs(), dim=1, descending=True,
+                     stable=True).indices[:, :nk]
+    q, s = ref.quantize_ref(torch.gather(x, 1, idx).view(-1, QB))
+    idx, q, s = idx.to(torch.int32), q.view(k, nk), s.view(k, -1)
+    for r in empty:
+        idx[r], q[r], s[r] = d, 0, 0.0
+    return idx, q, s
+
+
+def collisions(torch, idx, d):
+    """Most rows that hit one coordinate, and how many coordinates are hit
+    by exactly 3 rows."""
+    valid = idx[(idx >= 0) & (idx < d)].long()
+    hits = torch.bincount(valid, minlength=d)
+    return int(hits.max()), int((hits == 3).sum())
+
+
+def check_topk(torch, k_mod, report, worst):
+    """The two top-k kernels against their plain versions at the main
+    path's shape (K = 4, nk = 215,552) and at the ragged D = 4099 with
+    K = 3, nk = Dq = 4608 (pad lanes ranked) and an empty row: the fold
+    at beta 1 and 0.7, in place and not, the K-row sum, and the chain of
+    in-place folds from zeros against the K-row sum, all bitwise."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for d, k, nk, empty in ((D_FULL, K_MAIN, NK_FULL, ()),
+                            (D_RAGGED, K_RAGGED, dq_of(D_RAGGED), (1,))):
+        idx, q, s = topk_rows(torch, k, d, nk, g, empty)
+        most, threes = collisions(torch, idx, d)
+        if most != k - len(empty) or (most >= 4 and not threes):
+            fail(f"top-k rows d={d}: most hits {most}, {threes} coordinates "
+                 "hit by 3 rows")
+        pads = int((idx >= d).sum())
+        lanes = dict(d=d, k=k, nk=nk)
+        print(f"  top-k rows d={d} k={k} nk={nk}: a coordinate hit by "
+              f"{most} rows, {threes} by 3; {pads} lanes >= d dropped")
+        report.append(dict(kernel="topk_rows", most_hits=most,
+                           coords_hit_by_3=threes, lanes_dropped=pads,
+                           **lanes))
+        acc = torch.randn((d,), device="cuda", generator=g)
+        for beta in (1.0, 0.7):
+            compare(torch, report, worst, "safl_fold_topk",
+                    k_mod.safl_fold_topk(acc, idx[0], q[0], s[0], 0.37, beta),
+                    k_mod.safl_fold_topk_plain(acc, idx[0], q[0], s[0], 0.37,
+                                               beta), True, beta=beta,
+                    **lanes)
+            row = acc.clone()
+            k_mod.safl_fold_topk(row, idx[-1], q[-1], s[-1], 0.5, beta,
+                                 out=row)
+            compare(torch, report, worst, "safl_fold_topk", row,
+                    k_mod.safl_fold_topk_plain(acc, idx[-1], q[-1], s[-1],
+                                               0.5, beta), True, beta=beta,
+                    in_place=True, **lanes)
+        w = 0.5 + 3.5 * torch.rand((k,), device="cuda", generator=g)
+        agg = k_mod.safl_aggregate_topk(idx, q, s, w, d)
+        compare(torch, report, worst, "safl_aggregate_topk", agg,
+                k_mod.safl_aggregate_topk_plain(idx, q, s, w, d), True,
+                **lanes)
+        chain = torch.zeros((d,), device="cuda")
+        for r, wr in enumerate(w.tolist()):
+            k_mod.safl_fold_topk(chain, idx[r], q[r], s[r], wr, out=chain)
+        compare(torch, report, worst, "safl_aggregate_topk", agg, chain, True,
+                vs="fold_chain", **lanes)
+    torch.cuda.synchronize()
+
+
+def check_int8(torch, q_mod, report, worst):
+    """The int8 pair against its plain versions at (4209, 512) and at a
+    ragged 37 rows, with an all-zero row (scale 1e-12), a row of exact .5
+    ties and a NaN row (NaN scale: the absmax propagates it; its lanes
+    store 0): int8 rows bitwise, scales bitwise with NaN in the same
+    rows, dequantized rows bitwise."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.kernels.ref import INV_127
+    # row 1's absmax 127 gives it the scale fl(127 * f32(1/127)); lanes of
+    # +-scale/2 then divide to exactly +-0.5 and round half to even, to 0
+    s_tie = float(np.float32(127.0) * np.float32(INV_127))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for rows in INT8_ROWS:
+        x = torch.randn((rows, QB), device="cuda", generator=g)
+        x[0] = 0.0
+        x[1, 0] = 127.0
+        x[1, 1::2] = 0.5 * s_tie
+        x[1, 2::2] = -0.5 * s_tie
+        x[2, 7] = math.nan
+        q, s = q_mod.quantize_int8(x)
+        pq, ps = q_mod.quantize_int8_plain(x)
+        nan_same = torch.equal(torch.isnan(s), torch.isnan(ps))
+        fin = ~torch.isnan(ps)
+        compare(torch, report, worst, "quantize_int8", (q.float(), s[fin]),
+                (pq.float(), ps[fin]), True, rows=rows,
+                nan_rows_equal=nan_same)
+        if not (nan_same and bool(torch.isnan(s[2]))
+                and float(s[0]) == float(np.float32(1e-12))
+                and float(s[1]) == s_tie and not q[1, 1:].any()):
+            fail(f"quantize_int8 rows={rows}: zero row scale {float(s[0])}, "
+                 f"tie row {q[1, :4].tolist()} scale {float(s[1])}, NaN row "
+                 f"scale {float(s[2])}")
+        s = torch.where(fin, s, 1.0)
+        compare(torch, report, worst, "dequantize_int8",
+                q_mod.dequantize_int8(q, s),
+                q_mod.dequantize_int8_plain(q, s), True, rows=rows)
+    torch.cuda.synchronize()
+
+
 def poisoned(payload, kind, loc=0.37):
-    """One upload's payload ((vec,) f32 or (q_row, s_row) q8) with a
-    corrupt or Byzantine fault applied as the engine applies it (a K = 1
-    stack through the port's appliers); ``kind`` None leaves it clean."""
+    """One upload's payload ((vec,) f32, (q_row, s_row) q8 / q4 or
+    (idx_row, qv_row, s_row) top-k) with a corrupt or Byzantine fault
+    applied as the engine applies it (a K = 1 stack through the port's
+    appliers; top-k indices untouched); ``kind`` None leaves it clean."""
     from repro_torch import faults
     if kind is None:
         return payload
     rows = tuple(a[None] for a in payload)
     c, b = [kind == "corrupt"], [kind == "byzantine"]
-    if len(rows) == 2:
+    if len(rows) == 3:
+        rows = rows[:1] + faults.apply_faults_q(*rows[1:], c, b, [loc], 10.0)
+    elif len(rows) == 2:
         rows = faults.apply_faults_q(*rows, c, b, [loc], 10.0)
     else:
         rows = (faults.apply_faults_flat(rows[0], c, b, [loc], 10.0),)
@@ -470,7 +636,7 @@ def time_ms(torch, fn, flush, n=TIMED_LAUNCHES):
     return times[len(times) // 2]
 
 
-def time_kernels(torch, k_mod):
+def time_kernels(torch, k_mod, q_mod):
     g = torch.Generator(device="cuda").manual_seed(1)
     d, k = D_FULL, K_MAIN
     dq = dq_of(d)
@@ -602,6 +768,41 @@ def time_kernels(torch, k_mod):
                                                           qblock=QB)),
             library_ms=None, bytes=kk * dq // 2 + kk * nb * 4 + kk * 4,
             ops=2 * kk * dq + 3 * kk * nb, shape=f"K={kk} Dq={dq}")
+    # the top-k wire (no single PyTorch call scatters int8 values with
+    # their block scales): the fold as the engine runs it, in place at
+    # beta = 1, and the K-row sum; bytes count the lanes this data keeps
+    idx, qv, sv = topk_rows(torch, k, d, NK_FULL, g)
+    nkb = NK_FULL // QB
+    kept = int(((idx >= 0) & (idx < d)).sum())
+    out["safl_fold_topk"] = dict(
+        ms=t(lambda: k_mod.safl_fold_topk(acc, idx[0], qv[0], sv[0], w_host,
+                                          out=acc)),
+        plain_ms=t(lambda: k_mod.safl_fold_topk_plain(acc, idx[0], qv[0],
+                                                      sv[0], w_host)),
+        library_ms=None, bytes=5 * NK_FULL + 4 * nkb + 8 * (kept // k),
+        ops=3 * (kept // k), shape=f"D={d} nk={NK_FULL} beta=1 in place")
+    out["safl_aggregate_topk"] = dict(
+        ms=t(lambda: k_mod.safl_aggregate_topk(idx, qv, sv, sizes, d)),
+        plain_ms=t(lambda: k_mod.safl_aggregate_topk_plain(idx, qv, sv,
+                                                           sizes, d)),
+        library_ms=None, bytes=4 * d + k * (5 * NK_FULL + 4 * nkb),
+        ops=3 * kept, shape=f"K={k} D={d} nk={NK_FULL}")
+    # the int8 pair over the paper CNN's (4209, 512) blocks; dequantize's
+    # library call is one broadcast multiply of the int8 rows by the scales
+    rows = INT8_ROWS[0]
+    x8 = torch.randn((rows, QB), device="cuda", generator=g)
+    q8r, s8r = q_mod.quantize_int8(x8)
+    out["quantize_int8"] = dict(
+        ms=t(lambda: q_mod.quantize_int8(x8)),
+        plain_ms=t(lambda: q_mod.quantize_int8_plain(x8)),
+        library_ms=None, bytes=5 * rows * QB + 4 * rows, ops=4 * rows * QB,
+        shape=f"R={rows} B={QB}")
+    out["dequantize_int8"] = dict(
+        ms=t(lambda: q_mod.dequantize_int8(q8r, s8r)),
+        plain_ms=t(lambda: q_mod.dequantize_int8_plain(q8r, s8r)),
+        library_ms=t(lambda: torch.mul(q8r, s8r[:, None])),
+        bytes=5 * rows * QB + 4 * rows, ops=rows * QB,
+        shape=f"R={rows} B={QB}")
     for name, r in out.items():
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         o_ms = r["ops"] / F32_FLOPS * 1e3
@@ -619,11 +820,13 @@ def time_kernels(torch, k_mod):
 
 
 def time_codec(torch):
-    """The q4 codec's cost per upload at full width, L2 flushed before
-    each: the (4209, 512) draws alone (threefry in int64 PyTorch ops) and
+    """The codec's cost per upload at full width, L2 flushed before each:
+    on q4 the (4209, 512) draws alone (threefry in int64 PyTorch ops) and
     a whole gradient upload (ravel of the delta, the draws, the
     stochastic-rounding quantize, the pack and the error-feedback
-    residual), beside the q8 upload's quantize."""
+    residual), beside the q8 upload's quantize; on top-k the ranking
+    alone (a stable sort of the (Dq,) magnitudes) and a whole gradient
+    upload (ravel, ranking, gather, quantize, residual)."""
     from repro_torch import prng
     from repro_torch.core.flatbuf import PytreeCodec
     from repro_torch.models.vision_cnn import build_paper_model
@@ -640,6 +843,9 @@ def time_codec(torch):
         "q4_upload": time_ms(torch, lambda: codec.ravel_delta_q4(
             start, end, 0.05, res, 0, 3, 7), flush),
         "q8_upload": time_ms(torch, lambda: codec.ravel_delta_q8(
+            start, end, 0.05, res), flush),
+        "topk_rank": time_ms(torch, lambda: codec._rank(res), flush),
+        "topk_upload": time_ms(torch, lambda: codec.ravel_delta_topk(
             start, end, 0.05, res), flush),
     }
     for name, ms in out.items():
@@ -700,7 +906,11 @@ def check_engine_small(torch):
             ("AS-chaos-screen-q8", "AS",
              dict(CHAOS, defense="screen", wire="q8")),
             ("AS-chaos-screen-q4", "AS",
-             dict(CHAOS, defense="screen", wire="q4"))):
+             dict(CHAOS, defense="screen", wire="q4")),
+            ("AS-topk", "AS", {"wire": "topk"}),
+            ("SS-topk", "SS", {"wire": "topk"}),
+            ("AS-sdga-topk", "AS", {"wire": "topk", "aggregation": "sdga"}),
+            ("SS-sdga-topk", "SS", {"wire": "topk", "aggregation": "sdga"})):
         res = {}
         for dev in ("cpu", "cuda"):
             eng = build_engine(torch, setup, setting, dev, **kw)
@@ -719,11 +929,12 @@ def check_engine_small(torch):
                      == [x.sim_time for x in rg.metrics.records])
         pc, pg = ec._flat_params, eg._flat_params.cpu()
         err = float((pc - pg).abs().max())
-        if kw.get("wire") in ("q8", "q4"):
+        rel = float((pc - pg).norm() / (pc - p0).norm())
+        if kw.get("wire") in ("q8", "q4", "topk"):
             # a gradient that differs in its last bits (cuDNN) can round
-            # to the next int8 / int4 level: hold the distance to the
-            # run's own movement, the reference's q8 bound
-            rel = float((pc - pg).norm() / (pc - p0).norm())
+            # to the next int8 / int4 level or cross the top-k cut: hold
+            # the distance to the run's own movement, the reference's q8
+            # bound
             close, tol = rel <= 2e-2, f"relative {rel:.3e} <= 2e-2"
         else:
             close = torch.allclose(pg, pc, rtol=1e-4, atol=1e-5)
@@ -735,18 +946,21 @@ def check_engine_small(torch):
             print("      (cpu, card) " + "  ".join(
                 f"{key.split('_')[0]} {v}" for key, v in counts.items()))
         rows.append(dict(setting=name, host_equal=same_host,
-                         params_max_abs_err=err, fault_counts=counts))
+                         params_max_abs_err=err,
+                         params_rel_to_movement=rel, fault_counts=counts))
         if not (same_host and close):
             fail(f"{name}: engine on the card disagrees with the CPU")
     return rows
 
 
 def check_codec(torch):
-    """One full-width upload through the q4 codec on the card and on the
-    CPU, from the same weights, residual and (seed, client, counter) key:
-    packed bytes, scales and new residual bitwise equal (the draws, the
-    quantize and the f64 residual are exact on both), for a gradient
-    upload with error feedback and a model upload."""
+    """One full-width upload through the q4 and the top-k codec on the
+    card and on the CPU, from the same weights, residual and (q4) (seed,
+    client, counter) key: bitwise equal outputs (q4: packed bytes, scales
+    and residual, the draws, the quantize and the f64 residual being
+    exact on both; top-k: indices, int8 values, scales and residual, the
+    stable sort ranking alike on both), for gradient uploads with and
+    without error feedback and a q4 model upload."""
     from repro_torch.core.flatbuf import PytreeCodec
     from repro_torch.models.vision_cnn import build_paper_model
     start, _, _ = build_paper_model("cnn", torch.Generator().manual_seed(4),
@@ -755,11 +969,16 @@ def check_codec(torch):
     end = {k: v - 0.01 * torch.randn(v.shape, generator=g)
            for k, v in start.items()}
     codec = PytreeCodec(start)
+    if codec.nk != NK_FULL:
+        fail(f"full-width top-k codec keeps {codec.nk} lanes, expected "
+             f"{NK_FULL}")
     res = 1e-3 * torch.randn(codec.dq, generator=g)
     rows = []
     for name, args in (
             ("ravel_delta_q4", (start, end, 0.05, res, 0, 3, 7)),
-            ("ravel_q4_nores", (end, 11, 2, 0))):
+            ("ravel_q4_nores", (end, 11, 2, 0)),
+            ("ravel_delta_topk", (start, end, 0.05, res)),
+            ("ravel_delta_topk_nores", (start, end, 0.05))):
         fn = getattr(codec, name)
         want = fn(*args)
         got = fn(*(
@@ -767,24 +986,25 @@ def check_codec(torch):
             else a.to("cuda") if isinstance(a, torch.Tensor) else a
             for a in args))
         same = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
-        print(f"  {name} D={codec.d}: card vs CPU (packed bytes, scales"
-              f"{', residual' if len(want) == 3 else ''}) "
+        print(f"  {name} D={codec.d}: card vs CPU ({len(want)} outputs) "
               f"{'bitwise equal' if same else 'DIFFER'}")
         rows.append(dict(program=name, bitwise=same))
         if not same:
-            fail(f"{name}: the q4 codec on the card differs from the CPU")
+            fail(f"{name}: the codec on the card differs from the CPU")
     return rows
 
 
 def check_channels(torch):
     """The server's streaming channel (K folds + finalize) against its
     buffered channel (K row writes + one aggregate) on the card, at full
-    width, in every aggregation mode on both wires, for two rounds (so
-    sdga's and fedopt's slow state is carried): with clean rows, and with
+    width, in every aggregation mode on the f32, q8 and q4 wires and in
+    the four gradient modes on top-k, for two rounds (so sdga's and
+    fedopt's slow state is carried): with clean rows, and with
     row 1 corrupted and row 2 Byzantine under each defense (each row
     screened alone through ``FlatServer.screen`` -> ``defense_factors``;
     streaming: skip a factor-0 row, else fold at w*fac; buffered: zero a
-    factor-0 row's payload (the q8 scales), weights times the factors;
+    factor-0 row's payload (the q8 / q4 / top-k scales), weights times
+    the factors;
     the clip cap 3x the median clean norm).  Bitwise, since the kernels
     and the PyTorch ops of the finalize round the same operations in the
     same order.  (Two engine runs on the card are not compared: cuDNN's
@@ -793,15 +1013,16 @@ def check_channels(torch):
 
     from repro_torch.core.aggregation import FlatServer
     from repro_torch.core.flatbuf import (AccumBuffer, QuantBuffer,
-                                          alloc_buffer, write_slot)
+                                          TopkBuffer, alloc_buffer,
+                                          write_slot)
     from repro_torch.faults import defense_factors
     from repro_torch.launch.fl_sim import SERVER_LR
     g = torch.Generator(device="cuda").manual_seed(2)
     rng = np.random.default_rng(2)
     kinds = (None, "corrupt", "byzantine", None)
     rows_out = []
-    for wire in ("f32", "q8", "q4"):
-        for mode in AGGREGATIONS:
+    for wire in ("f32", "q8", "q4", "topk"):
+        for mode in (TOPK_AGGREGATIONS if wire == "topk" else AGGREGATIONS):
             for defense in ("none", "screen", "clip"):
                 srv = FlatServer(mode, D_FULL,
                                  server_lr=SERVER_LR.get(mode, 1.0),
@@ -821,7 +1042,13 @@ def check_channels(torch):
                                  np.float32))
                     acc = AccumBuffer(srv.bank_width, srv.fold_program,
                                       "cuda")
-                    if wire != "f32":
+                    if wire == "topk":
+                        rows = topk_rows(torch, K_MAIN, D_FULL, NK_FULL, g)
+                        buf = TopkBuffer(K_MAIN, D_FULL, NK_FULL, QB,
+                                         device="cuda")
+                        payloads = [tuple(a[i] for a in rows)
+                                    for i in range(K_MAIN)]
+                    elif wire != "f32":
                         q, s = (q8_rows if wire == "q8" else q4_rows)(
                             torch, K_MAIN, D_FULL, g)
                         buf = QuantBuffer(K_MAIN, D_FULL, QB, device="cuda",
@@ -934,7 +1161,76 @@ def expected_launches(spec, uploads, screened):
     return out
 
 
-def run_main_path(torch, k_mod):
+def cnn_params(torch, seed, device):
+    """The full-width paper CNN's parameters, drawn on the CPU."""
+    from repro_torch.models.vision_cnn import build_paper_model
+    params, _, _ = build_paper_model(
+        "cnn", torch.Generator().manual_seed(seed), device=device, width=32,
+        image_size=32)
+    return params
+
+
+def compress_pytree(q_mod, params):
+    """The pytree compression path: quantize_pytree, then
+    dequantize_pytree -> (the quantized dict, its wire bytes, the
+    dequantized dict)."""
+    qs, nbytes = q_mod.quantize_pytree(params)
+    return qs, nbytes, q_mod.dequantize_pytree(qs)
+
+
+def check_pytree(torch, q_mod):
+    """quantize_pytree / dequantize_pytree of the full-width CNN's
+    parameters on the card against the CPU: every leaf's int8 rows,
+    scales and dequantized values bitwise equal, and the same wire
+    bytes."""
+    params = cnn_params(torch, 7, "cpu")
+    want = compress_pytree(q_mod, params)
+    got = compress_pytree(q_mod, {k: v.to("cuda") for k, v in
+                                  params.items()})
+    same = got[1] == want[1] and all(
+        torch.equal(a.cpu(), b) for key in params
+        for a, b in zip(got[0][key][:2] + (got[2][key],),
+                        want[0][key][:2] + (want[2][key],)))
+    print(f"  quantize_pytree + dequantize_pytree, {len(params)} leaves, "
+          f"D={sum(v.numel() for v in params.values())}: card vs CPU "
+          f"{'bitwise equal' if same else 'DIFFER'}, {got[1]} wire bytes "
+          f"(CPU {want[1]})")
+    if not same:
+        fail("the pytree compression helpers on the card differ from the "
+             "CPU")
+    return dict(bitwise=same, nbytes=got[1])
+
+
+def run_compression_path(torch, q_mod, wrappers):
+    """The int8 pair's path: the compression helpers over the full-width
+    CNN's parameters on the card, every launch counter reset before and
+    read after; each helper launches its kernel once per leaf."""
+    params = cnn_params(torch, 8, "cuda")
+    for f in wrappers.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qs, nbytes, back = compress_pytree(q_mod, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: f.launches for n, f in wrappers.items()}
+    expected = expected_launches({k: len(params) for k in INT8_KERNELS},
+                                 0, 0)
+    err = max(float((back[k] - v).abs().max() / v.abs().max())
+              for k, v in params.items() if v.abs().max() > 0)
+    print(f"  compression path: {len(params)} leaves, {nbytes} wire bytes, "
+          f"wall {wall:.4f} s, max |deq - x| / max |x| per leaf {err:.3e}, "
+          "launches " + " ".join(f"{n}={c}" for n, c in counts.items() if c))
+    if counts != expected:
+        fail(f"compression path: launches {counts}, expected {expected}")
+    if not all(bool(torch.isfinite(v).all()) for v in back.values()) or \
+            err > 1.0 / 127:
+        fail(f"compression path: dequantized leaves off by {err}")
+    return dict(launches=counts, nbytes=nbytes, wall_s=wall,
+                max_rel_err=err)
+
+
+def run_main_path(torch, wrappers):
     setup = make_setup(width=32, hw=32, samples=2000, clients=16)
     rows = []
     launches = dict.fromkeys(KERNELS, 0)
@@ -971,14 +1267,14 @@ def run_main_path(torch, k_mod):
                 return f
 
             eng.sched.faults.draw = tally
-        for f in k_mod.KERNELS.values():
+        for f in wrappers.values():
             f.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = eng.run(ROUNDS)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {n: f.launches for n, f in k_mod.KERNELS.items()}
+        counts = {n: f.launches for n, f in wrappers.items()}
         uploads = int(res.participation.sum())
         st = res.sched_stats
         faults = {key.split("_")[0]: st[key] for key in FAULT_COUNTS}
@@ -1027,8 +1323,14 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no GPU to run on")
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import build
+    from repro_torch.kernels import quantize as q_mod
     from repro_torch.kernels import safl_agg as k_mod
+    wrappers = {**k_mod.KERNELS, **q_mod.KERNELS}
+    if sorted(wrappers) != sorted(KERNELS):
+        fail(f"kernel wrappers {sorted(wrappers)} are not {sorted(KERNELS)}")
 
     print("== phase 1: device")
     smi = smi_line()
@@ -1041,35 +1343,50 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     print("TF32: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
 
-    print("== phase 2: build")
-    info = build.compile_source("safl_agg")
-    print(f"  built {os.path.relpath(info['path'], ROOT)} in "
-          f"{info['seconds']:.2f} s")
-    if info["log"]:
-        print("  " + info["log"].replace("\n", "\n  "))
+    print("== phase 2: build (one nvcc per source, started together)")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        infos = dict(zip(SOURCES, pool.map(build.compile_source, SOURCES)))
+    build_s = time.perf_counter() - t0
+    for info in infos.values():
+        print(f"  built {os.path.relpath(info['path'], ROOT)} in "
+              f"{info['seconds']:.2f} s")
+        if info["log"]:
+            print("  " + info["log"].replace("\n", "\n  "))
+    print(f"  build wall {build_s:.2f} s")
 
     print("== phase 3: kernels against their plain versions; q4 draws")
     check_rows = []
     worst = check_kernels(torch, k_mod, check_rows)
     check_screens(torch, k_mod, check_rows, worst)
+    check_topk(torch, k_mod, check_rows, worst)
+    check_int8(torch, q_mod, check_rows, worst)
     check_draws(torch, check_rows)
 
     print("== phase 4: timings (L2 flushed before each launch)")
-    timing = time_kernels(torch, k_mod)
+    timing = time_kernels(torch, k_mod, q_mod)
     codec_ms = time_codec(torch)
 
-    print("== phase 5: engine on the card vs the CPU, small size; q4 codec "
-          "and server channels at full width")
+    print("== phase 5: engine on the card vs the CPU, small size; q4 and "
+          "top-k codecs, server channels and pytree compression at full "
+          "width")
     small = check_engine_small(torch)
     codec = check_codec(torch)
     channels = check_channels(torch)
+    pytree = check_pytree(torch, q_mod)
 
     print(f"== phase 6: main path, full-width CNN (D = {D_FULL:,}), "
-          f"{len(MAIN_SETTINGS)} settings")
-    main_rows, launches = run_main_path(torch, k_mod)
+          f"{len(MAIN_SETTINGS)} settings; the compression path")
+    main_rows, launches = run_main_path(torch, wrappers)
+    compression = run_compression_path(torch, q_mod, wrappers)
+    for name in INT8_KERNELS:
+        launches[name] = compression["launches"][name]
 
     kernels = [dict(
-        name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+        name=name, route="cuda",
+        source=("src/repro_torch/kernels/csrc/"
+                + ("quantize.cu" if name in INT8_KERNELS else "safl_agg.cu")),
+        replaces=REPLACES[name],
         launches=launches[name], max_abs_err=worst[name],
         ms=timing[name]["ms"], plain_ms=timing[name]["plain_ms"],
         bound_ms=timing[name]["bound_ms"],
@@ -1081,10 +1398,11 @@ def main() -> None:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump(dict(smi=smi, torch=torch.__version__,
-                       cuda=torch.version.cuda, build_s=info["seconds"],
+                       cuda=torch.version.cuda, build_s=build_s,
                        checks=check_rows, timing=timing, codec_ms=codec_ms,
                        small=small, codec=codec, channels=channels,
-                       main_path=main_rows,
+                       pytree=pytree, main_path=main_rows,
+                       compression_path=compression,
                        kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

@@ -2,7 +2,9 @@
 
 :class:`FlatServer` runs the server side of both channels over flat rows
 in the :class:`repro_torch.core.flatbuf.PytreeCodec` layout, for every
-aggregation scheme of the study on the f32, q8 and q4 wires:
+aggregation scheme of the study on the f32, q8 and q4 wires, and for the
+gradient schemes (fedsgd, fedbuff, fedopt, sdga) on the sparse top-k
+wire:
 
   * ``fedsgd`` (Eq. 4-5): p - lr * (weighted gradient mean)
   * ``fedavg`` (Eq. 6): the data-size-weighted model mean
@@ -20,23 +22,27 @@ Two channels:
     fedbuff / fedavg and the mean of fedopt, :func:`sdga_aggregate` for
     sdga, their ``_q8`` / ``_q4`` siblings on the quantized wires);
     fedasync runs its K mixes as K folds with beta = 1 - a_i into a
-    zeroed row;
+    zeroed row; on top-k the (K, nk) sparse rows are summed by
+    :func:`~repro_torch.kernels.safl_agg.safl_aggregate_topk` and every
+    mode steps from the sum as the streaming finalize does (sdga too:
+    ``sdga_aggregate`` is not on this wire);
   * streaming (``fold_program`` + ``finalize``): each upload folded into
     a running sum bank the moment it lands (``safl_fold``,
-    ``safl_fold_q8``, ``safl_fold_q4``), then one finalize from the
-    bank's sum and the host's ingest weights (the reference's
-    ``_from_sums``).
+    ``safl_fold_q8``, ``safl_fold_q4``, ``safl_fold_topk``), then one
+    finalize from the bank's sum and the host's ingest weights (the
+    reference's ``_from_sums``).
 
 ``screen`` is the defense's per-row sum of squares of the wire payload
 (:func:`~repro_torch.kernels.safl_agg.screen_rows`, ``screen_rows_q8`` /
-``screen_rows_q4`` on the quantized wires), whose ``isfinite`` is the
-integrity verdict and ``sqrt`` the norm.
+``screen_rows_q4`` on the quantized wires, ``screen_rows_q8`` over the
+values and scales on top-k), whose ``isfinite`` is the integrity verdict
+and ``sqrt`` the norm.
 
 The engine always hands over the FINAL per-upload weights
 (discount-at-ingest, ``external_discount=True, fedasync_rates=True`` in
 the reference), so the kernels run with ``discount="none"``.  The two
-channels agree bitwise in every mode and on every wire.  The topk wire
-and the meshes come later.
+channels agree bitwise in every mode and on every wire.  The meshes
+come later.
 """
 from __future__ import annotations
 
@@ -49,8 +55,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import BLOCK as QBLOCK
 from repro_torch.kernels.safl_agg import (
-    safl_aggregate, safl_aggregate_q4, safl_aggregate_q8, safl_fold,
-    safl_fold_q4, safl_fold_q8, screen_rows, screen_rows_q4, screen_rows_q8,
+    safl_aggregate, safl_aggregate_q4, safl_aggregate_q8,
+    safl_aggregate_topk, safl_fold, safl_fold_q4, safl_fold_q8,
+    safl_fold_topk, screen_rows, screen_rows_q4, screen_rows_q8,
     sdga_aggregate, sdga_aggregate_q4, sdga_aggregate_q8)
 
 class _QuantKernels(NamedTuple):
@@ -135,13 +142,14 @@ class FlatServer:
     ``step`` takes the buffered channel's rows: the f32 (K, D) tensor, or
     on the quantized wires the ``(q, scales (K, Dq/qblock))`` pair
     (:class:`repro_torch.core.flatbuf.QuantBuffer` views; q int8 (K, Dq)
-    on q8, packed (K, Dq/2) bytes on q4).  The streaming bank is (1, D)
-    f32, (1, Dq) on the quantized wires.  Slow state (:meth:`init_opt`):
-    sdga's momentum and EMA, fedopt's Adam moments, each a (D,) f32
-    tensor, and a host step count."""
+    on q8, packed (K, Dq/2) bytes on q4), or on top-k the ``(idx, qv,
+    scales)`` triple (:class:`repro_torch.core.flatbuf.TopkBuffer`
+    views).  The streaming bank is (1, D) f32, (1, Dq) on q8 and q4.
+    Slow state (:meth:`init_opt`): sdga's momentum and EMA, fedopt's Adam
+    moments, each a (D,) f32 tensor, and a host step count."""
 
     MODES = ("fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync")
-    WIRES = ("f32", "q8", "q4")
+    WIRES = ("f32", "q8", "q4", "topk")
 
     def __init__(self, mode: str, d: int, *, server_lr: float,
                  momentum: float = 0.8, ema_anchor: float = 0.05,
@@ -150,8 +158,12 @@ class FlatServer:
         if mode not in self.MODES:
             raise ValueError(f"aggregation {mode!r} not in {self.MODES}")
         if wire not in self.WIRES:
-            raise NotImplementedError(
-                f"wire {wire!r} is not ported yet (ported: {self.WIRES})")
+            raise ValueError(f"wire {wire!r} not in {self.WIRES}")
+        if wire == "topk" and mode in ("fedavg", "fedasync"):
+            # a sparse average of weights would zero every coordinate it
+            # did not send
+            raise ValueError(f"wire='topk' is gradient-only; mode={mode!r} "
+                             "uploads weights")
         self.mode = mode
         self.wire = wire
         self.d = int(d)
@@ -168,16 +180,20 @@ class FlatServer:
 
     @property
     def bank_width(self) -> int:
-        """Lanes of the streaming bank: Dq on the quantized wires (folds
-        dequantize onto the padded grid), D on f32."""
-        return self.d if self.wire == "f32" else self.dq
+        """Lanes of the streaming bank: Dq on q8 / q4 (folds dequantize
+        onto the padded grid), D on f32 and top-k (the scatter drops pad
+        coordinates)."""
+        return self.dq if self._qk is not None else self.d
 
     def screen(self, payload) -> torch.Tensor:
         """(K,) f32 sums of squares of the K payload rows, on the wire's
-        own format (``payload`` = ``(rows,)`` f32 (K, D), or ``(q,
-        scales)`` on q8 / q4).  The sums are row-independent, so a row
+        own format (``payload`` = ``(rows,)`` f32 (K, D), ``(q, scales)``
+        on q8 / q4, ``(idx, qv, scales)`` on top-k, whose integrity lives
+        in the values and scales).  The sums are row-independent, so a row
         screened alone (K = 1, every upload of the sequential engine) and
         inside a stack get the same value bitwise."""
+        if self.wire == "topk":
+            return screen_rows_q8(*payload[1:], qblock=self.qblock)
         if self._qk is not None:
             return self._qk.screen(*payload, qblock=self.qblock)
         return screen_rows(*payload)
@@ -249,7 +265,12 @@ class FlatServer:
             return new, opt, self._metrics(new, params_flat, wsum)
         w = torch.from_numpy(wvec).to(self.device)
         lr, d = self.server_lr, self.d
-        if self.mode == "sdga":
+        if self.wire == "topk":
+            # every mode steps from the scatter-sum, as the finalize does
+            gsum = safl_aggregate_topk(*buf, w, d, qblock=self.qblock)
+            new, opt = self._from_sums(params_flat, gsum,
+                                       sum_in_order(wvec), opt)
+        elif self.mode == "sdga":
             kw = dict(server_lr=lr, momentum=self.momentum,
                       ema_anchor=self.ema_anchor, ema_decay=EMA_DECAY,
                       discount="none")
@@ -282,14 +303,18 @@ class FlatServer:
 
     def fold_program(self, bank: torch.Tensor, *args) -> torch.Tensor:
         """``fold_program(bank, *payload, ridx, w, beta)``: bank[ridx] <-
-        beta*bank[ridx] + w*payload, in place (payload = (vec,) f32 or
-        (q_row, s_row) on q8 / q4).  Only fedasync folds with a live beta;
-        every other mode folds with beta = 1."""
+        beta*bank[ridx] + w*payload, in place (payload = (vec,) f32,
+        (q_row, s_row) on q8 / q4, (idx_row, qv_row, s_row) on top-k).
+        Only fedasync folds with a live beta; every other mode folds with
+        beta = 1."""
         *payload, ridx, w, beta = args
         if self.mode != "fedasync":
             beta = 1.0
         row = bank[ridx]
-        if self._qk is not None:
+        if self.wire == "topk":
+            safl_fold_topk(row, *payload, w, beta, qblock=self.qblock,
+                           out=row)
+        elif self._qk is not None:
             self._qk.fold(row, *payload, w, beta, qblock=self.qblock, out=row)
         else:
             safl_fold(row, *payload, w, beta, out=row)

@@ -12,18 +12,22 @@
     (:func:`repro_torch.kernels.ref.quantize_q4_ref`), with draws keyed
     by (seed, client, upload counter) and made on the row's device
     (:func:`repro_torch.prng.uniform_torch`), and packs two lanes per
-    byte.
+    byte.  On the top-k wire it keeps the ``nk`` largest-|x| coordinates
+    of input + residual as (int32 index, int8 value) pairs with one scale
+    per ``qblock`` of the compacted values, and carries everything the
+    wire dropped in the residual.
   * :func:`alloc_buffer` / :func:`write_slot` are the buffered f32
     channel's resident (K, D) rows and their in-place row write;
     :class:`QuantBuffer` is its quantized counterpart (int8 (K, Dq) rows,
-    or (K, Dq/2) packed bytes on q4, plus (K, Dq/qblock) scales).
+    or (K, Dq/2) packed bytes on q4, plus (K, Dq/qblock) scales), and
+    :class:`TopkBuffer` the sparse one ((K, nk) indices, values and
+    (K, nk/qblock) scales).
   * :class:`AccumBuffer` is the streaming channel: two O(D) sum banks
     and the host-side weights of the horizon in flight.
-
-The topk wire comes in a later slice.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -41,10 +45,13 @@ class PytreeCodec:
 
     ``qblock`` is the quantization granule (one f32 absmax scale per
     ``qblock`` lanes); ``dq`` is D rounded up to a qblock multiple, the
-    padded length of a quantized row, and ``n_qblocks = dq / qblock``."""
+    padded length of a quantized row, and ``n_qblocks = dq / qblock``.
+    ``topk_frac`` sizes the top-k wire: ``nk = ceil(topk_frac * d)``
+    rounded up to a qblock multiple (at most ``dq``) kept coordinates per
+    upload, ``nk_qblocks = nk / qblock`` value scales."""
 
     def __init__(self, template: Dict[str, torch.Tensor],
-                 qblock: int = QBLOCK):
+                 qblock: int = QBLOCK, topk_frac: float = 0.1):
         self.keys = sorted(template)
         self.shapes = [tuple(template[k].shape) for k in self.keys]
         self.sizes = [int(np.prod(s)) if s else 1 for s in self.shapes]
@@ -55,6 +62,12 @@ class PytreeCodec:
         self.qblock = int(qblock)
         self.n_qblocks = -(-self.d // self.qblock)
         self.dq = self.n_qblocks * self.qblock
+        if not 0.0 < topk_frac <= 1.0:
+            raise ValueError(f"topk_frac={topk_frac} must be in (0, 1]")
+        self.topk_frac = float(topk_frac)
+        nk_raw = max(1, math.ceil(self.topk_frac * self.d))
+        self.nk = min(-(-nk_raw // self.qblock) * self.qblock, self.dq)
+        self.nk_qblocks = self.nk // self.qblock
 
     def ravel(self, tree) -> torch.Tensor:
         return torch.cat([tree[k].reshape(-1).to(torch.float32)
@@ -165,6 +178,54 @@ class PytreeCodec:
     def ravel_q4_nores(self, tree, seed: int, cid: int, counter: int):
         """Model-weights upload on the q4 wire."""
         return self._quantize_q4_nores(self.ravel(tree), seed, cid, counter)
+
+    # ---- top-k wire: compacted (index, int8 value) pairs ----
+
+    def _rank(self, x: torch.Tensor) -> torch.Tensor:
+        """The ``nk`` lanes of largest |x|, largest first, ties in index
+        order: the indices ``jax.lax.top_k`` gives, in its order (which
+        decides the compacted block, and so the scale, of each value).
+        ``torch.topk`` breaks ties otherwise."""
+        return torch.sort(x.abs(), descending=True,
+                          stable=True).indices[:self.nk]
+
+    def _topk_nores(self, flat: torch.Tensor):
+        """(D,) f32 -> (idx int32 (nk,), qv int8 (nk,), scales
+        (nk_qblocks,)), ranked over the padded (dq,) row."""
+        x = F.pad(flat, (0, self.dq - self.d))
+        idx = self._rank(x)
+        q, s = ref.quantize_ref(x[idx].view(self.nk_qblocks, self.qblock))
+        return idx.to(torch.int32), q.view(self.nk), s
+
+    def _topk(self, flat: torch.Tensor, residual: torch.Tensor):
+        """Error-feedback variant -> (idx, qv, scales, new residual (dq,)):
+        the residual carries the coordinates the wire dropped in full and,
+        at the kept ones, x - q*scale with the product rounded to f32
+        first, as the reference computes it (two roundings, unlike the q8
+        codec's single one)."""
+        x = F.pad(flat, (0, self.dq - self.d)) + residual
+        idx = self._rank(x)
+        vals = x[idx]
+        q, s = ref.quantize_ref(vals.view(self.nk_qblocks, self.qblock))
+        deq = (q.to(torch.float32) * s[:, None]).view(self.nk)
+        new_res = x.index_put((idx,), vals - deq)
+        return idx.to(torch.int32), q.view(self.nk), s, new_res
+
+    def ravel_delta_topk(self, start, end, scale: float,
+                         residual: torch.Tensor):
+        """Gradient upload on the top-k wire with error feedback -> (idx
+        int32 (nk,), qv int8 (nk,), scales (nk_qblocks,), new residual
+        (dq,))."""
+        return self._topk(self.ravel_delta(start, end, scale), residual)
+
+    def ravel_delta_topk_nores(self, start, end, scale: float):
+        """Gradient upload on the top-k wire, error feedback off."""
+        return self._topk_nores(self.ravel_delta(start, end, scale))
+
+    def ravel_topk(self, tree, residual: torch.Tensor):
+        """A tree with a carried residual on the top-k wire (the
+        reference codec's ``ravel_topk``; the engine does not call it)."""
+        return self._topk(self.ravel(tree), residual)
 
     def zero_residual(self, device) -> torch.Tensor:
         """Initial (dq,) error-feedback residual of a client."""
@@ -281,3 +342,36 @@ class QuantBuffer:
     def views(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(q, scales) as the quantized server step takes them."""
         return self.q, self.scales
+
+
+class TopkBuffer:
+    """Preallocated sparse buffer of the top-k wire: per row ``nk`` int32
+    coordinates, their int8 values and one f32 scale per ``qblock`` of
+    the compacted values, written in place one slot at a time.  An empty
+    row holds index ``d`` everywhere, past the live range, so the scatter
+    drops it without a validity mask."""
+
+    def __init__(self, k: int, d: int, nk: int, qblock: int = QBLOCK, *,
+                 device):
+        if nk % qblock:
+            raise ValueError(f"nk={nk} is not a multiple of qblock={qblock}")
+        self.d = int(d)
+        self.nk = int(nk)
+        self.qblock = int(qblock)
+        self.nk_qblocks = self.nk // self.qblock
+        self.idx = torch.full((k, self.nk), self.d, dtype=torch.int32,
+                              device=device)
+        self.qv = torch.zeros((k, self.nk), dtype=torch.int8, device=device)
+        self.scales = torch.zeros((k, self.nk_qblocks), dtype=torch.float32,
+                                  device=device)
+
+    def write(self, idx_vec: torch.Tensor, qv_vec: torch.Tensor,
+              s_vec: torch.Tensor, slot: int) -> None:
+        self.idx[slot].copy_(idx_vec)
+        self.qv[slot].copy_(qv_vec)
+        self.scales[slot].copy_(s_vec)
+
+    @property
+    def views(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(idx, qv, scales) as the top-k server step takes them."""
+        return self.idx, self.qv, self.scales

@@ -8,14 +8,17 @@ Synchronous (SFL, Fig. 1a): each round the server activates K random
 clients, waits for all of them (round time = slowest active client, the
 straggler effect), aggregates, broadcasts.  The K clients train one after
 another into the (K, D) buffer (int8 (K, Dq) rows on the q8 wire, packed
-int4 (K, Dq/2) bytes on q4), and the round is one aggregate kernel
+int4 (K, Dq/2) bytes on q4, (K, nk) sparse index / value rows on top-k),
+and the round is one aggregate kernel
 (:func:`repro_torch.kernels.safl_agg.safl_aggregate`, ``sdga_aggregate``
-or their ``_q8`` / ``_q4`` siblings; fedasync folds its K rows).
+or their ``_q8`` / ``_q4`` siblings, ``safl_aggregate_topk``; fedasync
+folds its K rows).
 
 Semi-asynchronous (SAFL, Fig. 1b): clients train continuously at their
 own pace and upload after each local epoch; every upload is folded into
 an O(D) running sum the moment it lands (``safl_fold``,
-``safl_fold_q8``, ``safl_fold_q4``: the streaming channel), and the
+``safl_fold_q8``, ``safl_fold_q4``, ``safl_fold_topk``: the streaming
+channel), and the
 server aggregates as
 soon as K uploads are in.  A
 client adopts the newest global model at its next upload boundary,
@@ -28,7 +31,8 @@ and retries after a backoff) and stretches stragglers; a corrupt or
 Byzantine draw poisons the serialized payload after the error-feedback
 residual update (:mod:`repro_torch.faults.payload`).  With ``defense``
 on, each upload is screened as it lands (``FlatServer.screen``, the
-``screen_rows`` kernel or its ``_q8`` / ``_q4`` sibling, then
+``screen_rows`` kernel or its ``_q8`` / ``_q4`` sibling (``_q8`` over a
+top-k upload's values), then
 :func:`repro_torch.faults.defense_factors`): a screened row is skipped
 by the streaming channel and zeroed on the buffered one, a clipped row
 keeps its payload at a reduced weight.
@@ -95,7 +99,7 @@ class FLEngine:
     PORTED = {
         "aggregation": ("fedsgd", "fedavg", "fedbuff", "fedasync", "fedopt",
                         "sdga"),
-        "wire": ("f32", "q8", "q4"),
+        "wire": ("f32", "q8", "q4", "topk"),
         "compress_updates": (False, True),
         "horizon": ("k",),
         "sched_timing": ("static",),
@@ -171,7 +175,8 @@ class FLEngine:
         self._last_update_norm = 0.0
 
         self.codec = flatbuf.PytreeCodec(init_params,
-                                         qblock=fl_cfg.quant_block)
+                                         qblock=fl_cfg.quant_block,
+                                         topk_frac=fl_cfg.topk_frac)
         self._flat_params = self.codec.ravel(init_params)
         # wire of the upload channel; compress_updates is the legacy q8
         # alias
@@ -213,6 +218,10 @@ class FLEngine:
         if self._streaming:
             self._accum = flatbuf.AccumBuffer(
                 self._server.bank_width, self._server.fold_program, dev)
+        elif self._wire == "topk":
+            self._qbuf = flatbuf.TopkBuffer(self._horizon_target,
+                                            self.codec.d, self.codec.nk,
+                                            fl_cfg.quant_block, device=dev)
         elif self._lossy:
             self._qbuf = flatbuf.QuantBuffer(self._horizon_target,
                                              self.codec.d,
@@ -255,13 +264,16 @@ class FLEngine:
     def _upload_nbytes(self) -> int:
         """Channel cost of one upload: the wire's payload
         (:func:`repro_torch.kernels.quantize.payload_nbytes`; q8: int8
-        values + block scales; q4: two lanes per byte + the same scales)
-        plus the serialization envelope of its target (model weights carry
-        the state and the layer structure)."""
+        values + block scales; q4: two lanes per byte + the same scales;
+        topk: index + value per kept coordinate + the compacted values'
+        scales) plus the serialization envelope of its target (model
+        weights carry the state and the layer structure)."""
         if self._lossy:
             payload = payload_nbytes(self._wire, d=self.codec.d,
                                      dq=self.codec.dq,
-                                     n_qblocks=self.codec.n_qblocks)
+                                     n_qblocks=self.codec.n_qblocks,
+                                     nk=self.codec.nk,
+                                     nk_qblocks=self.codec.nk_qblocks)
         else:
             payload = self._params_bytes
         if self.cfg.aggregation in _MODEL_TARGETS:
@@ -285,16 +297,23 @@ class FLEngine:
         return n
 
     def _payload(self, c: ClientState, w_end) -> tuple:
-        """The upload's wire payload: ``(vec,)`` f32, or ``(q, scales)``
-        on q8 / q4, where gradient targets quantize with the client's
-        error-feedback residual (kept client-side) and model targets
-        without; q4 draws with the key of (seed, client, upload
-        counter)."""
+        """The upload's wire payload: ``(vec,)`` f32, ``(q, scales)`` on
+        q8 / q4, ``(idx, qv, scales)`` on top-k (gradient targets only),
+        where gradient targets quantize with the client's error-feedback
+        residual (kept client-side) and model targets without; q4 draws
+        with the key of (seed, client, upload counter)."""
         cfg, codec = self.cfg, self.codec
         if self._wire == "f32":
             if cfg.aggregation in _MODEL_TARGETS:
                 return (codec.ravel(w_end),)
             return (codec.ravel_delta(c.params, w_end, cfg.client_lr),)
+        if self._wire == "topk":
+            if not cfg.error_feedback:
+                return codec.ravel_delta_topk_nores(c.params, w_end,
+                                                    cfg.client_lr)
+            *payload, self._residuals[c.cid] = codec.ravel_delta_topk(
+                c.params, w_end, cfg.client_lr, self._residual(c.cid))
+            return tuple(payload)
         if self._wire == "q4":
             key = (cfg.seed, c.cid, self._next_counter(c.cid))
             model, grad, grad_nores = (codec.ravel_q4_nores,
@@ -316,14 +335,17 @@ class FLEngine:
     def _apply_payload_fault(self, payload: tuple, fault) -> tuple:
         """A corrupt / byzantine draw applied to one upload's payload,
         lifted to the appliers' K = 1 stack and back.  Untouched lanes
-        come back bitwise."""
+        come back bitwise; a top-k upload's indices are never touched."""
         corrupt = [fault.kind == "corrupt"]
         byz = [fault.kind == "byzantine"]
         self.corrupted_uploads += corrupt[0]
         self.byzantine_uploads += byz[0]
         rows = tuple(a[None] for a in payload)
         resc = self.cfg.fault_byzantine_rescale
-        if self._lossy:
+        if self._wire == "topk":
+            rows = rows[:1] + faultsmod.apply_faults_q(
+                *rows[1:], corrupt, byz, [fault.loc], resc)
+        elif self._lossy:
             rows = faultsmod.apply_faults_q(*rows, corrupt, byz, [fault.loc],
                                             resc)
         else:
@@ -353,7 +375,8 @@ class FLEngine:
         draw applied to the serialized payload; with a defense on, the
         row is screened before it touches the channel: a row with factor
         0 is skipped (streaming) or zeroed (buffered: the f32 row, or the
-        q8 / q4 scales, since a zero scale dequantizes any row to 0)."""
+        q8 / q4 / top-k scales, since a zero scale dequantizes any row to
+        0)."""
         cfg = self.cfg
         entry: Dict = {"staleness": staleness, "cid": c.cid,
                        "n": c.n_samples}

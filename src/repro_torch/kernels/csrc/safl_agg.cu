@@ -30,6 +30,13 @@
 //                        unpacked in registers (replace safl_agg.py
 //                        safl_fold_q4, safl_aggregate_q4,
 //                        sdga_aggregate_q4, screen_rows_q4)
+//   safl_fold_topk       the fold of one sparse top-k row: (nk,) int32
+//                        coordinates, (nk,) int8 compacted values and
+//                        their (nk/qblock,) scales, scattered into the
+//                        (d,) bank (replaces safl_agg.py safl_fold_topk)
+//   safl_aggregate_topk  the weighted sum of K sparse rows into a zeroed
+//                        (d,) output (replaces safl_agg.py
+//                        safl_aggregate_topk)
 //
 // All are pure bandwidth: a handful of flops per element against 1 (int8)
 // or 4 (f32) bytes moved per operand.  The design is one coalesced
@@ -54,6 +61,20 @@
 // order) into a (K, chunks) scratch, and a second launch sums each row's
 // partials in the same fixed tree.  NaN and Inf propagate: no fast math,
 // no fmaxf, no lane is skipped.
+//
+// The top-k kernels scatter instead of streaming: a kept lane j adds
+// w * ((float)qv[j] * s[j >> qshift]) to coordinate idx[j] of the bank,
+// and lanes with idx outside [0, d) (an empty row's idx == d, pad lanes
+// [d, dq) the codec may rank) drop.  The indices of one row are distinct
+// (top-k picks each coordinate once; faults never touch them), so one
+// row's scatter needs no atomics.  Rows of different uploads do collide,
+// and a float sum over three or more of them depends on its order, so
+// the K-row sum is K scatter launches on one stream over a zeroed
+// output: stream order is row order, the chain 0 -> fold(row 0) -> ...
+// -> fold(row K-1) that the streaming channel computes.  Bound: the
+// payload (5 bytes a lane + the scales) and a read and a write of each
+// kept coordinate of the bank (the output's memset on the K-row sum);
+// each scattered 4-byte read-modify-write moves a whole 32-byte sector.
 //
 // Floating-point order is part of the contract: every product and sum goes
 // through the _rn intrinsics, which nvcc never contracts into an FMA, so
@@ -368,6 +389,42 @@ __global__ void screen_finish(const float* __restrict__ part,
   if (threadIdx.x == 0) out[row] = s;
 }
 
+// ---- top-k sparse wire: scatter of compacted rows ----
+
+// o[i] = beta * a[i] over the dense (d,) row (a and o may alias): the
+// fold's decay before the scatter, and the copy of an out-of-place fold.
+__global__ void scale_kernel(const float* a, float* o, float beta,
+                             int64_t d) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < d; i += stride) {
+    o[i] = __fmul_rn(beta, a[i]);
+  }
+}
+
+// acc[idx[j]] += w * ((float)qv[j] * s[j >> qshift]) for the lanes j < nk
+// with idx[j] in [0, d); the weight is *wp when wp is set (the K-row sum
+// reads row k's weight from the device), else w.
+__global__ void scatter_topk_kernel(float* acc,
+                                    const int32_t* __restrict__ idx,
+                                    const int8_t* __restrict__ qv,
+                                    const float* __restrict__ s,
+                                    const float* __restrict__ wp, float w,
+                                    int64_t nk, int64_t d, int qshift) {
+  const float wk = wp != nullptr ? *wp : w;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       j < nk; j += stride) {
+    const int64_t i = idx[j];
+    if (i < 0 || i >= d) continue;
+    const float v = __fmul_rn(
+        wk, __fmul_rn(static_cast<float>(qv[j]), s[j >> qshift]));
+    acc[i] = __fadd_rn(acc[i], v);
+  }
+}
+
 inline size_t weights_smem(int64_t k) {
   return static_cast<size_t>(k + 1) * sizeof(float);
 }
@@ -598,6 +655,47 @@ int screen_rows_q4(const void* q, const void* scales, void* part, void* out,
                    void* stream) {
   return launch_screen_q<true>(q, scales, part, out, k, dq, qshift, chunks,
                                stream);
+}
+
+// The fold of one sparse row into acc (out may be acc: the in-place fold
+// into a bank row).  beta == 1 in place scatters the nk lanes only (1*acc
+// is exact); otherwise a dense pass writes out = beta*acc first.
+int safl_fold_topk(const void* acc, const void* idx, const void* qv,
+                   const void* scales, void* out, float w, float beta,
+                   int64_t d, int64_t nk, int qshift, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (beta != 1.0f || acc != out) {
+    scale_kernel<<<grid_for(d), kThreads, 0, s>>>(
+        static_cast<const float*>(acc), static_cast<float*>(out), beta, d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  scatter_topk_kernel<<<grid_for(nk), kThreads, 0, s>>>(
+      static_cast<float*>(out), static_cast<const int32_t*>(idx),
+      static_cast<const int8_t*>(qv), static_cast<const float*>(scales),
+      nullptr, w, nk, d, qshift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (d,) = sum_k w[k] * scatter(dequant(qv[k]), idx[k]): a memset, then
+// one scatter launch per row, in row order on the stream.
+int safl_aggregate_topk(const void* idx, const void* qv, const void* scales,
+                        const void* w, void* out, int64_t k, int64_t nk,
+                        int64_t d, int qshift, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(d) * 4, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t nb = nk >> qshift;
+  for (int64_t j = 0; j < k; ++j) {
+    scatter_topk_kernel<<<grid_for(nk), kThreads, 0, s>>>(
+        static_cast<float*>(out), static_cast<const int32_t*>(idx) + j * nk,
+        static_cast<const int8_t*>(qv) + j * nk,
+        static_cast<const float*>(scales) + j * nb,
+        static_cast<const float*>(w) + j, 0.f, nk, d, qshift);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -189,3 +189,61 @@ def screen_sumsq_q4_ref(p: torch.Tensor, scales: torch.Tensor,
                         qblock: int) -> torch.Tensor:
     """Packed int4 screening: unpack the nibbles, then the q8 rule."""
     return screen_sumsq_q8_ref(unpack_q4_ref(p), scales, qblock)
+
+
+# ------------------------- top-k sparse wire -------------------------
+
+
+def dequant_topk_ref(qv: torch.Tensor, scales: torch.Tensor,
+                     qblock: int) -> torch.Tensor:
+    """Blockwise dequantize of compacted top-k values: qv (..., nk) int8
+    with scales (..., nk/qblock) -> (..., nk) f32.  The granule runs over
+    the compacted value array, not the dense coordinates."""
+    return dequant_flat_ref(qv, scales, qblock)
+
+
+def _scatter_add_drop(acc: torch.Tensor, idx: torch.Tensor,
+                      vals: torch.Tensor) -> torch.Tensor:
+    """acc[idx] += vals in place for the lanes with 0 <= idx < len(acc);
+    the others are dropped (JAX's ``mode="drop"``).  The indices of one
+    row are distinct, so each lane gets one add."""
+    keep = (idx >= 0) & (idx < acc.shape[0])
+    acc.index_put_((idx[keep].to(torch.int64),), vals[keep],
+                   accumulate=True)
+    return acc
+
+
+def fold_topk_ref(acc: torch.Tensor, idx: torch.Tensor, qv: torch.Tensor,
+                  s_row: torch.Tensor, w, qblock: int,
+                  beta=1.0) -> torch.Tensor:
+    """One streaming fold of a sparse upload: beta*acc, then
+    + w * dequant(qv) scattered to ``idx`` (lanes with idx >= d drop)."""
+    wv = float(np.float32(w)) * dequant_topk_ref(qv, s_row, qblock)
+    base = float(np.float32(beta)) * acc.to(torch.float32)
+    return _scatter_add_drop(base, idx, wv)
+
+
+def topk_weighted_sum_ref(idx: torch.Tensor, qv: torch.Tensor,
+                          scales: torch.Tensor, weights, d: int,
+                          qblock: int) -> torch.Tensor:
+    """sum_k w_k * scatter(dequant(qv_k), idx_k) -> (d,) f32, as K row
+    scatters in order from zeros: bitwise the streaming channel's chain
+    of :func:`fold_topk_ref` calls on the same rows."""
+    w = torch.as_tensor(np.asarray(weights, np.float32))
+    acc = torch.zeros(d, dtype=torch.float32, device=qv.device)
+    vals = dequant_topk_ref(qv, scales, qblock)
+    for k in range(idx.shape[0]):
+        _scatter_add_drop(acc, idx[k], float(w[k]) * vals[k])
+    return acc
+
+
+def safl_agg_topk_ref(idx: torch.Tensor, qv: torch.Tensor,
+                      scales: torch.Tensor, weights, params: torch.Tensor,
+                      server_lr: float, qblock: int) -> torch.Tensor:
+    """The topk FedSGD step: params - lr * (gsum / max(sum w, 1e-12))."""
+    w = np.asarray(weights, np.float32)
+    wsafe = torch.tensor(max(np.float32(np.sum(w)), np.float32(1e-12)),
+                         device=params.device)
+    gsum = topk_weighted_sum_ref(idx, qv, scales, w, params.shape[0],
+                                 qblock)
+    return params.to(torch.float32) - server_lr * (gsum / wsafe)

@@ -28,6 +28,12 @@ its plain PyTorch version.
     siblings over packed int4 rows ((K, Dq/2) bytes of two lanes each,
     :func:`repro_torch.kernels.ref.unpack_q4_ref`'s layout), the nibbles
     unpacked and sign-extended in registers.
+  * :func:`safl_fold_topk` and :func:`safl_aggregate_topk` replace
+    ``safl_agg.py:830 safl_fold_topk`` and ``:779 safl_aggregate_topk``:
+    the fold and the K-row sum on the sparse top-k wire, whose rows are
+    (nk,) int32 coordinates, (nk,) int8 compacted values and one scale
+    per qblock of the compacted array, scattered into the dense (d,) row
+    (coordinates outside [0, d) drop).
 
 Routing: a wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel (``csrc/safl_agg.cu``, built at first use
@@ -39,7 +45,9 @@ against 1 or 4 bytes per operand); the wrappers' docstrings give the
 bytes.  The design is a simple coalesced streaming pass with a
 grid-stride loop, the int8 and int4 rows dequantized in registers;
 ``float4`` loads, TMA and ``wgmma`` buy nothing a bandwidth-bound pass
-needs first.
+needs first.  The top-k kernels scatter each kept lane into the bank
+instead; their K-row sum is one scatter launch per row on one stream, so
+rows that collide on a coordinate add in row order (no float atomics).
 Every product and sum in the kernels uses round-to-nearest intrinsics
 that are never contracted into an FMA, and the plain versions below do
 the same operations in the same order, so kernel and plain version agree
@@ -55,11 +63,14 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels import ref
+from repro_torch.kernels.checks import (check as _check, f32 as _f32,
+                                        on_cuda as _on_cuda,
+                                        raise_on as _raise_on,
+                                        stream_of as _stream)
 from repro_torch.kernels.quantize import BLOCK
 
 DISCOUNTS = ("none", "poly")
@@ -93,6 +104,8 @@ def _lib() -> ctypes.CDLL:
                               f, f, f, f, i32, i32, p],
         "screen_rows_f32": [p, p, p, i64, i64, i64, p],
         "screen_rows_q8": [p, p, p, p, i64, i64, i32, i64, p],
+        "safl_fold_topk": [p, p, p, p, p, f, f, i64, i64, i32, p],
+        "safl_aggregate_topk": [p, p, p, p, p, i64, i64, i64, i32, p],
     }
     # the q4 kernels take the q8 kernels' arguments (Dq: lanes per row)
     for name in ("safl_fold", "safl_aggregate", "sdga_aggregate",
@@ -103,43 +116,6 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = args
         fn.restype = ctypes.c_int
     return lib
-
-
-def _check(name: str, t: torch.Tensor, shape, device,
-           dtype=torch.float32) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with error {rc}")
-
-
-def _on_cuda(t: torch.Tensor, kernel: str) -> bool:
-    """False for a CPU tensor (run the plain version), True for a CUDA one
-    (launch); any other device raises."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{kernel}: unsupported device {t.device}")
-    return True
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _f32(x) -> float:
-    """A host scalar rounded to f32, as the kernels take it."""
-    return float(np.float32(x))
 
 
 def _qshift(qblock: int) -> int:
@@ -738,8 +714,113 @@ def screen_rows_q4(q: torch.Tensor, scales: torch.Tensor, *,
 
 screen_rows_q4.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# the top-k sparse wire: scatter of compacted (idx, qv, scales) rows
+# ---------------------------------------------------------------------------
+
+
+def _check_topk(idx: torch.Tensor, qv: torch.Tensor, scales: torch.Tensor,
+                qblock: int, device, rows: int):
+    """Shapes of sparse rows on ``device``: ``rows`` = 1 for one (nk,)
+    row, 2 for (K, nk) rows.  Returns (K, nk), K = 1 for one row."""
+    if qv.dim() != rows:
+        raise ValueError(f"qv: expected {rows} dims, got {tuple(qv.shape)}")
+    lead, nk = tuple(qv.shape[:-1]), qv.shape[-1]
+    if nk % qblock:
+        raise ValueError(f"nk={nk} is not a multiple of qblock={qblock}")
+    _check("idx", idx, lead + (nk,), device, torch.int32)
+    _check("qv", qv, lead + (nk,), device, torch.int8)
+    _check("scales", scales, lead + (nk // qblock,), device)
+    return (lead[0] if lead else 1), nk
+
+
+def safl_fold_topk_plain(acc: torch.Tensor, idx: torch.Tensor,
+                         qv: torch.Tensor, s_row: torch.Tensor, w, beta=1.0,
+                         *, qblock: int = BLOCK) -> torch.Tensor:
+    """Plain version of :func:`safl_fold_topk` (any device)."""
+    return ref.fold_topk_ref(acc, idx, qv, s_row, w, qblock, beta)
+
+
+def safl_fold_topk(acc: torch.Tensor, idx: torch.Tensor, qv: torch.Tensor,
+                   s_row: torch.Tensor, w, beta=1.0, *, qblock: int = BLOCK,
+                   out: torch.Tensor = None) -> torch.Tensor:
+    """acc (d,) f32 and one sparse row (idx (nk,) int32 coordinates, qv
+    (nk,) int8 values, s_row (nk/qblock,) f32 scales) -> beta*acc + w *
+    scatter(dequant(qv), idx), lanes with idx outside [0, d) dropped.
+    Replaces ``repro/kernels/safl_agg.py:830 safl_fold_topk``.  ``out``
+    may be ``acc``: beta == 1 then touches the kept lanes only (one
+    launch); any other beta, or a separate ``out``, first writes beta*acc
+    over the whole row, as the TPU kernel does (two launches, counted as
+    one).  Bound at beta == 1 in place: 13*nk + 4*nk/qblock bytes (idx,
+    qv, scales, and a read and a write of each kept coordinate); the
+    dense pass adds 8*d."""
+    if not _on_cuda(acc, "safl_fold_topk"):
+        res = safl_fold_topk_plain(acc, idx, qv, s_row, w, beta,
+                                   qblock=qblock)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    qshift = _qshift(qblock)
+    d = acc.shape[0]
+    _check("acc", acc, (d,), acc.device)
+    _, nk = _check_topk(idx, qv, s_row, qblock, acc.device, 1)
+    if out is None:
+        out = torch.empty_like(acc)
+    _check("out", out, (d,), acc.device)
+    rc = _lib().safl_fold_topk(
+        acc.data_ptr(), idx.data_ptr(), qv.data_ptr(), s_row.data_ptr(),
+        out.data_ptr(), _f32(w), _f32(beta), d, nk, qshift, _stream(acc))
+    _raise_on(rc, "safl_fold_topk")
+    safl_fold_topk.launches += 1
+    return out
+
+
+safl_fold_topk.launches = 0
+
+
+def safl_aggregate_topk_plain(idx: torch.Tensor, qv: torch.Tensor,
+                              scales: torch.Tensor, w: torch.Tensor, d: int,
+                              *, qblock: int = BLOCK) -> torch.Tensor:
+    """Plain version of :func:`safl_aggregate_topk` (any device): K row
+    scatters in order from zeros (:func:`ref.topk_weighted_sum_ref`)."""
+    return ref.topk_weighted_sum_ref(idx, qv, scales,
+                                     w.to(torch.float32).cpu().numpy(), d,
+                                     qblock)
+
+
+def safl_aggregate_topk(idx: torch.Tensor, qv: torch.Tensor,
+                        scales: torch.Tensor, w: torch.Tensor, d: int, *,
+                        qblock: int = BLOCK) -> torch.Tensor:
+    """idx (K, nk) int32 coordinates (an empty row holds d everywhere),
+    qv (K, nk) int8 values, scales (K, nk/qblock) f32, w (K,) final
+    weights -> sum_k w_k * scatter(dequant(qv_k), idx_k), unnormalized,
+    as a (d,) f32 row: bitwise the chain of K :func:`safl_fold_topk`
+    calls from zeros.  Replaces ``repro/kernels/safl_agg.py:779
+    safl_aggregate_topk``; the caller takes the server step from the sum.
+    A memset and K launches, counted as one.  Bound: 4*d bytes written +
+    K*(5*nk + 4*nk/qblock) read."""
+    if not _on_cuda(qv, "safl_aggregate_topk"):
+        return safl_aggregate_topk_plain(idx, qv, scales, w, d,
+                                         qblock=qblock)
+    qshift = _qshift(qblock)
+    k, nk = _check_topk(idx, qv, scales, qblock, qv.device, 2)
+    _check("w", w, (k,), qv.device)
+    out = torch.empty(d, dtype=torch.float32, device=qv.device)
+    rc = _lib().safl_aggregate_topk(
+        idx.data_ptr(), qv.data_ptr(), scales.data_ptr(), w.data_ptr(),
+        out.data_ptr(), k, nk, d, qshift, _stream(qv))
+    _raise_on(rc, "safl_aggregate_topk")
+    safl_aggregate_topk.launches += 1
+    return out
+
+
+safl_aggregate_topk.launches = 0
+
 #: every kernel wrapper of this module, by name (each has ``.launches``)
 KERNELS = {f.__name__: f for f in (
     safl_fold, safl_fold_q8, safl_aggregate, safl_aggregate_q8,
     sdga_aggregate, sdga_aggregate_q8, screen_rows, screen_rows_q8,
-    safl_fold_q4, safl_aggregate_q4, sdga_aggregate_q4, screen_rows_q4)}
+    safl_fold_q4, safl_aggregate_q4, sdga_aggregate_q4, screen_rows_q4,
+    safl_fold_topk, safl_aggregate_topk)}

@@ -114,7 +114,7 @@ def test_streaming_equals_buffered_bitwise(setup):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sched_timing", "markov"), ("wire", "topk"),
+    ("sched_timing", "markov"), ("sched_policy", "ratelimit"),
     ("sched_timing", "lognormal"), ("sched_policy", "uniform"),
     ("batch_clients", True), ("horizon", "queue"),
     ("mesh_shape", (1, 1)), ("sched_policy", "seafl"),
@@ -172,7 +172,8 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
         assert t[k] == j[k], k
 
 
-@pytest.mark.parametrize("flag", [["--horizon", "hybrid"], ["--wire", "topk"],
+@pytest.mark.parametrize("flag", [["--horizon", "hybrid"],
+                                  ["--sched-policy", "fedqs"],
                                   ["--devices", "2"], ["--horizon", "queue"],
                                   ["--sched-timing", "markov"],
                                   ["--sched-policy", "seafl"],

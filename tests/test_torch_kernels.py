@@ -569,4 +569,4 @@ def test_q4_kernels_cpu_calls_are_plain_and_not_counted():
     assert {n: f.launches for n, f in tk.KERNELS.items()} == before
     assert {"safl_fold_q4", "safl_aggregate_q4", "sdga_aggregate_q4",
             "screen_rows_q4"} <= set(tk.KERNELS)
-    assert len(tk.KERNELS) == 12 and set(before.values()) == {0}
+    assert len(tk.KERNELS) == 14 and set(before.values()) == {0}

@@ -100,11 +100,12 @@ def test_traffic_and_staleness_poly_match_reference():
 
 
 def test_unported_modes_raise():
-    """Every aggregation mode is ported; the topk wire is not, and an
-    unknown mode is refused."""
-    for wire in ("topk",):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tagg.FlatServer("fedsgd", D, server_lr=0.1, wire=wire,
+    """Every aggregation mode and wire is ported; the topk wire refuses
+    the modes that upload weights (fedavg, fedasync), and an unknown mode
+    is refused."""
+    for mode in ("fedavg", "fedasync"):
+        with pytest.raises(ValueError, match="gradient-only"):
+            tagg.FlatServer(mode, D, server_lr=0.1, wire="topk",
                             device="cpu")
     with pytest.raises(ValueError):
         tagg.FlatServer("median", D, server_lr=0.1, device="cpu")
