@@ -10,8 +10,8 @@ Phases, each of which exits non-zero on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
      TF32 is switched off for convolutions and matrix products
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-     ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``), started
-     together
+     ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
+     ``flash_attention.cu``), started together
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -32,13 +32,23 @@ Phases, each of which exits non-zero on failure:
      not, the K-row sum, and the chain of in-place folds against the K-row
      sum, bitwise.  The int8 pair at (4209, 512) and 37 rows with a zero
      row, exact .5 ties and a NaN row: bitwise (NaN scales in the same
-     rows)
+     rows).  Flash attention in f32 and bf16, causal and not, at the
+     reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
+     S 1024, H 16, Hkv 8, hd 128) and a ragged S = 200: within
+     ``atol=rtol=2e-5`` (f32) and ``2e-2`` (bf16); at the qwen3 shape in
+     bf16, at most 2 % of output lanes differing from the plain version
+     (the plain version with p rounded to bf16 must differ in more); and
+     causal (outputs before a position unchanged when later keys change)
   4. timings at the main path's shapes: median of CUDA-event-timed
-     launches with the 50 MB L2 flushed before each, beside the bytes
-     bound at 3.35 TB/s, the plain version and, where one exists, one
-     PyTorch library call computing the same function (the screens at
-     K = 1, the path's shape, and K = 4), the top-k kernels and the int8
-     pair; and the codec's time per upload: the q4 draws alone and the
+     launches with the 50 MB L2 flushed before each, beside the bound
+     (the larger of the bytes at 3.35 TB/s and the operations at the
+     dtype's dense peak: 67 TFLOP/s f32, 989 TFLOP/s bf16), the plain
+     version and, where one exists, one PyTorch library call computing
+     the same function (the screens at K = 1, the path's shape, and
+     K = 4), the top-k kernels, the int8 pair and flash attention at the
+     qwen3 prefill's shape in bf16 (f32 beside it; the library call
+     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
+     and the codec's time per upload: the q4 draws alone and the
      whole q4 quantize, the top-k ranking alone and the whole top-k
      upload
   5. the engine on the card against the engine on the CPU at a small size
@@ -72,6 +82,22 @@ Phases, each of which exits non-zero on failure:
      round; then the int8 pair's own path, the compression helpers over
      the full-width CNN's parameters, its counters reset before and read
      after (one launch of each kernel per leaf)
+  7. the serving path at full width: ``repro_torch.launch.serve.run`` of
+     qwen3-1.7b (28 layers, d_model 2048, 2,038,555,648 params, f32
+     params and bf16 compute, weights from ``prng_key(0)`` drawn on the
+     card), B = 8 prompts of 1024 tokens, 32 greedy tokens, every launch
+     counter reset before and read after (flash attention once per layer
+     of the prefill, nothing else); then (a) 3 timed passes of a prefill
+     and 32 decode steps (medians), 28 flash launches per prefill and 0
+     per decode step, the peak memory, and a ``torch.profiler`` trace of
+     a prefill and 4 decode steps (device busy share, flash's share);
+     (b) a check of model scale: the prefill logits against the same
+     prefill with the plain attention on the card no further apart (max
+     and relative L2) than the plain prefill in bf16 compute is from the
+     same in f32 compute; (c) the reduced qwen3 (f32 compute, TF32 off,
+     prompt 200) served on the card against the CPU: logits within
+     ``atol=rtol=1e-4`` and the same greedy tokens; (d) the normal draws
+     made on the card against numpy's, within 4 ulp
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -82,6 +108,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -91,6 +118,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 D_FULL = 2_154_730
 K_MAIN = 4
 D_RAGGED, K_RAGGED = 4099, 3
@@ -101,7 +129,8 @@ KERNELS = ("safl_fold", "safl_aggregate", "sdga_aggregate", "safl_fold_q8",
            "safl_aggregate_q8", "sdga_aggregate_q8", "screen_rows",
            "screen_rows_q8", "safl_fold_q4", "safl_aggregate_q4",
            "sdga_aggregate_q4", "screen_rows_q4", "safl_fold_topk",
-           "safl_aggregate_topk", "quantize_int8", "dequantize_int8")
+           "safl_aggregate_topk", "quantize_int8", "dequantize_int8",
+           "flash_attention")
 REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_aggregate": "src/repro/kernels/safl_agg.py:136",
             "sdga_aggregate": "src/repro/kernels/safl_agg.py:323",
@@ -117,12 +146,16 @@ REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_fold_topk": "src/repro/kernels/safl_agg.py:830",
             "safl_aggregate_topk": "src/repro/kernels/safl_agg.py:779",
             "quantize_int8": "src/repro/kernels/quantize.py:96",
-            "dequantize_int8": "src/repro/kernels/quantize.py:121"}
+            "dequantize_int8": "src/repro/kernels/quantize.py:121",
+            "flash_attention": "src/repro/kernels/flash_attention.py:76"}
 #: the CUDA sources, each built by its own nvcc, all started together
-SOURCES = ("safl_agg", "quantize")
-#: the int8 pair lives in csrc/quantize.cu, every other kernel in
-#: csrc/safl_agg.cu
+SOURCES = ("safl_agg", "quantize", "flash_attention")
 INT8_KERNELS = ("quantize_int8", "dequantize_int8")
+#: the source of each kernel: the int8 pair in csrc/quantize.cu, flash
+#: attention in csrc/flash_attention.cu, every other in csrc/safl_agg.cu
+SOURCE_OF = {name: "quantize" if name in INT8_KERNELS else
+             "flash_attention" if name == "flash_attention" else "safl_agg"
+             for name in KERNELS}
 SDGA_KW = dict(server_lr=0.05, momentum=0.8, ema_anchor=0.05,
                ema_decay=0.95)
 AGGREGATIONS = ("fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync")
@@ -205,6 +238,29 @@ TOPK_AGGREGATIONS = ("fedsgd", "fedbuff", "fedopt", "sdga")
 #: blocks of 512, and a ragged count (not a multiple of the 8 rows a
 #: quantize block takes)
 INT8_ROWS = (-(-D_FULL // QB), 37)
+#: flash attention's shapes (B, S, H, Hkv, hd): the reference test
+#: sweep's (tests/test_kernels.py), the serving path's full-width qwen3
+#: prefill, and a ragged S (not a multiple of the kernel's 64-row tiles)
+FLASH_SHAPES = ((2, 128, 4, 4, 64), (2, 256, 8, 2, 32), (2, 64, 2, 1, 128),
+                (8, 1024, 16, 8, 128), (2, 200, 16, 8, 128))
+#: flash attention against its plain version: the reference tests'
+#: tolerances (atol = rtol), f32 rounding in f32 and a bf16 step in bf16
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the most of the bf16 output lanes at the qwen3 prefill shape that may
+#: differ from the plain version's: with p and the PV sums in f32 only a
+#: last-bit flip of the final rounding remains; a kernel that rounds p to
+#: bf16 before PV flips far more, yet passes FLASH_TOL
+FLASH_BF16_DIFF_SHARE = 0.02
+#: phase 7: the full-width qwen3-1.7b served from prng_key(0)
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 1024, 32
+SERVE_PARAMS = 2_038_555_648
+#: phase 7 (a): timed passes (a prefill, then SERVE_NEW decode steps each),
+#: and the decode steps traced by the profiler
+SERVE_PASSES, SERVE_TRACED_STEPS = 3, 4
+#: phase 7 (c): the reduced qwen3 (f32 compute) on the card against the
+#: CPU, the CPU tests' bound against the reference
+SERVE_F32_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -511,6 +567,97 @@ def check_int8(torch, q_mod, report, worst):
     torch.cuda.synchronize()
 
 
+def flash_inputs(torch, shape, dtype, g):
+    b, s, h, hkv, hd = shape
+    return tuple(torch.randn((b, s, n, hd), device="cuda",
+                             generator=g).to(dtype) for n in (h, hkv, hkv))
+
+
+def flash_plain_bf16_p(torch, q, k, v):
+    """The plain causal attention with p rounded to bf16 before the PV
+    product: what a kernel that keeps p in bf16 computes."""
+    import numpy as np
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=2).float()
+    v = torch.repeat_interleave(v, rep, dim=2).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) / float(
+        np.sqrt(hd))
+    mask = torch.tril(torch.ones((S, S), dtype=torch.bool, device=q.device))
+    p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    p = p.to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def check_flash(torch, fa_mod, report, worst):
+    """Flash attention against its plain version on every shape of
+    :data:`FLASH_SHAPES`, f32 and bf16, causal and not, within
+    :data:`FLASH_TOL`; at the qwen3 prefill shape in bf16, at most
+    :data:`FLASH_BF16_DIFF_SHARE` of the output lanes differ from the
+    plain version's, a share that the plain version with p rounded to
+    bf16 must exceed; and causality: on S = 128, outputs before
+    position 100 unchanged when the keys and values after it change."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    by_dtype = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        tol = FLASH_TOL[name]
+        for causal in (True, False):
+            for shape in FLASH_SHAPES:
+                q, k, v = flash_inputs(torch, shape, dtype, g)
+                got = fa_mod.flash_attention(q, k, v, causal=causal)
+                want = fa_mod.flash_attention_plain(q, k, v, causal=causal)
+                got, want = got.float(), want.float()
+                err = float((got - want).abs().max())
+                ok = (got.dtype == want.dtype and torch.allclose(
+                    got, want, atol=tol, rtol=tol))
+                info = dict(shape=list(shape), dtype=name, causal=causal)
+                report.append(dict(kernel="flash_attention",
+                                   max_abs_err=err, tolerance=tol, **info))
+                print(f"  flash_attention (B,S,H,Hkv,hd)={shape} {name} "
+                      f"causal={causal}: max|err|={err:.3e}  (tolerance: "
+                      f"atol=rtol={tol})")
+                if not ok:
+                    fail(f"flash_attention {info} differs from its plain "
+                         "version")
+                worst["flash_attention"] = max(
+                    worst.get("flash_attention", 0.0), err)
+                by_dtype[name] = max(by_dtype.get(name, 0.0), err)
+    q, k, v = flash_inputs(torch, FLASH_SHAPES[3], torch.bfloat16, g)
+    want = fa_mod.flash_attention_plain(q, k, v)
+    share_kernel = float((fa_mod.flash_attention(q, k, v) != want).float()
+                         .mean())
+    share_bf16_p = float((flash_plain_bf16_p(torch, q, k, v) != want)
+                         .float().mean())
+    del q, k, v, want
+    print(f"  flash_attention bf16 {FLASH_SHAPES[3]} causal: output lanes "
+          f"that differ from the plain version: kernel {share_kernel:.4%}, "
+          f"plain with p in bf16 {share_bf16_p:.4%} (tolerance: the "
+          f"kernel at most {FLASH_BF16_DIFF_SHARE:.0%}, p in bf16 above)")
+    report.append(dict(kernel="flash_attention", shape=list(FLASH_SHAPES[3]),
+                       dtype="bfloat16", differing_lanes=share_kernel,
+                       differing_lanes_bf16_p=share_bf16_p,
+                       tolerance=FLASH_BF16_DIFF_SHARE))
+    if share_kernel > FLASH_BF16_DIFF_SHARE:
+        fail("flash_attention's bf16 output differs from the plain "
+             "version's in more lanes than f32 p and PV allow")
+    if share_bf16_p <= FLASH_BF16_DIFF_SHARE:
+        fail("the differing-lanes check cannot tell p in bf16 from f32")
+    q, k, v = flash_inputs(torch, (1, 128, 2, 2, 32), torch.float32, g)
+    out1 = fa_mod.flash_attention(q, k, v)
+    k[:, 100:], v[:, 100:] = 99.0, -99.0
+    out2 = fa_mod.flash_attention(q, k, v)
+    causal_ok = torch.equal(out1[:, :100], out2[:, :100])
+    print(f"  flash_attention causality (S=128, keys after 100 changed): "
+          f"outputs before 100 {'bitwise equal' if causal_ok else 'DIFFER'}"
+          f"; worst error {by_dtype}")
+    report.append(dict(kernel="flash_attention", causality_bitwise=causal_ok,
+                       worst_by_dtype=by_dtype))
+    if not causal_ok:
+        fail("flash_attention reads keys past the causal triangle")
+    torch.cuda.synchronize()
+
+
 def poisoned(payload, kind, loc=0.37):
     """One upload's payload ((vec,) f32, (q_row, s_row) q8 / q4 or
     (idx_row, qv_row, s_row) top-k) with a corrupt or Byzantine fault
@@ -636,7 +783,7 @@ def time_ms(torch, fn, flush, n=TIMED_LAUNCHES):
     return times[len(times) // 2]
 
 
-def time_kernels(torch, k_mod, q_mod):
+def time_kernels(torch, k_mod, q_mod, fa_mod):
     g = torch.Generator(device="cuda").manual_seed(1)
     d, k = D_FULL, K_MAIN
     dq = dq_of(d)
@@ -803,9 +950,28 @@ def time_kernels(torch, k_mod, q_mod):
         library_ms=t(lambda: torch.mul(q8r, s8r[:, None])),
         bytes=5 * rows * QB + 4 * rows, ops=rows * QB,
         shape=f"R={rows} B={QB}")
+    # flash attention at the serving path's prefill shape (bf16, causal;
+    # f32 rides along); the library call is PyTorch's fused attention on
+    # the same tensors (heads moved ahead of the sequence by a view)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype, sfx, peak in ((torch.bfloat16, "", BF16_FLOPS),
+                             (torch.float32, "_f32", F32_FLOPS)):
+        fq, fk, fv = flash_inputs(torch, FLASH_SHAPES[3], dtype, g)
+        b, s_, h, hkv, hd = FLASH_SHAPES[3]
+        tq, tk, tv = (x.transpose(1, 2) for x in (fq, fk, fv))
+        out["flash_attention" + sfx] = dict(
+            ms=t(lambda: fa_mod.flash_attention(fq, fk, fv)),
+            plain_ms=t(lambda: fa_mod.flash_attention_plain(fq, fk, fv)),
+            library_ms=t(lambda: sdpa(tq, tk, tv, is_causal=True,
+                                      enable_gqa=True)),
+            bytes=2 * (fq.numel() + fk.numel()) * fq.element_size(),
+            ops=4 * b * h * hd * s_ * (s_ + 1) // 2, peak=peak,
+            shape=f"B={b} S={s_} H={h}/{hkv} hd={hd} "
+                  f"{str(dtype).split('.')[-1]} causal")
+        del fq, fk, fv, tq, tk, tv
     for name, r in out.items():
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        o_ms = r["ops"] / F32_FLOPS * 1e3
+        o_ms = r["ops"] / r.get("peak", F32_FLOPS) * 1e3
         r["bound_ms"] = max(b_ms, o_ms)
         r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
         lib = ("none" if r["library_ms"] is None
@@ -830,8 +996,8 @@ def time_codec(torch):
     from repro_torch import prng
     from repro_torch.core.flatbuf import PytreeCodec
     from repro_torch.models.vision_cnn import build_paper_model
-    start, _, _ = build_paper_model("cnn", torch.Generator().manual_seed(0),
-                                    device="cuda", width=32, image_size=32)
+    start, _, _ = build_paper_model("cnn", prng.prng_key(0), device="cuda",
+                                    width=32, image_size=32)
     end = {k: v * 0.99 for k, v in start.items()}
     codec = PytreeCodec(start)
     res = torch.zeros(codec.dq, device="cuda")
@@ -876,6 +1042,7 @@ def build_engine(torch, setup, setting, device, **cfg_kw):
     from repro_torch.core import FLEngine
     from repro_torch.launch.fl_sim import SERVER_LR
     from repro_torch.models.vision_cnn import build_paper_model
+    from repro_torch.prng import prng_key
     ds, shards, te, width, hw = setup
     cfg = dataclasses.replace(MODES[setting], n_clients=len(shards),
                               k=K_MAIN, client_lr=0.05, speed_sigma=0.8,
@@ -883,7 +1050,7 @@ def build_engine(torch, setup, setting, device, **cfg_kw):
     cfg = dataclasses.replace(
         cfg, server_lr=SERVER_LR.get(cfg.aggregation, 1.0))
     p0, s0, fn = build_paper_model(
-        "cnn", torch.Generator().manual_seed(0), device="cpu",
+        "cnn", prng_key(0), device="cpu",
         n_classes=ds.n_classes, in_ch=3, width=width, image_size=hw)
     return FLEngine(cfg, fn, ds.kind, p0, s0, shards, te.x[:400],
                     te.y[:400], device=device)
@@ -963,8 +1130,9 @@ def check_codec(torch):
     without error feedback and a q4 model upload."""
     from repro_torch.core.flatbuf import PytreeCodec
     from repro_torch.models.vision_cnn import build_paper_model
-    start, _, _ = build_paper_model("cnn", torch.Generator().manual_seed(4),
-                                    device="cpu", width=32, image_size=32)
+    from repro_torch.prng import prng_key
+    start, _, _ = build_paper_model("cnn", prng_key(4), device="cpu",
+                                    width=32, image_size=32)
     g = torch.Generator().manual_seed(5)
     end = {k: v - 0.01 * torch.randn(v.shape, generator=g)
            for k, v in start.items()}
@@ -1164,8 +1332,9 @@ def expected_launches(spec, uploads, screened):
 def cnn_params(torch, seed, device):
     """The full-width paper CNN's parameters, drawn on the CPU."""
     from repro_torch.models.vision_cnn import build_paper_model
+    from repro_torch.prng import prng_key
     params, _, _ = build_paper_model(
-        "cnn", torch.Generator().manual_seed(seed), device=device, width=32,
+        "cnn", prng_key(seed), device=device, width=32,
         image_size=32)
     return params
 
@@ -1319,6 +1488,265 @@ def run_main_path(torch, wrappers):
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serving the full-width qwen3-1.7b
+# ---------------------------------------------------------------------------
+
+
+def ms_of(torch, fn):
+    """Host-clock milliseconds of one call, the device synchronized before
+    and after; returns (ms, the call's result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def profiled(torch, fn):
+    """One call of ``fn`` under ``torch.profiler``: (its result, the device
+    busy ms (the union of every kernel, copy and memset interval), the
+    flash kernel's device ms, the number of device events).  The times are
+    None when the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    spans, flash_us = [], 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if "flash_fwd_kernel" in e.name:
+            flash_us += e.time_range.elapsed_us()
+    if not spans:
+        return out, None, None, 0
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return out, busy_us / 1e3, flash_us / 1e3, len(spans)
+
+
+def max_ulp(a, b) -> int:
+    import numpy as np
+    ia, ib = a.view(np.int32).astype(np.int64), b.view(np.int32).astype(
+        np.int64)
+    return int(np.abs(ia - ib).max())
+
+
+def run_serve(torch, fa_mod, wrappers):
+    """The serving path: ``serve.run`` of the full-width qwen3-1.7b (B 8,
+    prompt 1024, 32 greedy tokens, weights from prng_key(0) drawn on the
+    card), every launch counter reset before and read after; then (a)
+    :data:`SERVE_PASSES` passes of a prefill and the 32 decode steps,
+    each timed on the host clock (medians kept), with flash launches
+    counted per prefill and per decode step, and one prefill and
+    :data:`SERVE_TRACED_STEPS` decode steps under the profiler: the
+    device busy time, the flash kernel's share and the device events per
+    step; (b) the prefill with the plain attention on the card against
+    the kernel's: the kernel's logits no further from the plain
+    attention's (max and relative L2) than bf16 compute's are from f32
+    compute's, a check of model scale only (phase 3 holds the kernel
+    itself); (c) the reduced
+    qwen3 served on the card against the CPU (f32, TF32 off); (d) the
+    card's normal draws against numpy's."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import DecoderLM
+    cfg = get_config(SERVE_ARCH)
+    B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in wrappers.values():
+        f.launches = 0
+    wall_ms, res = ms_of(torch, lambda: serve.run(cfg, B, S, new, "cuda"))
+    counts = {n: f.launches for n, f in wrappers.items()}
+    peak_run = torch.cuda.max_memory_allocated()
+    model = res.model
+    n_params = model.param_count()
+    run_times = (res.t_prefill * 1e3, res.t_decode * 1e3)
+    print(f"  serve.run {SERVE_ARCH} full width ({n_params:,} params, "
+          f"{cfg.n_layers} layers, B={B}, prompt {S}, {new} new tokens): "
+          f"wall {wall_ms / 1e3:.2f} s (init included), prefill "
+          f"{res.t_prefill * 1e3:.1f} ms, decode {res.t_decode * 1e3:.1f} "
+          f"ms; launches " + " ".join(f"{n}={c}" for n, c in counts.items()
+                                      if c))
+    print("  sample token ids[0]:", res.gen[0][:16].tolist())
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["flash_attention"] = cfg.n_layers
+    if counts != expected:
+        fail(f"serve.run: launches {counts}, expected {expected}")
+    if n_params != SERVE_PARAMS:
+        fail(f"serve.run: {n_params} params, expected {SERVE_PARAMS}")
+    if tuple(res.logits.shape) != (B, cfg.padded_vocab) or \
+            not bool(torch.isfinite(res.logits).all()) or \
+            res.gen.shape != (B, new):
+        fail(f"serve.run: logits {tuple(res.logits.shape)}, gen "
+             f"{res.gen.shape}, or non-finite logits")
+
+    with torch.inference_mode():
+        # (a) steady-state prefill and decode, launches per call; then
+        # one prefill and a few decode steps under the profiler
+        torch.cuda.reset_peak_memory_stats()
+        prefill_samples, step_samples = [], []
+        per_prefill, decode_launches = set(), 0
+        for _ in range(SERVE_PASSES):
+            fa_mod.flash_attention.launches = 0
+            ms, (logits, cache) = ms_of(
+                torch, lambda: model.prefill(res.tokens, capacity=S + new))
+            prefill_samples.append(ms)
+            per_prefill.add(fa_mod.flash_attention.launches)
+            fa_mod.flash_attention.launches = 0
+            tok = torch.argmax(logits, dim=-1)
+            for i in range(new):
+                ms, (last, cache) = ms_of(
+                    torch, lambda: model.decode_step(cache, tok, S + i))
+                tok = torch.argmax(last, dim=-1)
+                step_samples.append(ms)
+            decode_launches += fa_mod.flash_attention.launches
+            del cache
+        peak_prefill = torch.cuda.max_memory_allocated()
+        per_prefill = per_prefill.pop() if len(per_prefill) == 1 else \
+            sorted(per_prefill)
+        per_decode = decode_launches / (SERVE_PASSES * new)
+        prefill_ms = statistics.median(prefill_samples)
+        decode_ms = statistics.median(step_samples)
+        (logits, cache), pre_busy, pre_flash, pre_events = profiled(
+            torch, lambda: model.prefill(res.tokens, capacity=S + new))
+        tok = torch.argmax(logits, dim=-1)
+
+        def steps():
+            nonlocal tok, cache
+            for i in range(SERVE_TRACED_STEPS):
+                out, cache = model.decode_step(cache, tok, S + i)
+                tok = torch.argmax(out, dim=-1)
+            return out
+
+        _, dec_busy, _, dec_events = profiled(torch, steps)
+        del cache
+        # (b) the same prefill with the plain attention, in bf16 and, as
+        # the yardstick of bf16's own rounding, in f32 compute
+        kernel_fn = ops.flash_attention
+        ops.flash_attention = lambda q, k, v, causal=True, **_: \
+            fa_mod.flash_attention_plain(q, k, v, causal=causal)
+        try:
+            plain_ms, (plain_logits, _) = ms_of(
+                torch, lambda: model.prefill(res.tokens))
+            f32_model = DecoderLM(
+                dataclasses.replace(cfg, compute_dtype="float32"),
+                model.top.tree, [layer.tree for layer in model.layers])
+            f32_logits, _ = f32_model.prefill(res.tokens)
+            del f32_model
+        finally:
+            ops.flash_attention = kernel_fn
+    err_b = float((logits - plain_logits).abs().max())
+    err_f32 = float((plain_logits - f32_logits).abs().max())
+    rel_b = float((logits - plain_logits).norm() / plain_logits.norm())
+    rel_f32 = float((plain_logits - f32_logits).norm() / f32_logits.norm())
+    top1 = int((logits.argmax(-1) == plain_logits.argmax(-1)).sum())
+    print(f"  (a) flash launches: {per_prefill} per prefill, {per_decode:g} "
+          f"per decode step; over {SERVE_PASSES} passes, median prefill "
+          f"{prefill_ms:.2f} ms (range {min(prefill_samples):.2f}-"
+          f"{max(prefill_samples):.2f}), median decode step "
+          f"{decode_ms:.3f} ms per token (B={B}; range "
+          f"{min(step_samples):.3f}-{max(step_samples):.3f}); peak memory "
+          f"{peak_run / 2**30:.2f} GiB in serve.run, "
+          f"{peak_prefill / 2**30:.2f} GiB in prefill and decode")
+    if pre_busy is None or dec_busy is None:
+        trace = None
+        print("  (a) profiler: no device activity seen; busy shares not "
+              "measured")
+    else:
+        dec_step = dec_busy / SERVE_TRACED_STEPS
+        trace = dict(prefill_busy_ms=pre_busy, prefill_flash_ms=pre_flash,
+                     prefill_device_events=pre_events,
+                     prefill_busy_share=pre_busy / prefill_ms,
+                     prefill_flash_share=pre_flash / pre_busy,
+                     decode_busy_ms_per_step=dec_step,
+                     decode_device_events_per_step=dec_events /
+                     SERVE_TRACED_STEPS,
+                     decode_busy_share=dec_step / decode_ms)
+        print(f"  (a) profiler: prefill device busy {pre_busy:.2f} ms "
+              f"({trace['prefill_busy_share']:.1%} of the median prefill), "
+              f"flash {pre_flash:.2f} ms ({trace['prefill_flash_share']:.1%}"
+              f" of the busy time), {pre_events} device events; decode "
+              f"device busy {dec_step:.3f} ms per step "
+              f"({trace['decode_busy_share']:.1%} of the median step), "
+              f"{trace['decode_device_events_per_step']:g} device events "
+              "per step")
+    print(f"  (b) prefill logits (max |logit| "
+          f"{float(plain_logits.abs().max()):.3f}), kernel vs plain "
+          f"attention, bf16 compute: max|err|={err_b:.3e}, relative L2 "
+          f"{rel_b:.3e}; bf16 vs f32 compute (plain): max|err|="
+          f"{err_f32:.3e}, relative L2 {rel_f32:.3e} (tolerance: the "
+          f"first within the second); greedy token equal in {top1}/{B} "
+          f"rows; plain prefill {plain_ms:.2f} ms")
+    if per_prefill != cfg.n_layers or per_decode != 0:
+        fail(f"flash launches {per_prefill} per prefill, {per_decode} per "
+             f"decode step; expected {cfg.n_layers} and 0")
+    if not (err_b <= err_f32 and rel_b <= rel_f32
+            and bool(torch.isfinite(last).all())):
+        fail("the kernel moves the prefill logits further from the plain "
+             "attention than bf16 compute moves them from f32, or decode "
+             "logits are not finite")
+    del model, res, logits, plain_logits, f32_logits, last
+    torch.cuda.empty_cache()
+
+    # (c) the reduced qwen3 on the card against the CPU
+    rcfg = reduced_config(cfg)
+    fa_mod.flash_attention.launches = 0
+    on_card = serve.run(rcfg, 4, 200, 8, "cuda")
+    reduced_launches = fa_mod.flash_attention.launches
+    on_cpu = serve.run(rcfg, 4, 200, 8, "cpu")
+    err_c = float((on_card.logits.cpu() - on_cpu.logits).abs().max())
+    same_gen = bool(np.array_equal(on_card.gen, on_cpu.gen))
+    ok_c = torch.allclose(on_card.logits.cpu(), on_cpu.logits,
+                          atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL)
+    print(f"  (c) reduced {SERVE_ARCH} (f32, B=4, prompt 200, 8 new), card "
+          f"vs CPU: prefill logits max|err|={err_c:.3e} (tolerance "
+          f"atol=rtol={SERVE_F32_TOL}), greedy tokens "
+          f"{'equal' if same_gen else 'DIFFER'}, {reduced_launches} flash "
+          "launches on the card")
+    if not (ok_c and same_gen and reduced_launches == rcfg.n_layers):
+        fail("the reduced model served on the card disagrees with the CPU")
+
+    # (d) normal draws on the card against numpy (the embedding's key)
+    key = prng.split(prng.prng_key(0), 5)[0]
+    shape = (2048, 2048)
+    got = prng.normal_torch(key, shape, "cuda").cpu().numpy()
+    want = prng.normal(key, shape)
+    ulp = max_ulp(got, want)
+    same = float((got.view(np.uint32) == want.view(np.uint32)).mean())
+    print(f"  (d) normal_torch on the card vs prng.normal (numpy), {shape}: "
+          f"max {ulp} ulp (tolerance 4), {same:.2%} of lanes bitwise")
+    if ulp > 4:
+        fail(f"normal draws on the card {ulp} ulp from numpy's")
+    return dict(arch=SERVE_ARCH, params=n_params, batch=B, prompt=S,
+                new_tokens=new, launches=counts, wall_ms=wall_ms,
+                run_prefill_ms=run_times[0], run_decode_ms=run_times[1],
+                prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+                prefill_ms_samples=prefill_samples,
+                decode_ms_samples=step_samples, trace=trace,
+                plain_prefill_ms=plain_ms, peak_bytes_run=peak_run,
+                peak_bytes_prefill=peak_prefill,
+                flash_per_prefill=per_prefill, flash_per_decode=per_decode,
+                kernel_vs_plain_logits_max_abs=err_b,
+                kernel_vs_plain_logits_rel_l2=rel_b,
+                bf16_vs_f32_logits_max_abs=err_f32,
+                bf16_vs_f32_logits_rel_l2=rel_f32, top1_equal_rows=top1,
+                reduced_card_vs_cpu_max_abs=err_c, reduced_gen_equal=same_gen,
+                normal_max_ulp=ulp, normal_bitwise_share=same)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1326,9 +1754,10 @@ def main() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import quantize as q_mod
     from repro_torch.kernels import safl_agg as k_mod
-    wrappers = {**k_mod.KERNELS, **q_mod.KERNELS}
+    wrappers = {**k_mod.KERNELS, **q_mod.KERNELS, **fa_mod.KERNELS}
     if sorted(wrappers) != sorted(KERNELS):
         fail(f"kernel wrappers {sorted(wrappers)} are not {sorted(KERNELS)}")
 
@@ -1355,16 +1784,18 @@ def main() -> None:
             print("  " + info["log"].replace("\n", "\n  "))
     print(f"  build wall {build_s:.2f} s")
 
-    print("== phase 3: kernels against their plain versions; q4 draws")
+    print("== phase 3: kernels against their plain versions; q4 draws; "
+          "flash attention")
     check_rows = []
     worst = check_kernels(torch, k_mod, check_rows)
     check_screens(torch, k_mod, check_rows, worst)
     check_topk(torch, k_mod, check_rows, worst)
     check_int8(torch, q_mod, check_rows, worst)
     check_draws(torch, check_rows)
+    check_flash(torch, fa_mod, check_rows, worst)
 
     print("== phase 4: timings (L2 flushed before each launch)")
-    timing = time_kernels(torch, k_mod, q_mod)
+    timing = time_kernels(torch, k_mod, q_mod, fa_mod)
     codec_ms = time_codec(torch)
 
     print("== phase 5: engine on the card vs the CPU, small size; q4 and "
@@ -1382,10 +1813,14 @@ def main() -> None:
     for name in INT8_KERNELS:
         launches[name] = compression["launches"][name]
 
+    print(f"== phase 7: serving, full-width {SERVE_ARCH} (B = {SERVE_BATCH}, "
+          f"prompt {SERVE_PROMPT}, {SERVE_NEW} greedy tokens)")
+    serving = run_serve(torch, fa_mod, wrappers)
+    launches["flash_attention"] = serving["launches"]["flash_attention"]
+
     kernels = [dict(
         name=name, route="cuda",
-        source=("src/repro_torch/kernels/csrc/"
-                + ("quantize.cu" if name in INT8_KERNELS else "safl_agg.cu")),
+        source=f"src/repro_torch/kernels/csrc/{SOURCE_OF[name]}.cu",
         replaces=REPLACES[name],
         launches=launches[name], max_abs_err=worst[name],
         ms=timing[name]["ms"], plain_ms=timing[name]["plain_ms"],
@@ -1402,7 +1837,7 @@ def main() -> None:
                        checks=check_rows, timing=timing, codec_ms=codec_ms,
                        small=small, codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,
-                       compression_path=compression,
+                       compression_path=compression, serving=serving,
                        kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

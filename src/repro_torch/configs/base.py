@@ -1,8 +1,15 @@
-"""Federated-learning experiment configuration (paper §2, §4).
+"""Configurations: the model zoo's :class:`ModelConfig` and the
+federated-learning experiment's :class:`FLConfig` (paper §2, §4).
 
-A copy of the reference's ``FLConfig`` and its ``validate()``: the same
-fields, defaults and checks, so a config written for the reference means
-the same experiment here.  The one default that differs is
+``ModelConfig`` is a copy of the reference's with the fields the dense
+decoder's serving path reads (the training, distribution, q-chunking,
+MoE, SSM, hybrid, encoder-decoder and VLM fields wait for the paths that
+read them), the same defaults, ``round_up``, ``hd``,
+``padded_vocab`` and the dense checks of ``validate()``.
+
+``FLConfig`` is a copy of the reference's and its ``validate()``: the
+same fields, defaults and checks, so a config written for the reference
+means the same experiment here.  The one default that differs is
 ``batch_clients`` (False here): the horizon-batched engine is not ported
 yet, and :class:`repro_torch.core.safl.FLEngine` refuses every setting it
 does not run (see ``FLEngine.PORTED``) instead of ignoring it.
@@ -11,6 +18,62 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+#: the reference's model families; the port builds ``dense`` only
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description (the reference's fields for the dense
+    family, same defaults).  ``dense`` is a pre-norm decoder: GQA
+    attention with RoPE and optional qk RMS-norm, and a gated MLP."""
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # --- attention ---
+    rope_theta: float = 10_000.0
+    qk_norm: bool = False
+    sliding_window: Optional[int] = None  # native window (starcoder2)
+
+    # --- numerics ---
+    act: str = "swiglu"  # swiglu | gelu
+    norm_eps: float = 1e-5
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    vocab_pad_to: int = 2_048
+    source: str = ""  # citation for the assignment row
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        return round_up(self.vocab_size, self.vocab_pad_to)
+
+    def validate(self) -> None:
+        if self.family not in FAMILIES:
+            raise ValueError(f"family {self.family!r} not in {FAMILIES}")
+        if self.d_model % self.n_heads and not self.head_dim:
+            raise ValueError(f"d_model {self.d_model} is not a multiple of "
+                             f"n_heads {self.n_heads} and head_dim is 0")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"n_heads {self.n_heads} is not a multiple of "
+                             f"n_kv_heads {self.n_kv_heads}")
 
 
 @dataclasses.dataclass(frozen=True)

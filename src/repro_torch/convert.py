@@ -7,11 +7,12 @@ import numpy as np
 import torch
 
 
-def params_from_jax(tree: Dict[str, np.ndarray],
-                    device) -> Dict[str, torch.Tensor]:
-    """The reference's params dict (already turned into numpy) -> the same
+def params_from_jax(tree: Dict[str, object], device) -> Dict[str, object]:
+    """The reference's params dict (its leaves already numpy arrays;
+    nested dicts allowed, as the decoder's tree nests them) -> the same
     dict of float32 tensors on ``device``, layouts kept as they are (HWIO
-    conv weights, (in, out) dense weights), which is what this package's
-    models take."""
-    return {k: torch.from_numpy(np.array(v, np.float32)).to(device)
+    conv weights, (in, out) dense weights, the decoder's layers stacked on
+    axis 0), which is what this package's models take."""
+    return {k: params_from_jax(v, device) if isinstance(v, dict)
+            else torch.from_numpy(np.array(v, np.float32)).to(device)
             for k, v in tree.items()}

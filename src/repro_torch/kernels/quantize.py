@@ -14,6 +14,10 @@ A copy of the reference's ``repro/kernels/quantize.py`` without JAX:
     versions, routed like :mod:`repro_torch.kernels.safl_agg`'s wrappers
     (a CPU tensor runs the plain version, a CUDA one launches the kernel
     or raises) and counting launches in ``.launches``;
+  * :func:`quantize_q4` and :func:`dequantize_q4`, the packed-int4 pair
+    (``quantize.py:152``, ``:162``), thin over the oracles of
+    :mod:`repro_torch.kernels.ref` as in the reference (no kernel: the
+    engine's q4 codec quantizes in its own ops);
   * the pytree helpers :func:`quantize_array`, :func:`dequantize_array`,
     :func:`quantize_pytree`, :func:`dequantize_pytree` (a pytree is a
     dict of tensors, nested dicts allowed) and the top-k sparsifier
@@ -136,6 +140,20 @@ dequantize_int8.launches = 0
 
 #: the kernel wrappers of this module, by name (each has ``.launches``)
 KERNELS = {f.__name__: f for f in (quantize_int8, dequantize_int8)}
+
+
+def quantize_q4(x: torch.Tensor, u: torch.Tensor):
+    """x (R, B) f32 and u (R, B) uniform [0, 1) draws -> (packed int8
+    (R, B // 2), scales f32 (R,)): the blockwise absmax / 7 grid with
+    stochastic rounding, two nibbles per byte."""
+    q, s = ref.quantize_q4_ref(x, u)
+    return ref.pack_q4_ref(q), s
+
+
+def dequantize_q4(p: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_q4`: (R, B // 2) packed and (R,) scales
+    -> (R, B) f32."""
+    return ref.unpack_q4_ref(p).to(torch.float32) * scales.unsqueeze(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -247,3 +247,24 @@ def safl_agg_topk_ref(idx: torch.Tensor, qv: torch.Tensor,
     gsum = topk_weighted_sum_ref(idx, qv, scales, w, params.shape[0],
                                  qblock)
     return params.to(torch.float32) - server_lr * (gsum / wsafe)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q (B, S, H, hd), k / v (B, S, Hkv, hd) GQA -> out (B, S, H, hd):
+    k and v repeated to H heads, f32 scores divided by sqrt(hd), a -inf
+    causal mask, an f32 softmax, the output cast to q's dtype (the
+    reference's ``ref.flash_attention_ref``)."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    k = torch.repeat_interleave(k, rep, dim=2)
+    v = torch.repeat_interleave(v, rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32)) / float(np.sqrt(hd))
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.to(torch.float32))
+    return out.to(q.dtype)

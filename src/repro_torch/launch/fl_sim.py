@@ -29,6 +29,7 @@ from repro_torch.core import FLEngine
 from repro_torch.device import resolve_device
 from repro_torch.data import build_client_shards, make_dataset, train_test_split
 from repro_torch.models.vision_cnn import build_paper_model
+from repro_torch.prng import prng_key
 
 #: --json-out summary schema version (the reference's)
 SUMMARY_SCHEMA = 1
@@ -193,10 +194,9 @@ def main(argv=None) -> dict:
     shards = build_client_shards(tr, args.dist, args.clients, 32,
                                  seed=args.seed, **dist_kw)
 
-    # the reference's CPU-sized CNN (width 8 on 16x16 images); the weights
-    # come from a torch.Generator, so they differ from jax.random's
-    g = torch.Generator().manual_seed(args.seed)
-    p0, s0, fn = build_paper_model(args.model, g, device=device,
+    # the reference's CPU-sized CNN (width 8 on 16x16 images), drawn from
+    # PRNGKey(0) whatever --seed is, as the reference draws it
+    p0, s0, fn = build_paper_model(args.model, prng_key(0), device=device,
                                    n_classes=ds.n_classes, in_ch=3,
                                    width=8, image_size=16)
 

@@ -11,39 +11,42 @@ Only ``cnn`` is ported; ``resnet18`` and ``vgg16`` raise.
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
 
-def _he_normal(g: torch.Generator, shape, fan_in: int) -> torch.Tensor:
-    return torch.randn(shape, generator=g) * math.sqrt(2.0 / fan_in)
+def _he_normal(key: prng.Key, shape, fan_in: int) -> torch.Tensor:
+    return prng.normal_torch(key, shape, "cpu") * np.float32(
+        np.sqrt(2.0 / fan_in))
 
 
-def cnn_init(g: torch.Generator, *, in_ch=3, n_classes=10, image_size=32,
+def cnn_init(key: prng.Key, *, in_ch=3, n_classes=10, image_size=32,
              width=32, device="cuda"):
-    """He-normal init like the reference's ``_conv_init``/``_dense_init``,
-    drawn from ``g`` on the CPU and moved to ``device`` (the GPU unless
-    the caller asks for the CPU; no GPU raises), so a seed gives the same
-    weights on any device.  It cannot reproduce ``jax.random``: tests
-    carry reference weights across with
-    :func:`repro_torch.convert.params_from_jax`."""
+    """He-normal init from a reference key (:func:`repro_torch.prng.
+    prng_key`), consumed as the reference's ``cnn_init`` consumes it
+    (``split(key, 5)``, then ``normal(k, shape) * sqrt(2 / fan_in)``), so
+    the weights are ``jax.random``'s to a few ulp.  Drawn on the CPU and
+    moved to ``device`` (the GPU unless the caller asks for the CPU; no
+    GPU raises), so a key gives the same weights on any device."""
     device = resolve_device(device)
+    ks = prng.split(key, 5)
     c1, c2, c3 = width, width * 2, width * 2
     feat = (image_size // 2) ** 2 * c3
     params = {
-        "c1": _he_normal(g, (3, 3, in_ch, c1), 9 * in_ch),
-        "c2": _he_normal(g, (3, 3, c1, c2), 9 * c1),
-        "c3": _he_normal(g, (3, 3, c2, c3), 9 * c2),
-        "f1": _he_normal(g, (feat, 128), feat),
+        "c1": _he_normal(ks[0], (3, 3, in_ch, c1), 9 * in_ch),
+        "c2": _he_normal(ks[1], (3, 3, c1, c2), 9 * c1),
+        "c3": _he_normal(ks[2], (3, 3, c2, c3), 9 * c2),
+        "f1": _he_normal(ks[3], (feat, 128), feat),
         "b1": torch.zeros(128),
-        "f2": _he_normal(g, (128, n_classes), 128),
+        "f2": _he_normal(ks[4], (128, n_classes), 128),
         "b2": torch.zeros(n_classes),
     }
     return {k: v.to(device) for k, v in params.items()}, {}
@@ -68,12 +71,12 @@ def cnn_apply(params: Params, state, x: torch.Tensor, train: bool):
     return h @ params["f2"] + params["b2"], state
 
 
-def build_paper_model(name: str, g: torch.Generator, *, device="cuda",
-                      **kw):
-    """Returns (params, state, apply_fn) for the paper's models, the
-    params on ``device`` (the GPU unless the caller asks for the CPU)."""
+def build_paper_model(name: str, key: prng.Key, *, device="cuda", **kw):
+    """Returns (params, state, apply_fn) for the paper's models, drawn
+    from the reference key ``key``, the params on ``device`` (the GPU
+    unless the caller asks for the CPU)."""
     if name == "cnn":
-        p, s = cnn_init(g, device=device, **kw)
+        p, s = cnn_init(key, device=device, **kw)
         return p, s, cnn_apply
     if name in ("resnet18", "vgg16"):
         raise NotImplementedError(f"model {name!r} is not ported yet")

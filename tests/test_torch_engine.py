@@ -12,6 +12,7 @@ round (within 2 of the test samples).
 """
 import dataclasses
 import json
+import re
 
 import pytest
 
@@ -148,15 +149,23 @@ _FL_SIM_ARGS = ["--rounds", "2", "--samples", "240", "--clients", "5",
 def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
                                           mode, agg):
     """Same --json-out keys; bytes, schedule, traffic and simulated time
-    equal (accuracy differs: the two inits draw different weights)."""
+    equal; both draw the CNN from PRNGKey(0), so the accuracy of every
+    evaluated round is within 2 test samples of the reference's."""
     args = _FL_SIM_ARGS + ["--mode", mode, "--aggregation", agg]
     jout, tout = tmp_path / "j.json", tmp_path / "t.json"
     monkeypatch.setattr("sys.argv", ["fl_sim", *args, "--sequential",
                                      "--json-out", str(jout)])
     jfl_sim.main()
+    j_log = capsys.readouterr().out
     tfl_sim.main([*args, "--device", "cpu", "--json-out", str(tout)])
-    capsys.readouterr()
+    t_log = capsys.readouterr().out
     j, t = json.loads(jout.read_text()), json.loads(tout.read_text())
+    acc_j = [float(a) for a in re.findall(r" acc=([0-9.]+)", j_log)]
+    acc_t = [float(a) for a in re.findall(r" acc=([0-9.]+)", t_log)]
+    n_test = int(240 * 0.15)  # train_test_split's default share
+    assert len(acc_t) == len(acc_j) == 2
+    for a, b in zip(acc_t, acc_j):
+        assert abs(a - b) * n_test <= 2 + 1e-6, (acc_t, acc_j)
 
     def keys(d, pre=""):
         out = set()

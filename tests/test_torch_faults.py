@@ -81,6 +81,17 @@ ROUNDS = 4
 N_TEST = 100
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run this module's torch ops on one thread.  Its 54 engine cases run
+    a width-4 CNN whose ops a thread pool only slows, and far more so when
+    other test processes share the cores (each pool takes all of them)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(x: np.ndarray) -> np.ndarray:
     return np.asarray(x).view(np.int32)
 

@@ -1,0 +1,160 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``) and
+its ``kernels/ops.py`` entry points against the reference, on the CPU.
+
+On CPU tensors the flash wrapper runs its plain version; the CUDA kernel
+is held to that plain version on the card by ``chip_smoke.py``.  The
+reference's Pallas kernel calls ``pl.load``, which JAX 0.9 no longer has,
+so the port is held to the kernel's oracle ``repro.kernels.ref.
+flash_attention_ref``, with the reference tests' tolerances: ``2e-5`` in
+f32 and ``2e-2`` (a bf16 step) in bf16.  Inputs come from numpy with a
+seed.  The other entry points (``safl_aggregate``, the int8 pair, the
+packed-int4 pair) equal the reference's bitwise or within its tests'
+tolerance.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import quantize as jquant  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import quantize as tquant  # noqa: E402
+
+TOL = {np.float32: 2e-5, "bfloat16": 2e-2}
+
+
+def _qkv(seed, B, S, H, Hkv, hd, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, n, hd)).astype(np.float32)
+            for n in (H, Hkv, Hkv)]
+    if dtype == "bfloat16":
+        # round to bf16 once; both sides read the same bf16 values
+        tq = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+        jq = [jnp.asarray(t.to(torch.float32).numpy()).astype(jnp.bfloat16)
+              for t in tq]
+        return tq, jq
+    return [torch.from_numpy(a) for a in arrs], [jnp.asarray(a)
+                                                  for a in arrs]
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("S,H,Hkv,hd,bq,bk", [
+    (128, 4, 4, 64, 64, 64),    # MHA
+    (256, 8, 2, 32, 128, 128),  # GQA 4:1
+    (64, 2, 1, 128, 32, 64),    # MQA, uneven blocks
+])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_flash_attention_sweep(S, H, Hkv, hd, bq, bk, dtype):
+    """The reference test sweep's shapes and dtypes."""
+    (tq, tk, tv), (jq, jk, jv) = _qkv(S + H, 2, S, H, Hkv, hd, dtype)
+    got = tfa.flash_attention(tq, tk, tv, block_q=bq, block_k=bk)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, jref.flash_attention_ref(jq, jk, jv), TOL[dtype])
+
+
+def test_flash_attention_noncausal():
+    (tq, tk, tv), (jq, jk, jv) = _qkv(7, 1, 128, 2, 2, 64)
+    got = tops.flash_attention(tq, tk, tv, causal=False, block_q=64,
+                               block_k=64)
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=False), 2e-5)
+
+
+def test_flash_attention_causality():
+    """Output at position t does not depend on inputs after t."""
+    (tq, tk, tv), _ = _qkv(3, 1, 128, 2, 2, 32)
+    out1 = tops.flash_attention(tq, tk, tv, block_q=64, block_k=64)
+    tk2, tv2 = tk.clone(), tv.clone()
+    tk2[:, 100:] = 99.0
+    tv2[:, 100:] = -99.0
+    out2 = tops.flash_attention(tq, tk2, tv2, block_q=64, block_k=64)
+    np.testing.assert_allclose(out1[:, :100].numpy(), out2[:, :100].numpy(),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged(dtype, causal):
+    """S = 200, not a multiple of any tile (the CUDA kernel masks its
+    ragged last tile), at qwen3's head ratio and hd 128."""
+    (tq, tk, tv), (jq, jk, jv) = _qkv(11, 2, 200, 4, 2, 128, dtype)
+    got = tfa.flash_attention(tq, tk, tv, causal=causal)
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal),
+           TOL[dtype])
+
+
+def test_flash_attention_counts_only_launches():
+    """The CPU route runs the plain version and counts no launch."""
+    (tq, tk, tv), _ = _qkv(0, 1, 16, 2, 1, 32)
+    before = tfa.flash_attention.launches
+    assert torch.equal(tfa.flash_attention(tq, tk, tv),
+                       tfa.flash_attention_plain(tq, tk, tv))
+    assert tfa.flash_attention.launches == before
+    assert tfa.KERNELS == {"flash_attention": tfa.flash_attention}
+
+
+def test_flash_attention_rejects_other_devices():
+    q = torch.empty((1, 4, 2, 32), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the other entry points of kernels/ops.py
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["fedsgd", "avg", "mix", "sum"])
+def test_ops_safl_aggregate(mode):
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(1)
+    u = rng.standard_normal((4, 3000)).astype(np.float32)
+    w = (rng.random(4) / 4).astype(np.float32)
+    p = rng.standard_normal(3000).astype(np.float32)
+    got = tops.safl_aggregate(torch.from_numpy(u), torch.from_numpy(w),
+                              torch.from_numpy(p), server_lr=0.05,
+                              mode=mode)
+    want = jops.safl_aggregate(jnp.asarray(u), jnp.asarray(w),
+                               jnp.asarray(p), server_lr=0.05, mode=mode)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_ops_int8_pair():
+    """Bitwise: the int8 lanes and scales of the reference's jitted
+    quantizer, and the dequantized rows."""
+    x = (np.random.default_rng(2).standard_normal((37, 512)) * 3).astype(
+        np.float32)
+    q, s = tops.quantize_int8(torch.from_numpy(x))
+    jq, js = jax.jit(jquant.quantize_int8)(jnp.asarray(x))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tops.dequantize_int8(q, s).numpy(),
+        np.asarray(jquant.dequantize_int8(jq, js)))
+
+
+def test_q4_pair():
+    """quantize_q4 / dequantize_q4 against the reference's (jitted, as
+    its codec runs them), from the same draws: packed bytes and scales
+    bitwise, dequantized rows bitwise."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((9, 512)).astype(np.float32)
+    u = rng.random((9, 512)).astype(np.float32)
+    p, s = tquant.quantize_q4(torch.from_numpy(x), torch.from_numpy(u))
+    jp, js = jax.jit(jquant.quantize_q4)(jnp.asarray(x), jnp.asarray(u))
+    assert p.dtype == torch.int8 and tuple(p.shape) == (9, 256)
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tquant.dequantize_q4(p, s).numpy(),
+        np.asarray(jquant.dequantize_q4(jp, js)))

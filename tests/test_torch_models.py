@@ -21,6 +21,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import client as tclient  # noqa: E402
 from repro_torch.core.flatbuf import PytreeCodec  # noqa: E402
 from repro_torch.models import vision_cnn as tcnn  # noqa: E402
+from repro_torch import prng  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
@@ -73,7 +74,7 @@ def test_codec_ravel_exact(setup):
 def test_full_width_layout():
     """The flat row of the full-width CNN: sorted-key leaf order and
     D = 2,154,730, as the reference's codec gives it."""
-    p, _ = tcnn.cnn_init(torch.Generator().manual_seed(0), device="cpu")
+    p, _ = tcnn.cnn_init(prng.prng_key(0), device="cpu")
     codec = PytreeCodec(p)
     assert codec.keys == [
         "b1", "b2", "c1", "c2", "c3", "f1", "f2"]
@@ -85,9 +86,10 @@ def test_full_width_layout():
 
 
 def test_init_is_seeded_he_normal():
-    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
-    a, _ = tcnn.cnn_init(g1, width=4, image_size=8, device="cpu")
-    b, _ = tcnn.cnn_init(g2, width=4, image_size=8, device="cpu")
+    a, _ = tcnn.cnn_init(prng.prng_key(5), width=4, image_size=8,
+                         device="cpu")
+    b, _ = tcnn.cnn_init(prng.prng_key(5), width=4, image_size=8,
+                         device="cpu")
     for k in a:
         assert torch.equal(a[k], b[k])
     assert float(a["b1"].abs().sum()) == 0.0
@@ -97,10 +99,30 @@ def test_init_is_seeded_he_normal():
         2.0 / f1.shape[0])
 
 
+@pytest.mark.parametrize("kw", [dict(width=8, image_size=16),
+                                dict(width=4, image_size=8), {}])
+def test_init_matches_reference_key(kw):
+    """cnn_init(prng_key(0)) is the reference's cnn_init(PRNGKey(0)) within
+    4 ulp in every lane (the launcher's width-8 CNN, the tests' width 4
+    and the full width); most lanes are equal bitwise."""
+    got, _ = tcnn.cnn_init(prng.prng_key(0), device="cpu", **kw)
+    want, _ = jcnn.cnn_init(jax.random.PRNGKey(0), **kw)
+    same = total = 0
+    for k, v in want.items():
+        w = np.asarray(v, np.float32)
+        g = got[k].numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        np.testing.assert_array_max_ulp(g, w, maxulp=4)
+        same += int((g.view(np.int32) == w.view(np.int32)).sum())
+        total += w.size
+    print(f"cnn_init {kw}: {same / total:.2%} of {total} lanes bitwise")
+    assert same / total > 0.95
+
+
 def test_unported_models_raise():
     for name in ("resnet18", "vgg16"):
         with pytest.raises(NotImplementedError):
-            tcnn.build_paper_model(name, torch.Generator())
+            tcnn.build_paper_model(name, prng.prng_key(0))
 
 
 @pytest.mark.parametrize("cid", [0, 3])

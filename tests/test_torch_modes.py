@@ -48,6 +48,7 @@ from repro_torch.core.flatbuf import AccumBuffer, QuantBuffer, alloc_buffer, wri
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import fl_sim as tfl_sim  # noqa: E402
 from repro_torch.models import vision_cnn as tcnn  # noqa: E402
+from repro_torch import prng  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 D, K, QB = 3001, 4, 512
@@ -302,10 +303,10 @@ def test_cuda_default_without_gpu_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tagg.FlatServer("sdga", D, server_lr=0.05)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tcnn.build_paper_model("cnn", torch.Generator(), width=4,
+        tcnn.build_paper_model("cnn", prng.prng_key(0), width=4,
                                image_size=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tcnn.cnn_init(torch.Generator(), width=4, image_size=8)
+        tcnn.cnn_init(prng.prng_key(0), width=4, image_size=8)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,11 @@
 bit for bit, for the fault plan's (5,) draws and for (n_qblocks, qblock)
 blocks of the shape the q4 wire's stochastic rounding draws, from the
 numpy twin and from the torch-op twin the q4 codec uses (on the CPU
-here; ``chip_smoke.py`` holds it to the numpy twin on the card)."""
+here; ``chip_smoke.py`` holds it to the numpy twin on the card).  The
+key splits equal ``jax.random.split`` bit for bit; the normal draws of
+the model inits (numpy and torch-op twins) are ``jax.random.normal``
+within 4 ulp in every lane (the platform's f32 log1p is not XLA's), most
+of them bitwise."""
 import pytest
 
 pytest.importorskip("torch")
@@ -79,6 +83,51 @@ def test_torch_draws_bitwise(shape):
         np.testing.assert_array_equal(bits, want.view(np.uint32))
         np.testing.assert_array_equal(
             bits, prng.uniform(key, shape).view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_bitwise(seed):
+    for n in (1, 2, 5, 28, 1000):
+        np.testing.assert_array_equal(
+            prng.split(prng.prng_key(seed), n),
+            np.asarray(jax.random.split(jax.random.PRNGKey(seed), n)))
+    # a split of a split, as the transformer's init walks its keys
+    k = prng.split(prng.split(prng.prng_key(seed), 5)[1], 28)[27]
+    jk = jax.random.split(jax.random.split(jax.random.PRNGKey(seed), 5)[1],
+                          28)[27]
+    np.testing.assert_array_equal(k, np.asarray(jk))
+
+
+@pytest.mark.parametrize("twin", ["numpy", "torch"])
+@pytest.mark.parametrize("shape", [(1,), (4099,), (256, 512), (3, 5, 7)])
+def test_normal_within_4_ulp(twin, shape):
+    """``prng.normal`` / ``normal_torch`` (CPU) against
+    ``jax.random.normal``: every lane within 4 ulp; the bitwise share is
+    printed (about 99 %)."""
+    import torch
+    for key in (prng.prng_key(0), prng.split(prng.prng_key(3), 4)[2],
+                _port_key(7, 5, 3)):
+        want = np.asarray(jax.random.normal(jnp.asarray(key), shape,
+                                            jnp.float32))
+        got = (prng.normal(key, shape) if twin == "numpy" else
+               prng.normal_torch(key, shape, "cpu").numpy())
+        assert got.dtype == np.float32 and got.shape == shape
+        np.testing.assert_array_max_ulp(got, want, maxulp=4)
+        same = float((got.view(np.uint32) == want.view(np.uint32)).mean())
+        print(f"normal {twin} {shape} key {key.tolist()}: {same:.2%} "
+              "bitwise")
+    if twin == "torch":
+        assert prng.normal_torch(key, shape, "cpu").dtype == torch.float32
+
+
+def test_normal_torch_chunks_agree(monkeypatch):
+    """Drawn in passes of a few lanes, the torch twin gives the lanes it
+    gives in one pass (lane i depends on i alone)."""
+    key = prng.split(prng.prng_key(11), 3)[1]
+    whole = prng.normal_torch(key, (37, 29), "cpu")
+    monkeypatch.setattr(prng, "NORMAL_CHUNK", 100)
+    import torch
+    assert torch.equal(prng.normal_torch(key, (37, 29), "cpu"), whole)
 
 
 def test_out_of_range_arguments_raise():
