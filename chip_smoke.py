@@ -11,12 +11,15 @@ Phases, each of which exits non-zero on failure:
      TF32 is switched off for convolutions and matrix products
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
-     ``flash_attention.cu``), started together
+     ``flash_attention.cu``), started together; the ptxas report must
+     show no spills in the bf16 flash kernel (``FLASH_SYMBOL``)
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
      ragged D = 4099 (Dq = 4608) with K = 3, in every mode, discount and
-     beta, the q4 rows holding -8 nibbles (a 0x55-flipped span):
+     beta, the q4 rows holding -8 nibbles (a 0x55-flipped span), and
+     the f32 fold in place into an odd bank row (d lanes into a (2, d)
+     buffer: 8-byte aligned at the main D, 4-byte at the ragged one):
      bitwise, except the poly discount (``powf``): ``rtol=1e-5,
      atol=1e-6``.  The three screens at the same D and Dq with K = 1, 3
      and 4 (5 on q4), on clean, corrupted (NaN lanes; flipped bytes and
@@ -34,13 +37,17 @@ Phases, each of which exits non-zero on failure:
      row, exact .5 ties and a NaN row: bitwise (NaN scales in the same
      rows).  Flash attention in f32 and bf16, causal and not, at the
      reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
-     S 1024, H 16, Hkv 8, hd 128) and a ragged S = 200: within
+     S 1024, H 16, Hkv 8, hd 128), a ragged S = 200 and two odd H / Hkv
+     (S = 200 at hd 128, S = 130 at hd 64): within
      ``atol=rtol=2e-5`` (f32) and ``2e-2`` (bf16); at the qwen3 shape in
      bf16, at most 2 % of output lanes differing from the plain version
      (the plain version with p rounded to bf16 must differ in more); and
      causal (outputs before a position unchanged when later keys change)
   4. timings at the main path's shapes: median of CUDA-event-timed
-     launches with the 50 MB L2 flushed before each, beside the bound
+     launches with the 50 MB L2 flushed before each and the device held
+     until the host has queued the launch (the f32 fold in
+     place into an aligned and into an odd bank row; the timer's floor,
+     a one-element ``add_`` timed the same way), beside the bound
      (the larger of the bytes at 3.35 TB/s and the operations at the
      dtype's dense peak: 67 TFLOP/s f32, 989 TFLOP/s bf16), the plain
      version and, where one exists, one PyTorch library call computing
@@ -89,8 +96,10 @@ Phases, each of which exits non-zero on failure:
      counter reset before and read after (flash attention once per layer
      of the prefill, nothing else); then (a) 3 timed passes of a prefill
      and 32 decode steps (medians), 28 flash launches per prefill and 0
-     per decode step, the peak memory, and a ``torch.profiler`` trace of
-     a prefill and 4 decode steps (device busy share, flash's share);
+     per decode step, the peak memory (beside what earlier phases leave
+     allocated once garbage is collected, printed after each phase), and
+     a ``torch.profiler`` trace of a prefill and 4 decode steps (device
+     busy share, flash's share, which must not be 0);
      (b) a check of model scale: the prefill logits against the same
      prefill with the plain attention on the card no further apart (max
      and relative L2) than the plain prefill in bf16 compute is from the
@@ -106,6 +115,7 @@ The line before the last is the per-kernel JSON record; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -125,6 +135,9 @@ D_RAGGED, K_RAGGED = 4099, 3
 QB = 512
 ROUNDS = 5
 TIMED_LAUNCHES = 60
+#: phase 4: device cycles spun between the L2 flush and a timed kernel
+#: (about 0.5 ms at the H100's clock), for the host to queue the call
+HOLD_CYCLES = 1_000_000
 KERNELS = ("safl_fold", "safl_aggregate", "sdga_aggregate", "safl_fold_q8",
            "safl_aggregate_q8", "sdga_aggregate_q8", "screen_rows",
            "screen_rows_q8", "safl_fold_q4", "safl_aggregate_q4",
@@ -240,9 +253,16 @@ TOPK_AGGREGATIONS = ("fedsgd", "fedbuff", "fedopt", "sdga")
 INT8_ROWS = (-(-D_FULL // QB), 37)
 #: flash attention's shapes (B, S, H, Hkv, hd): the reference test
 #: sweep's (tests/test_kernels.py), the serving path's full-width qwen3
-#: prefill, and a ragged S (not a multiple of the kernel's 64-row tiles)
+#: prefill, a ragged S (not a multiple of the kernels' 64-row tiles), and
+#: two whose H / Hkv is odd (the bf16 kernel's CTA then takes 128 rows of
+#: one head): ragged at hd 128, and at S = 130, where a CTA's second
+#: 64 rows lie wholly past S
 FLASH_SHAPES = ((2, 128, 4, 4, 64), (2, 256, 8, 2, 32), (2, 64, 2, 1, 128),
-                (8, 1024, 16, 8, 128), (2, 200, 16, 8, 128))
+                (8, 1024, 16, 8, 128), (2, 200, 16, 8, 128),
+                (2, 200, 4, 4, 128), (1, 130, 6, 2, 64))
+#: the bf16 flash kernel's symbol: the profiler's flash share sums its
+#: device time, and its ptxas report must show no spills
+FLASH_SYMBOL = "flash_fwd_wgmma_kernel"
 #: flash attention against its plain version: the reference tests'
 #: tolerances (atol = rtol), f32 rounding in f32 and a bf16 step in bf16
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -274,6 +294,20 @@ def smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def spills(log: str, symbol: str) -> dict:
+    """Bytes of spill stores and loads per instantiation of ``symbol`` in
+    a ptxas ``-v`` report."""
+    import re
+    found = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        name = entry.split("'")[1]
+        if symbol in name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+            found[name] = int(m.group(1)) + int(m.group(2))
+    return found
 
 
 def dq_of(d: int) -> int:
@@ -389,6 +423,18 @@ def check_kernels(torch, k_mod, report):
                 compare(torch, report, worst, fold.__name__, row,
                         plain(acc_q, q[1], s[1], 0.5, beta), True,
                         beta=beta, in_place=True, **lanes_q)
+        # in place into an odd bank row: d lanes into a (2, d) buffer, so
+        # 8-byte (d even) or 4-byte (d odd) aligned, folding an aligned
+        # upload and another buffer's row at the same offset
+        bank = torch.randn((2, d), device="cuda", generator=g)
+        other = torch.randn((2, d), device="cuda", generator=g)
+        for beta in (1.0, 0.75):
+            for vec, vec_at in ((u[2], "aligned"), (other[1], "odd row")):
+                row = bank.clone()[1]
+                k_mod.safl_fold(row, vec, 0.5, beta, out=row)
+                compare(torch, report, worst, "safl_fold", row,
+                        k_mod.safl_fold_plain(bank[1], vec, 0.5, beta), True,
+                        d=d, beta=beta, odd_row=True, vec=vec_at)
         for discount in k_mod.DISCOUNTS:
             exact = discount == "none"
             for mode in k_mod.MODES:
@@ -762,16 +808,22 @@ def check_screens(torch, k_mod, report, worst):
 # ---------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, flush, n=TIMED_LAUNCHES):
+def time_ms(torch, fn, flush, n=TIMED_LAUNCHES, hold=False):
     """Median over ``n`` launches of the CUDA-event time of one call, with
     the L2 cache flushed before each by reading a 256 MB buffer (a read,
     so the evicted lines are clean and cost the timed call no
-    write-backs)."""
+    write-backs).  ``hold`` then keeps the device spinning for
+    :data:`HOLD_CYCLES`, so that the host has queued the call and the end
+    event before the device reaches the start event: the time is then the
+    device's alone, whatever the host's speed (without it a Python
+    wrapper slower than the flush adds its own time)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(n):
         flush.sum()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -802,14 +854,26 @@ def time_kernels(torch, k_mod, q_mod, fa_mod):
     lr = 0.05
 
     def t(fn):
-        return time_ms(torch, fn, flush)
+        return time_ms(torch, fn, flush, hold=True)
 
+    # the timer's floor: a one-element kernel under the same timing
+    one = torch.zeros(1, device="cuda")
+    floor_ms = t(lambda: one.add_(1.0))
+    print(f"  timer floor (one-element add_, L2 flushed before it): "
+          f"{floor_ms:.5f} ms")
     out = {}
     out["safl_fold"] = dict(
         ms=t(lambda: k_mod.safl_fold(acc, u[0], w_host, out=acc)),
         plain_ms=t(lambda: k_mod.safl_fold_plain(acc, u[0], w_host)),
         library_ms=t(lambda: torch.add(acc, u[0], alpha=w_host)),
         bytes=3 * d * 4, ops=2 * d, shape=f"D={d}")
+    # in place into an odd bank row (8 bytes off a 16-byte boundary)
+    odd = torch.randn((2, d), device="cuda", generator=g)[1]
+    out["safl_fold_odd_row"] = dict(
+        ms=t(lambda: k_mod.safl_fold(odd, u[0], w_host, out=odd)),
+        plain_ms=t(lambda: k_mod.safl_fold_plain(odd, u[0], w_host)),
+        library_ms=t(lambda: torch.add(odd, u[0], alpha=w_host)),
+        bytes=3 * d * 4, ops=2 * d, shape=f"D={d} odd bank row")
     # fedsgd (SS) is the aggregate's main-path record; avg (SA) rides along
     coef = -lr / float(ones.sum())
     out["safl_aggregate"] = dict(
@@ -982,7 +1046,7 @@ def time_kernels(torch, k_mod, q_mod, fa_mod):
               f"library {lib}  "
               f"achieved {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     del flush
-    return out
+    return out, floor_ms
 
 
 def time_codec(torch):
@@ -1520,7 +1584,7 @@ def profiled(torch, fn):
         if e.device_type != DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        if "flash_fwd_kernel" in e.name:
+        if FLASH_SYMBOL in e.name:
             flash_us += e.time_range.elapsed_us()
     if not spans:
         return out, None, None, 0
@@ -1564,7 +1628,13 @@ def run_serve(torch, fa_mod, wrappers):
     from repro_torch.models.transformer import DecoderLM
     cfg = get_config(SERVE_ARCH)
     B, S, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    # the engines of phase 6 are reference cycles (their patched
+    # methods close over them): collected here, so that the peaks below
+    # do not depend on when the collector last ran
+    gc.collect()
     torch.cuda.empty_cache()
+    # what earlier phases left allocated; the peaks below include it
+    base_run = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     for f in wrappers.values():
         f.launches = 0
@@ -1596,6 +1666,7 @@ def run_serve(torch, fa_mod, wrappers):
     with torch.inference_mode():
         # (a) steady-state prefill and decode, launches per call; then
         # one prefill and a few decode steps under the profiler
+        base_prefill = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         prefill_samples, step_samples = [], []
         per_prefill, decode_launches = set(), 0
@@ -1659,8 +1730,10 @@ def run_serve(torch, fa_mod, wrappers):
           f"{max(prefill_samples):.2f}), median decode step "
           f"{decode_ms:.3f} ms per token (B={B}; range "
           f"{min(step_samples):.3f}-{max(step_samples):.3f}); peak memory "
-          f"{peak_run / 2**30:.2f} GiB in serve.run, "
-          f"{peak_prefill / 2**30:.2f} GiB in prefill and decode")
+          f"{peak_run / 2**30:.2f} GiB in serve.run (from "
+          f"{base_run / 2**30:.2f} GiB allocated before it), "
+          f"{peak_prefill / 2**30:.2f} GiB in prefill and decode (from "
+          f"{base_prefill / 2**30:.2f} GiB)")
     if pre_busy is None or dec_busy is None:
         trace = None
         print("  (a) profiler: no device activity seen; busy shares not "
@@ -1690,6 +1763,8 @@ def run_serve(torch, fa_mod, wrappers):
           f"{err_f32:.3e}, relative L2 {rel_f32:.3e} (tolerance: the "
           f"first within the second); greedy token equal in {top1}/{B} "
           f"rows; plain prefill {plain_ms:.2f} ms")
+    if trace is not None and not trace["prefill_flash_ms"]:
+        fail(f"the profiler saw device time but none in {FLASH_SYMBOL}")
     if per_prefill != cfg.n_layers or per_decode != 0:
         fail(f"flash launches {per_prefill} per prefill, {per_decode} per "
              f"decode step; expected {cfg.n_layers} and 0")
@@ -1737,7 +1812,8 @@ def run_serve(torch, fa_mod, wrappers):
                 prefill_ms_samples=prefill_samples,
                 decode_ms_samples=step_samples, trace=trace,
                 plain_prefill_ms=plain_ms, peak_bytes_run=peak_run,
-                peak_bytes_prefill=peak_prefill,
+                peak_bytes_prefill=peak_prefill, base_bytes_run=base_run,
+                base_bytes_prefill=base_prefill,
                 flash_per_prefill=per_prefill, flash_per_decode=per_decode,
                 kernel_vs_plain_logits_max_abs=err_b,
                 kernel_vs_plain_logits_rel_l2=rel_b,
@@ -1778,11 +1854,28 @@ def main() -> None:
         infos = dict(zip(SOURCES, pool.map(build.compile_source, SOURCES)))
     build_s = time.perf_counter() - t0
     for info in infos.values():
-        print(f"  built {os.path.relpath(info['path'], ROOT)} in "
-              f"{info['seconds']:.2f} s")
+        rel = os.path.relpath(info["path"], ROOT)
+        print(f"  {rel}: built before this run, its ptxas report read back"
+              if info["cached"] else
+              f"  built {rel} in {info['seconds']:.2f} s")
         if info["log"]:
             print("  " + info["log"].replace("\n", "\n  "))
     print(f"  build wall {build_s:.2f} s")
+    spilled = spills(infos["flash_attention"]["log"], FLASH_SYMBOL)
+    print(f"  {FLASH_SYMBOL}: {len(spilled)} instantiations, spill "
+          f"bytes {sorted(spilled.values())} (tolerance: 0)")
+    if not spilled or any(spilled.values()):
+        fail(f"{FLASH_SYMBOL} spills or is missing from the ptxas report")
+
+    # device memory each phase leaves allocated once its garbage is
+    # collected (phase 7's peaks include what is left when it starts)
+    allocated = {}
+
+    def left(phase):
+        gc.collect()
+        allocated[phase] = torch.cuda.memory_allocated()
+        print(f"  allocated after phase {phase}: "
+              f"{allocated[phase] / 2**30:.3f} GiB")
 
     print("== phase 3: kernels against their plain versions; q4 draws; "
           "flash attention")
@@ -1793,10 +1886,12 @@ def main() -> None:
     check_int8(torch, q_mod, check_rows, worst)
     check_draws(torch, check_rows)
     check_flash(torch, fa_mod, check_rows, worst)
+    left(3)
 
     print("== phase 4: timings (L2 flushed before each launch)")
-    timing = time_kernels(torch, k_mod, q_mod, fa_mod)
+    timing, floor_ms = time_kernels(torch, k_mod, q_mod, fa_mod)
     codec_ms = time_codec(torch)
+    left(4)
 
     print("== phase 5: engine on the card vs the CPU, small size; q4 and "
           "top-k codecs, server channels and pytree compression at full "
@@ -1805,6 +1900,7 @@ def main() -> None:
     codec = check_codec(torch)
     channels = check_channels(torch)
     pytree = check_pytree(torch, q_mod)
+    left(5)
 
     print(f"== phase 6: main path, full-width CNN (D = {D_FULL:,}), "
           f"{len(MAIN_SETTINGS)} settings; the compression path")
@@ -1812,6 +1908,7 @@ def main() -> None:
     compression = run_compression_path(torch, q_mod, wrappers)
     for name in INT8_KERNELS:
         launches[name] = compression["launches"][name]
+    left(6)
 
     print(f"== phase 7: serving, full-width {SERVE_ARCH} (B = {SERVE_BATCH}, "
           f"prompt {SERVE_PROMPT}, {SERVE_NEW} greedy tokens)")
@@ -1834,11 +1931,12 @@ def main() -> None:
               "w") as f:
         json.dump(dict(smi=smi, torch=torch.__version__,
                        cuda=torch.version.cuda, build_s=build_s,
-                       checks=check_rows, timing=timing, codec_ms=codec_ms,
+                       checks=check_rows, timing=timing,
+                       timer_floor_ms=floor_ms, codec_ms=codec_ms,
                        small=small, codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,
                        compression_path=compression, serving=serving,
-                       kernels=kernels, device=device), f, indent=1,
+                       allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -47,12 +47,16 @@ def _lib_path(src: Path) -> Path:
 
 def compile_source(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns ``{"path", "seconds", "log"}`` (``log``: nvcc's ptxas report
-    of registers and shared memory per kernel; empty when cached)."""
+    Returns ``{"path", "seconds", "cached", "log"}``: ``log`` is nvcc's
+    ptxas report of registers, spills and shared memory per kernel, kept
+    beside the library (``.ptxas.txt``) and read back when it was built
+    before; ``seconds`` is 0 then."""
     src = CSRC / f"{name}.cu"
     out = _lib_path(src)
+    log_path = out.with_suffix(".ptxas.txt")
     if out.exists():
-        return {"path": str(out), "seconds": 0.0, "log": ""}
+        log = log_path.read_text() if log_path.exists() else ""
+        return {"path": str(out), "seconds": 0.0, "cached": True, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -62,9 +66,13 @@ def compile_source(name: str) -> dict:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    log = (proc.stdout + proc.stderr).strip()
+    # the report first, so that a built library always has its report
+    log_tmp = log_path.with_suffix(f".{os.getpid()}.tmp")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, log_path)
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial
-    return {"path": str(out), "seconds": secs,
-            "log": (proc.stdout + proc.stderr).strip()}
+    return {"path": str(out), "seconds": secs, "cached": False, "log": log}
 
 
 def load(name: str) -> ctypes.CDLL:

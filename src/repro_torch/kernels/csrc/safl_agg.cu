@@ -42,8 +42,11 @@
 // or 4 (f32) bytes moved per operand.  The design is one coalesced
 // streaming pass, each thread owning output lanes in a grid-stride loop
 // (the ragged end is masked by the loop bound; nothing is padded), so the
-// bytes moved are the bound.  The K reduction weights and their in-order
-// sum sit in shared memory.  The int8 rows are dequantized in registers as
+// bytes moved are the bound.  The f32 fold moves 8 bytes a load instead
+// (float2), one vector a thread, when its three rows' addresses agree mod
+// 8, with the lanes before the output's first 128-byte line and the one
+// after the last vector folded alone; else one lane a thread.  The K reduction weights and their
+// in-order sum sit in shared memory.  The int8 rows are dequantized in registers as
 // (float)q * scale[lane >> qshift] (qblock = 1 << qshift), then weighted,
 // as the Pallas bodies do (_dequant_tile): f32 updates never touch memory.
 // A packed int4 lane is read the same way from its byte (the two threads
@@ -172,18 +175,42 @@ __device__ float weighted_sum(const Rows& rows, const float* sw, int64_t k,
   return acc;
 }
 
-// acc and out may alias (the in-place fold into a bank row): each element
-// is read and written by the same thread, so neither is __restrict__.
+// One lane of the f32 fold: beta*acc + w*vec, rounded as the plain version.
 template <bool kUnitBeta>
+__device__ __forceinline__ float fold_lane(float a, float v, float w,
+                                           float beta) {
+  const float wv = __fmul_rn(w, v);
+  return kUnitBeta ? __fadd_rn(a, wv) : __fadd_rn(__fmul_rn(beta, a), wv);
+}
+
+template <bool kUnitBeta>
+__device__ __forceinline__ float2 fold_lane(float2 a, float2 v, float w,
+                                            float beta) {
+  return make_float2(fold_lane<kUnitBeta>(a.x, v.x, w, beta),
+                     fold_lane<kUnitBeta>(a.y, v.y, w, beta));
+}
+
+// The f32 fold in vectors of V (float2 or float): thread i folds vector i
+// of the lanes from ``head`` on, and lane i of the scalar head and of the
+// scalar tail past the last whole vector.  The host picks V and head so
+// that ``acc + head``, ``vec + head`` and ``out + head`` are V-aligned.
+// acc and out may alias (the in-place fold into a bank row): each lane is
+// read and written by the same thread, so neither is __restrict__.
+template <bool kUnitBeta, class V>
 __global__ void fold_kernel(const float* acc, const float* __restrict__ vec,
-                            float* out, float w, float beta, int64_t d) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < d; i += stride) {
-    const float wv = __fmul_rn(w, vec[i]);
-    const float a = acc[i];
-    out[i] = kUnitBeta ? __fadd_rn(a, wv) : __fadd_rn(__fmul_rn(beta, a), wv);
+                            float* out, float w, float beta, int64_t nv,
+                            int64_t head, int64_t tail, int64_t n_tail) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i < nv) {
+    const V a = reinterpret_cast<const V*>(acc + head)[i];
+    const V v = reinterpret_cast<const V*>(vec + head)[i];
+    reinterpret_cast<V*>(out + head)[i] = fold_lane<kUnitBeta>(a, v, w, beta);
+  }
+  if (i < head) out[i] = fold_lane<kUnitBeta>(acc[i], vec[i], w, beta);
+  if (i < n_tail) {
+    out[tail + i] = fold_lane<kUnitBeta>(acc[tail + i], vec[tail + i], w,
+                                         beta);
   }
 }
 
@@ -524,6 +551,44 @@ int launch_screen_q(const void* q, const void* scales, void* part,
   return launch_finish(part, out, k, chunks, s);
 }
 
+template <bool kUnitBeta, class V>
+int launch_fold_vec(const float* acc, const float* vec, float* out, float w,
+                    float beta, int64_t d, int64_t head, cudaStream_t s) {
+  constexpr int64_t kW = sizeof(V) / sizeof(float);
+  if (head > d) head = d;
+  const int64_t nv = (d - head) / kW;
+  const int64_t tail = head + nv * kW;
+  const int64_t threads = nv > 32 ? nv : 32;  // covers head and tail too
+  const int64_t blocks = (threads + kThreads - 1) / kThreads;
+  fold_kernel<kUnitBeta, V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              s>>>(acc, vec, out, w, beta, nv, head, tail,
+                                   d - tail);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The f32 fold in 8-byte vectors when acc, vec and out sit at the same
+// offset mod 8, else one lane at a time.  A bank row starts every D * 4
+// bytes, so it may start anywhere in a 128-byte line: the scalar head runs
+// up to out's next line, so that each warp's 256 bytes of stores fill two
+// whole lines (on a row 40 bytes into its line, stopping at the next
+// 8-byte boundary instead timed 2 % slower).  One vector a thread over a
+// grid of exactly the vectors, as PyTorch's elementwise kernels run.
+template <bool kUnitBeta>
+int launch_fold_f32(const void* acc, const void* vec, void* out, float w,
+                    float beta, int64_t d, void* stream) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(acc);
+  const uintptr_t v = reinterpret_cast<uintptr_t>(vec);
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  const auto* pa = static_cast<const float*>(acc);
+  const auto* pv = static_cast<const float*>(vec);
+  auto* po = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((a - v) % 8 == 0 && (a - o) % 8 == 0)
+    return launch_fold_vec<kUnitBeta, float2>(pa, pv, po, w, beta, d,
+                                              (128 - o % 128) % 128 / 4, s);
+  return launch_fold_vec<kUnitBeta, float>(pa, pv, po, w, beta, d, 0, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -532,18 +597,10 @@ extern "C" {
 
 int safl_fold_f32(const void* acc, const void* vec, void* out, float w,
                   float beta, int64_t d, void* stream) {
-  const int blocks = grid_for(d);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (beta == 1.0f) {
-    fold_kernel<true><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(acc), static_cast<const float*>(vec),
-        static_cast<float*>(out), w, beta, d);
-  } else {
-    fold_kernel<false><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(acc), static_cast<const float*>(vec),
-        static_cast<float*>(out), w, beta, d);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return beta == 1.0f ? launch_fold_f32<true>(acc, vec, out, w, beta, d,
+                                              stream)
+                      : launch_fold_f32<false>(acc, vec, out, w, beta, d,
+                                               stream);
 }
 
 int safl_fold_q8(const void* acc, const void* q, const void* scales,

@@ -5,24 +5,37 @@ flash_attention`` (its ``pallas_call`` at :91).
 :func:`flash_attention` takes the reference's signature: q (B, S, H, hd),
 k and v (B, S, Hkv, hd), f32 or bf16, -> (B, S, H, hd) of q's dtype, the
 kv head of q head h being ``h // (H // Hkv)``.  Given CUDA tensors it
-launches the hand-written kernel of ``csrc/flash_attention.cu`` (hd 32,
-64 or 128; any S) or raises; given CPU tensors it runs the plain version
-:func:`flash_attention_plain` (``ref.flash_attention_ref``: k and v
-repeated, f32 softmax, a -inf mask).  The kernel computes what the
-Pallas kernel computes (q pre-scaled by 1/sqrt(hd), f32 scores and
-running (m, l, acc), masked scores -1e30, the kv loop stopping at the
-causal triangle, ``acc / max(l, 1e-20)`` cast to q's dtype), so the two
-agree to f32 rounding: within ``2e-5`` in f32 and one bf16 step (the
-reference tests' ``2e-2``) in bf16.
+launches a hand-written kernel of ``csrc/flash_attention.cu`` (hd 32,
+64 or 128; any S; any H / Hkv) or raises; given CPU tensors it runs the
+plain version :func:`flash_attention_plain` (``ref.flash_attention_ref``:
+k and v repeated, f32 softmax, a -inf mask).  Both kernels compute what
+the Pallas kernel computes (f32 scores and running (m, l, acc), masked
+scores -1e30, the kv loop stopping at the causal triangle,
+``acc / max(l, 1e-20)`` cast to q's dtype):
+
+- bf16 (the serving prefill's dtype): ``flash_fwd_wgmma_kernel``, both
+  products on the tensor cores (``wgmma``, f32 accumulators), K / V
+  tiles loaded by TMA into a two-stage ring by a producer warp and shared
+  by two consumer warpgroups (two q heads of one kv head, or 128 rows of
+  one head), p split into bf16 ``p_hi + p_lo`` so that P V keeps p at f32
+  precision.  Within one bf16 step (the reference tests' ``2e-2``) of the
+  plain version, and at the qwen3 prefill shape differing from it in
+  well under 2 % of the output lanes (rounding p to bf16 alone moves
+  about 40 %).
+- f32: ``flash_fwd_simt_kernel`` on the CUDA cores, 64 x 64 tiles of f32
+  (the tensor cores would multiply in TF32); within ``2e-5``.
 
 ``block_q`` and ``block_k`` are accepted for the reference's signature;
-the CUDA kernel tiles by 64 rows and 64 keys and masks a ragged last
-tile, so it takes any S (the Pallas kernel asserts ``S % block == 0``).
+the kernels choose their own tiles and mask a ragged last tile, so they
+take any S (the Pallas kernel asserts ``S % block == 0``).  The bf16
+kernel reads q, k and v through TMA, which needs them to start on
+16-byte boundaries.
 
 Bound: the bytes of q, k, v and o read or written once,
 ``(2 B S H hd + 2 B S Hkv hd) * itemsize`` at the HBM rate, against the
 FLOPs of the two products, ``4 B H hd S (S + 1) / 2`` causal or
-``4 B H hd S^2`` not, at the card's dense peak for the dtype.
+``4 B H hd S^2`` not, at the card's dense peak for the dtype (the bf16
+kernel issues half again the P V product for the p split).
 """
 from __future__ import annotations
 
@@ -39,7 +52,7 @@ from repro_torch.kernels.checks import check, on_cuda, raise_on, stream_of
 #: the reference's tile sizes (its signature's defaults)
 BLOCK_Q = 128
 BLOCK_K = 128
-#: head dims the CUDA kernel is built for
+#: head dims the CUDA kernels are built for
 HEAD_DIMS = (32, 64, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
@@ -67,7 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = BLOCK_K) -> torch.Tensor:
     """q (B, S, H, hd), k / v (B, S, Hkv, hd) -> (B, S, H, hd).  Replaces
     ``repro/kernels/flash_attention.py:76 flash_attention``."""
-    del block_q, block_k  # the CUDA kernel's tiles are its own
+    del block_q, block_k  # the CUDA kernels' tiles are their own
     if not on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal)
     if q.dim() != 4 or k.dim() != 4:
@@ -84,6 +97,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check("q", q, (B, S, H, hd), q.device, q.dtype)
     check("k", k, (B, S, hkv, hd), q.device, q.dtype)
     check("v", v, (B, S, hkv, hd), q.device, q.dtype)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: bf16 q, k and v must start on "
+                         "16-byte boundaries (TMA)")
     out = torch.empty_like(q)
     if B and S and H:
         raise_on(getattr(_lib(), _ENTRY[q.dtype])(

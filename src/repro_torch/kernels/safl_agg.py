@@ -43,11 +43,15 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 Every kernel is bound by memory bandwidth (a few flops per element
 against 1 or 4 bytes per operand); the wrappers' docstrings give the
 bytes.  The design is a simple coalesced streaming pass with a
-grid-stride loop, the int8 and int4 rows dequantized in registers;
-``float4`` loads, TMA and ``wgmma`` buy nothing a bandwidth-bound pass
-needs first.  The top-k kernels scatter each kept lane into the bank
-instead; their K-row sum is one scatter launch per row on one stream, so
-rows that collide on a coordinate add in row order (no float atomics).
+grid-stride loop, the int8 and int4 rows dequantized in registers; TMA
+and ``wgmma`` buy nothing a bandwidth-bound pass needs first.  The f32
+fold alone moves 8-byte vectors, one a thread over an exact grid, from
+the output's first 128-byte line on (a bank row may start anywhere in a
+line); the grid-stride loop and 16-byte vectors timed slower
+(:mod:`repro_torch.kernels.hold_timing`).  The top-k kernels scatter
+each kept lane into the bank instead; their K-row sum is one scatter
+launch per row on one stream, so rows that collide on a coordinate add
+in row order (no float atomics).
 Every product and sum in the kernels uses round-to-nearest intrinsics
 that are never contracted into an FMA, and the plain versions below do
 the same operations in the same order, so kernel and plain version agree

@@ -7,9 +7,11 @@ reference's Pallas kernel calls ``pl.load``, which JAX 0.9 no longer has,
 so the port is held to the kernel's oracle ``repro.kernels.ref.
 flash_attention_ref``, with the reference tests' tolerances: ``2e-5`` in
 f32 and ``2e-2`` (a bf16 step) in bf16.  Inputs come from numpy with a
-seed.  The other entry points (``safl_aggregate``, the int8 pair, the
-packed-int4 pair) equal the reference's bitwise or within its tests'
-tolerance.
+seed.  A plain model of the bf16 CUDA kernel's rounding (per-tile f32
+sums of bf16 products, base-2 softmax, p split into two bf16 halves)
+predicts phase 3's lane-share verdict on the CPU.  The other entry
+points (``safl_aggregate``, the int8 pair, the packed-int4 pair) equal
+the reference's bitwise or within its tests' tolerance.
 """
 import pytest
 
@@ -90,6 +92,78 @@ def test_flash_attention_ragged(dtype, causal):
     got = tfa.flash_attention(tq, tk, tv, causal=causal)
     _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal),
            TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# a CPU model of the bf16 CUDA kernel's rounding
+# ---------------------------------------------------------------------------
+
+#: phase 3 of chip_smoke.py: the most of the bf16 output lanes that may
+#: differ from the plain version's (restated here, not imported)
+BF16_DIFF_SHARE = 0.02
+
+
+def _bf16_kernel_model(q, k, v, causal=True, split_p=True):
+    """The bf16 tensor-core kernel's arithmetic in plain PyTorch: per
+    64-key tile, bf16 q.k products (exact in f32) summed in f32, the
+    scores scaled by f32(log2(e) / sqrt(hd)) into base 2, masked to -1e30,
+    the online softmax (m, l, acc) in f32 with exp2, and P V with p split
+    into bf16 p_hi + p_lo (``split_p``) or rounded to bf16 alone; the
+    output acc / max(l, 1e-20) rounded to bf16."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    qf = q.float()
+    kf = torch.repeat_interleave(k, rep, dim=2).float()
+    vf = torch.repeat_interleave(v, rep, dim=2).float()
+    scale = float(np.float32(np.log2(np.e) / np.float32(np.sqrt(hd))))
+    rows = torch.arange(S)[:, None]
+    m = torch.full((B, H, S), -1e30)
+    l = torch.zeros((B, H, S))
+    acc = torch.zeros((B, H, S, hd))
+    for k0 in range(0, S, 64):
+        keys = torch.arange(k0, min(k0 + 64, S))[None, :]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf,
+                         kf[:, k0:k0 + 64]) * np.float32(scale)
+        if causal:
+            s = s.masked_fill(keys > rows, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        vt = vf[:, k0:k0 + 64].transpose(1, 2)
+        p_hi = p.to(torch.bfloat16).float()
+        pv = p_hi @ vt
+        if split_p:
+            pv = pv + (p - p_hi).to(torch.bfloat16).float() @ vt
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-20)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 256, 4, 2, 128), True),   # qwen3's head ratio and hd
+    ((1, 256, 4, 2, 128), False),
+    ((1, 200, 4, 4, 64), True),    # ragged last tile, MHA
+    ((1, 256, 8, 2, 32), True),    # hd 32 (the kernel pads it to 64)
+    ((2, 130, 6, 2, 64), False),   # an odd H / Hkv
+])
+def test_bf16_kernel_model_keeps_p_at_f32_precision(shape, causal):
+    """The bf16 kernel's rounding, rehearsed on the CPU: within the bf16
+    tolerance of the reference, differing from the port's plain version
+    in under BF16_DIFF_SHARE of the output lanes, while the same model
+    with p rounded to bf16 alone differs in more (phase 3's verdict on
+    the card, predicted)."""
+    (tq, tk, tv), (jq, jk, jv) = _qkv(5, *shape, "bfloat16")
+    got = _bf16_kernel_model(tq, tk, tv, causal=causal)
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal),
+           TOL["bfloat16"])
+    plain = tfa.flash_attention_plain(tq, tk, tv, causal=causal)
+    share = float((got != plain).float().mean())
+    share_bf16_p = float((_bf16_kernel_model(tq, tk, tv, causal=causal,
+                                             split_p=False)
+                          != plain).float().mean())
+    assert share < BF16_DIFF_SHARE < share_bf16_p, (share, share_bf16_p)
 
 
 def test_flash_attention_counts_only_launches():
