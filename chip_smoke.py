@@ -22,13 +22,17 @@ Phases, each of which exits non-zero on failure:
      buffer: 8-byte aligned at the main D, 4-byte at the ragged one):
      bitwise, except the poly discount (``powf``): ``rtol=1e-5,
      atol=1e-6``.  The three screens at the same D and Dq with K = 1, 3
-     and 4 (5 on q4), on clean, corrupted (NaN lanes; flipped bytes and
-     an Inf scale), Byzantine, all-zero and (q4) flipped-only rows:
-     isfinite verdicts exact, finite sums within ``rtol=1e-5``, and each
-     row's sum bitwise the same alone (K = 1) as inside the stack, and in
-     two launches.  The q4 wire's stochastic-rounding draws made on the
-     card (``prng.uniform_torch``) against the numpy threefry at the
-     paper CNN's (4209, 512): bitwise.  The two top-k kernels at the main
+     and 4 (5 on q4), and ``screen_rows_q8`` over the top-k upload's
+     values (nk = 215,552) with K = 1, 3 and 4, on clean, corrupted (NaN
+     lanes; flipped bytes and an Inf scale), Byzantine, all-zero and (q4)
+     flipped-only rows: isfinite verdicts exact, finite sums within
+     ``rtol=1e-5``, and each row's sum bitwise the same alone (K = 1) as
+     inside the stack, and in three launches back to back; the quantized
+     screens also on a copy of the rows 1 byte off a 16-byte boundary
+     (their byte path): against the plain version, and bitwise the
+     16-byte path's sums.  The q4 wire's stochastic-rounding draws made
+     on the card (``prng.uniform_torch``) against the numpy threefry at
+     the paper CNN's (4209, 512): bitwise.  The two top-k kernels at the main
      path's K = 4, nk = 215,552 (rows colliding on a coordinate in 4 and
      in 3 uploads) and at the ragged D with K = 3, nk = Dq (pad lanes
      ranked) and an empty row: the fold at beta 1 and 0.7, in place and
@@ -52,9 +56,15 @@ Phases, each of which exits non-zero on failure:
      dtype's dense peak: 67 TFLOP/s f32, 989 TFLOP/s bf16), the plain
      version and, where one exists, one PyTorch library call computing
      the same function (the screens at K = 1, the path's shape, and
-     K = 4), the top-k kernels, the int8 pair and flash attention at the
+     K = 4; the q8 screen also over a top-k upload's values), the top-k
+     kernels, the int8 pair and flash attention at the
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
+     3 calls of each quantized screen captured into a CUDA graph, whose
+     nodes (read through libcuda's graph API) must be one launch of the screen
+     kernel a call and nothing else, its replay equal to the eager sums,
+     and one ``torch.profiler`` pass over 3 calls of each, which must show
+     the same where it sees any device activity;
      and the codec's time per upload: the q4 draws alone and the
      whole q4 quantize, the top-k ranking alone and the whole top-k
      upload
@@ -114,6 +124,7 @@ The line before the last is the per-kernel JSON record; the last line is
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -746,16 +757,31 @@ def compare_sums(torch, report, worst, kernel, got, want, **info):
     worst[kernel] = max(worst.get(kernel, 0.0), err)
 
 
+def misaligned(torch, t):
+    """A contiguous copy of the int8 rows ``t`` that starts 1 byte past
+    the (aligned) start of its buffer: the quantized screens then take
+    their byte path."""
+    view = torch.empty(t.numel() + 16, dtype=torch.int8,
+                       device=t.device)[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def check_screens(torch, k_mod, report, worst):
-    """The three screens at the main path's and the ragged shape on a
-    stack of rows (clean, corrupted, Byzantine, all zero; q4 adds a
-    row whose 0x55-flipped span holds -8 nibbles under finite scales),
-    its first three rows, and each row alone: against the plain versions,
-    and each row's sum bitwise the same alone as in the stack and in a
-    second launch."""
+    """The three screens at the main path's and the ragged shape, and
+    ``screen_rows_q8`` over the top-k upload's values (nk = 215,552), on a
+    stack of rows (clean, corrupted, Byzantine, all zero; q4 adds a row
+    whose 0x55-flipped span holds -8 nibbles under finite scales), its
+    first three rows, and each row alone: against the plain versions, and
+    each row's sum bitwise the same alone as in the stack and in three
+    launches back to back (the quantized screens' per-row counters are
+    back at zero after each).  The quantized screens also run once on a
+    copy of the stack 1 byte off a 16-byte boundary (their byte path):
+    against the plain version, and bitwise the 16-byte path's sums."""
     from repro_torch.kernels.ref import unpack_q4_ref as unpack_q4
     g = torch.Generator(device="cuda").manual_seed(3)
     kinds = (None, "corrupt", "byzantine", None)
+    cases = []
     for d in (D_FULL, D_RAGGED):
         u = torch.randn((4, d), device="cuda", generator=g)
         q, s = q8_rows(torch, 4, d, g)
@@ -770,36 +796,54 @@ def check_screens(torch, k_mod, report, worst):
         p4[4, 100:164] ^= 0x55
         if not (unpack_q4(p4[4]) == -8).any():
             fail("the flipped q4 row holds no -8 nibble")
-        for name, args, plain, kw in (
-                ("screen_rows", (u,), k_mod.screen_rows_plain, {}),
-                ("screen_rows_q8", (q, s), k_mod.screen_rows_q8_plain,
-                 {"qblock": QB}),
-                ("screen_rows_q4", (p4, s4), k_mod.screen_rows_q4_plain,
-                 {"qblock": QB})):
-            fn = k_mod.KERNELS[name]
-            full = fn(*args, **kw)
-            again = fn(*args, **kw)
-            n = args[0].shape[0]
-            lanes = dict(d=d) if name == "screen_rows" else dict(dq=dq_of(d))
-            for k in (n, 3):
-                rows = tuple(a[:k] for a in args)
-                compare_sums(torch, report, worst, name, fn(*rows, **kw),
-                             plain(*rows, **kw), k=k, **lanes)
-            alone = torch.cat([fn(*(a[i:i + 1] for a in args), **kw)
-                               for i in range(n)])
-            compare_sums(torch, report, worst, name, alone,
-                         plain(*args, **kw), k=1, **lanes)
-            same = (torch.equal(alone.view(torch.int32),
-                                full.view(torch.int32))
-                    and torch.equal(again.view(torch.int32),
-                                    full.view(torch.int32)))
-            print(f"  {name:<18} {lanes}: K=1 rows vs K={n} stack and two "
-                  f"launches: {'bitwise equal' if same else 'DIFFER'}")
-            report.append(dict(kernel=name, row_independent_bitwise=same,
-                               **lanes))
-            if not same:
-                fail(f"{name} {lanes}: a row's sum depends on the stack or "
-                     "the launch")
+        cases += [("screen_rows", (u,), dict(d=d)),
+                  ("screen_rows_q8", (q, s), dict(dq=dq_of(d))),
+                  ("screen_rows_q4", (p4, s4), dict(dq=dq_of(d)))]
+    idx, qv, sv = topk_rows(torch, 4, D_FULL, NK_FULL, g)
+    for i, kind in enumerate(kinds):
+        idx[i], qv[i], sv[i] = poisoned((idx[i], qv[i], sv[i]), kind)
+    qv[3].zero_()
+    cases.append(("screen_rows_q8", (qv, sv), dict(nk=NK_FULL)))
+    for name, args, lanes in cases:
+        fn = k_mod.KERNELS[name]
+        plain = getattr(k_mod, name + "_plain")
+        kw = {} if name == "screen_rows" else {"qblock": QB}
+        launches = [fn(*args, **kw) for _ in range(3)]
+        full = launches[0]
+        n = args[0].shape[0]
+        for k in (n, 3):
+            rows = tuple(a[:k] for a in args)
+            compare_sums(torch, report, worst, name, fn(*rows, **kw),
+                         plain(*rows, **kw), k=k, **lanes)
+        alone = torch.cat([fn(*(a[i:i + 1] for a in args), **kw)
+                           for i in range(n)])
+        compare_sums(torch, report, worst, name, alone,
+                     plain(*args, **kw), k=1, **lanes)
+        same = all(torch.equal(x.view(torch.int32), full.view(torch.int32))
+                   for x in (alone, *launches[1:]))
+        print(f"  {name:<18} {lanes}: K=1 rows vs K={n} stack and three "
+              f"launches: {'bitwise equal' if same else 'DIFFER'}")
+        report.append(dict(kernel=name, row_independent_bitwise=same,
+                           **lanes))
+        if not same:
+            fail(f"{name} {lanes}: a row's sum depends on the stack or "
+                 "the launch")
+        if name == "screen_rows":
+            continue
+        off = (misaligned(torch, args[0]), args[1])
+        if off[0].data_ptr() % 16 == 0:
+            fail("the misaligned copy is 16-byte aligned")
+        byte_path = fn(*off, **kw)
+        compare_sums(torch, report, worst, name, byte_path,
+                     plain(*args, **kw), k=n, path="bytes", **lanes)
+        same = torch.equal(byte_path.view(torch.int32),
+                           full.view(torch.int32))
+        print(f"  {name:<18} {lanes}: byte path (rows 1 byte off 16) vs "
+              f"16-byte path: {'bitwise equal' if same else 'DIFFER'}")
+        report.append(dict(kernel=name, byte_path_bitwise=same, **lanes))
+        if not same:
+            fail(f"{name} {lanes}: the byte path's sums differ from the "
+                 "16-byte path's")
     torch.cuda.synchronize()
 
 
@@ -992,6 +1036,14 @@ def time_kernels(torch, k_mod, q_mod, fa_mod):
                                                       sv[0], w_host)),
         library_ms=None, bytes=5 * NK_FULL + 4 * nkb + 8 * (kept // k),
         ops=3 * (kept // k), shape=f"D={d} nk={NK_FULL} beta=1 in place")
+    # the q8 screen over one top-k upload's values, as FlatServer.screen
+    # runs it on that wire
+    out["screen_rows_q8_topk"] = dict(
+        ms=t(lambda: k_mod.screen_rows_q8(qv[:1], sv[:1], qblock=QB)),
+        plain_ms=t(lambda: k_mod.screen_rows_q8_plain(qv[:1], sv[:1],
+                                                      qblock=QB)),
+        library_ms=None, bytes=NK_FULL + nkb * 4 + 4,
+        ops=2 * NK_FULL + 3 * nkb, shape=f"K=1 nk={NK_FULL}")
     out["safl_aggregate_topk"] = dict(
         ms=t(lambda: k_mod.safl_aggregate_topk(idx, qv, sv, sizes, d)),
         plain_ms=t(lambda: k_mod.safl_aggregate_topk_plain(idx, qv, sv,
@@ -1047,6 +1099,149 @@ def time_kernels(torch, k_mod, q_mod, fa_mod):
               f"achieved {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
     del flush
     return out, floor_ms
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """libcuda's ``CUDA_KERNEL_NODE_PARAMS_v2``."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _cu_name(cu, params):
+    """A kernel node's mangled symbol through ``cuFuncGetName`` or
+    ``cuKernelGetName`` (CUDA 12.3 on), else None."""
+    for getter, handle in (("cuFuncGetName", params.func),
+                           ("cuKernelGetName", params.kern)):
+        name = ctypes.c_char_p()
+        if handle and hasattr(cu, getter) and not getattr(cu, getter)(
+                ctypes.byref(name), ctypes.c_void_p(handle)):
+            return name.value.decode()
+    return None
+
+
+def graph_kernels(torch, fn, calls):
+    """``calls`` calls of ``fn`` captured into one CUDA graph on a side
+    stream (after a warm-up call there, which makes that stream's per-row
+    counters), the graph's nodes read back through libcuda: a list
+    of (node type, grid, block, symbol or None), and whether one replay of
+    the graph gives each call's output bitwise equal to the warm-up's."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc:
+            fail(f"{what} returned CUresult {rc}")
+
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        want = fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=side):
+        outs = [fn() for _ in range(calls)]
+    graph = ctypes.c_void_p(g.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    found = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
+            found.append((kind.value, None, None, None))
+            continue
+        params = _KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams_v2")
+        found.append((0, tuple(params.grid), tuple(params.block),
+                      _cu_name(cu, params)))
+    g.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(o, want) for o in outs)
+    del g, outs
+    return found, same
+
+
+def check_one_launch(torch, k_mod, calls=3):
+    """Each quantized screen at the main path's K = 1 issues one device
+    kernel a call and nothing else (no memset, no copy, no second kernel),
+    seen two ways: ``calls`` calls of each captured into a CUDA graph,
+    whose nodes must be ``calls`` launches of the screen kernel on the
+    (chunks, K) grid, a replay giving the eager sums bitwise; and one
+    ``torch.profiler`` pass over ``calls`` calls of each (after a warm-up
+    call), whose device events, where it sees any, must be exactly those
+    launches.  A profiler that sees no device activity at all (CUPTI
+    taken or missing) is reported, not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, s = q8_rows(torch, 1, D_FULL, g)
+    p4, s4 = q4_rows(torch, 1, D_FULL, g)
+    calls_of = {"screen_rows_q8": lambda: k_mod.screen_rows_q8(
+                    q, s, qblock=QB),
+                "screen_rows_q4": lambda: k_mod.screen_rows_q4(
+                    p4, s4, qblock=QB)}
+    packed_of = {"screen_rows_q8": "false", "screen_rows_q4": "true"}
+
+    def is_screen(name, wrapper):
+        # screen_q_kernel<kPacked, ...>, q8 being kPacked = false, by its
+        # demangled or its mangled name
+        packed = packed_of[wrapper]
+        return (f"screen_q_kernel<{packed}" in name
+                or f"screen_q_kernelILb{int(packed == 'true')}" in name)
+
+    graphs = {}
+    for wrapper, fn in calls_of.items():
+        found, same = graph_kernels(torch, fn, calls)
+        nb = dq_of(D_FULL) // QB
+        grid = (k_mod.screen_q_chunks(
+            nb, QB // 2 if wrapper == "screen_rows_q4" else QB), 1, 1)
+        block = (k_mod.SCREEN_QWARPS * 32, 1, 1)
+        names = sorted({str(f[3]) for f in found})
+        print(f"  CUDA graph of {calls} calls of {wrapper}: {len(found)} "
+              f"nodes, types {sorted({f[0] for f in found})}, grids "
+              f"{sorted({f[1] for f in found if f[1]})} (want {grid}), "
+              f"blocks {sorted({f[2] for f in found if f[2]})}, symbols "
+              f"{names}; replay bitwise equal to the eager sum: {same}")
+        if (len(found) != calls or any(
+                f[:3] != (0, grid, block)
+                or (f[3] is not None and not is_screen(f[3], wrapper))
+                for f in found) or not same):
+            fail(f"{wrapper} captured as {found}, not one screen kernel a "
+                 "call, or its replay differs")
+        graphs[wrapper] = dict(nodes=len(found), grid=grid, block=block,
+                               symbols=names, replay_equal=same)
+
+    for fn in calls_of.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls_of.values():
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    got = {wrapper: sum(is_screen(n, wrapper) for n in names)
+           for wrapper in calls_of}
+    if not names:
+        print(f"  profiler: no device events over {calls} calls of each "
+              "quantized screen (no device activity traced): not counted")
+    else:
+        print(f"  profiler: {len(names)} device events over {calls} calls "
+              f"of each quantized screen: {got} (tolerance: exactly "
+              f"{calls} each, nothing else)")
+        if got != dict.fromkeys(calls_of, calls) or len(names) != 2 * calls:
+            fail(f"the quantized screens issued {sorted(set(names))}, not "
+                 "one kernel per call")
+    return dict(calls=calls, graphs=graphs, kernels=got,
+                device_events=len(names))
 
 
 def time_codec(torch):
@@ -1890,6 +2085,7 @@ def main() -> None:
 
     print("== phase 4: timings (L2 flushed before each launch)")
     timing, floor_ms = time_kernels(torch, k_mod, q_mod, fa_mod)
+    one_launch = check_one_launch(torch, k_mod)
     codec_ms = time_codec(torch)
     left(4)
 
@@ -1933,6 +2129,7 @@ def main() -> None:
                        cuda=torch.version.cuda, build_s=build_s,
                        checks=check_rows, timing=timing,
                        timer_floor_ms=floor_ms, codec_ms=codec_ms,
+                       screens_one_launch=one_launch,
                        small=small, codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,
                        compression_path=compression, serving=serving,

@@ -3,16 +3,18 @@
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds).  Libraries go to ``build/torch_kernels/`` at the root of the
-checkout, named by a hash of the source and the flags, so an edited source
-is never served a stale library.  ``nvcc`` is taken from ``$CUDA_HOME/bin``,
-then ``PATH``, then the toolkit's default install prefix ``/usr/local/cuda``;
-a missing compiler or a failed build raises.
+checkout, named by a hash of the source (with the sources it includes)
+and the flags, so an edited source is never served a stale library.
+``nvcc`` is taken from ``$CUDA_HOME/bin``, then ``PATH``, then the
+toolkit's default install prefix ``/usr/local/cuda``; a missing compiler
+or a failed build raises.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -41,7 +43,13 @@ def find_nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the source, the sources it
+    includes from ``csrc/`` (``#include "name.cu"``) and the flags."""
+    text = src.read_bytes()
+    deps = re.findall(rb'^#include "([^"]+)"', text, flags=re.M)
+    h = hashlib.sha256(text + b"".join((CSRC / d.decode()).read_bytes()
+                                       for d in deps)
+                       + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 

@@ -60,11 +60,20 @@
 // whether it is screened alone or stacked, and in every launch.  So no
 // float atomics: each row is cut into a fixed number of chunks that
 // depends on its length only, each chunk reduced by one block in a fixed
-// tree (strided per-thread sums, warp shuffles, then the warp sums in
-// order) into a (K, chunks) scratch, and a second launch sums each row's
-// partials in the same fixed tree.  NaN and Inf propagate: no fast math,
-// no fmaxf, no lane is skipped.
-//
+// tree into a (K, chunks) scratch, and the row's partials summed in
+// index order in a fixed tree (strided per-thread sums, warp shuffles,
+// then the warp sums in order).  The f32 screen does that second sum in
+// a second launch (screen_finish).  The quantized screens do it in the
+// same launch: each block bumps an integer per-row counter after its
+// partial is written (__threadfence, atomicAdd), and the block that
+// arrives last sums the row and resets the counter, so a call is one
+// launch: blocks of 8 warps, one 16-byte load a lane (4 KB of a q8 row a
+// block, 4 blocks an SM at the paper CNN's row), int8 and int4 squares
+// summed four bytes at a time by __dp4a (exact in int32).  What is left
+// above the timer's floor is the row's one read from HBM and the last
+// block's two L2 round trips (the counter, then the partials).  NaN and
+// Inf propagate: no fast math, no fmaxf, no lane is skipped.
+
 // The top-k kernels scatter instead of streaming: a kept lane j adds
 // w * ((float)qv[j] * s[j >> qshift]) to coordinate idx[j] of the bank,
 // and lanes with idx outside [0, d) (an empty row's idx == d, pad lanes
@@ -304,10 +313,6 @@ constexpr int kWarps = kThreads / 32;
 // f32 lanes per chunk of a row (32 per thread).  Keep in step with
 // SCREEN_CHUNK in kernels/safl_agg.py, which sizes the scratch.
 constexpr int64_t kScreenChunk = 8192;
-// q8 quantization blocks per warp, and per chunk (one block of threads).
-// Keep in step with SCREEN_QBLOCKS in kernels/safl_agg.py.
-constexpr int kQBlocksPerWarp = 4;
-constexpr int64_t kScreenQBlocks = kWarps * kQBlocksPerWarp;
 
 __device__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -318,6 +323,8 @@ __device__ float warp_sum(float v) {
 
 // Thread 0 gets the block's sum of one value per thread: a shuffle tree
 // in each warp, then the same tree over the warp sums (padded with 0).
+// smem holds kNumWarps floats.
+template <int kNumWarps = kWarps>
 __device__ float block_sum(float v, float* smem) {
   v = warp_sum(v);
   const int lane = threadIdx.x & 31;
@@ -325,7 +332,7 @@ __device__ float block_sum(float v, float* smem) {
   if (lane == 0) smem[warp] = v;
   __syncthreads();
   float s = 0.f;
-  if (warp == 0) s = warp_sum(lane < kWarps ? smem[lane] : 0.f);
+  if (warp == 0) s = warp_sum(lane < kNumWarps ? smem[lane] : 0.f);
   return s;
 }
 
@@ -349,32 +356,135 @@ __global__ void screen_partial_f32(const float* __restrict__ u,
   if (threadIdx.x == 0) part[row * chunks + c] = s;
 }
 
-// Block (c, row): warp w takes the kQBlocksPerWarp quantization blocks
-// b = (c*kWarps + w)*kQBlocksPerWarp + j in order.  sum q^2 over a block
-// is an int32 sum (exact and order-free: 512 * 128^2 on q8, 512 * 8^2 on
-// the packed int4 rows (kPacked, two lanes per byte), both below 2^24, so
-// the sum converts to f32 exactly), then (q2 * s) * s in f32 as the
-// reference's oracle forms it; thread 0 sums the warps' terms in warp
-// order.  An Inf scale gives Inf (or 0 * Inf = NaN over an all-zero
-// block): non-finite.
+// ---- the quantized screens: one launch a call ----
+//
+// Block (c, row) of a (chunks, K) grid takes kW warps; warp w takes the
+// qpw quantization blocks b0 = (c*kW + w)*qpw .. in order, qpw = kL*512 /
+// (bytes per qblock), at least 1 (so a chunk's length depends on the
+// row's length and qblock only).  A block's q2_b = sum q^2 is an int32
+// sum (exact and order-free: 512 * 128^2 on q8, 512 * 8^2 on the packed
+// int4 rows, both below 2^24, so the sum converts to f32 exactly), then
+// (q2 * s) * s in f32 as the reference's oracle forms it.  Each warp sums its blocks' terms in block
+// order, thread 0 the warps' sums in warp order, into part[row, c]; then
+// a __threadfence() and an integer atomicAdd on the row's counter: the
+// block that sees chunks - 1 is the row's last, sums the row's partials
+// (read through L2) in index order in screen_finish's tree, writes
+// out[row] and sets the counter back to 0 for the next launch.  No float
+// atomics: the sum's order is fixed by the row's length.
+//
+// kVec: 16-byte loads (the row 16-byte aligned, a qblock a multiple of 16
+// bytes), kL of them a lane in flight before any is summed; a load's 4
+// words are summed by __dp4a (signed int8 x int8 into int32, exact), the
+// packed int4 words after sign-extending each nibble in its byte:
+// (n ^ 8) - 8 per byte (__vsub4), so a corrupted -8 nibble counts 64.
+// Else one byte a lane per load, in the same partition and order (so both
+// paths give the same sum bitwise).
+//
+// The package's shape: kW = 8 warps a block, kL = 1 load a lane (a q8
+// qblock a warp): at the paper CNN's row 527 blocks of 256 threads on q8
+// (264 on q4), 53 over a top-k upload's values.  More loads a lane (2
+// warps of 2: 1,053 blocks, 106 on top-k), fewer warps a block and
+// larger blocks all timed slower (csrc/screen_variants.cu, timed by
+// kernels/hold_timing.py).  Keep kScreenQWarps and kScreenQLoads in step
+// with SCREEN_QWARPS and SCREEN_WARP_BYTES (= kScreenQLoads * 512) in
+// kernels/safl_agg.py, which size the scratch.
+constexpr int kScreenQWarps = 8;
+constexpr int kScreenQLoads = 1;
+// partials a thread of the last block loads before it sums them
+constexpr int kScreenFinishBatch = 8;
+
+// Quantization blocks per warp for blocks of bbytes >= 1 bytes when a
+// warp covers warp_bytes of the row.
+inline int64_t screen_qpw(int64_t bbytes, int64_t warp_bytes) {
+  return bbytes >= warp_bytes ? 1 : warp_bytes / bbytes;
+}
+
+// sum of squares of the 16 int8 (or 32 packed int4) lanes of v, plus acc
 template <bool kPacked>
-__global__ void screen_partial_q(const uint8_t* __restrict__ q,
-                                 const float* __restrict__ s,
-                                 float* __restrict__ part, int64_t dq,
-                                 int64_t nb, int qshift, int64_t chunks) {
-  __shared__ float smem[kWarps];
-  const int64_t c = blockIdx.x;
-  const int64_t row = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  // bytes per quantization block and per row
-  const int64_t bbytes = (int64_t{1} << qshift) >> (kPacked ? 1 : 0);
-  const uint8_t* qr = q + row * (kPacked ? dq >> 1 : dq);
-  const float* sr = s + row * nb;
+__device__ __forceinline__ int sumsq16(uint4 v, int acc) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (kPacked) {
+      const int lo = static_cast<int>(
+          __vsub4((w[i] & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u));
+      const int hi = static_cast<int>(
+          __vsub4(((w[i] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u));
+      acc = __dp4a(lo, lo, acc);
+      acc = __dp4a(hi, hi, acc);
+    } else {
+      const int x = static_cast<int>(w[i]);
+      acc = __dp4a(x, x, acc);
+    }
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float screen_term(int q2, float sb) {
+  return __fmul_rn(__fmul_rn(static_cast<float>(q2), sb), sb);
+}
+
+// One warp's sum of the terms of its nq blocks b0 .. b0+nq-1 of the row
+// (qr, sr), in block order, in 16-byte loads; bbytes is a multiple of 16,
+// so nq <= kL * 32 <= 64.  Every lane returns the sum.  A block spans g = bbytes/16
+// lanes' loads: below 32, one load of the warp covers 32/g blocks, each
+// reduced by an xor tree over its g lanes; at 32 and above, the warp's
+// loads cover one block, summed over g/32 loads.
+template <bool kPacked, int kL>
+__device__ float warp_terms_vec(const uint8_t* qr, const float* sr,
+                                int64_t b0, int nq, int64_t bbytes,
+                                int lane) {
+  static_assert(kL == 1 || kL == 2, "lanes hold the scales of 64 blocks");
+  const int g = static_cast<int>(bbytes >> 4);
+  const int gc = g < 32 ? g : 32;  // lanes of one block in one load
+  const int per = 32 / gc;         // blocks one load of the warp covers
+  const int64_t pieces = static_cast<int64_t>(nq) * g;
+  const uint4* src = reinterpret_cast<const uint4*>(qr + b0 * bbytes);
+  // the scales first: lane l holds those of blocks l and l + 32
+  const float sc0 = lane < nq ? sr[b0 + lane] : 0.f;
+  const float sc1 = lane + 32 < nq ? sr[b0 + 32 + lane] : 0.f;
   float acc = 0.f;
-  for (int j = 0; j < kQBlocksPerWarp; ++j) {
-    const int64_t b = (c * kWarps + warp) * kQBlocksPerWarp + j;
-    if (b >= nb) break;  // uniform across the warp
+  int q2 = 0;
+  for (int64_t it0 = 0; it0 * 32 < pieces; it0 += kL) {
+    uint4 v[kL];
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const int64_t p = (it0 + j) * 32 + lane;
+      v[j] = p < pieces ? __ldg(src + p) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const int64_t it = it0 + j;
+      if (it * 32 >= pieces) break;  // uniform across the warp
+      int x = sumsq16<kPacked>(v[j], 0);
+      for (int off = gc >> 1; off > 0; off >>= 1) {
+        x += __shfl_xor_sync(0xffffffffu, x, off);
+      }
+      q2 += x;
+      if (g > 32 && ((it + 1) * 32) % g != 0) continue;  // block not done
+      for (int i = 0; i < per; ++i) {
+        const int64_t b = g >= 32 ? it * 32 / g : it * per + i;
+        if (b >= nq) break;  // uniform
+        const int qb = __shfl_sync(0xffffffffu, q2, i * gc);
+        const float sb = __shfl_sync(0xffffffffu, b < 32 ? sc0 : sc1,
+                                     static_cast<int>(b & 31));
+        acc = __fadd_rn(acc, screen_term(qb, sb));
+      }
+      q2 = 0;
+    }
+  }
+  return acc;
+}
+
+// The same sum one byte a lane per load, block by block (lane 0 returns
+// it).
+template <bool kPacked>
+__device__ float warp_terms_bytes(const uint8_t* qr, const float* sr,
+                                  int64_t b0, int nq, int64_t bbytes,
+                                  int lane) {
+  float acc = 0.f;
+  for (int j = 0; j < nq; ++j) {
+    const int64_t b = b0 + j;
     int q2 = 0;
     for (int64_t i = lane; i < bbytes; i += 32) {
       const uint8_t byte = qr[b * bbytes + i];
@@ -390,15 +500,67 @@ __global__ void screen_partial_q(const uint8_t* __restrict__ q,
     for (int off = 16; off > 0; off >>= 1) {
       q2 += __shfl_xor_sync(0xffffffffu, q2, off);
     }
-    const float sb = sr[b];
-    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(static_cast<float>(q2), sb), sb));
+    acc = __fadd_rn(acc, screen_term(q2, sr[b]));
+  }
+  return acc;
+}
+
+template <bool kPacked, bool kVec, int kW, int kL>
+__global__ void __launch_bounds__(kW * 32)
+    screen_q_kernel(const uint8_t* __restrict__ q,
+                    const float* __restrict__ s, float* part,
+                    int* __restrict__ count, float* __restrict__ out,
+                    int64_t nb, int64_t bbytes, int64_t qpw,
+                    int64_t chunks) {
+  constexpr int kT = kW * 32;
+  __shared__ float smem[kW];
+  __shared__ int last;
+  const int64_t c = blockIdx.x;
+  const int64_t row = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint8_t* qr = q + row * nb * bbytes;
+  const float* sr = s + row * nb;
+  const int64_t b0 = (c * kW + warp) * qpw;
+  const int64_t left = nb - b0;
+  const int nq = static_cast<int>(left <= 0 ? 0 : left < qpw ? left : qpw);
+  float acc = 0.f;
+  if (nq > 0) {
+    acc = kVec ? warp_terms_vec<kPacked, kL>(qr, sr, b0, nq, bbytes, lane)
+               : warp_terms_bytes<kPacked>(qr, sr, b0, nq, bbytes, lane);
   }
   if (lane == 0) smem[warp] = acc;
   __syncthreads();
+  float* pr = part + row * chunks;
   if (threadIdx.x == 0) {
     float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t = __fadd_rn(t, smem[w]);
-    part[row * chunks + c] = t;
+    for (int w = 0; w < kW; ++w) t = __fadd_rn(t, smem[w]);
+    pr[c] = t;
+    __threadfence();  // the partial is visible before the count says so
+    last = atomicAdd(count + row, 1) == chunks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the row's last block: thread i sums partials i, i + kT, ... in order
+  // (loaded kScreenFinishBatch at a time, through L2), then block_sum
+  float t = 0.f;
+  for (int64_t i0 = threadIdx.x; i0 < chunks;
+       i0 += int64_t{kT} * kScreenFinishBatch) {
+    float v[kScreenFinishBatch];
+#pragma unroll
+    for (int u = 0; u < kScreenFinishBatch; ++u) {
+      const int64_t i = i0 + int64_t{u} * kT;
+      v[u] = i < chunks ? __ldcg(pr + i) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kScreenFinishBatch; ++u) {
+      if (i0 + int64_t{u} * kT < chunks) t = __fadd_rn(t, v[u]);
+    }
+  }
+  t = block_sum<kW>(t, smem);
+  if (threadIdx.x == 0) {
+    out[row] = t;
+    count[row] = 0;
   }
 }
 
@@ -525,8 +687,8 @@ int launch_sdga(const void* q, const void* scales, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// A screen's second launch, once the first launched: cudaGetLastError()
-// after the two.
+// The f32 screen's second launch, once the first launched:
+// cudaGetLastError() after the two.
 inline int launch_finish(const void* part, void* out, int64_t k,
                          int64_t chunks, cudaStream_t s) {
   const cudaError_t err = cudaGetLastError();
@@ -536,19 +698,37 @@ inline int launch_finish(const void* part, void* out, int64_t k,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kPacked>
+// A quantized screen: one launch of screen_q_kernel over a (chunks, K)
+// grid, 16-byte loads when the rows start 16-byte aligned and a qblock is
+// a multiple of 16 bytes (a row is then too), else one byte a lane.
+// count: the K per-row counters, 0 before the launch and after it.  kW
+// warps a block, kL loads a lane: the package's shape unless another is
+// timed (csrc/screen_variants.cu).
+template <bool kPacked, int kW = kScreenQWarps, int kL = kScreenQLoads>
 int launch_screen_q(const void* q, const void* scales, void* part,
-                    void* out, int64_t k, int64_t dq, int qshift,
-                    int64_t chunks, void* stream) {
+                    void* count, void* out, int64_t k, int64_t dq,
+                    int qshift, int64_t chunks, void* stream) {
   const int64_t nb = dq >> qshift;
-  if (chunks != (nb + kScreenQBlocks - 1) / kScreenQBlocks) return -1;
+  const int64_t bbytes = (int64_t{1} << qshift) >> (kPacked ? 1 : 0);
+  if (bbytes < 1) return -1;
+  const int64_t qpw = screen_qpw(bbytes, int64_t{kL} * 512);
+  const int64_t per_block = kW * qpw;
+  if (chunks != (nb + per_block - 1) / per_block) return -1;
+  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(k));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  screen_partial_q<kPacked><<<dim3(static_cast<unsigned>(chunks),
-                                   static_cast<unsigned>(k)),
-                              kThreads, 0, s>>>(
-      static_cast<const uint8_t*>(q), static_cast<const float*>(scales),
-      static_cast<float*>(part), dq, nb, qshift, chunks);
-  return launch_finish(part, out, k, chunks, s);
+  const auto* qp = static_cast<const uint8_t*>(q);
+  const auto* sp = static_cast<const float*>(scales);
+  auto* pp = static_cast<float*>(part);
+  auto* cp = static_cast<int*>(count);
+  auto* op = static_cast<float*>(out);
+  if (bbytes % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0) {
+    screen_q_kernel<kPacked, true, kW, kL><<<grid, kW * 32, 0, s>>>(
+        qp, sp, pp, cp, op, nb, bbytes, qpw, chunks);
+  } else {
+    screen_q_kernel<kPacked, false, kW, kL><<<grid, kW * 32, 0, s>>>(
+        qp, sp, pp, cp, op, nb, bbytes, qpw, chunks);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kUnitBeta, class V>
@@ -686,7 +866,7 @@ int sdga_aggregate_q4(const void* q, const void* scales, const void* w,
 
 // The screens return -1 when the caller's scratch has another number of
 // chunks per row than the kernels' constants give (it sizes nothing
-// then), else cudaGetLastError() after the two launches.
+// then), else cudaGetLastError() after the launch (the f32 screen's two).
 int screen_rows_f32(const void* u, void* part, void* out, int64_t k,
                     int64_t d, int64_t chunks, void* stream) {
   if (chunks != (d + kScreenChunk - 1) / kScreenChunk) return -1;
@@ -699,19 +879,20 @@ int screen_rows_f32(const void* u, void* part, void* out, int64_t k,
   return launch_finish(part, out, k, chunks, s);
 }
 
-int screen_rows_q8(const void* q, const void* scales, void* part, void* out,
-                   int64_t k, int64_t dq, int qshift, int64_t chunks,
-                   void* stream) {
-  return launch_screen_q<false>(q, scales, part, out, k, dq, qshift, chunks,
-                                stream);
+// count: K int32 per-row counters, zero (each launch leaves them zero).
+int screen_rows_q8(const void* q, const void* scales, void* part,
+                   void* count, void* out, int64_t k, int64_t dq,
+                   int qshift, int64_t chunks, void* stream) {
+  return launch_screen_q<false>(q, scales, part, count, out, k, dq, qshift,
+                                chunks, stream);
 }
 
 // dq: lanes per row (the packed row holds dq / 2 bytes).
-int screen_rows_q4(const void* q, const void* scales, void* part, void* out,
-                   int64_t k, int64_t dq, int qshift, int64_t chunks,
-                   void* stream) {
-  return launch_screen_q<true>(q, scales, part, out, k, dq, qshift, chunks,
-                               stream);
+int screen_rows_q4(const void* q, const void* scales, void* part,
+                   void* count, void* out, int64_t k, int64_t dq,
+                   int qshift, int64_t chunks, void* stream) {
+  return launch_screen_q<true>(q, scales, part, count, out, k, dq, qshift,
+                               chunks, stream);
 }
 
 // The fold of one sparse row into acc (out may be acc: the in-place fold

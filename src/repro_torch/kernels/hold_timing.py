@@ -1,24 +1,37 @@
-"""Times the f32 fold's four designs, ``torch.add`` and the flash kernels
-on the card, each with and without ``chip_smoke.py`` phase 4's device
-hold, in one process, so that a kernel's gain and the timing method's
-effect can be told apart.
+"""Times the f32 fold's four designs, ``torch.add``, the quantized
+screens' three designs and the flash kernels on the card, each with and
+without ``chip_smoke.py`` phase 4's device hold, in one process, so that
+a kernel's gain and the timing method's effect can be told apart.
 
     PYTHONPATH=src python -m repro_torch.kernels.hold_timing [--rounds 7]
 
-It builds ``csrc/safl_agg.cu`` (the package's fold: 8-byte vectors, one a
-thread over an exact grid, after a scalar head up to the output's next
-128-byte line) and ``csrc/fold_variants.cu`` (the first design, a
-grid-stride loop of 4-byte lanes; 16-byte vectors; 8-byte vectors after
-a head up to the next 8-byte boundary only), checks each fold bitwise
-against ``safl_fold_plain`` on the rows it is timed on, then times at
-D = 2,154,730 (the paper CNN's row):
+It builds ``csrc/safl_agg.cu`` (the package's kernels),
+``csrc/fold_variants.cu`` and ``csrc/screen_variants.cu`` (the other
+designs, for timing only), checks each design against its plain version
+on the rows it is timed on, then times:
 
-- the four fold kernels through ``ctypes`` with their arguments made
+- at D = 2,154,730 (the paper CNN's row), the package's fold (8-byte
+  vectors, one a thread over an exact grid, after a scalar head up to
+  the output's next 128-byte line) and the three of
+  ``fold_variants.cu`` (the first design, a grid-stride loop of 4-byte
+  lanes; 16-byte vectors; 8-byte vectors after a head up to the next
+  8-byte boundary only), each checked bitwise against
+  ``safl_fold_plain``, through ``ctypes`` with their arguments made
   beforehand (the same host cost for each), the package's wrapper
   :func:`repro_torch.kernels.safl_agg.safl_fold` (as phase 4 calls it)
   and ``torch.add(acc, vec, alpha=w)``, on a 16-byte aligned row and in
   place into an odd bank row (row 1 of a (2, D) buffer: 8 bytes off;
   the 16-byte design does not run there);
+- the quantized screens: the package's one-launch kernel
+  (``screen_rows_q8`` / ``screen_rows_q4``: 8 warps a block, one 16-byte
+  load a lane) through ``ctypes`` and through its wrapper, and through
+  ``ctypes`` the same kernel with 2 warps a block and 2 loads a lane and
+  the earlier two-launch design (both in ``screen_variants.cu``), at
+  K = 1 on the paper CNN's quantized row (Dq = 2,155,008: 4,209 blocks of
+  512) and on its top-k upload's values (q8, nk = 215,552), and at K = 4
+  on the CNN's row; each design's sums are checked against
+  ``screen_rows_q8_plain`` / ``screen_rows_q4_plain`` (isfinite verdicts
+  exact, finite sums within ``rtol=1e-5``);
 - :func:`repro_torch.kernels.flash_attention.flash_attention` in bf16 and
   f32 at the full-width qwen3 prefill's shape (B 8, S 1024, H 16 / 8,
   hd 128, causal).
@@ -49,6 +62,10 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import safl_agg as k_mod
 
 D = 2_154_730
+#: the quantized screens' rows: the CNN's Dq and its top-k upload's nk
+QB = 512
+DQ = -(-D // QB) * QB
+NK = 421 * QB
 #: the flash cases' (B, S, H, Hkv, hd): the full-width qwen3 prefill
 FLASH_SHAPE = (8, 1024, 16, 8, 128)
 LAUNCHES = 60
@@ -93,6 +110,88 @@ def raw_fold(fn, acc, vec, out, w):
     return call
 
 
+def raw_screen(fn, q, s, packed, chunks, counts=None):
+    """A call of the C screen ``fn`` over (q, s) with its (K, chunks)
+    scratch and arguments made beforehand; ``counts`` (per-row counters)
+    for the one-launch kernels, None for the two-launch design.  Returns
+    (call, out)."""
+    k, nbytes = q.shape
+    dq = 2 * nbytes if packed else nbytes
+    part = torch.empty((k, chunks), device="cuda")
+    out = torch.empty(k, device="cuda")
+    ptrs = [q.data_ptr(), s.data_ptr(), part.data_ptr()]
+    if counts is not None:
+        ptrs.append(counts.data_ptr())
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 1) + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    args = (*ptrs, out.data_ptr(), k, dq, QB.bit_length() - 1, chunks,
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        if fn(*args):
+            raise RuntimeError(f"{fn.__name__}: launch failed")
+    return call, out
+
+
+def check_sums(name, got, want):
+    """Exit unless a screen's sums match its plain version's: isfinite
+    verdicts exact, finite sums within rtol=1e-5."""
+    fin = torch.isfinite(want)
+    if not (torch.equal(torch.isfinite(got), fin) and torch.allclose(
+            got[fin], want[fin], rtol=1e-5, atol=0.0)):
+        sys.exit(f"hold_timing: {name} differs from its plain version")
+
+
+def screen_cases(g) -> dict:
+    """The quantized screens' timed calls, each checked first."""
+    from repro_torch.kernels import ref
+    x = torch.randn((4, DQ), device="cuda", generator=g)
+    q8, s8 = ref.quantize_ref(x.view(-1, QB))
+    q8, s8 = q8.view(4, DQ), s8.view(4, -1)
+    qv, sv = ref.quantize_ref(x[0, :NK].reshape(-1, QB))
+    q4 = ref.pack_q4_ref(torch.randint(-7, 8, (4, DQ), device="cuda",
+                                       generator=g).to(torch.int8))
+    s4 = torch.rand((4, DQ // QB), device="cuda", generator=g)
+    rows = {"q8 K=1 Dq": (q8[:1], s8[:1], False),
+            "q8 K=1 top-k nk": (qv.view(1, NK), sv.view(1, -1), False),
+            "q8 K=4 Dq": (q8, s8, False),
+            "q4 K=1 Dq": (q4[:1], s4[:1], True),
+            "q4 K=4 Dq": (q4, s4, True)}
+    variants = build.load("screen_variants")
+    package = k_mod._lib()
+    cases = {}
+    for row_name, (q, s, packed) in rows.items():
+        wire = "q4" if packed else "q8"
+        plain = (k_mod.screen_rows_q4_plain if packed
+                 else k_mod.screen_rows_q8_plain)
+        wrapper = k_mod.screen_rows_q4 if packed else k_mod.screen_rows_q8
+        want = plain(q, s, qblock=QB)
+        nb, bbytes = s.shape[1], QB // 2 if packed else QB
+        counts = k_mod._screen_counts(
+            q.device.index, torch.cuda.current_stream().cuda_stream)
+        designs = {
+            "two launches": raw_screen(
+                getattr(variants, f"screen_rows_{wire}_two_launch"), q, s,
+                packed, -(-nb // 32)),
+            "one launch, 2 warps x 2 loads": raw_screen(
+                getattr(variants, f"screen_rows_{wire}_w2l2"), q, s,
+                packed, -(-nb // (2 * max(1, 1024 // bbytes))), counts),
+            "one launch (package)": raw_screen(
+                getattr(package, f"screen_rows_{wire}"), q, s, packed,
+                k_mod.screen_q_chunks(nb, bbytes), counts)}
+        for name, (call, out) in designs.items():
+            call()
+            check_sums(f"screen {name}, {row_name}", out, want)
+            cases[f"screen {name}, {row_name}"] = call
+        check_sums(f"screen wrapper, {row_name}",
+                   wrapper(q, s, qblock=QB), want)
+        cases[f"screen wrapper, {row_name}"] = (
+            lambda q=q, s=s, w=wrapper: w(q, s, qblock=QB))
+    return cases
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=7)
@@ -134,6 +233,7 @@ def main() -> None:
             lambda r=row: k_mod.safl_fold(r, vec, w, out=r))
         cases[f"torch.add, {row_name}"] = (
             lambda r=row: torch.add(r, vec, alpha=w))
+    cases.update(screen_cases(g))
     b, s, h, hkv, hd = FLASH_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn((b, s, h, hd), device="cuda", generator=g).to(dtype)
@@ -156,13 +256,14 @@ def main() -> None:
             line[key] = dict(median=statistics.median(xs), min=min(xs),
                              max=max(xs))
         rows_out.append(line)
-        print(f"  {c:46s} " + "  ".join(
+        print(f"  {c:52s} " + "  ".join(
             f"{k} {line[k]['median']:.5f} ({line[k]['min']:.5f}-"
             f"{line[k]['max']:.5f})" for k in ("no hold", "hold")))
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(smi=smi, torch=torch.__version__,
                                    rounds=args.rounds, launches=LAUNCHES,
-                                   hold_cycles=HOLD_CYCLES, d=D,
+                                   hold_cycles=HOLD_CYCLES, d=D, dq=DQ,
+                                   nk=NK,
                                    cases=rows_out), indent=1))
 
 

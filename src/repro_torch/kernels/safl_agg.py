@@ -48,7 +48,10 @@ and ``wgmma`` buy nothing a bandwidth-bound pass needs first.  The f32
 fold alone moves 8-byte vectors, one a thread over an exact grid, from
 the output's first 128-byte line on (a bank row may start anywhere in a
 line); the grid-stride loop and 16-byte vectors timed slower
-(:mod:`repro_torch.kernels.hold_timing`).  The top-k kernels scatter
+(:mod:`repro_torch.kernels.hold_timing`).  The quantized screens are
+one launch a call (blocks of 8 warps, a 16-byte load a lane summed by
+``__dp4a``), the row's last block summing its partials (an integer
+counter per row, no float atomics).  The top-k kernels scatter
 each kept lane into the bank instead; their K-row sum is one scatter
 launch per row on one stream, so rows that collide on a coordinate add
 in row order (no float atomics).
@@ -82,11 +85,14 @@ MODES = {"fedsgd": 0, "avg": 1, "mix": 2, "sum": 3}
 #: most rows the aggregate kernels take: their K weights live in one
 #: block's shared memory (48 KB without an opt-in)
 MAX_K = 4096
-#: f32 lanes per chunk of a screened row, and q8 quantization blocks per
-#: chunk: the kernels' kScreenChunk and kScreenQBlocks, which size the
-#: (K, chunks) scratch of partial sums
+#: f32 lanes per chunk of a screened row: the kernel's kScreenChunk, which
+#: sizes the f32 screen's (K, chunks) scratch of partial sums
 SCREEN_CHUNK = 8192
-SCREEN_QBLOCKS = 32
+#: warps per block of the quantized screens, and the bytes of a row each
+#: warp covers: the kernel's kScreenQWarps and kScreenQLoads * 512, which
+#: size their (K, chunks) scratch (see :func:`screen_q_chunks`)
+SCREEN_QWARPS = 8
+SCREEN_WARP_BYTES = 512
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,7 +113,7 @@ def _lib() -> ctypes.CDLL:
         "sdga_aggregate_q8": [p, p, p, p, p, p, p, p, p, i64, i64, i64, f, f,
                               f, f, f, f, i32, i32, p],
         "screen_rows_f32": [p, p, p, i64, i64, i64, p],
-        "screen_rows_q8": [p, p, p, p, i64, i64, i32, i64, p],
+        "screen_rows_q8": [p, p, p, p, p, i64, i64, i32, i64, p],
         "safl_fold_topk": [p, p, p, p, p, f, f, i64, i64, i32, p],
         "safl_aggregate_topk": [p, p, p, p, p, i64, i64, i64, i32, p],
     }
@@ -673,20 +679,53 @@ def screen_rows_q4_plain(q: torch.Tensor, scales: torch.Tensor, *,
                     q, scales)
 
 
+def screen_q_blocks(bbytes: int) -> int:
+    """Quantization blocks of ``bbytes`` bytes that one warp of the
+    quantized screens takes (the kernel's ``screen_qpw``)."""
+    return max(1, SCREEN_WARP_BYTES // bbytes)
+
+
+def screen_q_chunks(nb: int, bbytes: int) -> int:
+    """Chunks (blocks of threads) per row of ``nb`` quantization blocks of
+    ``bbytes`` bytes in the quantized screens: a function of the row's
+    length and the block size only."""
+    return -(-nb // (SCREEN_QWARPS * screen_q_blocks(bbytes)))
+
+
+@functools.lru_cache(maxsize=None)
+def _screen_counts(device: int, stream: int) -> torch.Tensor:
+    """The quantized screens' per-row arrival counters on CUDA device
+    ``device`` for launches on ``stream``: MAX_K int32, zeroed once (on
+    that stream, the current one); every launch leaves them zero."""
+    return torch.zeros(MAX_K, dtype=torch.int32,
+                       device=torch.device("cuda", device))
+
+
 def _screen_q(wrapper, plain, packed: bool, q, scales, qblock):
-    """A quantized screen: ``plain`` on the CPU, else the kernel named
-    like ``wrapper`` (two launches, counted as one)."""
+    """A quantized screen: ``plain`` on the CPU, else one launch of the
+    kernel named like ``wrapper``.  Each block of a (chunks, K) grid
+    writes its chunk's partial sum into the ``part`` scratch and bumps its
+    row's integer counter; the row's last block sums the partials in index
+    order and resets the counter, so the counters (allocated and zeroed
+    once per device and stream, not per call: a memset would be a second
+    launch) are zero between launches.  16-byte loads where the rows
+    start 16-byte aligned and a block spans a multiple of 16 bytes, else
+    one byte a lane in the same partition (the same sums bitwise)."""
     name = wrapper.__name__
     if not _on_cuda(q, name):
         return plain(q, scales, qblock=qblock)
     qshift = _qshift(qblock)
+    if packed and qblock < 2:
+        raise ValueError(f"{name}: qblock={qblock} is less than a byte")
     k, dq = _check_q(q, scales, qblock, packed)
-    chunks = -(-(dq // qblock) // SCREEN_QBLOCKS)
+    chunks = screen_q_chunks(dq // qblock, qblock // 2 if packed else qblock)
     part = torch.empty((k, chunks), dtype=torch.float32, device=q.device)
     out = torch.empty(k, dtype=torch.float32, device=q.device)
+    stream = _stream(q)
+    counts = _screen_counts(q.device.index, stream)
     rc = getattr(_lib(), name)(q.data_ptr(), scales.data_ptr(),
-                               part.data_ptr(), out.data_ptr(), k, dq,
-                               qshift, chunks, _stream(q))
+                               part.data_ptr(), counts.data_ptr(),
+                               out.data_ptr(), k, dq, qshift, chunks, stream)
     _raise_on(rc, name)
     wrapper.launches += 1
     return out
