@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
      ``flash_attention.cu``), started together; the ptxas report must
-     show no spills in the bf16 flash kernel (``FLASH_SYMBOL``)
+     show no spills in the bf16 flash kernel (``FLASH_SYMBOL``) and in
+     the two top-k kernels
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -34,10 +35,12 @@ Phases, each of which exits non-zero on failure:
      on the card (``prng.uniform_torch``) against the numpy threefry at
      the paper CNN's (4209, 512): bitwise.  The two top-k kernels at the main
      path's K = 4, nk = 215,552 (rows colliding on a coordinate in 4 and
-     in 3 uploads) and at the ragged D with K = 3, nk = Dq (pad lanes
-     ranked) and an empty row: the fold at beta 1 and 0.7, in place and
-     not, the K-row sum, and the chain of in-place folds against the K-row
-     sum, bitwise.  The int8 pair at (4209, 512) and 37 rows with a zero
+     in 3 uploads), at K = 17 there (more rows than the K-row sum loads
+     ahead) and at the ragged D with K = 3, nk = Dq (pad lanes ranked)
+     and an empty row: the fold at beta 1 and 0.7, in place and not, the
+     K-row sum, and the chain of in-place folds against the K-row sum,
+     bitwise; and on copies of the rows one lane off (idx and qv, then
+     idx alone), bitwise the aligned calls.  The int8 pair at (4209, 512) and 37 rows with a zero
      row, exact .5 ties and a NaN row: bitwise (NaN scales in the same
      rows).  Flash attention in f32 and bf16, causal and not, at the
      reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
@@ -60,9 +63,11 @@ Phases, each of which exits non-zero on failure:
      kernels, the int8 pair and flash attention at the
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
-     3 calls of each quantized screen captured into a CUDA graph, whose
-     nodes (read through libcuda's graph API) must be one launch of the screen
-     kernel a call and nothing else, its replay equal to the eager sums,
+     3 calls of each quantized screen, of the top-k fold (beta 1, in
+     place) and of the top-k K-row sum (K = 4) captured into a CUDA
+     graph, whose nodes (read through libcuda's graph API) must be one
+     launch of the kernel a call and nothing else (no memset; the K-row
+     sum's launch cooperative), its replay equal to the eager outputs,
      and one ``torch.profiler`` pass over 3 calls of each, which must show
      the same where it sees any device activity;
      and the codec's time per upload: the q4 draws alone and the
@@ -536,12 +541,17 @@ def collisions(torch, idx, d):
 
 def check_topk(torch, k_mod, report, worst):
     """The two top-k kernels against their plain versions at the main
-    path's shape (K = 4, nk = 215,552) and at the ragged D = 4099 with
-    K = 3, nk = Dq = 4608 (pad lanes ranked) and an empty row: the fold
-    at beta 1 and 0.7, in place and not, the K-row sum, and the chain of
-    in-place folds from zeros against the K-row sum, all bitwise."""
+    path's shape (K = 4, nk = 215,552), at K = 17 there (more rows than
+    the K-row sum loads ahead) and at the ragged D = 4099 with K = 3, nk
+    = Dq = 4608 (pad lanes ranked) and an empty row: the fold at beta 1
+    and 0.7, in place and not, the K-row sum, and the chain of in-place
+    folds from zeros against the K-row sum, all bitwise; then both
+    kernels on copies of the rows one lane off their boundaries (idx and
+    qv: the K-row sum's scalar head and tail around its vectors; idx
+    alone: every lane alone), bitwise the aligned calls."""
     g = torch.Generator(device="cuda").manual_seed(5)
     for d, k, nk, empty in ((D_FULL, K_MAIN, NK_FULL, ()),
+                            (D_FULL, 17, NK_FULL, ()),
                             (D_RAGGED, K_RAGGED, dq_of(D_RAGGED), (1,))):
         idx, q, s = topk_rows(torch, k, d, nk, g, empty)
         most, threes = collisions(torch, idx, d)
@@ -579,6 +589,19 @@ def check_topk(torch, k_mod, report, worst):
             k_mod.safl_fold_topk(chain, idx[r], q[r], s[r], wr, out=chain)
         compare(torch, report, worst, "safl_aggregate_topk", agg, chain, True,
                 vs="fold_chain", **lanes)
+        aligned = acc.clone()
+        k_mod.safl_fold_topk(aligned, idx[0], q[0], s[0], 0.37, out=aligned)
+        for rows, (mi, mq) in (
+                ("idx and qv one lane off", (misaligned(torch, idx),
+                                             misaligned(torch, q))),
+                ("idx one lane off", (misaligned(torch, idx), q))):
+            row = acc.clone()
+            k_mod.safl_fold_topk(row, mi[0], mq[0], s[0], 0.37, out=row)
+            compare(torch, report, worst, "safl_fold_topk", row, aligned,
+                    True, rows=rows, vs="aligned", **lanes)
+            compare(torch, report, worst, "safl_aggregate_topk",
+                    k_mod.safl_aggregate_topk(mi, mq, s, w, d), agg, True,
+                    rows=rows, vs="aligned", **lanes)
     torch.cuda.synchronize()
 
 
@@ -758,10 +781,11 @@ def compare_sums(torch, report, worst, kernel, got, want, **info):
 
 
 def misaligned(torch, t):
-    """A contiguous copy of the int8 rows ``t`` that starts 1 byte past
-    the (aligned) start of its buffer: the quantized screens then take
-    their byte path."""
-    view = torch.empty(t.numel() + 16, dtype=torch.int8,
+    """A contiguous copy of ``t`` that starts one element past the
+    (aligned) start of its buffer: int8 rows 1 byte off (the quantized
+    screens then take their byte path), int32 top-k coordinates one lane
+    (4 bytes) off."""
+    view = torch.empty(t.numel() + 16, dtype=t.dtype,
                        device=t.device)[1:1 + t.numel()].view(t.shape)
     view.copy_(t)
     return view
@@ -1121,12 +1145,18 @@ def _cu_name(cu, params):
     return None
 
 
-def graph_kernels(torch, fn, calls):
+def graph_kernels(torch, fn, calls, restore=None, cooperative=False):
     """``calls`` calls of ``fn`` captured into one CUDA graph on a side
-    stream (after a warm-up call there, which makes that stream's per-row
-    counters), the graph's nodes read back through libcuda: a list
-    of (node type, grid, block, symbol or None), and whether one replay of
-    the graph gives each call's output bitwise equal to the warm-up's."""
+    stream (after eager calls there, which make that stream's per-row
+    counters), the graph's nodes read back through libcuda: a list of
+    (node type, grid, block, symbol or None, the cooperative launch
+    attribute or None where libcuda does not say), and whether one replay
+    of the graph gives each call's output bitwise equal to the eager
+    calls' (``restore`` puts an in-place call's state back before the
+    eager calls and before the replay; all its calls return the one
+    tensor, held after the last call).  With ``cooperative``, a kernel
+    node whose attribute reads 0 fails before the replay (a grid barrier
+    outside a cooperative launch is undefined)."""
     cu = ctypes.CDLL("libcuda.so.1")
 
     def check(rc, what):
@@ -1136,7 +1166,9 @@ def graph_kernels(torch, fn, calls):
     side = torch.cuda.Stream()
     torch.cuda.synchronize()
     with torch.cuda.stream(side):
-        want = fn()
+        if restore:
+            restore()
+        want = [fn().clone() for _ in range(calls)]
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g, stream=side):
@@ -1152,93 +1184,133 @@ def graph_kernels(torch, fn, calls):
         check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
                                     ctypes.byref(kind)), "cuGraphNodeGetType")
         if kind.value != 0:  # CU_GRAPH_NODE_TYPE_KERNEL
-            found.append((kind.value, None, None, None))
+            found.append((kind.value, None, None, None, None))
             continue
         params = _KernelNodeParams()
         check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
                                                ctypes.byref(params)),
               "cuGraphKernelNodeGetParams_v2")
+        # CU_LAUNCH_ATTRIBUTE_COOPERATIVE (2) into a CUlaunchAttributeValue
+        value = (ctypes.c_ubyte * 64)()
+        coop = (None if cu.cuGraphKernelNodeGetAttribute(
+            ctypes.c_void_p(node), 2, ctypes.byref(value))
+            else int.from_bytes(bytes(value[:4]), "little"))
         found.append((0, tuple(params.grid), tuple(params.block),
-                      _cu_name(cu, params)))
+                      _cu_name(cu, params), coop))
+    if cooperative and any(f[0] == 0 and f[4] == 0 for f in found):
+        fail(f"captured kernel nodes {found} lost the cooperative launch "
+             "attribute")
+    if restore:
+        with torch.cuda.stream(side):
+            restore()
+    torch.cuda.synchronize()
     g.replay()
     torch.cuda.synchronize()
-    same = all(torch.equal(o, want) for o in outs)
+    if restore:
+        same = torch.equal(outs[-1], want[-1])
+    else:
+        same = all(torch.equal(o, w) for o, w in zip(outs, want))
     del g, outs
     return found, same
 
 
 def check_one_launch(torch, k_mod, calls=3):
-    """Each quantized screen at the main path's K = 1 issues one device
-    kernel a call and nothing else (no memset, no copy, no second kernel),
-    seen two ways: ``calls`` calls of each captured into a CUDA graph,
-    whose nodes must be ``calls`` launches of the screen kernel on the
-    (chunks, K) grid, a replay giving the eager sums bitwise; and one
-    ``torch.profiler`` pass over ``calls`` calls of each (after a warm-up
-    call), whose device events, where it sees any, must be exactly those
-    launches.  A profiler that sees no device activity at all (CUPTI
-    taken or missing) is reported, not counted."""
+    """Each quantized screen at the main path's K = 1, the top-k fold at
+    beta 1 in place (as the engine folds) and the top-k K-row sum at the
+    main path's K = 4 issue one device kernel a call and nothing else (no
+    memset, no copy, no second kernel), seen two ways: ``calls`` calls of
+    each captured into a CUDA graph, whose nodes must be ``calls``
+    launches of the kernel (the screens on their (chunks, K) grid, each
+    top-k kernel on one grid in every call, the K-row sum's nodes
+    cooperative where libcuda reads the attribute), a replay giving the
+    eager outputs bitwise; and one ``torch.profiler`` pass over ``calls``
+    calls of each (after a warm-up call), whose device events, where it
+    sees any, must be exactly those launches.  A profiler that sees no
+    device activity at all (CUPTI taken or missing) is reported, not
+    counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device="cuda").manual_seed(5)
     q, s = q8_rows(torch, 1, D_FULL, g)
     p4, s4 = q4_rows(torch, 1, D_FULL, g)
-    calls_of = {"screen_rows_q8": lambda: k_mod.screen_rows_q8(
-                    q, s, qblock=QB),
-                "screen_rows_q4": lambda: k_mod.screen_rows_q4(
-                    p4, s4, qblock=QB)}
-    packed_of = {"screen_rows_q8": "false", "screen_rows_q4": "true"}
+    idx, qv, sv = topk_rows(torch, K_MAIN, D_FULL, NK_FULL, g)
+    acc = torch.randn((D_FULL,), device="cuda", generator=g)
+    base = acc.clone()
+    w = 0.5 + 3.5 * torch.rand((K_MAIN,), device="cuda", generator=g)
+    nb = dq_of(D_FULL) // QB
+    # wrapper: (call, restore, symbols (demangled, mangled), grid or None
+    # (the same in every call), block or None)
+    cases = {
+        "screen_rows_q8": (
+            lambda: k_mod.screen_rows_q8(q, s, qblock=QB), None,
+            ("screen_q_kernel<false", "screen_q_kernelILb0"),
+            (k_mod.screen_q_chunks(nb, QB), 1, 1),
+            (k_mod.SCREEN_QWARPS * 32, 1, 1)),
+        "screen_rows_q4": (
+            lambda: k_mod.screen_rows_q4(p4, s4, qblock=QB), None,
+            ("screen_q_kernel<true", "screen_q_kernelILb1"),
+            (k_mod.screen_q_chunks(nb, QB // 2), 1, 1),
+            (k_mod.SCREEN_QWARPS * 32, 1, 1)),
+        "safl_fold_topk": (
+            lambda: k_mod.safl_fold_topk(acc, idx[0], qv[0], sv[0], 0.37,
+                                         out=acc),
+            lambda: acc.copy_(base), ("fold_topk_kernel",), None, None),
+        "safl_aggregate_topk": (
+            lambda: k_mod.safl_aggregate_topk(idx, qv, sv, w, D_FULL), None,
+            ("aggregate_topk_kernel",), None, None)}
 
-    def is_screen(name, wrapper):
-        # screen_q_kernel<kPacked, ...>, q8 being kPacked = false, by its
-        # demangled or its mangled name
-        packed = packed_of[wrapper]
-        return (f"screen_q_kernel<{packed}" in name
-                or f"screen_q_kernelILb{int(packed == 'true')}" in name)
+    def is_kernel(name, wrapper):
+        return any(sym in name for sym in cases[wrapper][2])
 
     graphs = {}
-    for wrapper, fn in calls_of.items():
-        found, same = graph_kernels(torch, fn, calls)
-        nb = dq_of(D_FULL) // QB
-        grid = (k_mod.screen_q_chunks(
-            nb, QB // 2 if wrapper == "screen_rows_q4" else QB), 1, 1)
-        block = (k_mod.SCREEN_QWARPS * 32, 1, 1)
+    for wrapper, (fn, restore, _, grid, block) in cases.items():
+        found, same = graph_kernels(
+            torch, fn, calls, restore,
+            cooperative=wrapper == "safl_aggregate_topk")
         names = sorted({str(f[3]) for f in found})
+        grids = sorted({f[1] for f in found if f[1]})
+        blocks = sorted({f[2] for f in found if f[2]})
+        coop = sorted({str(f[4]) for f in found})
         print(f"  CUDA graph of {calls} calls of {wrapper}: {len(found)} "
               f"nodes, types {sorted({f[0] for f in found})}, grids "
-              f"{sorted({f[1] for f in found if f[1]})} (want {grid}), "
-              f"blocks {sorted({f[2] for f in found if f[2]})}, symbols "
-              f"{names}; replay bitwise equal to the eager sum: {same}")
-        if (len(found) != calls or any(
-                f[:3] != (0, grid, block)
-                or (f[3] is not None and not is_screen(f[3], wrapper))
-                for f in found) or not same):
-            fail(f"{wrapper} captured as {found}, not one screen kernel a "
-                 "call, or its replay differs")
-        graphs[wrapper] = dict(nodes=len(found), grid=grid, block=block,
-                               symbols=names, replay_equal=same)
+              f"{grids} (want {grid or 'one grid'}), blocks {blocks}, "
+              f"cooperative {coop}, symbols {names}; replay bitwise equal "
+              f"to the eager calls: {same}")
+        if (len(found) != calls
+                or any(f[0] != 0 or (grid and f[1] != grid)
+                       or (block and f[2] != block)
+                       or (f[3] is not None and not is_kernel(f[3], wrapper))
+                       for f in found)
+                or len(grids) != 1 or len(blocks) != 1 or not same):
+            fail(f"{wrapper} captured as {found}, not one kernel a call, or "
+                 "its replay differs")
+        graphs[wrapper] = dict(nodes=len(found), grid=grids[0],
+                               block=blocks[0], symbols=names,
+                               cooperative=coop, replay_equal=same)
 
-    for fn in calls_of.values():
+    for fn, *_ in cases.values():
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for fn in calls_of.values():
+        for fn, *_ in cases.values():
             for _ in range(calls):
                 fn()
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()
              if e.device_type == DeviceType.CUDA]
-    got = {wrapper: sum(is_screen(n, wrapper) for n in names)
-           for wrapper in calls_of}
+    got = {wrapper: sum(is_kernel(n, wrapper) for n in names)
+           for wrapper in cases}
     if not names:
-        print(f"  profiler: no device events over {calls} calls of each "
-              "quantized screen (no device activity traced): not counted")
+        print(f"  profiler: no device events over {calls} calls of each of "
+              f"{sorted(cases)} (no device activity traced): not counted")
     else:
         print(f"  profiler: {len(names)} device events over {calls} calls "
-              f"of each quantized screen: {got} (tolerance: exactly "
+              f"of each of {sorted(cases)}: {got} (tolerance: exactly "
               f"{calls} each, nothing else)")
-        if got != dict.fromkeys(calls_of, calls) or len(names) != 2 * calls:
-            fail(f"the quantized screens issued {sorted(set(names))}, not "
+        if (got != dict.fromkeys(cases, calls)
+                or len(names) != len(cases) * calls):
+            fail(f"the one-launch kernels issued {sorted(set(names))}, not "
                  "one kernel per call")
     return dict(calls=calls, graphs=graphs, kernels=got,
                 device_events=len(names))
@@ -2061,6 +2133,11 @@ def main() -> None:
           f"bytes {sorted(spilled.values())} (tolerance: 0)")
     if not spilled or any(spilled.values()):
         fail(f"{FLASH_SYMBOL} spills or is missing from the ptxas report")
+    spilled = spills(infos["safl_agg"]["log"], "topk_kernel")
+    print(f"  top-k kernels: {len(spilled)} instantiations, spill bytes "
+          f"{sorted(spilled.values())} (tolerance: 0)")
+    if len(spilled) != 2 or any(spilled.values()):
+        fail("the top-k kernels spill or are missing from the ptxas report")
 
     # device memory each phase leaves allocated once its garbage is
     # collected (phase 7's peaks include what is left when it starts)
@@ -2129,7 +2206,7 @@ def main() -> None:
                        cuda=torch.version.cuda, build_s=build_s,
                        checks=check_rows, timing=timing,
                        timer_floor_ms=floor_ms, codec_ms=codec_ms,
-                       screens_one_launch=one_launch,
+                       one_launch=one_launch,
                        small=small, codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,
                        compression_path=compression, serving=serving,

@@ -81,13 +81,46 @@
 // (top-k picks each coordinate once; faults never touch them), so one
 // row's scatter needs no atomics.  Rows of different uploads do collide,
 // and a float sum over three or more of them depends on its order, so
-// the K-row sum is K scatter launches on one stream over a zeroed
-// output: stream order is row order, the chain 0 -> fold(row 0) -> ...
-// -> fold(row K-1) that the streaming channel computes.  Bound: the
-// payload (5 bytes a lane + the scales) and a read and a write of each
-// kept coordinate of the bank (the output's memset on the K-row sum);
-// each scattered 4-byte read-modify-write moves a whole 32-byte sector.
+// the K-row sum adds the rows in row order over a zeroed output: the
+// chain 0 -> fold(row 0) -> ... -> fold(row K-1) that the streaming
+// channel computes.  Bound: the payload (5 bytes a lane + the scales) and
+// a read and a write of each kept coordinate of the bank (and the
+// output's zeros on the K-row sum); each scattered 4-byte
+// read-modify-write moves a whole 32-byte sector.  What sets the time is
+// the rate of scattered accesses, not the bytes: on one H100 one launch
+// of a row's 215,552 read-modify-writes at ranked (random) coordinates
+// takes 0.011 ms with the bank in L2, its gathers alone 0.0069, its
+// stores alone 0.0085, the same row at sorted coordinates 0.0074, an
+// empty launch 0.005 (kernels/hold_timing.py's probes), and both bounds
+// sit under that floor, so each call is one launch:
 //
+// * the fold (beta == 1 in place, as the engine runs it) takes
+//   kTopkFoldVec lanes a thread over an exact grid of kTopkThreads-thread
+//   blocks: one load of the vector's idx (4V bytes) and of its qv (V
+//   bytes) and the lanes' scale (two where a vector straddles a qblock),
+//   all the vector's gathers of acc[idx] in flight before its stores.
+//   Lanes whose idx / qv addresses are not vector-aligned (the head up to
+//   the first aligned lane, the tail past the last whole vector, or every
+//   lane where the two rows disagree mod a vector or qblock < V) go one a
+//   thread in the same launch (topk_span).  One lane a thread in blocks
+//   of 128 timed fastest: the most warps to wait on the dependent loads
+//   (idx, then acc[idx]); 2, 4 and 8 lanes and larger blocks timed
+//   slower (csrc/topk_variants.cu, kernels/hold_timing.py);
+// * the K-row sum is one cooperative launch of as many blocks as the card
+//   holds resident: each thread loads its items of the first
+//   kTopkPrefetch rows into registers, writes its share of the zeros,
+//   then the rows are scattered in order with a grid-wide barrier
+//   (cooperative_groups grid.sync(), which orders memory) before each
+//   row; rows past the prefetch load as they go.  Each row's items are
+//   cut into one run of whole warps a block, so a row spreads over every
+//   SM.  Row 0 adds to the zeros it wrote without reading them back
+//   (+0 + v, the same fadd); the later rows gather through L2 (__ldcg:
+//   another SM wrote the coordinate in an earlier row), where the 8.6 MB
+//   output stays.  A barrier costs 0.0012-0.0023 ms (more blocks, more),
+//   under the launch it replaces; kTopkAggVec = 2 lanes a thread in
+//   blocks of kTopkAggThreads = 512 timed fastest at the main path's
+//   K = 4.
+
 // Floating-point order is part of the contract: every product and sum goes
 // through the _rn intrinsics, which nvcc never contracts into an FMA, so
 // the kernels round exactly like the plain PyTorch versions beside their
@@ -96,6 +129,7 @@
 // channel (a chain of folds, then the step in PyTorch ops) bit-equal to
 // the buffered one (one aggregate).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -592,25 +626,254 @@ __global__ void scale_kernel(const float* a, float* o, float beta,
   }
 }
 
-// acc[idx[j]] += w * ((float)qv[j] * s[j >> qshift]) for the lanes j < nk
-// with idx[j] in [0, d); the weight is *wp when wp is set (the K-row sum
-// reads row k's weight from the device), else w.
-__global__ void scatter_topk_kernel(float* acc,
-                                    const int32_t* __restrict__ idx,
-                                    const int8_t* __restrict__ qv,
-                                    const float* __restrict__ s,
-                                    const float* __restrict__ wp, float w,
-                                    int64_t nk, int64_t d, int qshift) {
-  const float wk = wp != nullptr ? *wp : w;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       j < nk; j += stride) {
-    const int64_t i = idx[j];
-    if (i < 0 || i >= d) continue;
-    const float v = __fmul_rn(
-        wk, __fmul_rn(static_cast<float>(qv[j]), s[j >> qshift]));
-    acc[i] = __fadd_rn(acc[i], v);
+// Lanes a thread and threads a block of the top-k fold and of the K-row
+// sum, and rows the K-row sum loads before its zeros (the main path's K).
+// Keep in step with tests/test_torch_topk_kernels.py, which models the
+// lane partition and the phases from these numbers.
+constexpr int kTopkFoldVec = 1;
+constexpr int kTopkThreads = 128;
+constexpr int kTopkAggVec = 2;
+constexpr int kTopkAggThreads = 512;
+constexpr int kTopkPrefetch = 4;
+
+// The lanes of one sparse row (idx, qv) of nk lanes, for vectors of V:
+// lanes [0, head) one a thread, then nv vectors of V (vector v: lanes
+// head + V*v .. + V-1, its idx 4V-byte and its qv V-byte aligned), then
+// the tail [head + V*nv, nk) one a thread.  head is the lanes up to the
+// first aligned one when idx and qv sit at the same lane offset mod V and
+// a vector spans at most two qblocks (qblock >= V), else nk (every lane
+// alone).  Item it < nv is vector it; item nv + u is lane u of the head
+// for u < head, else lane u + V*nv.
+struct TopkSpan {
+  int64_t head, nv, items;
+};
+
+template <int V>
+__host__ __device__ __forceinline__ TopkSpan topk_span(const int32_t* idx,
+                                                       const int8_t* qv,
+                                                       int64_t nk,
+                                                       int qshift) {
+  const int64_t a =
+      static_cast<int64_t>((reinterpret_cast<uintptr_t>(idx) >> 2) % V);
+  const int64_t b = static_cast<int64_t>(reinterpret_cast<uintptr_t>(qv) % V);
+  int64_t head = a == b && (int64_t{1} << qshift) >= V ? (V - a) % V : nk;
+  if (head > nk) head = nk;
+  const int64_t nv = (nk - head) / V;
+  return TopkSpan{head, nv, nk - (V - 1) * nv};
+}
+
+// One item of a sparse row in registers: V coordinates (-1: no lane), the
+// V int8 values packed 4 a word, the scales of the first and the last
+// lane, and the lanes (from the first) that take the first.
+template <int V>
+struct TopkItem {
+  int32_t i[V];
+  uint32_t q[(V + 3) / 4];
+  float s0, s1;
+  int split;
+};
+
+// Item ``it`` of the row (idx, qv, s) laid out by ``sp``.  Loads only: no
+// value is used here, so the loads of several items stay in flight.
+template <int V>
+__device__ __forceinline__ TopkItem<V> load_topk_item(
+    const int32_t* __restrict__ idx, const int8_t* __restrict__ qv,
+    const float* __restrict__ s, const TopkSpan& sp, int64_t it,
+    int qshift) {
+  TopkItem<V> x;
+  if (it < sp.nv) {
+    const int64_t j0 = sp.head + V * it;
+    if constexpr (V == 1) {
+      x.i[0] = __ldg(idx + j0);
+      x.q[0] = static_cast<uint8_t>(__ldg(qv + j0));
+    } else if constexpr (V == 2) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(idx + j0));
+      x.i[0] = v.x;
+      x.i[1] = v.y;
+      x.q[0] = static_cast<uint16_t>(
+          __ldg(reinterpret_cast<const short*>(qv + j0)));
+    } else if constexpr (V == 4) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(idx + j0));
+      x.i[0] = v.x;
+      x.i[1] = v.y;
+      x.i[2] = v.z;
+      x.i[3] = v.w;
+      x.q[0] = static_cast<uint32_t>(
+          __ldg(reinterpret_cast<const int*>(qv + j0)));
+    } else {
+      static_assert(V == 8, "vectors of 1, 2, 4 or 8 lanes");
+      const int4 v0 = __ldg(reinterpret_cast<const int4*>(idx + j0));
+      const int4 v1 = __ldg(reinterpret_cast<const int4*>(idx + j0 + 4));
+      x.i[0] = v0.x;
+      x.i[1] = v0.y;
+      x.i[2] = v0.z;
+      x.i[3] = v0.w;
+      x.i[4] = v1.x;
+      x.i[5] = v1.y;
+      x.i[6] = v1.z;
+      x.i[7] = v1.w;
+      const int2 w = __ldg(reinterpret_cast<const int2*>(qv + j0));
+      x.q[0] = static_cast<uint32_t>(w.x);
+      x.q[1] = static_cast<uint32_t>(w.y);
+    }
+    const int64_t b0 = j0 >> qshift;
+    const int64_t b1 = (j0 + V - 1) >> qshift;
+    x.s0 = __ldg(s + b0);
+    x.s1 = b1 == b0 ? x.s0 : __ldg(s + b1);
+    x.split = static_cast<int>(((b0 + 1) << qshift) - j0);
+  } else {
+    const int64_t u = it - sp.nv;
+    const int64_t j = u < sp.head ? u : u + V * sp.nv;
+    x.i[0] = __ldg(idx + j);
+#pragma unroll
+    for (int l = 1; l < V; ++l) x.i[l] = -1;
+    x.q[0] = static_cast<uint8_t>(__ldg(qv + j));
+    x.s0 = x.s1 = __ldg(s + (j >> qshift));
+    x.split = V;
+  }
+  return x;
+}
+
+// acc[i] += w * ((float)q * s) for the item's lanes with i in [0, d): the
+// gathers of all lanes first (through L2: after a grid barrier another
+// SM may have written the coordinate), then the stores.  kZero: every
+// coordinate is known to hold +0 (the K-row sum's first row, after its
+// zeros), so the gathers are skipped and +0 + w*(q*s) is stored: the same
+// fadd, so -0 still lands as +0.
+template <int V, bool kZero = false>
+__device__ __forceinline__ void scatter_topk_item(float* acc,
+                                                  const TopkItem<V>& x,
+                                                  float w, int64_t d) {
+  float a[V];
+#pragma unroll
+  for (int l = 0; l < V; ++l) {
+    const int64_t i = x.i[l];
+    a[l] = kZero || i < 0 || i >= d ? 0.f : __ldcg(acc + i);
+  }
+#pragma unroll
+  for (int l = 0; l < V; ++l) {
+    const int64_t i = x.i[l];
+    if (i >= 0 && i < d) {
+      const int q = static_cast<int8_t>(x.q[l / 4] >> (8 * (l % 4)));
+      const float sc = l < x.split ? x.s0 : x.s1;
+      acc[i] = __fadd_rn(a[l], __fmul_rn(w, __fmul_rn(static_cast<float>(q),
+                                                      sc)));
+    }
+  }
+}
+
+// The fold's scatter: thread it of an exact grid takes item it.
+template <int V, int T>
+__global__ void __launch_bounds__(T)
+    fold_topk_kernel(float* acc, const int32_t* __restrict__ idx,
+                     const int8_t* __restrict__ qv,
+                     const float* __restrict__ s, float w, TopkSpan sp,
+                     int64_t d, int qshift) {
+  const int64_t it = static_cast<int64_t>(blockIdx.x) * T + threadIdx.x;
+  if (it < sp.items) {
+    scatter_topk_item<V>(acc, load_topk_item<V>(idx, qv, s, sp, it, qshift),
+                         w, d);
+  }
+}
+
+// Row r of the K-row sum as this block sees it: the row's span, and the
+// block's run [lo, hi) of its items (runs of whole warps, one a block).
+struct TopkRowPlan {
+  TopkSpan sp;
+  int64_t lo, hi;
+};
+
+template <int V>
+__device__ __forceinline__ TopkRowPlan topk_row_plan(const int32_t* idx,
+                                                     const int8_t* qv,
+                                                     int64_t nk,
+                                                     int qshift) {
+  const TopkSpan sp = topk_span<V>(idx, qv, nk, qshift);
+  const int64_t g = gridDim.x;
+  const int64_t run = ((sp.items + g - 1) / g + 31) / 32 * 32;
+  const int64_t lo = blockIdx.x * run;
+  return TopkRowPlan{sp, lo, lo + run < sp.items ? lo + run : sp.items};
+}
+
+// This thread's items of one row of the K-row sum, its first one
+// ``first`` when ``loaded`` (loaded before the zeros), the others loaded
+// here.
+template <int V, int T, bool kZero>
+__device__ __forceinline__ void aggregate_topk_row(
+    float* out, const int32_t* __restrict__ idx,
+    const int8_t* __restrict__ qv, const float* __restrict__ s, int64_t nk,
+    float w, int64_t d, int qshift, const TopkItem<V>& first, bool loaded) {
+  const TopkRowPlan pl = topk_row_plan<V>(idx, qv, nk, qshift);
+  int64_t it = pl.lo + threadIdx.x;
+  if (loaded && it < pl.hi) {
+    scatter_topk_item<V, kZero>(out, first, w, d);
+    it += T;
+  }
+  for (; it < pl.hi; it += T) {
+    scatter_topk_item<V, kZero>(
+        out, load_topk_item<V>(idx, qv, s, pl.sp, it, qshift), w, d);
+  }
+}
+
+// The K-row sum in one cooperative launch (grid: the card's resident
+// blocks): the first R rows' items of this thread loaded, the zeros
+// written (16-byte stores from out's first 16-byte boundary), then the
+// rows in order, a grid barrier before each; row 0 adds to the zeros
+// without reading them back.
+template <int V, int T, int R>
+__global__ void __launch_bounds__(T)
+    aggregate_topk_kernel(const int32_t* __restrict__ idx,
+                          const int8_t* __restrict__ qv,
+                          const float* __restrict__ s,
+                          const float* __restrict__ w, float* out, int64_t k,
+                          int64_t nk, int64_t d, int qshift) {
+  static_assert(R >= 1, "row 0 comes from the prefetch");
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int64_t nb = nk >> qshift;
+  TopkItem<V> pre[R];
+  float wr[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < k) {
+      const TopkRowPlan pl = topk_row_plan<V>(idx + r * nk, qv + r * nk, nk,
+                                              qshift);
+      const int64_t it = pl.lo + threadIdx.x;
+      if (it < pl.hi) {
+        pre[r] = load_topk_item<V>(idx + r * nk, qv + r * nk, s + r * nb,
+                                   pl.sp, it, qshift);
+      }
+      wr[r] = __ldg(w + r);
+    }
+  }
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * T + threadIdx.x;
+  const int64_t nthreads = static_cast<int64_t>(gridDim.x) * T;
+  int64_t zh = (16 - reinterpret_cast<uintptr_t>(out) % 16) % 16 / 4;
+  if (zh > d) zh = d;
+  const int64_t nz = (d - zh) / 4;
+  for (int64_t v = tid; v < nz; v += nthreads) {
+    reinterpret_cast<float4*>(out + zh)[v] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (tid < zh) out[tid] = 0.f;
+  if (tid < d - zh - 4 * nz) out[zh + 4 * nz + tid] = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (r < k) {
+      grid.sync();
+      if (r == 0) {
+        aggregate_topk_row<V, T, true>(out, idx, qv, s, nk, wr[0], d, qshift,
+                                       pre[0], true);
+      } else {
+        aggregate_topk_row<V, T, false>(out, idx + r * nk, qv + r * nk,
+                                        s + r * nb, nk, wr[r], d, qshift,
+                                        pre[r], true);
+      }
+    }
+  }
+  for (int64_t r = R; r < k; ++r) {
+    grid.sync();
+    aggregate_topk_row<V, T, false>(out, idx + r * nk, qv + r * nk,
+                                    s + r * nb, nk, __ldg(w + r), d, qshift,
+                                    pre[0], false);
   }
 }
 
@@ -769,6 +1032,95 @@ int launch_fold_f32(const void* acc, const void* vec, void* out, float w,
   return launch_fold_vec<kUnitBeta, float>(pa, pv, po, w, beta, d, 0, s);
 }
 
+// The fold of one sparse row into out (acc and out may alias): at beta ==
+// 1 in place, one launch of fold_topk_kernel over exactly the row's items;
+// otherwise out = beta*acc first (scale_kernel, a dense pass no engine run
+// takes: the engine folds top-k rows at beta 1 in place), then the
+// scatter into out.
+template <int V, int T>
+int launch_fold_topk(const void* acc, const void* idx, const void* qv,
+                     const void* scales, void* out, float w, float beta,
+                     int64_t d, int64_t nk, int qshift, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (beta != 1.0f || acc != out) {
+    scale_kernel<<<grid_for(d), kThreads, 0, s>>>(
+        static_cast<const float*>(acc), static_cast<float*>(out), beta, d);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const auto* ip = static_cast<const int32_t*>(idx);
+  const auto* qp = static_cast<const int8_t*>(qv);
+  const TopkSpan sp = topk_span<V>(ip, qp, nk, qshift);
+  const int64_t blocks = sp.items > 0 ? (sp.items + T - 1) / T : 1;
+  fold_topk_kernel<V, T><<<static_cast<unsigned>(blocks), T, 0, s>>>(
+      static_cast<float*>(out), ip, qp, static_cast<const float*>(scales), w,
+      sp, d, qshift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kMaxDevices = 64;
+
+// Blocks of ``kernel`` (``threads`` a block, no dynamic shared memory) the
+// current device holds resident at once, from its real register use:
+// queried once per device into ``cache`` (one per kernel); 0 with the
+// error in *err when a query fails.
+template <class Kernel>
+int64_t resident_blocks(Kernel kernel, int threads, int64_t* cache,
+                        cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < kMaxDevices && cache[dev] > 0) return cache[dev];
+  int per_sm = 0;
+  int sms = 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       threads, 0);
+  if (*err == cudaSuccess) {
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (*err != cudaSuccess) return 0;
+  const int64_t blocks = int64_t{per_sm} * sms;
+  if (blocks < 1) {
+    *err = cudaErrorCooperativeLaunchTooLarge;
+    return 0;
+  }
+  if (dev < kMaxDevices) cache[dev] = blocks;
+  return blocks;
+}
+
+// The K-row sum: one cooperative launch of aggregate_topk_kernel on the
+// card's resident blocks (a refused launch, e.g.
+// cudaErrorCooperativeLaunchTooLarge, is returned).
+template <int V, int T, int R>
+int launch_aggregate_topk(const void* idx, const void* qv,
+                          const void* scales, const void* w, void* out,
+                          int64_t k, int64_t nk, int64_t d, int qshift,
+                          void* stream) {
+  static int64_t cache[kMaxDevices] = {};
+  cudaError_t err = cudaSuccess;
+  const int64_t blocks =
+      resident_blocks(aggregate_topk_kernel<V, T, R>, T, cache, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, aggregate_topk_kernel<V, T, R>,
+                           static_cast<const int32_t*>(idx),
+                           static_cast<const int8_t*>(qv),
+                           static_cast<const float*>(scales),
+                           static_cast<const float*>(w),
+                           static_cast<float*>(out), k, nk, d, qshift);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -897,43 +1249,23 @@ int screen_rows_q4(const void* q, const void* scales, void* part,
 
 // The fold of one sparse row into acc (out may be acc: the in-place fold
 // into a bank row).  beta == 1 in place scatters the nk lanes only (1*acc
-// is exact); otherwise a dense pass writes out = beta*acc first.
+// is exact), one launch; otherwise a dense pass writes out = beta*acc
+// first, a second launch.
 int safl_fold_topk(const void* acc, const void* idx, const void* qv,
                    const void* scales, void* out, float w, float beta,
                    int64_t d, int64_t nk, int qshift, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (beta != 1.0f || acc != out) {
-    scale_kernel<<<grid_for(d), kThreads, 0, s>>>(
-        static_cast<const float*>(acc), static_cast<float*>(out), beta, d);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  scatter_topk_kernel<<<grid_for(nk), kThreads, 0, s>>>(
-      static_cast<float*>(out), static_cast<const int32_t*>(idx),
-      static_cast<const int8_t*>(qv), static_cast<const float*>(scales),
-      nullptr, w, nk, d, qshift);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fold_topk<kTopkFoldVec, kTopkThreads>(
+      acc, idx, qv, scales, out, w, beta, d, nk, qshift, stream);
 }
 
-// out (d,) = sum_k w[k] * scatter(dequant(qv[k]), idx[k]): a memset, then
-// one scatter launch per row, in row order on the stream.
+// out (d,) = sum_k w[k] * scatter(dequant(qv[k]), idx[k]), the rows added
+// in row order over zeros: one cooperative launch.
 int safl_aggregate_topk(const void* idx, const void* qv, const void* scales,
                         const void* w, void* out, int64_t k, int64_t nk,
                         int64_t d, int qshift, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, static_cast<size_t>(d) * 4, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t nb = nk >> qshift;
-  for (int64_t j = 0; j < k; ++j) {
-    scatter_topk_kernel<<<grid_for(nk), kThreads, 0, s>>>(
-        static_cast<float*>(out), static_cast<const int32_t*>(idx) + j * nk,
-        static_cast<const int8_t*>(qv) + j * nk,
-        static_cast<const float*>(scales) + j * nb,
-        static_cast<const float*>(w) + j, 0.f, nk, d, qshift);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  return launch_aggregate_topk<kTopkAggVec, kTopkAggThreads,
+                               kTopkPrefetch>(idx, qv, scales, w, out, k, nk,
+                                              d, qshift, stream);
 }
 
 }  // extern "C"

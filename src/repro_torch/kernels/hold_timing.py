@@ -1,13 +1,14 @@
 """Times the f32 fold's four designs, ``torch.add``, the quantized
-screens' three designs and the flash kernels on the card, each with and
+screens' three designs, the top-k kernels' designs and the flash
+kernels on the card, each with and
 without ``chip_smoke.py`` phase 4's device hold, in one process, so that
 a kernel's gain and the timing method's effect can be told apart.
 
     PYTHONPATH=src python -m repro_torch.kernels.hold_timing [--rounds 7]
 
 It builds ``csrc/safl_agg.cu`` (the package's kernels),
-``csrc/fold_variants.cu`` and ``csrc/screen_variants.cu`` (the other
-designs, for timing only), checks each design against its plain version
+``csrc/fold_variants.cu``, ``csrc/screen_variants.cu`` and
+``csrc/topk_variants.cu`` (the other designs, for timing only), checks each design against its plain version
 on the rows it is timed on, then times:
 
 - at D = 2,154,730 (the paper CNN's row), the package's fold (8-byte
@@ -32,12 +33,30 @@ on the rows it is timed on, then times:
   on the CNN's row; each design's sums are checked against
   ``screen_rows_q8_plain`` / ``screen_rows_q4_plain`` (isfinite verdicts
   exact, finite sums within ``rtol=1e-5``);
+- the top-k kernels on the paper CNN's top-k rows (nk = 215,552 kept
+  lanes of D): the fold at beta 1 in place, the package's
+  (``safl_fold_topk``) and in ``csrc/topk_variants.cu`` the same kernel
+  at 1, 2, 4 and 8 lanes a thread and blocks of 128, 256 and 512, and
+  the earlier one-lane grid-stride design; the K-row sum at K = 4 and
+  K = 16, the package's cooperative launch (``safl_aggregate_topk``),
+  the same at 1, 2 and 4 lanes a thread and blocks of 256, 512 and 1024
+  and the earlier design (a memset, then one scatter launch a row); each
+  through ``ctypes`` and the package's through its wrapper, each checked
+  bitwise against ``safl_fold_topk_plain`` /
+  ``safl_aggregate_topk_plain``; then the K-row sum's two costs apart
+  (``topk_variants.cu``'s probes): one row's scatter as a
+  read-modify-write, its gathers alone and its stores alone, on the
+  row's coordinates as ranked and sorted, with the bank flushed from L2
+  and left in it; and a cooperative launch of 0, 1, 4 and 16 grid
+  barriers on the resident blocks of 256, 512 and 1024 threads and on
+  132 blocks of 1024;
 - :func:`repro_torch.kernels.flash_attention.flash_attention` in bf16 and
   f32 at the full-width qwen3 prefill's shape (B 8, S 1024, H 16 / 8,
   hd 128, causal).
 
 Each time is the median of 60 CUDA-event-timed launches with the L2
-flushed before each (a 256 MB read), then either the device held for
+flushed before each (a 256 MB read; the cases named "in L2" are not
+flushed), then either the device held for
 ``HOLD_CYCLES`` (``torch.cuda._sleep``: the host has queued the call
 before the device reaches it, so the time is the device's) or not (the
 host's time for the call shows wherever it exceeds the flush's).  Each
@@ -72,6 +91,8 @@ LAUNCHES = 60
 #: device cycles spun between the L2 flush and a held launch (about 0.5 ms
 #: at the H100's clock), as ``chip_smoke.py`` phase 4 spins
 HOLD_CYCLES = 1_000_000
+#: a case timed without the L2 flush (what it reads stays in L2)
+WARM = "warm"
 OUT = Path(__file__).resolve().parents[3] / "chiprun_out" / "hold_timing.json"
 
 
@@ -132,6 +153,7 @@ def raw_screen(fn, q, s, packed, chunks, counts=None):
     def call():
         if fn(*args):
             raise RuntimeError(f"{fn.__name__}: launch failed")
+    call.tensors = (q, s, part, out, counts)
     return call, out
 
 
@@ -192,6 +214,120 @@ def screen_cases(g) -> dict:
     return cases
 
 
+def topk_rows(k: int, g):
+    """k sparse rows of D as ``chip_smoke.py`` makes them: the top-|x|
+    NK lanes of random rows, ranked by a stable descending sort, their
+    values int8-quantized in compacted blocks; coordinate 5 in every row
+    and 6 in all but the last, so the rows collide there.  Returns (idx
+    int32, qv int8, scales)."""
+    from repro_torch.kernels import ref
+    x = torch.zeros((k, DQ), device="cuda")
+    x[:, :D] = torch.randn((k, D), device="cuda", generator=g)
+    x[:, 5] = 50.0 + torch.arange(k, device="cuda")
+    x[:-1, 6] = -40.0
+    idx = torch.sort(x.abs(), dim=1, descending=True,
+                     stable=True).indices[:, :NK]
+    q, s = ref.quantize_ref(torch.gather(x, 1, idx).view(-1, QB))
+    return idx.to(torch.int32), q.view(k, NK), s.view(k, -1)
+
+
+def raw_topk(fn, args, *tensors):
+    """A call of the C top-k entry ``fn`` with ``args`` (pointers, then
+    the scalars) made beforehand, the stream appended; the call holds
+    ``tensors``, whose pointers ``args`` carry, so they outlive it."""
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        if fn(*args, stream):
+            raise RuntimeError(f"{fn.__name__}: launch failed")
+    call.tensors = tensors
+    return call
+
+
+def topk_cases(g) -> dict:
+    """The top-k kernels' timed calls, each checked bitwise first."""
+    variants = build.load("topk_variants")
+    package = k_mod._lib()
+    p, f, i64, i32 = (ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
+                      ctypes.c_int)
+    qshift = QB.bit_length() - 1
+    idx, qv, sv = topk_rows(16, g)
+    acc = torch.randn((D,), device="cuda", generator=g)
+    w = 0.37
+    folds = {"grid-stride, one lane (parent)":
+             variants.safl_fold_topk_gridstride}
+    for v in (1, 2, 4, 8):
+        for t in (128, 256, 512):
+            folds[f"{v} lanes x {t} threads"] = getattr(
+                variants, f"safl_fold_topk_v{v}_t{t}")
+    folds["package"] = package.safl_fold_topk
+    cases = {}
+    want = k_mod.safl_fold_topk_plain(acc, idx[0], qv[0], sv[0], w)
+    for name, fn in folds.items():
+        fn.argtypes = [p] * 5 + [f, f, i64, i64, i32, p]
+        row = acc.clone()
+        call = raw_topk(fn, (row.data_ptr(), idx[0].data_ptr(),
+                             qv[0].data_ptr(), sv[0].data_ptr(),
+                             row.data_ptr(), w, 1.0, D, NK, qshift),
+                        row, idx, qv, sv)
+        call()
+        if not torch.equal(row, want):
+            sys.exit(f"hold_timing: top-k fold {name} is not bitwise "
+                     "safl_fold_topk_plain")
+        cases[f"topk fold {name}"] = call
+    row = acc.clone()
+    cases["topk fold wrapper safl_fold_topk"] = (
+        lambda: k_mod.safl_fold_topk(row, idx[0], qv[0], sv[0], w, out=row))
+    sums = {"memset + a launch a row (parent)":
+            variants.safl_aggregate_topk_memset}
+    for v in (1, 2, 4):
+        for t in (256, 512, 1024):
+            sums[f"coop {v} lanes x {t} threads"] = getattr(
+                variants, f"safl_aggregate_topk_v{v}_t{t}")
+    sums["package"] = package.safl_aggregate_topk
+    for k in (4, 16):
+        wk = 0.5 + 3.5 * torch.rand((k,), device="cuda", generator=g)
+        ik, qk, sk = idx[:k], qv[:k], sv[:k]
+        want = k_mod.safl_aggregate_topk_plain(ik, qk, sk, wk, D)
+        for name, fn in sums.items():
+            fn.argtypes = [p] * 5 + [i64, i64, i64, i32, p]
+            out = torch.empty((D,), device="cuda")
+            call = raw_topk(fn, (ik.data_ptr(), qk.data_ptr(),
+                                 sk.data_ptr(), wk.data_ptr(),
+                                 out.data_ptr(), k, NK, D, qshift),
+                            ik, qk, sk, wk, out)
+            call()
+            if not torch.equal(out, want):
+                sys.exit(f"hold_timing: top-k sum {name} at K = {k} is not "
+                         "bitwise safl_aggregate_topk_plain")
+            cases[f"topk sum K={k} {name}"] = call
+        cases[f"topk sum K={k} wrapper safl_aggregate_topk"] = (
+            lambda ik=ik, qk=qk, sk=sk, wk=wk:
+            k_mod.safl_aggregate_topk(ik, qk, sk, wk, D))
+    # the K-row sum's costs apart: one row's scatter (its coordinates as
+    # ranked, and sorted) with the bank flushed and in L2, and barriers
+    fn = variants.topk_scatter_probe
+    fn.argtypes = [i32] + [p] * 4 + [f, i64, i64, i32, p]
+    for order, ix in (("ranked", idx[0]),
+                      ("sorted", torch.sort(idx[0]).values.contiguous())):
+        for mode, part in enumerate(("read-modify-write", "gathers alone",
+                                     "stores alone")):
+            call = raw_topk(fn, (mode, acc.data_ptr(), ix.data_ptr(),
+                                 qv[0].data_ptr(), sv[0].data_ptr(), w, NK,
+                                 D, qshift), acc, ix, qv, sv)
+            cases[f"topk row {part}, {order}"] = call
+            cases[f"topk row {part}, {order}, bank in L2"] = (call, WARM)
+    fn = variants.topk_barrier_probe
+    fn.argtypes = [i64, i32, i64, p]
+    for threads, cap in ((256, 0), (512, 0), (1024, 0), (1024, 132)):
+        for k in (0, 1, 4, 16):
+            cases[f"topk {k} barriers, {threads} threads" + (
+                f" x {cap} blocks" if cap else "")] = raw_topk(
+                    fn, (k, threads, cap))
+    return cases
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=7)
@@ -234,6 +370,7 @@ def main() -> None:
         cases[f"torch.add, {row_name}"] = (
             lambda r=row: torch.add(r, vec, alpha=w))
     cases.update(screen_cases(g))
+    cases.update(topk_cases(g))
     b, s, h, hkv, hd = FLASH_SHAPE
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn((b, s, h, hd), device="cuda", generator=g).to(dtype)
@@ -242,10 +379,13 @@ def main() -> None:
         cases[f"flash_attention {str(dtype).split('.')[-1]}"] = (
             lambda q=q, kv=kv: fa_mod.flash_attention(q, *kv))
     samples = {(c, hold): [] for c in cases for hold in (False, True)}
+    no_flush = torch.zeros(1, device="cuda")
     for _ in range(args.rounds):
         for c, fn in cases.items():
+            fn, fl = (fn[0], no_flush) if isinstance(fn, tuple) else (fn,
+                                                                      flush)
             for hold in (False, True):
-                samples[c, hold].append(time_ms(fn, flush, hold))
+                samples[c, hold].append(time_ms(fn, fl, hold))
     rows_out = []
     print(f"medians over {args.rounds} rounds of the median of {LAUNCHES} "
           "launches, ms (range)")

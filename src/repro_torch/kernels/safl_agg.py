@@ -52,9 +52,13 @@ line); the grid-stride loop and 16-byte vectors timed slower
 one launch a call (blocks of 8 warps, a 16-byte load a lane summed by
 ``__dp4a``), the row's last block summing its partials (an integer
 counter per row, no float atomics).  The top-k kernels scatter
-each kept lane into the bank instead; their K-row sum is one scatter
-launch per row on one stream, so rows that collide on a coordinate add
-in row order (no float atomics).
+each kept lane into the bank instead, one launch a call: the fold one
+lane a thread over an exact grid of 128-thread blocks (more lanes a
+thread timed slower: the scattered gathers want the most warps), the
+K-row sum one cooperative launch of the card's resident blocks that
+zeroes the output and adds the rows, two lanes a thread, with a
+grid-wide barrier before each row, so rows that collide on a coordinate
+add in row order (no float atomics).
 Every product and sum in the kernels uses round-to-nearest intrinsics
 that are never contracted into an FMA, and the plain versions below do
 the same operations in the same order, so kernel and plain version agree
@@ -792,12 +796,13 @@ def safl_fold_topk(acc: torch.Tensor, idx: torch.Tensor, qv: torch.Tensor,
     (nk,) int8 values, s_row (nk/qblock,) f32 scales) -> beta*acc + w *
     scatter(dequant(qv), idx), lanes with idx outside [0, d) dropped.
     Replaces ``repro/kernels/safl_agg.py:830 safl_fold_topk``.  ``out``
-    may be ``acc``: beta == 1 then touches the kept lanes only (one
-    launch); any other beta, or a separate ``out``, first writes beta*acc
-    over the whole row, as the TPU kernel does (two launches, counted as
-    one).  Bound at beta == 1 in place: 13*nk + 4*nk/qblock bytes (idx,
-    qv, scales, and a read and a write of each kept coordinate); the
-    dense pass adds 8*d."""
+    may be ``acc``: beta == 1 then touches the kept lanes only, one
+    launch (as the engine folds); any other beta, or a separate ``out``,
+    first writes beta*acc over the whole row, as the TPU kernel does (two
+    launches, counted as one; no engine run takes this path).  Bound at
+    beta == 1 in place: 13*nk + 4*nk/qblock bytes (idx, qv, scales, and
+    a read and a write of each kept coordinate); the dense pass adds
+    8*d."""
     if not _on_cuda(acc, "safl_fold_topk"):
         res = safl_fold_topk_plain(acc, idx, qv, s_row, w, beta,
                                    qblock=qblock)
@@ -842,8 +847,9 @@ def safl_aggregate_topk(idx: torch.Tensor, qv: torch.Tensor,
     as a (d,) f32 row: bitwise the chain of K :func:`safl_fold_topk`
     calls from zeros.  Replaces ``repro/kernels/safl_agg.py:779
     safl_aggregate_topk``; the caller takes the server step from the sum.
-    A memset and K launches, counted as one.  Bound: 4*d bytes written +
-    K*(5*nk + 4*nk/qblock) read."""
+    One cooperative launch (zeros, then the rows in order; a refused
+    launch raises).  Bound: 4*d bytes written + K*(5*nk + 4*nk/qblock)
+    read."""
     if not _on_cuda(qv, "safl_aggregate_topk"):
         return safl_aggregate_topk_plain(idx, qv, scales, w, d,
                                          qblock=qblock)
