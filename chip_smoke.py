@@ -12,8 +12,8 @@ Phases, each of which exits non-zero on failure:
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
      ``flash_attention.cu``), started together; the ptxas report must
-     show no spills in the bf16 flash kernel (``FLASH_SYMBOL``) and in
-     the two top-k kernels
+     show no spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two
+     top-k kernels, the f32 screen and the q4 fold
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -28,10 +28,13 @@ Phases, each of which exits non-zero on failure:
      lanes; flipped bytes and an Inf scale), Byzantine, all-zero and (q4)
      flipped-only rows: isfinite verdicts exact, finite sums within
      ``rtol=1e-5``, and each row's sum bitwise the same alone (K = 1) as
-     inside the stack, and in three launches back to back; the quantized
-     screens also on a copy of the rows 1 byte off a 16-byte boundary
-     (their byte path): against the plain version, and bitwise the
-     16-byte path's sums.  The q4 wire's stochastic-rounding draws made
+     inside the stack, and in three launches back to back; each screen
+     also on a copy of the rows 1 element off a 16-byte boundary (the f32
+     screen's lane-by-lane path, the quantized screens' byte path):
+     against the plain version, and bitwise the aligned calls' sums.
+     ``safl_fold_q4`` at both Dq, at beta 1 in place and 0.625 out of
+     place, with acc 0-3 lanes and the packed row 0-15 bytes off
+     alignment (64 placements each): bitwise.  The q4 wire's stochastic-rounding draws made
      on the card (``prng.uniform_torch``) against the numpy threefry at
      the paper CNN's (4209, 512): bitwise.  The two top-k kernels at the main
      path's K = 4, nk = 215,552 (rows colliding on a coordinate in 4 and
@@ -63,8 +66,9 @@ Phases, each of which exits non-zero on failure:
      kernels, the int8 pair and flash attention at the
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
-     3 calls of each quantized screen, of the top-k fold (beta 1, in
-     place) and of the top-k K-row sum (K = 4) captured into a CUDA
+     3 calls of each screen (f32, q8, q4; K = 1), of the q4 and top-k
+     folds (beta 1, in place) and of the top-k K-row sum (K = 4)
+     captured into a CUDA
      graph, whose nodes (read through libcuda's graph API) must be one
      launch of the kernel a call and nothing else (no memset; the K-row
      sum's launch cooperative), its replay equal to the eager outputs,
@@ -605,6 +609,56 @@ def check_topk(torch, k_mod, report, worst):
     torch.cuda.synchronize()
 
 
+def check_fold_q4(torch, k_mod, report, worst):
+    """``safl_fold_q4`` at the main path's and the ragged Dq, at beta 1 in
+    place and at beta 0.625 out of place (out at acc's offset where the
+    packed row's is even, 1 lane past it where odd: there out and acc
+    disagree mod 16 bytes and every lane goes alone), with acc 0-3 lanes
+    and the packed row 0-15 bytes off their buffers' start (64
+    placements: the vector path from a head of 0-3 lanes, vectors
+    straddling a qblock, and every lane alone where the rows disagree),
+    the rows holding -8 nibbles: bitwise its plain version in every
+    placement."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for d in (D_FULL, D_RAGGED):
+        dq = dq_of(d)
+        p4, s4 = q4_rows(torch, 1, d, g, flip=True)
+        acc = torch.randn((dq,), device="cuda", generator=g)
+        for beta, in_place in ((1.0, True), (0.625, False)):
+            want = k_mod.safl_fold_q4_plain(acc, p4[0], s4[0], 0.37, beta)
+            bad, err = [], 0.0
+            for a_off in range(4):
+                for q_off in range(16):
+                    row = misaligned(torch, acc, a_off)
+                    qp = misaligned(torch, p4[0], q_off)
+                    if in_place:
+                        k_mod.safl_fold_q4(row, qp, s4[0], 0.37, beta,
+                                           out=row)
+                        got = row
+                    else:
+                        got = misaligned(torch, torch.zeros_like(acc),
+                                         (a_off + q_off % 2) % 4)
+                        k_mod.safl_fold_q4(row, qp, s4[0], 0.37, beta,
+                                           out=got)
+                        if not torch.equal(row, acc):
+                            bad.append((a_off, q_off, "acc written"))
+                    err = max(err, float((got - want).abs().max()))
+                    if not torch.equal(got, want):
+                        bad.append((a_off, q_off))
+            info = dict(dq=dq, beta=beta, in_place=in_place, placements=64)
+            report.append(dict(kernel="safl_fold_q4", max_abs_err=err,
+                               bitwise=not bad, differing=bad, **info))
+            print(f"  {'safl_fold_q4':<18} dq={dq} beta={beta} "
+                  f"in_place={in_place}: acc 0-3 lanes x packed row 0-15 "
+                  f"bytes off, {64 - len(bad)}/64 placements bitwise "
+                  f"(tolerance: bitwise)")
+            if bad:
+                fail(f"safl_fold_q4 dq={dq} beta={beta}: placements {bad} "
+                     "differ from the plain version")
+            worst["safl_fold_q4"] = max(worst.get("safl_fold_q4", 0.0), err)
+    torch.cuda.synchronize()
+
+
 def check_int8(torch, q_mod, report, worst):
     """The int8 pair against its plain versions at (4209, 512) and at a
     ragged 37 rows, with an all-zero row (scale 1e-12), a row of exact .5
@@ -780,13 +834,13 @@ def compare_sums(torch, report, worst, kernel, got, want, **info):
     worst[kernel] = max(worst.get(kernel, 0.0), err)
 
 
-def misaligned(torch, t):
-    """A contiguous copy of ``t`` that starts one element past the
-    (aligned) start of its buffer: int8 rows 1 byte off (the quantized
-    screens then take their byte path), int32 top-k coordinates one lane
-    (4 bytes) off."""
-    view = torch.empty(t.numel() + 16, dtype=t.dtype,
-                       device=t.device)[1:1 + t.numel()].view(t.shape)
+def misaligned(torch, t, elements=1):
+    """A contiguous copy of ``t`` that starts ``elements`` (< 16) elements
+    past the (512-byte aligned) start of its buffer: by one, int8 rows 1
+    byte off (the quantized screens then take their byte path), f32 rows
+    and int32 top-k coordinates one lane (4 bytes) off."""
+    view = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)[
+        elements:elements + t.numel()].view(t.shape)
     view.copy_(t)
     return view
 
@@ -798,10 +852,13 @@ def check_screens(torch, k_mod, report, worst):
     whose 0x55-flipped span holds -8 nibbles under finite scales), its
     first three rows, and each row alone: against the plain versions, and
     each row's sum bitwise the same alone as in the stack and in three
-    launches back to back (the quantized screens' per-row counters are
-    back at zero after each).  The quantized screens also run once on a
-    copy of the stack 1 byte off a 16-byte boundary (their byte path):
-    against the plain version, and bitwise the 16-byte path's sums."""
+    launches back to back (the per-row counters are back at zero after
+    each).  Each screen also runs once on a copy of the stack 1 element
+    off a 16-byte boundary (the f32 screen's lane-by-lane path, the
+    quantized screens' byte path): against the plain version, and
+    bitwise the aligned calls' sums (the f32 stack at the main D, D mod
+    4 = 2, takes the lane-by-lane path, its rows alone the float4 path on
+    even rows and the lane-by-lane path on odd ones)."""
     from repro_torch.kernels.ref import unpack_q4_ref as unpack_q4
     g = torch.Generator(device="cuda").manual_seed(3)
     kinds = (None, "corrupt", "byzantine", None)
@@ -852,22 +909,23 @@ def check_screens(torch, k_mod, report, worst):
         if not same:
             fail(f"{name} {lanes}: a row's sum depends on the stack or "
                  "the launch")
-        if name == "screen_rows":
-            continue
-        off = (misaligned(torch, args[0]), args[1])
+        off = (misaligned(torch, args[0]), *args[1:])
         if off[0].data_ptr() % 16 == 0:
             fail("the misaligned copy is 16-byte aligned")
-        byte_path = fn(*off, **kw)
-        compare_sums(torch, report, worst, name, byte_path,
-                     plain(*args, **kw), k=n, path="bytes", **lanes)
-        same = torch.equal(byte_path.view(torch.int32),
+        path = "lanes" if name == "screen_rows" else "bytes"
+        one_by_one = fn(*off, **kw)
+        compare_sums(torch, report, worst, name, one_by_one,
+                     plain(*args, **kw), k=n, path=path, **lanes)
+        same = torch.equal(one_by_one.view(torch.int32),
                            full.view(torch.int32))
-        print(f"  {name:<18} {lanes}: byte path (rows 1 byte off 16) vs "
-              f"16-byte path: {'bitwise equal' if same else 'DIFFER'}")
-        report.append(dict(kernel=name, byte_path_bitwise=same, **lanes))
+        print(f"  {name:<18} {lanes}: {path} path (rows 1 element off 16 "
+              f"bytes) vs the aligned calls: "
+              f"{'bitwise equal' if same else 'DIFFER'}")
+        report.append(dict(kernel=name, one_by_one_path_bitwise=same,
+                           path=path, **lanes))
         if not same:
-            fail(f"{name} {lanes}: the byte path's sums differ from the "
-                 "16-byte path's")
+            fail(f"{name} {lanes}: the {path} path's sums differ from the "
+                 "aligned calls'")
     torch.cuda.synchronize()
 
 
@@ -1215,13 +1273,14 @@ def graph_kernels(torch, fn, calls, restore=None, cooperative=False):
 
 
 def check_one_launch(torch, k_mod, calls=3):
-    """Each quantized screen at the main path's K = 1, the top-k fold at
-    beta 1 in place (as the engine folds) and the top-k K-row sum at the
-    main path's K = 4 issue one device kernel a call and nothing else (no
-    memset, no copy, no second kernel), seen two ways: ``calls`` calls of
-    each captured into a CUDA graph, whose nodes must be ``calls``
-    launches of the kernel (the screens on their (chunks, K) grid, each
-    top-k kernel on one grid in every call, the K-row sum's nodes
+    """Each screen (f32, q8, q4) at the main path's K = 1, the q4 and
+    top-k folds at beta 1 in place (as the engine folds) and the top-k
+    K-row sum at the main path's K = 4 issue one device kernel a call and
+    nothing else (no memset, no copy, no second kernel), seen two ways:
+    ``calls`` calls of each captured into a CUDA graph, whose nodes must
+    be ``calls`` launches of the kernel (the screens on their (chunks, K)
+    grid, each fold and the K-row sum on one grid in every call, the
+    K-row sum's nodes
     cooperative where libcuda reads the attribute), a replay giving the
     eager outputs bitwise; and one ``torch.profiler`` pass over ``calls``
     calls of each (after a warm-up call), whose device events, where it
@@ -1236,11 +1295,18 @@ def check_one_launch(torch, k_mod, calls=3):
     idx, qv, sv = topk_rows(torch, K_MAIN, D_FULL, NK_FULL, g)
     acc = torch.randn((D_FULL,), device="cuda", generator=g)
     base = acc.clone()
+    u = torch.randn((1, D_FULL), device="cuda", generator=g)
+    acc_q = torch.randn((dq_of(D_FULL),), device="cuda", generator=g)
+    base_q = acc_q.clone()
     w = 0.5 + 3.5 * torch.rand((K_MAIN,), device="cuda", generator=g)
     nb = dq_of(D_FULL) // QB
     # wrapper: (call, restore, symbols (demangled, mangled), grid or None
     # (the same in every call), block or None)
     cases = {
+        "screen_rows": (
+            lambda: k_mod.screen_rows(u), None, ("screen_f32_kernel",),
+            (k_mod.screen_chunks(D_FULL), 1, 1),
+            (k_mod.SCREEN_F32_WARPS * 32, 1, 1)),
         "screen_rows_q8": (
             lambda: k_mod.screen_rows_q8(q, s, qblock=QB), None,
             ("screen_q_kernel<false", "screen_q_kernelILb0"),
@@ -1251,6 +1317,10 @@ def check_one_launch(torch, k_mod, calls=3):
             ("screen_q_kernel<true", "screen_q_kernelILb1"),
             (k_mod.screen_q_chunks(nb, QB // 2), 1, 1),
             (k_mod.SCREEN_QWARPS * 32, 1, 1)),
+        "safl_fold_q4": (
+            lambda: k_mod.safl_fold_q4(acc_q, p4[0], s4[0], 0.37, qblock=QB,
+                                       out=acc_q),
+            lambda: acc_q.copy_(base_q), ("fold_q4_kernel",), None, None),
         "safl_fold_topk": (
             lambda: k_mod.safl_fold_topk(acc, idx[0], qv[0], sv[0], 0.37,
                                          out=acc),
@@ -2138,6 +2208,13 @@ def main() -> None:
           f"{sorted(spilled.values())} (tolerance: 0)")
     if len(spilled) != 2 or any(spilled.values()):
         fail("the top-k kernels spill or are missing from the ptxas report")
+    # the f32 screen's two load paths, the q4 fold's two beta variants
+    for symbol, n in (("screen_f32_kernel", 2), ("fold_q4_kernel", 2)):
+        spilled = spills(infos["safl_agg"]["log"], symbol)
+        print(f"  {symbol}: {len(spilled)} instantiations, spill bytes "
+              f"{sorted(spilled.values())} (tolerance: 0)")
+        if len(spilled) != n or any(spilled.values()):
+            fail(f"{symbol} spills or is missing from the ptxas report")
 
     # device memory each phase leaves allocated once its garbage is
     # collected (phase 7's peaks include what is left when it starts)
@@ -2154,6 +2231,7 @@ def main() -> None:
     check_rows = []
     worst = check_kernels(torch, k_mod, check_rows)
     check_screens(torch, k_mod, check_rows, worst)
+    check_fold_q4(torch, k_mod, check_rows, worst)
     check_topk(torch, k_mod, check_rows, worst)
     check_int8(torch, q_mod, check_rows, worst)
     check_draws(torch, check_rows)

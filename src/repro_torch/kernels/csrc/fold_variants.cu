@@ -1,8 +1,9 @@
-// Three other designs of safl_agg.cu's f32 fold, built and timed only by
-// ``repro_torch/kernels/hold_timing.py`` beside the package's kernel; no
-// wrapper of the package calls them.  Each lane's arithmetic is the
-// package kernel's (beta*acc + w*vec through the _rn intrinsics), so each
-// is bitwise equal to ``safl_fold_plain``.
+// Other designs of safl_agg.cu's f32 and q4 folds, built and timed only
+// by ``repro_torch/kernels/hold_timing.py`` beside the package's kernels;
+// no wrapper of the package calls them.  Each lane's arithmetic is the
+// package kernels' (beta*acc + w*vec, w*((float)n*s) on q4, through the
+// _rn intrinsics), so each is bitwise equal to ``safl_fold_plain`` /
+// ``safl_fold_q4_plain``.
 //
 //   fold_gridstride_f32  one 4-byte lane a thread per step of a
 //                        grid-stride loop over at most 132 * 16 blocks
@@ -17,14 +18,23 @@
 //                        a warp's stores into a row that starts inside a
 //                        line straddle three lines; refuses rows whose
 //                        addresses differ mod 8
+//   safl_fold_q4_gridstride
+//                        the q4 fold's earlier design, as it stood
+//                        (fold_rows_kernel<Q4Rows>, included from
+//                        safl_agg.cu): one lane a thread per step of a
+//                        grid-stride loop over at most 132 * 16 blocks of
+//                        256, a 1-byte load of the lane's packed byte
+//   safl_fold_q4_v<V>_t<T>
+//                        the package's q4 fold (included from safl_agg.cu)
+//                        with V lanes a thread (2, 4, 8 or 16) and blocks
+//                        of T threads (64, 128, 256 or 512)
+//
+// The f32 designs take the package's safl_fold_f32 arguments, the q4
+// designs its safl_fold_q4 arguments.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "safl_agg.cu"
 
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;
+namespace f32_variants {
 
 template <bool kUnitBeta>
 __device__ __forceinline__ float fold_lane(float a, float v, float w,
@@ -110,7 +120,7 @@ int launch_vec(const void* acc, const void* vec, void* out, float w,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+}  // namespace f32_variants
 
 extern "C" {
 
@@ -124,11 +134,13 @@ int fold_gridstride_f32(const void* acc, const void* vec, void* out, float w,
   const auto* pv = static_cast<const float*>(vec);
   auto* po = static_cast<float*>(out);
   if (beta == 1.0f) {
-    gridstride_kernel<true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        pa, pv, po, w, beta, d);
+    f32_variants::gridstride_kernel<true><<<static_cast<unsigned>(blocks),
+                                            kThreads, 0, s>>>(pa, pv, po, w,
+                                                              beta, d);
   } else {
-    gridstride_kernel<false><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               s>>>(pa, pv, po, w, beta, d);
+    f32_variants::gridstride_kernel<false><<<static_cast<unsigned>(blocks),
+                                             kThreads, 0, s>>>(pa, pv, po, w,
+                                                               beta, d);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -140,8 +152,8 @@ int fold_vec4_f32(const void* acc, const void* vec, void* out, float w,
   const uintptr_t o = reinterpret_cast<uintptr_t>(out);
   if ((a - v) % 16 != 0 || (a - o) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_vec<float4>(acc, vec, out, w, beta, d, (16 - a % 16) % 16 / 4,
-                            stream);
+  return f32_variants::launch_vec<float4>(acc, vec, out, w, beta, d,
+                                          (16 - a % 16) % 16 / 4, stream);
 }
 
 int fold_vec2_f32(const void* acc, const void* vec, void* out, float w,
@@ -151,7 +163,42 @@ int fold_vec2_f32(const void* acc, const void* vec, void* out, float w,
   const uintptr_t o = reinterpret_cast<uintptr_t>(out);
   if ((a - v) % 8 != 0 || (a - o) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_vec<float2>(acc, vec, out, w, beta, d, a % 8 / 4, stream);
+  return f32_variants::launch_vec<float2>(acc, vec, out, w, beta, d,
+                                          a % 8 / 4, stream);
 }
+
+int safl_fold_q4_gridstride(const void* acc, const void* q,
+                            const void* scales, void* out, float w,
+                            float beta, int64_t dq, int qshift,
+                            void* stream) {
+  return launch_fold<Q4Rows>(acc, q, scales, out, w, beta, dq, qshift,
+                             stream);
+}
+
+#define FOLD_Q4_VARIANT(V, T)                                               \
+  int safl_fold_q4_v##V##_t##T(const void* acc, const void* q,              \
+                               const void* scales, void* out, float w,      \
+                               float beta, int64_t dq, int qshift,          \
+                               void* stream) {                              \
+    return launch_fold_q4<V, T>(acc, q, scales, out, w, beta, dq, qshift,   \
+                                stream);                                    \
+  }
+
+FOLD_Q4_VARIANT(2, 64)
+FOLD_Q4_VARIANT(2, 128)
+FOLD_Q4_VARIANT(2, 256)
+FOLD_Q4_VARIANT(2, 512)
+FOLD_Q4_VARIANT(4, 64)
+FOLD_Q4_VARIANT(4, 128)
+FOLD_Q4_VARIANT(4, 256)
+FOLD_Q4_VARIANT(4, 512)
+FOLD_Q4_VARIANT(8, 64)
+FOLD_Q4_VARIANT(8, 128)
+FOLD_Q4_VARIANT(8, 256)
+FOLD_Q4_VARIANT(8, 512)
+FOLD_Q4_VARIANT(16, 64)
+FOLD_Q4_VARIANT(16, 128)
+FOLD_Q4_VARIANT(16, 256)
+FOLD_Q4_VARIANT(16, 512)
 
 }  // extern "C"

@@ -18,8 +18,8 @@
 //   sdga_aggregate_q8    the same over int8 rows (replaces safl_agg.py
 //                        sdga_aggregate_q8)
 //   screen_rows_f32      per-row sum of squares of (K, D) f32 rows, the
-//                        defense's integrity + norm pass (replaces
-//                        safl_agg.py screen_rows)
+//                        defense's integrity + norm pass, one launch
+//                        (replaces safl_agg.py screen_rows)
 //   screen_rows_q8       the same over (K, Dq) int8 rows + scales,
 //                        sum_b s_b^2 * sum_{j in b} q_j^2 (replaces
 //                        safl_agg.py screen_rows_q8)
@@ -49,10 +49,16 @@
 // in-order sum sit in shared memory.  The int8 rows are dequantized in registers as
 // (float)q * scale[lane >> qshift] (qblock = 1 << qshift), then weighted,
 // as the Pallas bodies do (_dequant_tile): f32 updates never touch memory.
-// A packed int4 lane is read the same way from its byte (the two threads
-// of a byte's lanes read it once from memory between them), its nibble
+// A packed int4 lane is read the same way from its byte, its nibble
 // sign-extended by shifts; a corrupted byte can hold the nibble -8, which
-// the quantizer never emits, and it reads as -8.
+// the quantizer never emits, and it reads as -8.  The q4 fold takes
+// kFoldQ4Vec = 4 lanes a thread over an exact grid instead: one 2-byte
+// load of its packed lanes, a float4 load of acc and its scale, all
+// issued before any arithmetic, the nibbles sign-extended in a word
+// ((n ^ 8) - 8 per byte by __vsub4), a float4 store; the lanes before the
+// first aligned vector and after the last one go one a thread in the same
+// launch, and every lane does where the rows' addresses disagree mod a
+// vector.
 //
 // The screening reductions are bound by the same bytes (one read of the
 // rows) but are launch-bound at the engine's K = 1.  They must be
@@ -62,17 +68,19 @@
 // depends on its length only, each chunk reduced by one block in a fixed
 // tree into a (K, chunks) scratch, and the row's partials summed in
 // index order in a fixed tree (strided per-thread sums, warp shuffles,
-// then the warp sums in order).  The f32 screen does that second sum in
-// a second launch (screen_finish).  The quantized screens do it in the
-// same launch: each block bumps an integer per-row counter after its
-// partial is written (__threadfence, atomicAdd), and the block that
-// arrives last sums the row and resets the counter, so a call is one
-// launch: blocks of 8 warps, one 16-byte load a lane (4 KB of a q8 row a
-// block, 4 blocks an SM at the paper CNN's row), int8 and int4 squares
-// summed four bytes at a time by __dp4a (exact in int32).  What is left
-// above the timer's floor is the row's one read from HBM and the last
-// block's two L2 round trips (the counter, then the partials).  NaN and
-// Inf propagate: no fast math, no fmaxf, no lane is skipped.
+// then the warp sums in order), in the same launch: each block bumps an
+// integer per-row counter after its partial is written (__threadfence,
+// atomicAdd), and the block that arrives last sums the row and resets the
+// counter (screen_arrive), so a call is one launch of blocks of 8 warps.
+// The f32 screen loads 8 float4 a thread (8,192 lanes a block, 264 blocks
+// at the paper CNN's row), in groups of 4 lanes whose partition is
+// a function of D only, so the float4 and lane-by-lane loads a row's
+// alignment allows give the same sums.  The quantized screens load
+// one 16-byte load a lane (4 KB of a q8 row a block), int8 and int4
+// squares summed four bytes at a time by __dp4a (exact in int32).  What
+// is left above the timer's floor is the row's one read from HBM and the
+// last block's two L2 round trips (the counter, then the partials).  NaN
+// and Inf propagate: no fast math, no fmaxf, no lane is skipped.
 
 // The top-k kernels scatter instead of streaming: a kept lane j adds
 // w * ((float)qv[j] * s[j >> qshift]) to coordinate idx[j] of the bank,
@@ -272,6 +280,149 @@ __global__ void fold_rows_kernel(const float* acc, Rows row, float* out,
   }
 }
 
+// ---- the q4 fold: V lanes a thread over an exact grid ----
+//
+// The lanes of one fold of dq lanes: [0, head) one a thread, then nv
+// vectors of V lanes from ``head`` (vector v: lanes head + V*v .. + V-1,
+// their acc and out in aligned loads of A = min(V, 4) lanes, their V/2
+// packed bytes in one aligned load, two words at V = 16), then the tail
+// [tail, dq) one a thread.  head is the first lane whose packed byte sits
+// on a V/2-byte boundary when acc and out agree mod 4A bytes and acc is
+// then 4A-byte aligned at that lane, else dq (every lane alone).  Thread
+// i of the grid takes vector i, lane i of the head and lane tail + i.
+struct FoldQ4Span {
+  int64_t head, nv, tail;
+};
+
+template <int V>
+__host__ __device__ __forceinline__ FoldQ4Span fold_q4_span(const void* acc,
+                                                            const void* qp,
+                                                            const void* out,
+                                                            int64_t dq) {
+  constexpr int64_t kA = V < 4 ? V : 4;  // lanes of one acc load
+  const uintptr_t a = reinterpret_cast<uintptr_t>(acc);
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  const uintptr_t q = reinterpret_cast<uintptr_t>(qp);
+  const int64_t h =
+      (V - 2 * static_cast<int64_t>(q % (V / 2))) % V;  // even
+  int64_t head = a % 4 == 0 && (a - o) % (4 * kA) == 0 &&
+                         (static_cast<int64_t>(a / 4) + h) % kA == 0
+                     ? h
+                     : dq;
+  if (head > dq) head = dq;
+  const int64_t nv = (dq - head) / V;
+  return FoldQ4Span{head, nv, head + V * nv};
+}
+
+// One lane of the q4 fold from its byte and scale: beta*a + w*(n*s), as
+// fold_rows_kernel<Q4Rows> rounds it.
+template <bool kUnitBeta>
+__device__ __forceinline__ float fold_q4_lane(float a, int n, float s,
+                                              float w, float beta) {
+  return fold_lane<kUnitBeta>(a, __fmul_rn(static_cast<float>(n), s), w,
+                              beta);
+}
+
+// The q4 fold over the lanes fold_q4_span lays out, V = 2, 4, 8 or 16
+// lanes a vector: one 1-, 2-, 4- or 8-byte load of the packed lanes, V/A
+// float2 or float4 loads of acc and the vector's scales (two at most,
+// split at the qblock boundary when qblock >= V; each lane's own below
+// that), all issued before any arithmetic; the nibbles sign-extended a
+// word at a time, (n ^ 8) - 8 per byte (__vsub4), so a corrupted -8
+// nibble reads as -8; V/A stores.  acc and out may alias (the in-place
+// fold into a bank row): each lane is read and written by one thread, so
+// neither is __restrict__.
+template <int V, int T, bool kUnitBeta>
+__global__ void __launch_bounds__(T)
+    fold_q4_kernel(const float* acc, const uint8_t* __restrict__ qp,
+                   const float* __restrict__ s, float* out, float w,
+                   float beta, FoldQ4Span sp, int64_t dq, int qshift) {
+  static_assert(V == 2 || V == 4 || V == 8 || V == 16,
+                "vectors of 2, 4, 8 or 16 lanes");
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * T + threadIdx.x;
+  if (i < sp.nv) {
+    const int64_t j0 = sp.head + V * i;
+    const uint8_t* qv = qp + (j0 >> 1);
+    uint32_t wd[(V + 7) / 8];
+    if constexpr (V == 2) {
+      wd[0] = __ldg(qv);
+    } else if constexpr (V == 4) {
+      wd[0] = __ldg(reinterpret_cast<const unsigned short*>(qv));
+    } else if constexpr (V == 8) {
+      wd[0] = __ldg(reinterpret_cast<const uint32_t*>(qv));
+    } else {
+      const uint2 x = __ldg(reinterpret_cast<const uint2*>(qv));
+      wd[0] = x.x;
+      wd[1] = x.y;
+    }
+    float a[V];
+    if constexpr (V == 2) {
+      const float2 x = *reinterpret_cast<const float2*>(acc + j0);
+      a[0] = x.x;
+      a[1] = x.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k) {
+        const float4 x = reinterpret_cast<const float4*>(acc + j0)[k];
+        a[4 * k] = x.x;
+        a[4 * k + 1] = x.y;
+        a[4 * k + 2] = x.z;
+        a[4 * k + 3] = x.w;
+      }
+    }
+    float sc[V];
+    if ((int64_t{1} << qshift) >= V) {
+      const int64_t b0 = j0 >> qshift;
+      const int64_t b1 = (j0 + V - 1) >> qshift;
+      const float s0 = __ldg(s + b0);
+      const float s1 = b1 == b0 ? s0 : __ldg(s + b1);
+      const int64_t split = ((b0 + 1) << qshift) - j0;
+#pragma unroll
+      for (int l = 0; l < V; ++l) sc[l] = l < split ? s0 : s1;
+    } else {
+#pragma unroll
+      for (int l = 0; l < V; ++l) sc[l] = __ldg(s + ((j0 + l) >> qshift));
+    }
+    float o[V];
+#pragma unroll
+    for (int k = 0; k < (V + 7) / 8; ++k) {
+      const uint32_t lo = __vsub4((wd[k] & 0x0F0F0F0Fu) ^ 0x08080808u,
+                                  0x08080808u);
+      const uint32_t hi = __vsub4(((wd[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u,
+                                  0x08080808u);
+#pragma unroll
+      for (int b = 0; b < 4 && 8 * k + 2 * b < V; ++b) {
+        const int l = 8 * k + 2 * b;
+        o[l] = fold_q4_lane<kUnitBeta>(
+            a[l], static_cast<int8_t>(lo >> (8 * b)), sc[l], w, beta);
+        o[l + 1] = fold_q4_lane<kUnitBeta>(
+            a[l + 1], static_cast<int8_t>(hi >> (8 * b)), sc[l + 1], w,
+            beta);
+      }
+    }
+    if constexpr (V == 2) {
+      *reinterpret_cast<float2*>(out + j0) = make_float2(o[0], o[1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k) {
+        reinterpret_cast<float4*>(out + j0)[k] =
+            make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+      }
+    }
+  }
+  const int64_t lanes[2] = {i < sp.head ? i : -1,
+                            i < dq - sp.tail ? sp.tail + i : -1};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int64_t j = lanes[k];
+    if (j >= 0) {
+      out[j] = fold_q4_lane<kUnitBeta>(
+          acc[j], nibble(qp[j >> 1], static_cast<int>(j & 1)),
+          s[j >> qshift], w, beta);
+    }
+  }
+}
+
 // Output lanes [0, n): n = D for fedsgd / mix (p has D lanes), the row
 // length for avg / sum.
 template <class Rows>
@@ -344,9 +495,6 @@ __global__ void sdga_kernel(Rows rows, const float* __restrict__ w_in,
 // ---- defense screening: per-row sum of squares ----
 
 constexpr int kWarps = kThreads / 32;
-// f32 lanes per chunk of a row (32 per thread).  Keep in step with
-// SCREEN_CHUNK in kernels/safl_agg.py, which sizes the scratch.
-constexpr int64_t kScreenChunk = 8192;
 
 __device__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) {
@@ -370,24 +518,118 @@ __device__ float block_sum(float v, float* smem) {
   return s;
 }
 
-// Block (c, row): the sum of squares of lanes [c*chunk, (c+1)*chunk) of
-// the row, masked at the ragged end.
-__global__ void screen_partial_f32(const float* __restrict__ u,
-                                   float* __restrict__ part, int64_t d,
-                                   int64_t chunks) {
-  __shared__ float smem[kWarps];
+// partials a thread of the last block loads before it sums them
+constexpr int kScreenFinishBatch = 8;
+
+// The end of block c of a one-launch screen's row: thread 0's ``t`` is
+// the chunk's partial.  It goes to pr[c]; then a __threadfence() and an
+// integer atomicAdd on the row's counter *cnt: the block that sees chunks
+// - 1 is the row's last, sums the row's partials (read through L2) in
+// index order (thread i takes partials i, i + kT, ... loaded
+// kScreenFinishBatch at a time, then block_sum), writes *o and sets the
+// counter back to 0 for the next launch.  Every thread of the block calls
+// it; smem (kW floats) may hold what thread 0 read to form ``t``.
+template <int kW>
+__device__ void screen_arrive(float t, float* pr, int64_t c, int64_t chunks,
+                              int* cnt, float* o, float* smem) {
+  constexpr int kT = kW * 32;
+  __shared__ int last;
+  if (threadIdx.x == 0) {
+    pr[c] = t;
+    __threadfence();  // the partial is visible before the count says so
+    last = atomicAdd(cnt, 1) == chunks - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  float s = 0.f;
+  for (int64_t i0 = threadIdx.x; i0 < chunks;
+       i0 += int64_t{kT} * kScreenFinishBatch) {
+    float v[kScreenFinishBatch];
+#pragma unroll
+    for (int u = 0; u < kScreenFinishBatch; ++u) {
+      const int64_t i = i0 + int64_t{u} * kT;
+      v[u] = i < chunks ? __ldcg(pr + i) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kScreenFinishBatch; ++u) {
+      if (i0 + int64_t{u} * kT < chunks) s = __fadd_rn(s, v[u]);
+    }
+  }
+  s = block_sum<kW>(s, smem);
+  if (threadIdx.x == 0) {
+    *o = s;
+    *cnt = 0;
+  }
+}
+
+// ---- the f32 screen: one launch a call ----
+//
+// A row's lanes go in groups of 4 (group g: lanes 4g .. 4g+3, the last
+// group of a row whose D is not a multiple of 4 short, its missing lanes
+// read as 0).  Block (c, row) of a (chunks, K) grid of kW warps takes
+// chunk c, the kT * kL groups from c * kT * kL; thread t of it takes the
+// kL groups c*kT*kL + j*kT + t, j = 0 .. kL-1 (neighbouring threads on
+// neighbouring groups), all loaded before any is summed.  It sums lane e
+// of its groups into s_e in j order, then (s_0 + s_1) + (s_2 + s_3);
+// block_sum gives the chunk's partial, and screen_arrive the row's sum.
+// So the partition and the order are a function of D only: a row's sum
+// is bitwise the same alone, stacked (a row of a (K, D) stack with D mod
+// 4 = 2 starts 8 bytes off a 16-byte boundary) and in every launch.
+//
+// kVec: a group as one float4 (every row 16-byte aligned), else lane by
+// lane (a row of a stack whose D is not a multiple of 4, or a buffer
+// that starts off a boundary).  The two paths load the same lanes into
+// the same registers, so they give the same sums bitwise; the lane by
+// lane path timed within 1 % of the float4 path at K = 1 on one H100.  No
+// float atomics, no fast math, no lane skipped: NaN and Inf propagate.
+//
+// The package's shape: kW = 8 warps a block, kL = 8 float4 loads a thread
+// (8,192 lanes a chunk: 264 blocks at the paper CNN's D, 2 an SM), the
+// fastest or within 0.5 % of it at K = 1, K = 4 and on the lane-by-lane
+// path among 4, 8 and 16 warps x 2-16 loads on one H100 (K = 1: 0.0097
+// ms; 8 x 4 loads, 527 blocks, 4 an SM, 0.0099; 2 loads 0.0102-0.0115;
+// csrc/screen_variants.cu, timed by kernels/hold_timing.py).  Keep
+// kScreenF32Warps and kScreenF32Loads in step with SCREEN_F32_WARPS and
+// SCREEN_F32_LOADS in kernels/safl_agg.py, which size the scratch.
+constexpr int kScreenF32Warps = 8;
+constexpr int kScreenF32Loads = 8;
+
+template <bool kVec, int kW, int kL>
+__global__ void __launch_bounds__(kW * 32)
+    screen_f32_kernel(const float* __restrict__ u, float* part,
+                      int* __restrict__ count, float* __restrict__ out,
+                      int64_t d, int64_t chunks) {
+  constexpr int kT = kW * 32;
+  __shared__ float smem[kW];
   const int64_t c = blockIdx.x;
   const int64_t row = blockIdx.y;
   const float* r = u + row * d;
-  const int64_t lo = c * kScreenChunk;
-  const int64_t hi = lo + kScreenChunk < d ? lo + kScreenChunk : d;
-  float s = 0.f;
-  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const float x = r[i];
-    s = __fadd_rn(s, __fmul_rn(x, x));
+  const int64_t g0 = c * (int64_t{kT} * kL) + threadIdx.x;
+  float4 v[kL];
+#pragma unroll
+  for (int j = 0; j < kL; ++j) {
+    const int64_t i = (g0 + int64_t{j} * kT) * 4;  // the group's first lane
+    if (kVec && i + 3 < d) {
+      v[j] = __ldg(reinterpret_cast<const float4*>(r + i));
+    } else {
+      v[j] = make_float4(i < d ? __ldg(r + i) : 0.f,
+                         i + 1 < d ? __ldg(r + i + 1) : 0.f,
+                         i + 2 < d ? __ldg(r + i + 2) : 0.f,
+                         i + 3 < d ? __ldg(r + i + 3) : 0.f);
+    }
   }
-  s = block_sum(s, smem);
-  if (threadIdx.x == 0) part[row * chunks + c] = s;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kL; ++j) {
+    s0 = __fadd_rn(s0, __fmul_rn(v[j].x, v[j].x));
+    s1 = __fadd_rn(s1, __fmul_rn(v[j].y, v[j].y));
+    s2 = __fadd_rn(s2, __fmul_rn(v[j].z, v[j].z));
+    s3 = __fadd_rn(s3, __fmul_rn(v[j].w, v[j].w));
+  }
+  const float s = block_sum<kW>(
+      __fadd_rn(__fadd_rn(s0, s1), __fadd_rn(s2, s3)), smem);
+  screen_arrive<kW>(s, part + row * chunks, c, chunks, count + row,
+                    out + row, smem);
 }
 
 // ---- the quantized screens: one launch a call ----
@@ -399,12 +641,9 @@ __global__ void screen_partial_f32(const float* __restrict__ u,
 // sum (exact and order-free: 512 * 128^2 on q8, 512 * 8^2 on the packed
 // int4 rows, both below 2^24, so the sum converts to f32 exactly), then
 // (q2 * s) * s in f32 as the reference's oracle forms it.  Each warp sums its blocks' terms in block
-// order, thread 0 the warps' sums in warp order, into part[row, c]; then
-// a __threadfence() and an integer atomicAdd on the row's counter: the
-// block that sees chunks - 1 is the row's last, sums the row's partials
-// (read through L2) in index order in screen_finish's tree, writes
-// out[row] and sets the counter back to 0 for the next launch.  No float
-// atomics: the sum's order is fixed by the row's length.
+// order, thread 0 the warps' sums in warp order, into part[row, c], and
+// screen_arrive sums the row in its last block.  No float atomics: the
+// sum's order is fixed by the row's length.
 //
 // kVec: 16-byte loads (the row 16-byte aligned, a qblock a multiple of 16
 // bytes), kL of them a lane in flight before any is summed; a load's 4
@@ -424,8 +663,6 @@ __global__ void screen_partial_f32(const float* __restrict__ u,
 // kernels/safl_agg.py, which size the scratch.
 constexpr int kScreenQWarps = 8;
 constexpr int kScreenQLoads = 1;
-// partials a thread of the last block loads before it sums them
-constexpr int kScreenFinishBatch = 8;
 
 // Quantization blocks per warp for blocks of bbytes >= 1 bytes when a
 // warp covers warp_bytes of the row.
@@ -546,9 +783,7 @@ __global__ void __launch_bounds__(kW * 32)
                     int* __restrict__ count, float* __restrict__ out,
                     int64_t nb, int64_t bbytes, int64_t qpw,
                     int64_t chunks) {
-  constexpr int kT = kW * 32;
   __shared__ float smem[kW];
-  __shared__ int last;
   const int64_t c = blockIdx.x;
   const int64_t row = blockIdx.y;
   const int lane = threadIdx.x & 31;
@@ -565,51 +800,12 @@ __global__ void __launch_bounds__(kW * 32)
   }
   if (lane == 0) smem[warp] = acc;
   __syncthreads();
-  float* pr = part + row * chunks;
-  if (threadIdx.x == 0) {
-    float t = 0.f;
-    for (int w = 0; w < kW; ++w) t = __fadd_rn(t, smem[w]);
-    pr[c] = t;
-    __threadfence();  // the partial is visible before the count says so
-    last = atomicAdd(count + row, 1) == chunks - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  // the row's last block: thread i sums partials i, i + kT, ... in order
-  // (loaded kScreenFinishBatch at a time, through L2), then block_sum
   float t = 0.f;
-  for (int64_t i0 = threadIdx.x; i0 < chunks;
-       i0 += int64_t{kT} * kScreenFinishBatch) {
-    float v[kScreenFinishBatch];
-#pragma unroll
-    for (int u = 0; u < kScreenFinishBatch; ++u) {
-      const int64_t i = i0 + int64_t{u} * kT;
-      v[u] = i < chunks ? __ldcg(pr + i) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kScreenFinishBatch; ++u) {
-      if (i0 + int64_t{u} * kT < chunks) t = __fadd_rn(t, v[u]);
-    }
-  }
-  t = block_sum<kW>(t, smem);
   if (threadIdx.x == 0) {
-    out[row] = t;
-    count[row] = 0;
+    for (int w = 0; w < kW; ++w) t = __fadd_rn(t, smem[w]);
   }
-}
-
-// Block row: out[row] = the sum of the row's partials, strided per thread
-// in index order, then block_sum.
-__global__ void screen_finish(const float* __restrict__ part,
-                              float* __restrict__ out, int64_t chunks) {
-  __shared__ float smem[kWarps];
-  const int64_t row = blockIdx.x;
-  float s = 0.f;
-  for (int64_t i = threadIdx.x; i < chunks; i += kThreads) {
-    s = __fadd_rn(s, part[row * chunks + i]);
-  }
-  s = block_sum(s, smem);
-  if (threadIdx.x == 0) out[row] = s;
+  screen_arrive<kW>(t, part + row * chunks, c, chunks, count + row,
+                    out + row, smem);
 }
 
 // ---- top-k sparse wire: scatter of compacted rows ----
@@ -950,14 +1146,73 @@ int launch_sdga(const void* q, const void* scales, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The f32 screen's second launch, once the first launched:
-// cudaGetLastError() after the two.
-inline int launch_finish(const void* part, void* out, int64_t k,
-                         int64_t chunks, cudaStream_t s) {
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  screen_finish<<<static_cast<unsigned>(k), kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(out), chunks);
+// Lanes a thread and threads a block of the q4 fold: 4 lanes x 128 timed
+// fastest at the paper CNN's Dq (0.0100 ms against the earlier
+// grid-stride design's 0.0114 on one H100); 2 lanes were 0.0111 and
+// slower at 64 threads, 8 and 16 lanes 0.0115-0.0140 (every block size),
+// 256 and 512 threads 0.0001-0.0003 slower (csrc/fold_variants.cu, timed
+// by kernels/hold_timing.py).  Keep in step with
+// tests/test_torch_fold_q4.py, which models the lane partition from them.
+constexpr int kFoldQ4Vec = 4;
+constexpr int kFoldQ4Threads = 128;
+
+// The q4 fold in one launch of fold_q4_kernel over exactly the threads
+// fold_q4_span needs (at least one): a thread a vector, the head's and
+// the tail's lanes (fewer than V each, or every lane) riding along.
+template <int V, int T>
+int launch_fold_q4(const void* acc, const void* q, const void* scales,
+                   void* out, float w, float beta, int64_t dq, int qshift,
+                   void* stream) {
+  const FoldQ4Span sp = fold_q4_span<V>(acc, q, out, dq);
+  int64_t threads = sp.nv > sp.head ? sp.nv : sp.head;
+  if (threads < dq - sp.tail) threads = dq - sp.tail;
+  const unsigned blocks =
+      static_cast<unsigned>(threads > 0 ? (threads + T - 1) / T : 1);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* pa = static_cast<const float*>(acc);
+  const auto* pq = static_cast<const uint8_t*>(q);
+  const auto* ps = static_cast<const float*>(scales);
+  auto* po = static_cast<float*>(out);
+  if (beta == 1.0f) {
+    fold_q4_kernel<V, T, true><<<blocks, T, 0, s>>>(pa, pq, ps, po, w, beta,
+                                                    sp, dq, qshift);
+  } else {
+    fold_q4_kernel<V, T, false><<<blocks, T, 0, s>>>(pa, pq, ps, po, w,
+                                                     beta, sp, dq, qshift);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lanes of one chunk of the f32 screen with kW warps of kL loads.
+template <int kW, int kL>
+constexpr int64_t screen_f32_chunk() {
+  return int64_t{kW} * 32 * kL * 4;
+}
+
+// The f32 screen: one launch of screen_f32_kernel over a (chunks, K)
+// grid, float4 loads when every row starts 16-byte aligned, else lane by
+// lane (the same sums bitwise).  count: the K per-row counters, 0 before the launch and after
+// it.  kW warps a block, kL loads a thread: the package's shape unless
+// another is timed (csrc/screen_variants.cu).
+template <int kW = kScreenF32Warps, int kL = kScreenF32Loads>
+int launch_screen_f32(const void* u, void* part, void* count, void* out,
+                      int64_t k, int64_t d, int64_t chunks, void* stream) {
+  constexpr int64_t chunk = screen_f32_chunk<kW, kL>();
+  if (chunks != (d + chunk - 1) / chunk) return -1;
+  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(k));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* up = static_cast<const float*>(u);
+  auto* pp = static_cast<float*>(part);
+  auto* cp = static_cast<int*>(count);
+  auto* op = static_cast<float*>(out);
+  // every row starts 16-byte aligned: the first, and (K > 1) D % 4 == 0
+  if (reinterpret_cast<uintptr_t>(u) % 16 == 0 && (k == 1 || d % 4 == 0)) {
+    screen_f32_kernel<true, kW, kL><<<grid, kW * 32, 0, s>>>(up, pp, cp, op,
+                                                             d, chunks);
+  } else {
+    screen_f32_kernel<false, kW, kL><<<grid, kW * 32, 0, s>>>(up, pp, cp, op,
+                                                              d, chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1146,8 +1401,8 @@ int safl_fold_q8(const void* acc, const void* q, const void* scales,
 int safl_fold_q4(const void* acc, const void* q, const void* scales,
                  void* out, float w, float beta, int64_t dq, int qshift,
                  void* stream) {
-  return launch_fold<Q4Rows>(acc, q, scales, out, w, beta, dq, qshift,
-                             stream);
+  return launch_fold_q4<kFoldQ4Vec, kFoldQ4Threads>(
+      acc, q, scales, out, w, beta, dq, qshift, stream);
 }
 
 int safl_aggregate_f32(const void* u, const void* w, const void* p,
@@ -1218,20 +1473,13 @@ int sdga_aggregate_q4(const void* q, const void* scales, const void* w,
 
 // The screens return -1 when the caller's scratch has another number of
 // chunks per row than the kernels' constants give (it sizes nothing
-// then), else cudaGetLastError() after the launch (the f32 screen's two).
-int screen_rows_f32(const void* u, void* part, void* out, int64_t k,
-                    int64_t d, int64_t chunks, void* stream) {
-  if (chunks != (d + kScreenChunk - 1) / kScreenChunk) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  screen_partial_f32<<<dim3(static_cast<unsigned>(chunks),
-                            static_cast<unsigned>(k)),
-                       kThreads, 0, s>>>(static_cast<const float*>(u),
-                                         static_cast<float*>(part), d,
-                                         chunks);
-  return launch_finish(part, out, k, chunks, s);
+// then), else cudaGetLastError() after the launch.  count: K int32
+// per-row counters, zero (each launch leaves them zero).
+int screen_rows_f32(const void* u, void* part, void* count, void* out,
+                    int64_t k, int64_t d, int64_t chunks, void* stream) {
+  return launch_screen_f32<>(u, part, count, out, k, d, chunks, stream);
 }
 
-// count: K int32 per-row counters, zero (each launch leaves them zero).
 int screen_rows_q8(const void* q, const void* scales, void* part,
                    void* count, void* out, int64_t k, int64_t dq,
                    int qshift, int64_t chunks, void* stream) {

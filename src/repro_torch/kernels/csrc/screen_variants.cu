@@ -1,6 +1,6 @@
-// Other designs of safl_agg.cu's quantized screens, built and timed only
-// by ``repro_torch/kernels/hold_timing.py`` beside the package's kernel;
-// no wrapper of the package calls them.
+// Other designs of safl_agg.cu's screens, built and timed only by
+// ``repro_torch/kernels/hold_timing.py`` beside the package's kernels; no
+// wrapper of the package calls them.
 //
 //   screen_rows_q8_two_launch, screen_rows_q4_two_launch
 //       the earlier design, two launches a call, as it stood (namespace
@@ -18,6 +18,21 @@
 //       q8 row, 106 over a top-k upload's values); the package's
 //       screen_rows_q8 arguments, chunks = ceil(nb / (2 * qpw)) with qpw
 //       = max(1, 1024 / bytes per qblock).
+//   screen_rows_f32_two_launch
+//       the f32 screen's earlier design, two launches a call, as it stood
+//       (namespace two_launch): block (c, row) sums lanes [c*8192,
+//       (c+1)*8192) of the row, one 4-byte lane a thread per step of a
+//       strided loop (32 steps), into a (K, chunks) scratch, then
+//       screen_finish sums the row's partials; another f32 order than the
+//       package's kernel, so within rtol=1e-5 of the plain version and of
+//       it.  Arguments: safl_agg.cu's earlier screen_rows_f32 (u, part,
+//       out, k, d, chunks, stream), chunks = ceil(d / 8192).
+//   screen_rows_f32_w<W>_l<L>
+//       the package's one-launch f32 kernel (included from safl_agg.cu)
+//       with W warps a block (4, 8 or 16) and L float4 loads a thread (2,
+//       4, 8 or 16; not 16 x 16): W * 32 * L * 4 lanes a chunk; the
+//       package's screen_rows_f32 arguments, chunks = ceil(d / (W * 128 *
+//       L)).
 
 #include "safl_agg.cu"
 
@@ -110,6 +125,29 @@ __global__ void screen_partial_q(const uint8_t* __restrict__ q,
   }
 }
 
+// f32 lanes per chunk of a row in the earlier f32 screen (32 a thread).
+constexpr int64_t kScreenChunk = 8192;
+
+// Block (c, row): the sum of squares of lanes [c*chunk, (c+1)*chunk) of
+// the row, masked at the ragged end.
+__global__ void screen_partial_f32(const float* __restrict__ u,
+                                   float* __restrict__ part, int64_t d,
+                                   int64_t chunks) {
+  __shared__ float smem[kWarps];
+  const int64_t c = blockIdx.x;
+  const int64_t row = blockIdx.y;
+  const float* r = u + row * d;
+  const int64_t lo = c * kScreenChunk;
+  const int64_t hi = lo + kScreenChunk < d ? lo + kScreenChunk : d;
+  float s = 0.f;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) {
+    const float x = r[i];
+    s = __fadd_rn(s, __fmul_rn(x, x));
+  }
+  s = block_sum(s, smem);
+  if (threadIdx.x == 0) part[row * chunks + c] = s;
+}
+
 // Block row: out[row] = the sum of the row's partials, strided per thread
 // in index order, then block_sum.
 __global__ void screen_finish(const float* __restrict__ part,
@@ -150,6 +188,18 @@ int launch_screen_q(const void* q, const void* scales, void* part,
   return launch_finish(part, out, k, chunks, s);
 }
 
+inline int launch_screen_f32(const void* u, void* part, void* out, int64_t k,
+                             int64_t d, int64_t chunks, void* stream) {
+  if (chunks != (d + kScreenChunk - 1) / kScreenChunk) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  screen_partial_f32<<<dim3(static_cast<unsigned>(chunks),
+                            static_cast<unsigned>(k)),
+                       kThreads, 0, s>>>(static_cast<const float*>(u),
+                                         static_cast<float*>(part), d,
+                                         chunks);
+  return launch_finish(part, out, k, chunks, s);
+}
+
 }  // namespace two_launch
 
 extern "C" {
@@ -182,5 +232,30 @@ int screen_rows_q4_w2l2(const void* q, const void* scales, void* part,
   return launch_screen_q<true, 2, 2>(q, scales, part, count, out, k, dq,
                                      qshift, chunks, stream);
 }
+
+int screen_rows_f32_two_launch(const void* u, void* part, void* out,
+                               int64_t k, int64_t d, int64_t chunks,
+                               void* stream) {
+  return two_launch::launch_screen_f32(u, part, out, k, d, chunks, stream);
+}
+
+#define SCREEN_F32_VARIANT(W, L)                                          \
+  int screen_rows_f32_w##W##_l##L(const void* u, void* part, void* count, \
+                                  void* out, int64_t k, int64_t d,        \
+                                  int64_t chunks, void* stream) {         \
+    return launch_screen_f32<W, L>(u, part, count, out, k, d, chunks,     \
+                                   stream);                               \
+  }
+
+SCREEN_F32_VARIANT(4, 2)
+SCREEN_F32_VARIANT(4, 4)
+SCREEN_F32_VARIANT(4, 8)
+SCREEN_F32_VARIANT(4, 16)
+SCREEN_F32_VARIANT(8, 2)
+SCREEN_F32_VARIANT(8, 4)
+SCREEN_F32_VARIANT(8, 16)
+SCREEN_F32_VARIANT(16, 2)
+SCREEN_F32_VARIANT(16, 4)
+SCREEN_F32_VARIANT(16, 8)
 
 }  // extern "C"

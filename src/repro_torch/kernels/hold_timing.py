@@ -1,10 +1,14 @@
-"""Times the f32 fold's four designs, ``torch.add``, the quantized
-screens' three designs, the top-k kernels' designs and the flash
-kernels on the card, each with and
-without ``chip_smoke.py`` phase 4's device hold, in one process, so that
-a kernel's gain and the timing method's effect can be told apart.
+"""Times the f32 fold's four designs, ``torch.add``, the q4 fold's
+designs, the f32 and quantized screens' designs, the top-k kernels'
+designs and the flash kernels on the card, each with and without
+``chip_smoke.py`` phase 4's device hold, in one process, so that a
+kernel's gain and the timing method's effect can be told apart.
 
     PYTHONPATH=src python -m repro_torch.kernels.hold_timing [--rounds 7]
+        [--only GROUP ...]
+
+``--only`` times some groups of cases alone (``fold``, ``fold_q4``,
+``screen_f32``, ``screen``, ``topk``, ``flash``; all by default).
 
 It builds ``csrc/safl_agg.cu`` (the package's kernels),
 ``csrc/fold_variants.cu``, ``csrc/screen_variants.cu`` and
@@ -23,6 +27,23 @@ on the rows it is timed on, then times:
   and ``torch.add(acc, vec, alpha=w)``, on a 16-byte aligned row and in
   place into an odd bank row (row 1 of a (2, D) buffer: 8 bytes off;
   the 16-byte design does not run there);
+- the q4 fold at Dq = 2,155,008 in place at beta 1 (as the engine
+  folds): the package's (4 lanes a thread over an exact grid of 128) and
+  in ``fold_variants.cu`` the earlier design (one lane a thread in a
+  grid-stride loop) and the package's kernel at 2, 4, 8 and 16 lanes a
+  thread and blocks of 64, 128, 256 and 512, each through ``ctypes`` and
+  checked bitwise against ``safl_fold_q4_plain``, and the package's
+  wrapper;
+- the f32 screen at K = 1 on the paper CNN's row (16-byte aligned: the
+  float4 path), on a copy 4 bytes off and at K = 4 (D mod 4 = 2, so odd
+  rows 8 bytes off: both on the lane-by-lane path): the
+  package's one launch (8 warps a block, 8 float4 loads a thread)
+  through ``ctypes`` and its wrapper, and in ``screen_variants.cu`` the
+  earlier two-launch design and the same kernel at 4, 8 and 16 warps
+  and 2, 4, 8 and 16 loads (not 16 x 16); each design's sums checked
+  against
+  ``screen_rows_plain`` (isfinite verdicts exact, finite sums within
+  ``rtol=1e-5``), the package's bitwise across the three rows;
 - the quantized screens: the package's one-launch kernel
   (``screen_rows_q8`` / ``screen_rows_q4``: 8 warps a block, one 16-byte
   load a lane) through ``ctypes`` and through its wrapper, and through
@@ -157,6 +178,30 @@ def raw_screen(fn, q, s, packed, chunks, counts=None):
     return call, out
 
 
+def raw_screen_f32(fn, u, chunks, counts=None):
+    """A call of the C f32 screen ``fn`` over the (K, D) rows ``u`` with
+    its (K, chunks) scratch and arguments made beforehand; ``counts``
+    (per-row counters) for the one-launch kernels, None for the two-launch
+    design.  Returns (call, out)."""
+    k, d = u.shape
+    part = torch.empty((k, chunks), device="cuda")
+    out = torch.empty(k, device="cuda")
+    ptrs = [u.data_ptr(), part.data_ptr()]
+    if counts is not None:
+        ptrs.append(counts.data_ptr())
+    fn.argtypes = [ctypes.c_void_p] * (len(ptrs) + 1) + [
+        ctypes.c_int64] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    args = (*ptrs, out.data_ptr(), k, d, chunks,
+            torch.cuda.current_stream().cuda_stream)
+
+    def call():
+        if fn(*args):
+            raise RuntimeError(f"{fn.__name__}: launch failed")
+    call.tensors = (u, part, out, counts)
+    return call, out
+
+
 def check_sums(name, got, want):
     """Exit unless a screen's sums match its plain version's: isfinite
     verdicts exact, finite sums within rtol=1e-5."""
@@ -211,6 +256,96 @@ def screen_cases(g) -> dict:
                    wrapper(q, s, qblock=QB), want)
         cases[f"screen wrapper, {row_name}"] = (
             lambda q=q, s=s, w=wrapper: w(q, s, qblock=QB))
+    return cases
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` one element past its buffer's aligned
+    start."""
+    view = torch.empty(t.numel() + 16, dtype=t.dtype,
+                       device=t.device)[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def screen_f32_cases(g) -> dict:
+    """The f32 screen's timed calls, each checked first: against the
+    plain version, and the package's sums bitwise the same on every
+    row's path."""
+    variants = build.load("screen_variants")
+    package = k_mod._lib()
+    u = torch.randn((4, D), device="cuda", generator=g)
+    u[1, 1000] = float("nan")
+    rows = {"f32 K=1 D": u[:1], "f32 K=1 D, 4 bytes off": misaligned(u[:1]),
+            "f32 K=4 D": u}
+    counts = k_mod._screen_counts(0, torch.cuda.current_stream().cuda_stream)
+    designs = {"two launches (parent)": (variants.screen_rows_f32_two_launch,
+                                         8192, None)}
+    for w in (4, 8, 16):
+        for loads in (2, 4, 8, 16):
+            if (w, loads) not in ((k_mod.SCREEN_F32_WARPS,
+                                   k_mod.SCREEN_F32_LOADS), (16, 16)):
+                designs[f"one launch, {w} warps x {loads} loads"] = (
+                    getattr(variants, f"screen_rows_f32_w{w}_l{loads}"),
+                    w * 128 * loads, counts)
+    designs["one launch (package)"] = (package.screen_rows_f32,
+                                       k_mod.SCREEN_CHUNK, counts)
+    cases, sums = {}, {}
+    for row_name, x in rows.items():
+        want = k_mod.screen_rows_plain(x)
+        for name, (fn, chunk, cnt) in designs.items():
+            call, out = raw_screen_f32(fn, x, -(-D // chunk), cnt)
+            call()
+            check_sums(f"screen {name}, {row_name}", out, want)
+            cases[f"screen {name}, {row_name}"] = call
+            if name == "one launch (package)":
+                sums[row_name] = out.clone()
+        check_sums(f"screen wrapper, {row_name}", k_mod.screen_rows(x), want)
+        cases[f"screen wrapper screen_rows, {row_name}"] = (
+            lambda x=x: k_mod.screen_rows(x))
+    first = sums["f32 K=1 D"].view(torch.int32)
+    if not (torch.equal(sums["f32 K=1 D, 4 bytes off"].view(torch.int32),
+                        first)
+            and torch.equal(sums["f32 K=4 D"][:1].view(torch.int32), first)):
+        sys.exit("hold_timing: the f32 screen's two paths differ bitwise")
+    return cases
+
+
+def fold_q4_cases(g) -> dict:
+    """The q4 fold's timed calls (in place at beta 1), each checked
+    bitwise first."""
+    from repro_torch.kernels import ref
+    variants = build.load("fold_variants")
+    package = k_mod._lib()
+    acc = torch.randn((DQ,), device="cuda", generator=g)
+    p4 = ref.pack_q4_ref(torch.randint(-8, 8, (DQ,), device="cuda",
+                                       generator=g).to(torch.int8))
+    s4 = torch.rand((DQ // QB,), device="cuda", generator=g)
+    w = 0.37
+    want = k_mod.safl_fold_q4_plain(acc, p4, s4, w, qblock=QB)
+    designs = {"grid-stride, one lane (parent)":
+               variants.safl_fold_q4_gridstride}
+    for v in (2, 4, 8, 16):
+        for t in (64, 128, 256, 512):
+            designs[f"{v} lanes x {t} threads"] = getattr(
+                variants, f"safl_fold_q4_v{v}_t{t}")
+    designs["package"] = package.safl_fold_q4
+    p, f = ctypes.c_void_p, ctypes.c_float
+    cases = {}
+    for name, fn in designs.items():
+        fn.argtypes = [p] * 4 + [f, f, ctypes.c_int64, ctypes.c_int, p]
+        row = acc.clone()
+        call = raw_topk(fn, (row.data_ptr(), p4.data_ptr(), s4.data_ptr(),
+                             row.data_ptr(), w, 1.0, DQ,
+                             QB.bit_length() - 1), row, p4, s4)
+        call()
+        if not torch.equal(row, want):
+            sys.exit(f"hold_timing: q4 fold {name} is not bitwise "
+                     "safl_fold_q4_plain")
+        cases[f"fold_q4 {name}"] = call
+    row = acc.clone()
+    cases["fold_q4 wrapper safl_fold_q4"] = (
+        lambda: k_mod.safl_fold_q4(row, p4, s4, w, qblock=QB, out=row))
     return cases
 
 
@@ -328,21 +463,11 @@ def topk_cases(g) -> dict:
     return cases
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rounds", type=int, default=7)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("hold_timing: no CUDA card")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
+def fold_cases(g) -> dict:
+    """The f32 fold's timed calls and ``torch.add``, each checked
+    bitwise first."""
     variants = build.load("fold_variants")
     package = k_mod._lib()
-    g = torch.Generator(device="cuda").manual_seed(1)
-    flush = torch.zeros(64 * 2 ** 20, device="cuda")
     vec = torch.randn((D,), device="cuda", generator=g)
     w = 0.37
     rows = {"aligned": torch.randn((D,), device="cuda", generator=g),
@@ -369,15 +494,47 @@ def main() -> None:
             lambda r=row: k_mod.safl_fold(r, vec, w, out=r))
         cases[f"torch.add, {row_name}"] = (
             lambda r=row: torch.add(r, vec, alpha=w))
-    cases.update(screen_cases(g))
-    cases.update(topk_cases(g))
+    return cases
+
+
+def flash_cases(g) -> dict:
+    """Flash attention in bf16 and f32 at the qwen3 prefill's shape."""
     b, s, h, hkv, hd = FLASH_SHAPE
+    cases = {}
     for dtype in (torch.bfloat16, torch.float32):
         q = torch.randn((b, s, h, hd), device="cuda", generator=g).to(dtype)
         kv = [torch.randn((b, s, hkv, hd), device="cuda",
                           generator=g).to(dtype) for _ in range(2)]
         cases[f"flash_attention {str(dtype).split('.')[-1]}"] = (
             lambda q=q, kv=kv: fa_mod.flash_attention(q, *kv))
+    return cases
+
+
+#: the groups of cases, in the order they are made and timed
+GROUPS = {"fold": fold_cases, "fold_q4": fold_q4_cases,
+          "screen_f32": screen_f32_cases, "screen": screen_cases,
+          "topk": topk_cases, "flash": flash_cases}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--only", nargs="+", choices=sorted(GROUPS),
+                    default=list(GROUPS))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("hold_timing: no CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.zeros(64 * 2 ** 20, device="cuda")
+    cases = {}
+    for group, make in GROUPS.items():
+        if group in args.only:
+            cases.update(make(g))
     samples = {(c, hold): [] for c in cases for hold in (False, True)}
     no_flush = torch.zeros(1, device="cuda")
     for _ in range(args.rounds):
@@ -402,6 +559,7 @@ def main() -> None:
     OUT.parent.mkdir(parents=True, exist_ok=True)
     OUT.write_text(json.dumps(dict(smi=smi, torch=torch.__version__,
                                    rounds=args.rounds, launches=LAUNCHES,
+                                   groups=args.only,
                                    hold_cycles=HOLD_CYCLES, d=D, dq=DQ,
                                    nk=NK,
                                    cases=rows_out), indent=1))

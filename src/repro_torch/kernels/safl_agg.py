@@ -45,13 +45,21 @@ against 1 or 4 bytes per operand); the wrappers' docstrings give the
 bytes.  The design is a simple coalesced streaming pass with a
 grid-stride loop, the int8 and int4 rows dequantized in registers; TMA
 and ``wgmma`` buy nothing a bandwidth-bound pass needs first.  The f32
-fold alone moves 8-byte vectors, one a thread over an exact grid, from
-the output's first 128-byte line on (a bank row may start anywhere in a
+fold moves 8-byte vectors, one a thread over an exact grid, from the
+output's first 128-byte line on (a bank row may start anywhere in a
 line); the grid-stride loop and 16-byte vectors timed slower
-(:mod:`repro_torch.kernels.hold_timing`).  The quantized screens are
-one launch a call (blocks of 8 warps, a 16-byte load a lane summed by
-``__dp4a``), the row's last block summing its partials (an integer
-counter per row, no float atomics).  The top-k kernels scatter
+(:mod:`repro_torch.kernels.hold_timing`).  The q4 fold takes 4 lanes a
+thread over an exact grid of 128-thread blocks: one 2-byte load of the
+packed lanes, a float4 load of acc and the lanes' scale before any
+arithmetic, the nibbles sign-extended in a word; the lanes around the
+aligned vectors (every lane where the rows disagree mod a vector) one a
+thread in the same launch; 2, 8 and 16 lanes a thread and the
+grid-stride loop timed slower.  The three screens are
+one launch a call (blocks of 8 warps; the f32 screen 8 float4 loads a
+thread in groups of 4 lanes,
+the quantized ones a 16-byte load a lane summed by ``__dp4a``), the
+row's last block summing its partials (an integer counter per row, no
+float atomics).  The top-k kernels scatter
 each kept lane into the bank instead, one launch a call: the fold one
 lane a thread over an exact grid of 128-thread blocks (more lanes a
 thread timed slower: the scattered gathers want the most warps), the
@@ -89,9 +97,13 @@ MODES = {"fedsgd": 0, "avg": 1, "mix": 2, "sum": 3}
 #: most rows the aggregate kernels take: their K weights live in one
 #: block's shared memory (48 KB without an opt-in)
 MAX_K = 4096
-#: f32 lanes per chunk of a screened row: the kernel's kScreenChunk, which
-#: sizes the f32 screen's (K, chunks) scratch of partial sums
-SCREEN_CHUNK = 8192
+#: warps per block of the f32 screen and float4 loads per thread: the
+#: kernel's kScreenF32Warps and kScreenF32Loads
+SCREEN_F32_WARPS = 8
+SCREEN_F32_LOADS = 8
+#: f32 lanes per chunk of a screened row (a block's loads of 4 lanes),
+#: which sizes the f32 screen's (K, chunks) scratch of partial sums
+SCREEN_CHUNK = SCREEN_F32_WARPS * 32 * SCREEN_F32_LOADS * 4
 #: warps per block of the quantized screens, and the bytes of a row each
 #: warp covers: the kernel's kScreenQWarps and kScreenQLoads * 512, which
 #: size their (K, chunks) scratch (see :func:`screen_q_chunks`)
@@ -116,7 +128,7 @@ def _lib() -> ctypes.CDLL:
                                f, f, i32, p],
         "sdga_aggregate_q8": [p, p, p, p, p, p, p, p, p, i64, i64, i64, f, f,
                               f, f, f, f, i32, i32, p],
-        "screen_rows_f32": [p, p, p, i64, i64, i64, p],
+        "screen_rows_f32": [p, p, p, p, i64, i64, i64, p],
         "screen_rows_q8": [p, p, p, p, p, i64, i64, i32, i64, p],
         "safl_fold_topk": [p, p, p, p, p, f, f, i64, i64, i32, p],
         "safl_aggregate_topk": [p, p, p, p, p, i64, i64, i64, i32, p],
@@ -236,6 +248,8 @@ def _fold_q(wrapper, plain, packed: bool, acc, q_row, s_row, w, beta,
         return out
     dq = acc.shape[0]
     qshift = _qshift(qblock)
+    if packed and qblock < 2:
+        raise ValueError(f"{name}: qblock={qblock} is less than a byte")
     if dq % qblock:
         raise ValueError(f"Dq={dq} is not a multiple of qblock={qblock}")
     _check("acc", acc, (dq,), acc.device)
@@ -273,7 +287,11 @@ def safl_fold_q4(acc: torch.Tensor, q_row: torch.Tensor,
                  out: torch.Tensor = None) -> torch.Tensor:
     """:func:`safl_fold_q8` over one packed int4 row, q_row (Dq/2,) int8
     bytes.  Replaces ``repro/kernels/safl_agg.py:658 safl_fold_q4``.
-    ``out`` may be ``acc``.  Bound: 8.5*Dq + 4*Dq/qblock bytes."""
+    ``out`` may be ``acc``; a row may start at any lane or byte.  4 lanes
+    a thread over an exact grid from the first lane where acc, out and
+    q_row are all vector-aligned, the lanes around those vectors (every
+    lane where the three disagree) one a thread in the same launch.
+    Bound: 8.5*Dq + 4*Dq/qblock bytes."""
     return _fold_q(safl_fold_q4, safl_fold_q4_plain, True, acc, q_row,
                    s_row, w, beta, qblock, out)
 
@@ -638,10 +656,23 @@ def screen_rows_plain(rows: torch.Tensor) -> torch.Tensor:
     return _per_row(sumsq, rows)
 
 
+def screen_chunks(d: int) -> int:
+    """Chunks (blocks of threads) per row of ``d`` lanes in the f32
+    screen: a function of the row's length only."""
+    return -(-d // SCREEN_CHUNK)
+
+
 def screen_rows(rows: torch.Tensor) -> torch.Tensor:
     """rows (K, D) f32 -> (K,) f32 sums of squares.  NaN/Inf lanes make a
     row's sum non-finite.  Replaces ``repro/kernels/safl_agg.py:887
-    screen_rows``.  Bound: K*D*4 bytes read."""
+    screen_rows``.  One launch, as the quantized screens
+    (:func:`_screen_q`): each block of a (chunks, K) grid sums its chunk
+    of :data:`SCREEN_CHUNK` lanes into ``part`` and bumps its row's
+    counter (:func:`_screen_counts`), the row's last block sums the
+    partials.  float4 loads where every row starts 16-byte aligned, else
+    lane by lane, in one partition of groups of 4 lanes (the same sums
+    bitwise).  Bound: K*D*4
+    bytes read."""
     if not _on_cuda(rows, "screen_rows"):
         return screen_rows_plain(rows)
     if rows.dim() != 2:
@@ -651,11 +682,14 @@ def screen_rows(rows: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"rows: shape {(k, d)} outside [1, {MAX_K}] x "
                          "[1, ...)")
     _check("rows", rows, (k, d), rows.device)
-    chunks = -(-d // SCREEN_CHUNK)
+    chunks = screen_chunks(d)
     part = torch.empty((k, chunks), dtype=torch.float32, device=rows.device)
     out = torch.empty(k, dtype=torch.float32, device=rows.device)
+    stream = _stream(rows)
+    counts = _screen_counts(rows.device.index, stream)
     rc = _lib().screen_rows_f32(rows.data_ptr(), part.data_ptr(),
-                                out.data_ptr(), k, d, chunks, _stream(rows))
+                                counts.data_ptr(), out.data_ptr(), k, d,
+                                chunks, stream)
     _raise_on(rc, "screen_rows")
     screen_rows.launches += 1
     return out
@@ -698,7 +732,7 @@ def screen_q_chunks(nb: int, bbytes: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _screen_counts(device: int, stream: int) -> torch.Tensor:
-    """The quantized screens' per-row arrival counters on CUDA device
+    """The screens' per-row arrival counters on CUDA device
     ``device`` for launches on ``stream``: MAX_K int32, zeroed once (on
     that stream, the current one); every launch leaves them zero."""
     return torch.zeros(MAX_K, dtype=torch.int32,
