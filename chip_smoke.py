@@ -8,12 +8,17 @@ CUDA toolkit (nvcc).  It imports nothing of JAX or of the JAX package.
 Phases, each of which exits non-zero on failure:
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-     TF32 is switched off for convolutions and matrix products
+     TF32 is switched off for convolutions and matrix products, and cuDNN
+     set to deterministic algorithms picked without timing
+     (``cudnn.deterministic``, not ``cudnn.benchmark``), as ``fl_sim``
+     sets it
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
-     ``flash_attention.cu``), started together; the ptxas report must
+     ``flash_attention.cu``, and ``aggregate_variants.cu``, the q4
+     aggregate's parent design), started together; the ptxas report must
      show no spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two
-     top-k kernels, the f32 screen and the q4 fold
+     top-k kernels, the f32 screen, the q4 and q8 folds and the q4
+     aggregate
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -32,9 +37,12 @@ Phases, each of which exits non-zero on failure:
      also on a copy of the rows 1 element off a 16-byte boundary (the f32
      screen's lane-by-lane path, the quantized screens' byte path):
      against the plain version, and bitwise the aligned calls' sums.
-     ``safl_fold_q4`` at both Dq, at beta 1 in place and 0.625 out of
-     place, with acc 0-3 lanes and the packed row 0-15 bytes off
-     alignment (64 placements each): bitwise.  The q4 wire's stochastic-rounding draws made
+     ``safl_fold_q4`` and ``safl_fold_q8`` at both Dq, at beta 1 in
+     place and 0.625 out of place, with acc 0-3 lanes and the quantized
+     row 0-15 bytes off alignment (64 placements each): bitwise.
+     ``safl_aggregate_q4`` in every mode x discount at K = 1, 4 and 16,
+     both Dq, rows and p aligned and 1 byte / 1 lane off: bitwise the
+     plain version (discount none) or the parent kernel (poly).  The q4 wire's stochastic-rounding draws made
      on the card (``prng.uniform_torch``) against the numpy threefry at
      the paper CNN's (4209, 512): bitwise.  The two top-k kernels at the main
      path's K = 4, nk = 215,552 (rows colliding on a coordinate in 4 and
@@ -66,9 +74,9 @@ Phases, each of which exits non-zero on failure:
      kernels, the int8 pair and flash attention at the
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
-     3 calls of each screen (f32, q8, q4; K = 1), of the q4 and top-k
-     folds (beta 1, in place) and of the top-k K-row sum (K = 4)
-     captured into a CUDA
+     3 calls of each screen (f32, q8, q4; K = 1), of the q4, q8 and top-k
+     folds (beta 1, in place), of the q4 aggregate (K = 4, fedsgd) and
+     of the top-k K-row sum (K = 4) captured into a CUDA
      graph, whose nodes (read through libcuda's graph API) must be one
      launch of the kernel a call and nothing else (no memset; the K-row
      sum's launch cooperative), its replay equal to the eager outputs,
@@ -105,7 +113,11 @@ Phases, each of which exits non-zero on failure:
      setting's launches held to the counts it names, every drawn fault
      kind fired, ``screened == corrupted`` under the screen,
      ``clipped >= byzantine`` under clip, and finite params after every
-     round; then the int8 pair's own path, the compression helpers over
+     round; each setting then runs again from a fresh engine, which must
+     repeat the first run bit for bit (final flat params bitwise; every
+     round's accuracy and loss, bytes, participation, staleness,
+     launches and fault counts equal); then the int8 pair's own path,
+     the compression helpers over
      the full-width CNN's parameters, its counters reset before and read
      after (one launch of each kernel per leaf)
   7. the serving path at full width: ``repro_torch.launch.serve.run`` of
@@ -183,6 +195,9 @@ REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "flash_attention": "src/repro/kernels/flash_attention.py:76"}
 #: the CUDA sources, each built by its own nvcc, all started together
 SOURCES = ("safl_agg", "quantize", "flash_attention")
+#: other designs built beside them: the q4 aggregate's parent kernel,
+#: which phase 3 holds the new one against under the poly discount
+VARIANT_SOURCES = ("aggregate_variants",)
 INT8_KERNELS = ("quantize_int8", "dequantize_int8")
 #: the source of each kernel: the int8 pair in csrc/quantize.cu, flash
 #: attention in csrc/flash_attention.cu, every other in csrc/safl_agg.cu
@@ -609,53 +624,123 @@ def check_topk(torch, k_mod, report, worst):
     torch.cuda.synchronize()
 
 
-def check_fold_q4(torch, k_mod, report, worst):
-    """``safl_fold_q4`` at the main path's and the ragged Dq, at beta 1 in
-    place and at beta 0.625 out of place (out at acc's offset where the
-    packed row's is even, 1 lane past it where odd: there out and acc
-    disagree mod 16 bytes and every lane goes alone), with acc 0-3 lanes
-    and the packed row 0-15 bytes off their buffers' start (64
-    placements: the vector path from a head of 0-3 lanes, vectors
-    straddling a qblock, and every lane alone where the rows disagree),
-    the rows holding -8 nibbles: bitwise its plain version in every
-    placement."""
-    g = torch.Generator(device="cuda").manual_seed(7)
+def check_fold_q(torch, k_mod, report, worst, wire):
+    """``safl_fold_q4`` / ``safl_fold_q8`` (``wire``) at the main path's
+    and the ragged Dq, at beta 1 in place and at beta 0.625 out of place
+    (out at acc's offset where the quantized row's is even, 1 lane past it
+    where odd: there out and acc disagree mod 16 bytes and every lane goes
+    alone), with acc 0-3 lanes and the quantized row 0-15 bytes off their
+    buffers' start (64 placements: the vector path from a head of 0-3
+    lanes, vectors straddling a qblock, and every lane alone where the
+    rows disagree), the q4 row holding -8 nibbles and the q8 row -128
+    bytes (levels the quantizers never emit; a corrupt upload's can):
+    bitwise its plain version in every placement."""
+    name = "safl_fold_" + wire
+    fold = k_mod.KERNELS[name]
+    plain = getattr(k_mod, name + "_plain")
+    g = torch.Generator(device="cuda").manual_seed(7 if wire == "q4" else 8)
     for d in (D_FULL, D_RAGGED):
         dq = dq_of(d)
-        p4, s4 = q4_rows(torch, 1, d, g, flip=True)
+        if wire == "q4":
+            qr, sr = q4_rows(torch, 1, d, g, flip=True)
+        else:
+            qr, sr = q8_rows(torch, 1, d, g)
+            qr[:, 100:164:3] = -128
         acc = torch.randn((dq,), device="cuda", generator=g)
         for beta, in_place in ((1.0, True), (0.625, False)):
-            want = k_mod.safl_fold_q4_plain(acc, p4[0], s4[0], 0.37, beta)
+            want = plain(acc, qr[0], sr[0], 0.37, beta)
             bad, err = [], 0.0
             for a_off in range(4):
                 for q_off in range(16):
                     row = misaligned(torch, acc, a_off)
-                    qp = misaligned(torch, p4[0], q_off)
+                    qp = misaligned(torch, qr[0], q_off)
                     if in_place:
-                        k_mod.safl_fold_q4(row, qp, s4[0], 0.37, beta,
-                                           out=row)
+                        fold(row, qp, sr[0], 0.37, beta, out=row)
                         got = row
                     else:
                         got = misaligned(torch, torch.zeros_like(acc),
                                          (a_off + q_off % 2) % 4)
-                        k_mod.safl_fold_q4(row, qp, s4[0], 0.37, beta,
-                                           out=got)
+                        fold(row, qp, sr[0], 0.37, beta, out=got)
                         if not torch.equal(row, acc):
                             bad.append((a_off, q_off, "acc written"))
                     err = max(err, float((got - want).abs().max()))
                     if not torch.equal(got, want):
                         bad.append((a_off, q_off))
             info = dict(dq=dq, beta=beta, in_place=in_place, placements=64)
-            report.append(dict(kernel="safl_fold_q4", max_abs_err=err,
+            report.append(dict(kernel=name, max_abs_err=err,
                                bitwise=not bad, differing=bad, **info))
-            print(f"  {'safl_fold_q4':<18} dq={dq} beta={beta} "
-                  f"in_place={in_place}: acc 0-3 lanes x packed row 0-15 "
-                  f"bytes off, {64 - len(bad)}/64 placements bitwise "
-                  f"(tolerance: bitwise)")
+            print(f"  {name:<18} dq={dq} beta={beta} in_place={in_place}: "
+                  f"acc 0-3 lanes x {wire} row 0-15 bytes off, "
+                  f"{64 - len(bad)}/64 placements bitwise (tolerance: "
+                  "bitwise)")
             if bad:
-                fail(f"safl_fold_q4 dq={dq} beta={beta}: placements {bad} "
-                     "differ from the plain version")
-            worst["safl_fold_q4"] = max(worst.get("safl_fold_q4", 0.0), err)
+                fail(f"{name} dq={dq} beta={beta}: placements {bad} differ "
+                     "from the plain version")
+            worst[name] = max(worst.get(name, 0.0), err)
+    torch.cuda.synchronize()
+
+
+def parent_aggregate_q4(torch, k_mod, lib):
+    """The q4 aggregate's parent kernel (``csrc/aggregate_variants.cu``'s
+    ``safl_aggregate_q4_gridstride``, ``aggregate_kernel<Q4Rows>``) as a
+    function of the wrapper's arguments."""
+    fn = lib.safl_aggregate_q4_gridstride
+    fn.argtypes = k_mod._lib().safl_aggregate_q4.argtypes
+    fn.restype = ctypes.c_int
+
+    def call(q, s, w, p, *, server_lr, mode, alpha, discount):
+        dq = 2 * q.shape[1]
+        n = p.shape[0] if mode in ("fedsgd", "mix") else dq
+        out = torch.empty(n, device="cuda")
+        rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
+                None if p is None else p.data_ptr(), out.data_ptr(),
+                q.shape[0], dq, n, server_lr, alpha, k_mod.MODES[mode],
+                int(discount == "poly"), QB.bit_length() - 1,
+                torch.cuda.current_stream().cuda_stream)
+        if rc:
+            fail(f"safl_aggregate_q4_gridstride: launch returned {rc}")
+        return out
+    return call
+
+
+def check_aggregate_q4(torch, k_mod, report, worst, variants):
+    """``safl_aggregate_q4`` in every mode x discount at K = 1, 4 and 16,
+    at the main path's D (Dq = 2,155,008; fedsgd / mix over D lanes, so
+    a tail past the last whole vector) and the ragged D, on the rows and p
+    as allocated (the vector path, as in the engine) and on copies one
+    byte (rows) and one lane (p) off (lane by lane), the rows holding -8
+    nibbles: bitwise its plain version with discount none; with poly
+    weights (``powf``, within 1.9e-6 of ``torch.pow``: ``check_kernels``
+    holds that) bitwise the parent's kernel (``variants``:
+    ``csrc/aggregate_variants.cu``)."""
+    parent = parent_aggregate_q4(torch, k_mod, variants)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for d in (D_FULL, D_RAGGED):
+        dq = dq_of(d)
+        p = torch.randn((d,), device="cuda", generator=g)
+        q16, s16 = q4_rows(torch, 16, d, g, flip=True)
+        for k in (1, 4, 16):
+            q, s = q16[:k], s16[:k]
+            for rows, (qq, pp) in (("aligned", (q, p)),
+                                   ("rows 1 byte, p 1 lane off",
+                                    (misaligned(torch, q),
+                                     misaligned(torch, p)))):
+                for discount in k_mod.DISCOUNTS:
+                    for mode in k_mod.MODES:
+                        w = agg_weights(torch, k, mode, discount, g)
+                        kw = dict(server_lr=0.05, mode=mode, alpha=0.5,
+                                  discount=discount)
+                        got = k_mod.safl_aggregate_q4(qq, s, w, pp, **kw)
+                        info = dict(dq=dq, k=k, mode=mode,
+                                    discount=discount, rows=rows)
+                        if discount == "poly":
+                            want = parent(qq, s, w, pp, **kw)
+                            info["vs"] = "parent kernel"
+                        else:
+                            want = k_mod.safl_aggregate_q4_plain(q, s, w, p,
+                                                                 **kw)
+                        compare(torch, report, worst, "safl_aggregate_q4",
+                                got, want, True, **info)
     torch.cuda.synchronize()
 
 
@@ -1273,9 +1358,10 @@ def graph_kernels(torch, fn, calls, restore=None, cooperative=False):
 
 
 def check_one_launch(torch, k_mod, calls=3):
-    """Each screen (f32, q8, q4) at the main path's K = 1, the q4 and
-    top-k folds at beta 1 in place (as the engine folds) and the top-k
-    K-row sum at the main path's K = 4 issue one device kernel a call and
+    """Each screen (f32, q8, q4) at the main path's K = 1, the q4, q8 and
+    top-k folds at beta 1 in place (as the engine folds), the q4
+    aggregate (fedsgd) and the top-k K-row sum at the main path's K = 4
+    issue one device kernel a call and
     nothing else (no memset, no copy, no second kernel), seen two ways:
     ``calls`` calls of each captured into a CUDA graph, whose nodes must
     be ``calls`` launches of the kernel (the screens on their (chunks, K)
@@ -1293,6 +1379,8 @@ def check_one_launch(torch, k_mod, calls=3):
     q, s = q8_rows(torch, 1, D_FULL, g)
     p4, s4 = q4_rows(torch, 1, D_FULL, g)
     idx, qv, sv = topk_rows(torch, K_MAIN, D_FULL, NK_FULL, g)
+    p4k, s4k = q4_rows(torch, K_MAIN, D_FULL, g)
+    params = torch.randn((D_FULL,), device="cuda", generator=g)
     acc = torch.randn((D_FULL,), device="cuda", generator=g)
     base = acc.clone()
     u = torch.randn((1, D_FULL), device="cuda", generator=g)
@@ -1321,6 +1409,14 @@ def check_one_launch(torch, k_mod, calls=3):
             lambda: k_mod.safl_fold_q4(acc_q, p4[0], s4[0], 0.37, qblock=QB,
                                        out=acc_q),
             lambda: acc_q.copy_(base_q), ("fold_q4_kernel",), None, None),
+        "safl_fold_q8": (
+            lambda: k_mod.safl_fold_q8(acc_q, q[0], s[0], 0.37, qblock=QB,
+                                       out=acc_q),
+            lambda: acc_q.copy_(base_q), ("fold_q8_kernel",), None, None),
+        "safl_aggregate_q4": (
+            lambda: k_mod.safl_aggregate_q4(p4k, s4k, w, params,
+                                            server_lr=0.05, qblock=QB),
+            None, ("aggregate_q4_kernel",), None, None),
         "safl_fold_topk": (
             lambda: k_mod.safl_fold_topk(acc, idx[0], qv[0], sv[0], 0.37,
                                          out=acc),
@@ -1800,7 +1896,73 @@ def run_compression_path(torch, q_mod, wrappers):
                 max_rel_err=err)
 
 
+def run_setting(torch, setup, setting, kw, wrappers):
+    """One run of ROUNDS rounds from a fresh engine of ``setting`` with
+    ``kw``, every launch counter reset before and read after.  Returns
+    the engine, its result, the counts, the wall seconds and their split,
+    whether the global params were finite after each round and the fault
+    kinds the plan drew."""
+    eng = build_engine(torch, setup, setting, "cuda", **kw)
+    if eng.codec.d != D_FULL:
+        fail(f"full-width CNN has D={eng.codec.d}, expected {D_FULL}")
+    split = {"client_train": 0.0, "server_ingest": 0.0,
+             "server_round": 0.0, "eval": 0.0}
+    timed(torch, eng, "_run_local", "client_train", split)
+    timed(torch, eng, "_enqueue_upload", "server_ingest", split)
+    timed(torch, eng, "_aggregate", "server_round", split)
+    timed(torch, eng, "_eval_and_record", "eval", split)
+    # finite global params after every round, checked outside the timed
+    # span; the fault kinds the plan draws, tallied
+    finite, drawn = [], {}
+    agg = eng._aggregate
+
+    def aggregate(*a, _agg=agg, _eng=eng, _finite=finite):
+        out = _agg(*a)
+        _finite.append(bool(torch.isfinite(_eng._flat_params).all()))
+        return out
+
+    eng._aggregate = aggregate
+    if eng.sched.faults is not None:
+        draw = eng.sched.faults.draw
+
+        def tally(cid, _draw=draw, _drawn=drawn):
+            f = _draw(cid)
+            _drawn[f.kind] = _drawn.get(f.kind, 0) + 1
+            return f
+
+        eng.sched.faults.draw = tally
+    for f in wrappers.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.run(ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: f.launches for n, f in wrappers.items()}
+    return eng, res, counts, wall, split, finite, drawn
+
+
+def run_record(eng, res, counts, drawn):
+    """What a run must repeat: every round's accuracy and loss, bytes,
+    uploads, staleness, launches and fault counts."""
+    recs = res.metrics.records
+    return dict(accuracy=[r.accuracy for r in recs],
+                loss=[r.loss for r in recs], tx_bytes=eng.tx_bytes,
+                rx_bytes=eng.rx_bytes,
+                uploads=int(res.participation.sum()),
+                participation=res.participation.tolist(),
+                staleness_hist=dict(res.staleness_hist),
+                launches=counts, faults_drawn=drawn,
+                fault_counts={key.split("_")[0]: res.sched_stats[key]
+                              for key in FAULT_COUNTS})
+
+
 def run_main_path(torch, wrappers):
+    """Every setting of ``MAIN_SETTINGS`` run twice, each time from a fresh
+    engine: the first run is checked (launch counts, faults, finite
+    params) and counted; the second must repeat it bit for bit (the final
+    flat params bitwise, every round's accuracy and loss, and the bytes,
+    uploads, participation, staleness, launches and fault counts equal)."""
     setup = make_setup(width=32, hw=32, samples=2000, clients=16)
     rows = []
     launches = dict.fromkeys(KERNELS, 0)
@@ -1808,48 +1970,14 @@ def run_main_path(torch, wrappers):
         if kw.get("defense") == "clip":
             kw = dict(kw, defense_norm_cap=clean_clip_cap(torch, setup,
                                                           setting, kw))
-        eng = build_engine(torch, setup, setting, "cuda", **kw)
-        if eng.codec.d != D_FULL:
-            fail(f"full-width CNN has D={eng.codec.d}, expected {D_FULL}")
-        split = {"client_train": 0.0, "server_ingest": 0.0,
-                 "server_round": 0.0, "eval": 0.0}
-        timed(torch, eng, "_run_local", "client_train", split)
-        timed(torch, eng, "_enqueue_upload", "server_ingest", split)
-        timed(torch, eng, "_aggregate", "server_round", split)
-        timed(torch, eng, "_eval_and_record", "eval", split)
-        # finite global params after every round, checked outside the
-        # timed span; the fault kinds the plan draws, tallied
-        finite, drawn = [], {}
-        agg = eng._aggregate
-
-        def aggregate(*a, _agg=agg, _eng=eng, _finite=finite):
-            out = _agg(*a)
-            _finite.append(bool(torch.isfinite(_eng._flat_params).all()))
-            return out
-
-        eng._aggregate = aggregate
-        if eng.sched.faults is not None:
-            draw = eng.sched.faults.draw
-
-            def tally(cid, _draw=draw, _drawn=drawn):
-                f = _draw(cid)
-                _drawn[f.kind] = _drawn.get(f.kind, 0) + 1
-                return f
-
-            eng.sched.faults.draw = tally
-        for f in wrappers.values():
-            f.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = eng.run(ROUNDS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {n: f.launches for n, f in wrappers.items()}
-        uploads = int(res.participation.sum())
+        eng, res, counts, wall, split, finite, drawn = run_setting(
+            torch, setup, setting, kw, wrappers)
+        rec = run_record(eng, res, counts, drawn)
+        uploads = rec["uploads"]
         st = res.sched_stats
-        faults = {key.split("_")[0]: st[key] for key in FAULT_COUNTS}
+        faults = rec["fault_counts"]
         recs = res.metrics.records
-        acc = [round(r.accuracy, 4) for r in recs]
+        acc = [round(a, 4) for a in rec["accuracy"]]
         print(f"  {name}: acc/round {acc}  tx_bytes={eng.tx_bytes} "
               f"rx_bytes={eng.rx_bytes}  uploads={uploads}  launches "
               + " ".join(f"{n}={c}" for n, c in counts.items() if c))
@@ -1857,14 +1985,6 @@ def run_main_path(torch, wrappers):
             print(f"      faults drawn {drawn}; counts {faults}")
         print(f"      wall {wall:.3f} s: " + "  ".join(
             f"{k} {v:.3f} s" for k, v in split.items()))
-        rows.append(dict(setting=name, accuracy=acc,
-                         loss=[r.loss for r in recs],
-                         tx_bytes=eng.tx_bytes, rx_bytes=eng.rx_bytes,
-                         uploads=uploads, launches=counts, wall_s=wall,
-                         split_s=split, faults_drawn=drawn,
-                         fault_counts=faults,
-                         defense_norm_cap=kw.get("defense_norm_cap", 0.0),
-                         staleness_hist=res.staleness_hist))
         if len(recs) != ROUNDS or any(r.nan_event for r in recs):
             fail(f"{name}: non-finite eval loss or missing rounds")
         if len(finite) != ROUNDS or not all(finite):
@@ -1886,6 +2006,30 @@ def run_main_path(torch, wrappers):
                  f"{st['byzantine_uploads']}")
         for n, c in counts.items():
             launches[n] += c
+        params = eng._flat_params.clone()
+        del eng, res
+        eng2, res2, counts2, wall2, split2, _, drawn2 = run_setting(
+            torch, setup, setting, kw, wrappers)
+        rec2 = run_record(eng2, res2, counts2, drawn2)
+        same_params = torch.equal(params.view(torch.int32),
+                                  eng2._flat_params.view(torch.int32))
+        differ = [key for key in rec if rec[key] != rec2[key]]
+        print(f"      repeat from a fresh engine: params "
+              f"{'bitwise equal' if same_params else 'DIFFER'}, "
+              f"{'every record equal' if not differ else f'differ in {differ}'}"
+              f"; wall {wall2:.3f} s: " + "  ".join(
+                  f"{k} {v:.3f} s" for k, v in split2.items()))
+        rows.append(dict(setting=name, **rec, wall_s=wall, split_s=split,
+                         defense_norm_cap=kw.get("defense_norm_cap", 0.0),
+                         repeat=dict(params_bitwise=same_params,
+                                     differing=differ, wall_s=wall2,
+                                     split_s=split2,
+                                     accuracy=rec2["accuracy"])))
+        if not same_params or differ:
+            fail(f"{name}: a second run from a fresh engine does not "
+                 f"repeat the first (params bitwise {same_params}, "
+                 f"differing {differ})")
+        del eng2, res2
     return rows, launches
 
 
@@ -2183,12 +2327,17 @@ def main() -> None:
           f"count {torch.cuda.device_count()}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print("TF32: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    print("TF32: cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False; "
+          f"cudnn.deterministic={torch.backends.cudnn.deterministic}, "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark}")
 
     print("== phase 2: build (one nvcc per source, started together)")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        infos = dict(zip(SOURCES, pool.map(build.compile_source, SOURCES)))
+    built = SOURCES + VARIANT_SOURCES
+    with ThreadPoolExecutor(len(built)) as pool:
+        infos = dict(zip(built, pool.map(build.compile_source, built)))
     build_s = time.perf_counter() - t0
     for info in infos.values():
         rel = os.path.relpath(info["path"], ROOT)
@@ -2208,8 +2357,10 @@ def main() -> None:
           f"{sorted(spilled.values())} (tolerance: 0)")
     if len(spilled) != 2 or any(spilled.values()):
         fail("the top-k kernels spill or are missing from the ptxas report")
-    # the f32 screen's two load paths, the q4 fold's two beta variants
-    for symbol, n in (("screen_f32_kernel", 2), ("fold_q4_kernel", 2)):
+    # the f32 screen's two load paths, the quantized folds' two beta
+    # variants each, the q4 aggregate's one shape
+    for symbol, n in (("screen_f32_kernel", 2), ("fold_q4_kernel", 2),
+                      ("fold_q8_kernel", 2), ("aggregate_q4_kernel", 1)):
         spilled = spills(infos["safl_agg"]["log"], symbol)
         print(f"  {symbol}: {len(spilled)} instantiations, spill bytes "
               f"{sorted(spilled.values())} (tolerance: 0)")
@@ -2231,7 +2382,10 @@ def main() -> None:
     check_rows = []
     worst = check_kernels(torch, k_mod, check_rows)
     check_screens(torch, k_mod, check_rows, worst)
-    check_fold_q4(torch, k_mod, check_rows, worst)
+    for wire in ("q4", "q8"):
+        check_fold_q(torch, k_mod, check_rows, worst, wire)
+    check_aggregate_q4(torch, k_mod, check_rows, worst,
+                       ctypes.CDLL(infos["aggregate_variants"]["path"]))
     check_topk(torch, k_mod, check_rows, worst)
     check_int8(torch, q_mod, check_rows, worst)
     check_draws(torch, check_rows)

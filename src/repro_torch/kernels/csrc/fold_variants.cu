@@ -1,9 +1,9 @@
-// Other designs of safl_agg.cu's f32 and q4 folds, built and timed only
-// by ``repro_torch/kernels/hold_timing.py`` beside the package's kernels;
-// no wrapper of the package calls them.  Each lane's arithmetic is the
-// package kernels' (beta*acc + w*vec, w*((float)n*s) on q4, through the
-// _rn intrinsics), so each is bitwise equal to ``safl_fold_plain`` /
-// ``safl_fold_q4_plain``.
+// Other designs of safl_agg.cu's f32 and quantized folds, built and
+// timed only by ``repro_torch/kernels/hold_timing.py`` beside the
+// package's kernels; no wrapper of the package calls them.  Each lane's
+// arithmetic is the package kernels' (beta*acc + w*vec, w*((float)n*s)
+// on q8 / q4, through the _rn intrinsics), so each is bitwise equal to
+// ``safl_fold_plain`` / ``safl_fold_q8_plain`` / ``safl_fold_q4_plain``.
 //
 //   fold_gridstride_f32  one 4-byte lane a thread per step of a
 //                        grid-stride loop over at most 132 * 16 blocks
@@ -18,21 +18,60 @@
 //                        a warp's stores into a row that starts inside a
 //                        line straddle three lines; refuses rows whose
 //                        addresses differ mod 8
-//   safl_fold_q4_gridstride
-//                        the q4 fold's earlier design, as it stood
-//                        (fold_rows_kernel<Q4Rows>, included from
-//                        safl_agg.cu): one lane a thread per step of a
-//                        grid-stride loop over at most 132 * 16 blocks of
-//                        256, a 1-byte load of the lane's packed byte
-//   safl_fold_q4_v<V>_t<T>
-//                        the package's q4 fold (included from safl_agg.cu)
-//                        with V lanes a thread (2, 4, 8 or 16) and blocks
-//                        of T threads (64, 128, 256 or 512)
+//   safl_fold_q4_gridstride, safl_fold_q8_gridstride
+//                        the quantized folds' first design
+//                        (fold_rows_kernel<Q4Rows> / <Q8Rows>, below): one
+//                        lane a thread per step of a grid-stride loop over
+//                        at most 132 * 16 blocks of 256, a 1-byte load of
+//                        the lane's (packed) byte and its scale through
+//                        the Rows functor
+//   safl_fold_q4_v<V>_t<T>, safl_fold_q8_v<V>_t<T>
+//                        the package's quantized folds (included from
+//                        safl_agg.cu) with V lanes a thread (2, 4, 8 or
+//                        16) and blocks of T threads (64, 128, 256 or 512)
 //
-// The f32 designs take the package's safl_fold_f32 arguments, the q4
-// designs its safl_fold_q4 arguments.
+// The f32 designs take the package's safl_fold_f32 arguments, the
+// quantized designs its safl_fold_q8 / safl_fold_q4 arguments.
 
 #include "safl_agg.cu"
+
+namespace {
+
+// The fold of one quantized row (row 0 of ``row``: Q8Rows or Q4Rows),
+// dequantized on the fly; acc and out may alias.
+template <class Rows, bool kUnitBeta>
+__global__ void fold_rows_kernel(const float* acc, Rows row, float* out,
+                                 float w, float beta, int64_t dq) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < dq; i += stride) {
+    const float wv = __fmul_rn(w, row(0, i));
+    const float a = acc[i];
+    out[i] = kUnitBeta ? __fadd_rn(a, wv) : __fadd_rn(__fmul_rn(beta, a), wv);
+  }
+}
+
+template <class Rows>
+int launch_fold(const void* acc, const void* q, const void* scales,
+                void* out, float w, float beta, int64_t dq, int qshift,
+                void* stream) {
+  const Rows row = quant_rows<Rows>(q, scales, dq, qshift);
+  const int blocks = grid_for(dq);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (beta == 1.0f) {
+    fold_rows_kernel<Rows, true><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(acc), row, static_cast<float*>(out), w,
+        beta, dq);
+  } else {
+    fold_rows_kernel<Rows, false><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(acc), row, static_cast<float*>(out), w,
+        beta, dq);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 namespace f32_variants {
 
@@ -175,30 +214,35 @@ int safl_fold_q4_gridstride(const void* acc, const void* q,
                              stream);
 }
 
-#define FOLD_Q4_VARIANT(V, T)                                               \
-  int safl_fold_q4_v##V##_t##T(const void* acc, const void* q,              \
-                               const void* scales, void* out, float w,      \
-                               float beta, int64_t dq, int qshift,          \
-                               void* stream) {                              \
-    return launch_fold_q4<V, T>(acc, q, scales, out, w, beta, dq, qshift,   \
-                                stream);                                    \
-  }
+int safl_fold_q8_gridstride(const void* acc, const void* q,
+                            const void* scales, void* out, float w,
+                            float beta, int64_t dq, int qshift,
+                            void* stream) {
+  return launch_fold<Q8Rows>(acc, q, scales, out, w, beta, dq, qshift,
+                             stream);
+}
 
-FOLD_Q4_VARIANT(2, 64)
-FOLD_Q4_VARIANT(2, 128)
-FOLD_Q4_VARIANT(2, 256)
-FOLD_Q4_VARIANT(2, 512)
-FOLD_Q4_VARIANT(4, 64)
-FOLD_Q4_VARIANT(4, 128)
-FOLD_Q4_VARIANT(4, 256)
-FOLD_Q4_VARIANT(4, 512)
-FOLD_Q4_VARIANT(8, 64)
-FOLD_Q4_VARIANT(8, 128)
-FOLD_Q4_VARIANT(8, 256)
-FOLD_Q4_VARIANT(8, 512)
-FOLD_Q4_VARIANT(16, 64)
-FOLD_Q4_VARIANT(16, 128)
-FOLD_Q4_VARIANT(16, 256)
-FOLD_Q4_VARIANT(16, 512)
+#define FOLD_Q_VARIANT(WIRE, LANES, V, T)                                   \
+  int safl_fold_##WIRE##_v##V##_t##T(const void* acc, const void* q,        \
+                                     const void* scales, void* out, float w,\
+                                     float beta, int64_t dq, int qshift,    \
+                                     void* stream) {                        \
+    return launch_fold_q<LANES, V, T>(acc, q, scales, out, w, beta, dq,     \
+                                      qshift, stream);                      \
+  }
+#define FOLD_Q_VARIANTS(WIRE, LANES, V) \
+  FOLD_Q_VARIANT(WIRE, LANES, V, 64)    \
+  FOLD_Q_VARIANT(WIRE, LANES, V, 128)   \
+  FOLD_Q_VARIANT(WIRE, LANES, V, 256)   \
+  FOLD_Q_VARIANT(WIRE, LANES, V, 512)
+
+FOLD_Q_VARIANTS(q4, Int4Lanes, 2)
+FOLD_Q_VARIANTS(q4, Int4Lanes, 4)
+FOLD_Q_VARIANTS(q4, Int4Lanes, 8)
+FOLD_Q_VARIANTS(q4, Int4Lanes, 16)
+FOLD_Q_VARIANTS(q8, Int8Lanes, 2)
+FOLD_Q_VARIANTS(q8, Int8Lanes, 4)
+FOLD_Q_VARIANTS(q8, Int8Lanes, 8)
+FOLD_Q_VARIANTS(q8, Int8Lanes, 16)
 
 }  // extern "C"

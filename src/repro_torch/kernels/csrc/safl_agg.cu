@@ -51,14 +51,23 @@
 // as the Pallas bodies do (_dequant_tile): f32 updates never touch memory.
 // A packed int4 lane is read the same way from its byte, its nibble
 // sign-extended by shifts; a corrupted byte can hold the nibble -8, which
-// the quantizer never emits, and it reads as -8.  The q4 fold takes
-// kFoldQ4Vec = 4 lanes a thread over an exact grid instead: one 2-byte
-// load of its packed lanes, a float4 load of acc and its scale, all
-// issued before any arithmetic, the nibbles sign-extended in a word
-// ((n ^ 8) - 8 per byte by __vsub4), a float4 store; the lanes before the
-// first aligned vector and after the last one go one a thread in the same
-// launch, and every lane does where the rows' addresses disagree mod a
-// vector.
+// the quantizer never emits, and it reads as -8.  The quantized folds
+// take kFoldQ4Vec = kFoldQ8Vec = 4 lanes a thread over an exact grid
+// instead: one load of the vector's bytes (2 bytes of packed int4 lanes,
+// a 4-byte word of int8 ones), a float4 load of acc and its scale, all
+// issued before any arithmetic, the lanes sign-extended from the word
+// (int4: (n ^ 8) - 8 per byte by __vsub4), a float4 store; the lanes
+// before the first aligned vector and after the last one go one a thread
+// in the same launch, and every lane does where the rows' addresses
+// disagree mod a vector.  The q4 K-row aggregate takes kAggQ4Vec = 8
+// lanes a thread over an exact grid the same way (aggregate_q4_kernel):
+// a vector's p and its first kAggQ4Rows rows' words and scales (one a
+// row) loaded first, then the block's K weights computed in parallel
+// into shared memory (one barrier), the levels made as floats without a
+// conversion instruction, the sum still in row order; lane by lane where
+// the rows, p or out are not vector-aligned.  Its parent (thread 0's
+// serial weights, then one lane a thread in a grid-stride loop) issued
+// its K rows' loads one after another, and spent K conversions a lane.
 //
 // The screening reductions are bound by the same bytes (one read of the
 // rows) but are launch-bound at the engine's K = 1.  They must be
@@ -265,125 +274,38 @@ __global__ void fold_kernel(const float* acc, const float* __restrict__ vec,
   }
 }
 
-// The fold of one quantized row (row 0 of ``row``: Q8Rows or Q4Rows),
-// dequantized on the fly; acc and out may alias, as in fold_kernel.
-template <class Rows, bool kUnitBeta>
-__global__ void fold_rows_kernel(const float* acc, Rows row, float* out,
-                                 float w, float beta, int64_t dq) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < dq; i += stride) {
-    const float wv = __fmul_rn(w, row(0, i));
-    const float a = acc[i];
-    out[i] = kUnitBeta ? __fadd_rn(a, wv) : __fadd_rn(__fmul_rn(beta, a), wv);
-  }
-}
-
-// ---- the q4 fold: V lanes a thread over an exact grid ----
+// ---- quantized rows in vectors of V lanes ----
 //
-// The lanes of one fold of dq lanes: [0, head) one a thread, then nv
-// vectors of V lanes from ``head`` (vector v: lanes head + V*v .. + V-1,
-// their acc and out in aligned loads of A = min(V, 4) lanes, their V/2
-// packed bytes in one aligned load, two words at V = 16), then the tail
-// [tail, dq) one a thread.  head is the first lane whose packed byte sits
-// on a V/2-byte boundary when acc and out agree mod 4A bytes and acc is
-// then 4A-byte aligned at that lane, else dq (every lane alone).  Thread
-// i of the grid takes vector i, lane i of the head and lane tail + i.
-struct FoldQ4Span {
-  int64_t head, nv, tail;
+// The lanes of a quantized row as a vector kernel reads them: Int8Lanes
+// (one int8 lane a byte) or Int4Lanes (two packed lanes a byte, lane 2j
+// the low nibble of byte j).  A vector of V lanes is V >> kShift bytes,
+// loaded in one aligned load into 32-bit words (load_bytes), then
+// sign-extended lane by lane (unpack: the folds, one conversion a lane)
+// or made into exact float levels without a conversion (levels: the
+// K-row aggregate, K conversions a lane; Int4Lanes only, the one format
+// it is built for); lane() reads one lane alone.
+struct Int8Lanes {
+  static constexpr int kShift = 0;  // log2(lanes a byte)
+  template <int V>
+  static __device__ __forceinline__ void unpack(const uint32_t* wd,
+                                                int (&n)[V]) {
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      n[l] = static_cast<int8_t>(wd[l / 4] >> (8 * (l % 4)));
+    }
+  }
+  static __device__ __forceinline__ int lane(const uint8_t* q, int64_t i) {
+    return static_cast<int8_t>(q[i]);
+  }
 };
 
-template <int V>
-__host__ __device__ __forceinline__ FoldQ4Span fold_q4_span(const void* acc,
-                                                            const void* qp,
-                                                            const void* out,
-                                                            int64_t dq) {
-  constexpr int64_t kA = V < 4 ? V : 4;  // lanes of one acc load
-  const uintptr_t a = reinterpret_cast<uintptr_t>(acc);
-  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
-  const uintptr_t q = reinterpret_cast<uintptr_t>(qp);
-  const int64_t h =
-      (V - 2 * static_cast<int64_t>(q % (V / 2))) % V;  // even
-  int64_t head = a % 4 == 0 && (a - o) % (4 * kA) == 0 &&
-                         (static_cast<int64_t>(a / 4) + h) % kA == 0
-                     ? h
-                     : dq;
-  if (head > dq) head = dq;
-  const int64_t nv = (dq - head) / V;
-  return FoldQ4Span{head, nv, head + V * nv};
-}
-
-// One lane of the q4 fold from its byte and scale: beta*a + w*(n*s), as
-// fold_rows_kernel<Q4Rows> rounds it.
-template <bool kUnitBeta>
-__device__ __forceinline__ float fold_q4_lane(float a, int n, float s,
-                                              float w, float beta) {
-  return fold_lane<kUnitBeta>(a, __fmul_rn(static_cast<float>(n), s), w,
-                              beta);
-}
-
-// The q4 fold over the lanes fold_q4_span lays out, V = 2, 4, 8 or 16
-// lanes a vector: one 1-, 2-, 4- or 8-byte load of the packed lanes, V/A
-// float2 or float4 loads of acc and the vector's scales (two at most,
-// split at the qblock boundary when qblock >= V; each lane's own below
-// that), all issued before any arithmetic; the nibbles sign-extended a
-// word at a time, (n ^ 8) - 8 per byte (__vsub4), so a corrupted -8
-// nibble reads as -8; V/A stores.  acc and out may alias (the in-place
-// fold into a bank row): each lane is read and written by one thread, so
-// neither is __restrict__.
-template <int V, int T, bool kUnitBeta>
-__global__ void __launch_bounds__(T)
-    fold_q4_kernel(const float* acc, const uint8_t* __restrict__ qp,
-                   const float* __restrict__ s, float* out, float w,
-                   float beta, FoldQ4Span sp, int64_t dq, int qshift) {
-  static_assert(V == 2 || V == 4 || V == 8 || V == 16,
-                "vectors of 2, 4, 8 or 16 lanes");
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * T + threadIdx.x;
-  if (i < sp.nv) {
-    const int64_t j0 = sp.head + V * i;
-    const uint8_t* qv = qp + (j0 >> 1);
-    uint32_t wd[(V + 7) / 8];
-    if constexpr (V == 2) {
-      wd[0] = __ldg(qv);
-    } else if constexpr (V == 4) {
-      wd[0] = __ldg(reinterpret_cast<const unsigned short*>(qv));
-    } else if constexpr (V == 8) {
-      wd[0] = __ldg(reinterpret_cast<const uint32_t*>(qv));
-    } else {
-      const uint2 x = __ldg(reinterpret_cast<const uint2*>(qv));
-      wd[0] = x.x;
-      wd[1] = x.y;
-    }
-    float a[V];
-    if constexpr (V == 2) {
-      const float2 x = *reinterpret_cast<const float2*>(acc + j0);
-      a[0] = x.x;
-      a[1] = x.y;
-    } else {
-#pragma unroll
-      for (int k = 0; k < V / 4; ++k) {
-        const float4 x = reinterpret_cast<const float4*>(acc + j0)[k];
-        a[4 * k] = x.x;
-        a[4 * k + 1] = x.y;
-        a[4 * k + 2] = x.z;
-        a[4 * k + 3] = x.w;
-      }
-    }
-    float sc[V];
-    if ((int64_t{1} << qshift) >= V) {
-      const int64_t b0 = j0 >> qshift;
-      const int64_t b1 = (j0 + V - 1) >> qshift;
-      const float s0 = __ldg(s + b0);
-      const float s1 = b1 == b0 ? s0 : __ldg(s + b1);
-      const int64_t split = ((b0 + 1) << qshift) - j0;
-#pragma unroll
-      for (int l = 0; l < V; ++l) sc[l] = l < split ? s0 : s1;
-    } else {
-#pragma unroll
-      for (int l = 0; l < V; ++l) sc[l] = __ldg(s + ((j0 + l) >> qshift));
-    }
-    float o[V];
+struct Int4Lanes {
+  static constexpr int kShift = 1;
+  // a word's 8 nibbles, (n ^ 8) - 8 per byte (__vsub4) of the masked low
+  // and high nibbles, so a corrupted -8 nibble reads as -8
+  template <int V>
+  static __device__ __forceinline__ void unpack(const uint32_t* wd,
+                                                int (&n)[V]) {
 #pragma unroll
     for (int k = 0; k < (V + 7) / 8; ++k) {
       const uint32_t lo = __vsub4((wd[k] & 0x0F0F0F0Fu) ^ 0x08080808u,
@@ -392,23 +314,199 @@ __global__ void __launch_bounds__(T)
                                   0x08080808u);
 #pragma unroll
       for (int b = 0; b < 4 && 8 * k + 2 * b < V; ++b) {
-        const int l = 8 * k + 2 * b;
-        o[l] = fold_q4_lane<kUnitBeta>(
-            a[l], static_cast<int8_t>(lo >> (8 * b)), sc[l], w, beta);
-        o[l + 1] = fold_q4_lane<kUnitBeta>(
-            a[l + 1], static_cast<int8_t>(hi >> (8 * b)), sc[l + 1], w,
-            beta);
+        n[8 * k + 2 * b] = static_cast<int8_t>(lo >> (8 * b));
+        n[8 * k + 2 * b + 1] = static_cast<int8_t>(hi >> (8 * b));
       }
     }
-    if constexpr (V == 2) {
-      *reinterpret_cast<float2*>(out + j0) = make_float2(o[0], o[1]);
-    } else {
+  }
+  static __device__ __forceinline__ int lane(const uint8_t* q, int64_t i) {
+    return nibble(q[i >> 1], static_cast<int>(i & 1));
+  }
+  // The V levels as floats, exactly (float)n without a conversion
+  // instruction (I2F runs at 1/8 of the f32 rate on sm_90): a nibble x
+  // holds n + 8 as x ^ 8, so the float with the bits 0x4B000000 | (x ^
+  // 8) is 2^23 + n + 8, and 2^23 + 8 less it is n (an exact difference).
+  // A word's low and high nibbles are masked and XORed a word at a time,
+  // then each lane's byte is set under 0x4B by one byte permute.
+  template <int V>
+  static __device__ __forceinline__ void levels(const uint32_t* wd,
+                                                float (&x)[V]) {
 #pragma unroll
-      for (int k = 0; k < V / 4; ++k) {
-        reinterpret_cast<float4*>(out + j0)[k] =
-            make_float4(o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
+    for (int k = 0; k < (V + 7) / 8; ++k) {
+      const uint32_t lo = (wd[k] & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t hi = ((wd[k] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+      for (int b = 0; b < 4 && 8 * k + 2 * b < V; ++b) {
+        // bytes (lo.b, 0, 0, 0x4B) of lo and 0x4B000000
+        x[8 * k + 2 * b] = __fsub_rn(
+            __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7650u + b)),
+            8388616.0f);
+        x[8 * k + 2 * b + 1] = __fsub_rn(
+            __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7650u + b)),
+            8388616.0f);
       }
     }
+  }
+};
+
+// B = 1, 2, 4, 8 or 16 bytes from a B-aligned p, zero-extended into words.
+template <int B>
+__device__ __forceinline__ void load_bytes(const uint8_t* p,
+                                           uint32_t (&wd)[(B + 3) / 4]) {
+  static_assert(B == 1 || B == 2 || B == 4 || B == 8 || B == 16,
+                "loads of 1, 2, 4, 8 or 16 bytes");
+  if constexpr (B == 1) {
+    wd[0] = __ldg(p);
+  } else if constexpr (B == 2) {
+    wd[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
+  } else if constexpr (B == 4) {
+    wd[0] = __ldg(reinterpret_cast<const uint32_t*>(p));
+  } else if constexpr (B == 8) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    wd[0] = x.x;
+    wd[1] = x.y;
+  } else {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    wd[0] = x.x;
+    wd[1] = x.y;
+    wd[2] = x.z;
+    wd[3] = x.w;
+  }
+}
+
+// V = 2 lanes as a float2, V = 4k as k float4, from / to a 4*min(V, 4)-
+// byte aligned address.
+template <int V>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[V]) {
+  if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V / 4; ++k) {
+      const float4 v = reinterpret_cast<const float4*>(p)[k];
+      x[4 * k] = v.x;
+      x[4 * k + 1] = v.y;
+      x[4 * k + 2] = v.z;
+      x[4 * k + 3] = v.w;
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f32(float* p, const float (&x)[V]) {
+  if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V / 4; ++k) {
+      reinterpret_cast<float4*>(p)[k] =
+          make_float4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+    }
+  }
+}
+
+// The scales of the V lanes from j0 of a row's scales s: two at most,
+// split at the qblock boundary, when qblock >= V; each lane's own below.
+template <int V>
+__device__ __forceinline__ void vec_scales(const float* __restrict__ s,
+                                           int64_t j0, int qshift,
+                                           float (&sc)[V]) {
+  if ((int64_t{1} << qshift) >= V) {
+    const int64_t b0 = j0 >> qshift;
+    const int64_t b1 = (j0 + V - 1) >> qshift;
+    const float s0 = __ldg(s + b0);
+    const float s1 = b1 == b0 ? s0 : __ldg(s + b1);
+    const int64_t split = ((b0 + 1) << qshift) - j0;
+#pragma unroll
+    for (int l = 0; l < V; ++l) sc[l] = l < split ? s0 : s1;
+  } else {
+#pragma unroll
+    for (int l = 0; l < V; ++l) sc[l] = __ldg(s + ((j0 + l) >> qshift));
+  }
+}
+
+// ---- the quantized folds: V lanes a thread over an exact grid ----
+//
+// The lanes of one fold of dq lanes: [0, head) one a thread, then nv
+// vectors of V lanes from ``head`` (vector v: lanes head + V*v .. + V-1,
+// their acc and out in aligned loads of A = min(V, 4) lanes, their
+// V >> kShift bytes in one aligned load), then the tail [tail, dq) one a
+// thread.  head is the first lane whose byte starts a vector's bytes
+// (the row's address plus the lane's bytes a multiple of V >> kShift)
+// when acc and out agree mod 4A bytes and acc is then 4A-byte aligned at
+// that lane, else dq (every lane alone).  Thread i of the grid takes
+// vector i, lane i of the head and lane tail + i.  fold_span<Int4Lanes,
+// V> is the q4 fold's partition, fold_span<Int8Lanes, V> the q8 fold's
+// (fold_q4_span / fold_q8_span in tests/test_torch_fold_q{4,8}.py).
+struct FoldSpan {
+  int64_t head, nv, tail;
+};
+
+template <class Lanes, int V>
+__host__ __device__ __forceinline__ FoldSpan fold_span(const void* acc,
+                                                       const void* qp,
+                                                       const void* out,
+                                                       int64_t dq) {
+  constexpr int64_t kA = V < 4 ? V : 4;          // lanes of one acc load
+  constexpr int64_t kB = V >> Lanes::kShift;     // bytes of one vector
+  const uintptr_t a = reinterpret_cast<uintptr_t>(acc);
+  const uintptr_t o = reinterpret_cast<uintptr_t>(out);
+  const uintptr_t q = reinterpret_cast<uintptr_t>(qp);
+  const int64_t h =
+      (V - (static_cast<int64_t>(q % kB) << Lanes::kShift)) % V;
+  int64_t head = a % 4 == 0 && (a - o) % (4 * kA) == 0 &&
+                         (static_cast<int64_t>(a / 4) + h) % kA == 0
+                     ? h
+                     : dq;
+  if (head > dq) head = dq;
+  const int64_t nv = (dq - head) / V;
+  return FoldSpan{head, nv, head + V * nv};
+}
+
+// One lane of a quantized fold from its level and scale: beta*a +
+// w*(n*s), in the plain version's rounding.
+template <bool kUnitBeta>
+__device__ __forceinline__ float fold_quant_lane(float a, int n, float s,
+                                                 float w, float beta) {
+  return fold_lane<kUnitBeta>(a, __fmul_rn(static_cast<float>(n), s), w,
+                              beta);
+}
+
+// Thread i's share of a quantized fold over the lanes fold_span lays out,
+// V = 2, 4, 8 or 16 lanes a vector: one load of the vector's bytes, V/A
+// float2 or float4 loads of acc and the vector's scales, all issued
+// before any arithmetic; the lanes sign-extended from the words; V/A
+// stores.  acc and out may alias (the in-place fold into a bank row):
+// each lane is read and written by one thread, so neither is
+// __restrict__.
+template <class Lanes, int V, bool kUnitBeta>
+__device__ __forceinline__ void fold_quant(const float* acc,
+                                           const uint8_t* __restrict__ qp,
+                                           const float* __restrict__ s,
+                                           float* out, float w, float beta,
+                                           const FoldSpan& sp, int64_t dq,
+                                           int qshift, int64_t i) {
+  static_assert(V == 2 || V == 4 || V == 8 || V == 16,
+                "vectors of 2, 4, 8 or 16 lanes");
+  constexpr int kB = V >> Lanes::kShift;
+  if (i < sp.nv) {
+    const int64_t j0 = sp.head + V * i;
+    uint32_t wd[(kB + 3) / 4];
+    load_bytes<kB>(qp + (j0 >> Lanes::kShift), wd);
+    float a[V];
+    load_f32<V>(acc + j0, a);
+    float sc[V];
+    vec_scales<V>(s, j0, qshift, sc);
+    int n[V];
+    Lanes::template unpack<V>(wd, n);
+    float o[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      o[l] = fold_quant_lane<kUnitBeta>(a[l], n[l], sc[l], w, beta);
+    }
+    store_f32<V>(out + j0, o);
   }
   const int64_t lanes[2] = {i < sp.head ? i : -1,
                             i < dq - sp.tail ? sp.tail + i : -1};
@@ -416,11 +514,32 @@ __global__ void __launch_bounds__(T)
   for (int k = 0; k < 2; ++k) {
     const int64_t j = lanes[k];
     if (j >= 0) {
-      out[j] = fold_q4_lane<kUnitBeta>(
-          acc[j], nibble(qp[j >> 1], static_cast<int>(j & 1)),
-          s[j >> qshift], w, beta);
+      out[j] = fold_quant_lane<kUnitBeta>(acc[j], Lanes::lane(qp, j),
+                                          s[j >> qshift], w, beta);
     }
   }
+}
+
+// The q4 fold (packed int4 row) and the q8 fold (int8 row): one symbol
+// each, one body.
+template <int V, int T, bool kUnitBeta>
+__global__ void __launch_bounds__(T)
+    fold_q4_kernel(const float* acc, const uint8_t* __restrict__ qp,
+                   const float* __restrict__ s, float* out, float w,
+                   float beta, FoldSpan sp, int64_t dq, int qshift) {
+  fold_quant<Int4Lanes, V, kUnitBeta>(
+      acc, qp, s, out, w, beta, sp, dq, qshift,
+      static_cast<int64_t>(blockIdx.x) * T + threadIdx.x);
+}
+
+template <int V, int T, bool kUnitBeta>
+__global__ void __launch_bounds__(T)
+    fold_q8_kernel(const float* acc, const uint8_t* __restrict__ qp,
+                   const float* __restrict__ s, float* out, float w,
+                   float beta, FoldSpan sp, int64_t dq, int qshift) {
+  fold_quant<Int8Lanes, V, kUnitBeta>(
+      acc, qp, s, out, w, beta, sp, dq, qshift,
+      static_cast<int64_t>(blockIdx.x) * T + threadIdx.x);
 }
 
 // Output lanes [0, n): n = D for fedsgd / mix (p has D lanes), the row
@@ -456,6 +575,182 @@ __global__ void aggregate_kernel(Rows rows, const float* __restrict__ w_in,
     }
     out[i] = o;
   }
+}
+
+// ---- the quantized K-row aggregate: V lanes a thread over an exact grid ----
+//
+// The output lanes [0, n): nv vectors of V lanes from lane 0, then the
+// tail [tail, n) one a thread, when every row's bytes of a vector start
+// on a V >> kShift-byte boundary (the buffer and its row stride), out
+// (and p where the mode reads it) are 4*min(V, 4)-byte aligned and a
+// qblock spans a vector (so a vector's lanes share one scale a row);
+// else every lane one a thread (nv = tail = 0).  Thread i of the grid
+// takes vector i and lane tail + i.
+struct AggSpan {
+  int64_t nv, tail;
+};
+
+template <class Lanes, int V>
+AggSpan agg_span(const void* q, int64_t stride, const void* p,
+                 const void* out, int64_t n, int qshift) {
+  constexpr uintptr_t kB = V >> Lanes::kShift;
+  constexpr uintptr_t kAlign = 4 * (V < 4 ? V : 4);
+  const bool vec = (int64_t{1} << qshift) >= V &&
+                   reinterpret_cast<uintptr_t>(q) % kB == 0 &&
+                   static_cast<uintptr_t>(stride) % kB == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % kAlign == 0 &&
+                   reinterpret_cast<uintptr_t>(p) % kAlign == 0;
+  const int64_t nv = vec ? n / V : 0;
+  return AggSpan{nv, V * nv};
+}
+
+// The mode's step on one lane's weighted sum (p: the lane's param, read
+// only by fedsgd / mix), rounded as aggregate_kernel rounds it.
+__device__ __forceinline__ float agg_step(int mode, float acc, float p,
+                                          float lr, float wsum,
+                                          float wsafe) {
+  switch (mode) {
+    case kFedsgd:
+      return __fsub_rn(p, __fmul_rn(lr, __fdiv_rn(acc, wsafe)));
+    case kAvg:
+      return __fdiv_rn(acc, wsafe);
+    case kMix:
+      return __fadd_rn(__fmul_rn(__fsub_rn(1.f, wsum), p), acc);
+    default:  // kSum
+      return acc;
+  }
+}
+
+// R rows' bytes of one vector (V >> Lanes::kShift bytes each, from qv)
+// and their scales (one a row: a qblock spans the vector), in registers:
+// loads only, so that a group's loads are in flight together (and the
+// first group's across the weights' barrier).
+template <class Lanes, int V, int R>
+struct RowGroup {
+  static constexpr int kB = V >> Lanes::kShift;
+  uint32_t wd[R][(kB + 3) / 4];
+  float sc[R];
+
+  // rows r0 .. r0+R-1 (those below k): qv and sv at row 0's bytes and
+  // scale of the vector
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ qv,
+                                       const float* __restrict__ sv,
+                                       int64_t stride, int64_t nb,
+                                       int64_t r0, int64_t k) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int64_t j = r0 + r;
+      if (j < k) {
+        load_bytes<kB>(qv + j * stride, wd[r]);
+        sc[r] = __ldg(sv + j * nb);
+      }
+    }
+  }
+
+  // acc[l] += w_j * (n * s) for the group's rows j = r0 .. in order
+  __device__ __forceinline__ void add(float (&acc)[V], const float* sw,
+                                      int64_t r0, int64_t k) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int64_t j = r0 + r;
+      if (j < k) {
+        float x[V];
+        Lanes::template levels<V>(wd[r], x);
+        const float wj = sw[j];
+#pragma unroll
+        for (int l = 0; l < V; ++l) {
+          acc[l] = __fadd_rn(acc[l], __fmul_rn(wj, __fmul_rn(x[l], sc[r])));
+        }
+      }
+    }
+  }
+};
+
+// Thread i's share of the K-row aggregate over the quantized rows q
+// (row j at q + j*stride bytes, its scales at s + j*nb): a vector's p
+// loads and its first R rows' words and scales issued first; then the K
+// weights computed in parallel into shared memory sw (thread j takes
+// w_j, discounted by powf as load_weights does), one barrier, and each
+// thread sums them k = 0..K-1; then the rows in groups of R, each
+// group's loads issued before its arithmetic, each lane summed in row
+// order (acc + w_j*(n*s), the fold's order, so any K and R give the same
+// bits); the mode's step; V/A stores.  sw holds K floats.  Lanes needs
+// levels() (the exact float levels of a vector's words).
+template <class Lanes, int V, int T, int R>
+__device__ __forceinline__ void aggregate_quant(
+    const uint8_t* __restrict__ q, const float* __restrict__ s,
+    const float* __restrict__ w_in, const float* __restrict__ p,
+    float* __restrict__ out, int64_t k, int64_t stride, int64_t nb,
+    int qshift, const AggSpan& sp, int64_t n, float lr, float alpha,
+    int mode, int poly, float* sw) {
+  static_assert(V == 2 || V == 4 || V == 8 || V == 16,
+                "vectors of 2, 4, 8 or 16 lanes");
+  static_assert(R >= 1, "rows a group");
+  const bool with_p = mode == kFedsgd || mode == kMix;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * T + threadIdx.x;
+  const bool vec = i < sp.nv;
+  const int64_t j0 = V * i;
+  const uint8_t* qv = q + (j0 >> Lanes::kShift);
+  const float* sv = s + (j0 >> qshift);
+  float pv[V];
+  RowGroup<Lanes, V, R> rows;
+  if (vec) {
+    if (with_p) load_f32<V>(p + j0, pv);
+    rows.load(qv, sv, stride, nb, 0, k);
+  }
+  for (int64_t j = threadIdx.x; j < k; j += T) {
+    float wj = __ldg(w_in + j);
+    if (poly) wj = powf(__fadd_rn(1.f, wj), -alpha);
+    sw[j] = wj;
+  }
+  __syncthreads();
+  float wsum = 0.f;
+  for (int64_t j = 0; j < k; ++j) wsum = __fadd_rn(wsum, sw[j]);
+  const float wsafe = fmaxf(wsum, 1e-12f);
+  if (vec) {
+    float acc[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) acc[l] = 0.f;
+    for (int64_t r0 = 0;;) {
+      rows.add(acc, sw, r0, k);
+      r0 += R;
+      if (r0 >= k) break;
+      rows.load(qv, sv, stride, nb, r0, k);
+    }
+    float o[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      o[l] = agg_step(mode, acc[l], with_p ? pv[l] : 0.f, lr, wsum, wsafe);
+    }
+    store_f32<V>(out + j0, o);
+  }
+  if (i < n - sp.tail) {
+    const int64_t l = sp.tail + i;
+    float acc = 0.f;
+    for (int64_t j = 0; j < k; ++j) {
+      const float u = __fmul_rn(
+          static_cast<float>(Lanes::lane(q + j * stride, l)),
+          s[j * nb + (l >> qshift)]);
+      acc = __fadd_rn(acc, __fmul_rn(sw[j], u));
+    }
+    out[l] = agg_step(mode, acc, with_p ? p[l] : 0.f, lr, wsum, wsafe);
+  }
+}
+
+// The q4 K-row aggregate: packed int4 rows of dq/2 bytes.
+template <int V, int T, int R>
+__global__ void __launch_bounds__(T)
+    aggregate_q4_kernel(const uint8_t* __restrict__ q,
+                        const float* __restrict__ s,
+                        const float* __restrict__ w_in,
+                        const float* __restrict__ p,
+                        float* __restrict__ out, int64_t k, int64_t dq,
+                        int qshift, AggSpan sp, int64_t n, float lr,
+                        float alpha, int mode, int poly) {
+  extern __shared__ float sw[];
+  aggregate_quant<Int4Lanes, V, T, R>(q, s, w_in, p, out, k, dq >> 1,
+                                      dq >> qshift, qshift, sp, n, lr, alpha,
+                                      mode, poly, sw);
 }
 
 // The SDGA round over lanes [0, d), in the reference's op order
@@ -1098,25 +1393,6 @@ Q4Rows quant_rows<Q4Rows>(const void* q, const void* scales, int64_t dq,
 }
 
 template <class Rows>
-int launch_fold(const void* acc, const void* q, const void* scales,
-                void* out, float w, float beta, int64_t dq, int qshift,
-                void* stream) {
-  const Rows row = quant_rows<Rows>(q, scales, dq, qshift);
-  const int blocks = grid_for(dq);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (beta == 1.0f) {
-    fold_rows_kernel<Rows, true><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(acc), row, static_cast<float*>(out), w,
-        beta, dq);
-  } else {
-    fold_rows_kernel<Rows, false><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(acc), row, static_cast<float*>(out), w,
-        beta, dq);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class Rows>
 int launch_aggregate(const void* q, const void* scales, const void* w,
                      const void* p, void* out, int64_t k, int64_t dq,
                      int64_t n, float lr, float alpha, int mode, int poly,
@@ -1155,15 +1431,46 @@ int launch_sdga(const void* q, const void* scales, const void* w,
 // tests/test_torch_fold_q4.py, which models the lane partition from them.
 constexpr int kFoldQ4Vec = 4;
 constexpr int kFoldQ4Threads = 128;
+// The same for the q8 fold: 4 lanes x 128 timed fastest at the paper
+// CNN's Dq (0.01059 ms against the earlier grid-stride design's 0.01165
+// on one "NVIDIA H100 80GB HBM3, 700.00 W"); 4 x 256 0.01066, 4 x 64
+// and 4 x 512 0.0109, 2 lanes 0.0114-0.0163, 8 lanes 0.0120-0.0125, 16
+// lanes 0.0140-0.0144 (csrc/fold_variants.cu, timed by
+// kernels/hold_timing.py).  Keep in step with tests/test_torch_fold_q8.py.
+constexpr int kFoldQ8Vec = 4;
+constexpr int kFoldQ8Threads = 128;
+// Lanes a thread, threads a block and rows loaded together of the q4
+// K-row aggregate: 8 x 128 x 4 timed fastest at K = 4 on the paper CNN's
+// Dq (fedsgd 0.01341 ms, avg 0.01120, against the earlier grid-stride
+// design's 0.02074 / 0.01987 on one "NVIDIA H100 80GB HBM3, 700.00 W");
+// 8 x 256 x 4 0.01386 / 0.01155, 4 lanes x 4 rows 0.0143-0.0145 /
+// 0.0131-0.0132, 16 lanes 0.0170-0.0183 / 0.0149-0.0156, one row at a
+// time 0.0149-0.0183 / 0.0129-0.0156 (csrc/aggregate_variants.cu, timed
+// by kernels/hold_timing.py).  Keep in step with
+// tests/test_torch_aggregate_q4.py.
+constexpr int kAggQ4Vec = 8;
+constexpr int kAggQ4Threads = 128;
+constexpr int kAggQ4Rows = 4;
 
-// The q4 fold in one launch of fold_q4_kernel over exactly the threads
-// fold_q4_span needs (at least one): a thread a vector, the head's and
-// the tail's lanes (fewer than V each, or every lane) riding along.
-template <int V, int T>
-int launch_fold_q4(const void* acc, const void* q, const void* scales,
-                   void* out, float w, float beta, int64_t dq, int qshift,
-                   void* stream) {
-  const FoldQ4Span sp = fold_q4_span<V>(acc, q, out, dq);
+// The quantized fold's kernel for Lanes: fold_q4_kernel or fold_q8_kernel.
+template <class Lanes, int V, int T, bool kUnitBeta>
+auto fold_q_kernel() {
+  if constexpr (Lanes::kShift == 1) {
+    return fold_q4_kernel<V, T, kUnitBeta>;
+  } else {
+    return fold_q8_kernel<V, T, kUnitBeta>;
+  }
+}
+
+// A quantized fold (Int4Lanes: fold_q4_kernel, Int8Lanes: fold_q8_kernel)
+// in one launch over exactly the threads fold_span needs (at least one):
+// a thread a vector, the head's and the tail's lanes (fewer than V each,
+// or every lane) riding along.
+template <class Lanes, int V, int T>
+int launch_fold_q(const void* acc, const void* q, const void* scales,
+                  void* out, float w, float beta, int64_t dq, int qshift,
+                  void* stream) {
+  const FoldSpan sp = fold_span<Lanes, V>(acc, q, out, dq);
   int64_t threads = sp.nv > sp.head ? sp.nv : sp.head;
   if (threads < dq - sp.tail) threads = dq - sp.tail;
   const unsigned blocks =
@@ -1173,13 +1480,32 @@ int launch_fold_q4(const void* acc, const void* q, const void* scales,
   const auto* pq = static_cast<const uint8_t*>(q);
   const auto* ps = static_cast<const float*>(scales);
   auto* po = static_cast<float*>(out);
-  if (beta == 1.0f) {
-    fold_q4_kernel<V, T, true><<<blocks, T, 0, s>>>(pa, pq, ps, po, w, beta,
-                                                    sp, dq, qshift);
-  } else {
-    fold_q4_kernel<V, T, false><<<blocks, T, 0, s>>>(pa, pq, ps, po, w,
-                                                     beta, sp, dq, qshift);
-  }
+  const auto kernel = beta == 1.0f ? fold_q_kernel<Lanes, V, T, true>()
+                                    : fold_q_kernel<Lanes, V, T, false>();
+  kernel<<<blocks, T, 0, s>>>(pa, pq, ps, po, w, beta, sp, dq, qshift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The q4 K-row aggregate in one launch of aggregate_q4_kernel over
+// exactly the threads agg_span needs (at least one), K weights of
+// shared memory.  n: output lanes (D for fedsgd / mix, Dq for avg / sum).
+template <int V, int T, int R>
+int launch_aggregate_q4(const void* q, const void* scales, const void* w,
+                        const void* p, void* out, int64_t k, int64_t dq,
+                        int64_t n, float lr, float alpha, int mode, int poly,
+                        int qshift, void* stream) {
+  const bool with_p = mode == kFedsgd || mode == kMix;
+  const AggSpan sp =
+      agg_span<Int4Lanes, V>(q, dq >> 1, with_p ? p : nullptr, out, n,
+                             qshift);
+  const int64_t threads = sp.nv > n - sp.tail ? sp.nv : n - sp.tail;
+  const unsigned blocks =
+      static_cast<unsigned>(threads > 0 ? (threads + T - 1) / T : 1);
+  aggregate_q4_kernel<V, T, R><<<blocks, T, weights_smem(k),
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(q), static_cast<const float*>(scales),
+      static_cast<const float*>(w), static_cast<const float*>(p),
+      static_cast<float*>(out), k, dq, qshift, sp, n, lr, alpha, mode, poly);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1393,15 +1719,15 @@ int safl_fold_f32(const void* acc, const void* vec, void* out, float w,
 int safl_fold_q8(const void* acc, const void* q, const void* scales,
                  void* out, float w, float beta, int64_t dq, int qshift,
                  void* stream) {
-  return launch_fold<Q8Rows>(acc, q, scales, out, w, beta, dq, qshift,
-                             stream);
+  return launch_fold_q<Int8Lanes, kFoldQ8Vec, kFoldQ8Threads>(
+      acc, q, scales, out, w, beta, dq, qshift, stream);
 }
 
 // dq: lanes of acc (the packed row holds dq / 2 bytes).
 int safl_fold_q4(const void* acc, const void* q, const void* scales,
                  void* out, float w, float beta, int64_t dq, int qshift,
                  void* stream) {
-  return launch_fold_q4<kFoldQ4Vec, kFoldQ4Threads>(
+  return launch_fold_q<Int4Lanes, kFoldQ4Vec, kFoldQ4Threads>(
       acc, q, scales, out, w, beta, dq, qshift, stream);
 }
 
@@ -1429,8 +1755,8 @@ int safl_aggregate_q4(const void* q, const void* scales, const void* w,
                       const void* p, void* out, int64_t k, int64_t dq,
                       int64_t n, float lr, float alpha, int mode, int poly,
                       int qshift, void* stream) {
-  return launch_aggregate<Q4Rows>(q, scales, w, p, out, k, dq, n, lr, alpha,
-                                  mode, poly, qshift, stream);
+  return launch_aggregate_q4<kAggQ4Vec, kAggQ4Threads, kAggQ4Rows>(
+      q, scales, w, p, out, k, dq, n, lr, alpha, mode, poly, qshift, stream);
 }
 
 int sdga_aggregate_f32(const void* u, const void* w, const void* p,

@@ -1,6 +1,7 @@
-"""Times the f32 fold's four designs, ``torch.add``, the q4 fold's
-designs, the f32 and quantized screens' designs, the top-k kernels'
-designs and the flash kernels on the card, each with and without
+"""Times the f32 fold's four designs, ``torch.add``, the q4 and q8
+folds' designs, the q4 K-row aggregate's designs, the f32 and quantized
+screens' designs, the top-k kernels' designs and the flash kernels on
+the card, each with and without
 ``chip_smoke.py`` phase 4's device hold, in one process, so that a
 kernel's gain and the timing method's effect can be told apart.
 
@@ -8,11 +9,13 @@ kernel's gain and the timing method's effect can be told apart.
         [--only GROUP ...]
 
 ``--only`` times some groups of cases alone (``fold``, ``fold_q4``,
-``screen_f32``, ``screen``, ``topk``, ``flash``; all by default).
+``fold_q8``, ``aggregate_q4``, ``screen_f32``, ``screen``, ``topk``,
+``flash``; all by default).
 
 It builds ``csrc/safl_agg.cu`` (the package's kernels),
-``csrc/fold_variants.cu``, ``csrc/screen_variants.cu`` and
-``csrc/topk_variants.cu`` (the other designs, for timing only), checks each design against its plain version
+``csrc/fold_variants.cu``, ``csrc/aggregate_variants.cu``,
+``csrc/screen_variants.cu`` and ``csrc/topk_variants.cu`` (the other
+designs, for timing only), checks each design against its plain version
 on the rows it is timed on, then times:
 
 - at D = 2,154,730 (the paper CNN's row), the package's fold (8-byte
@@ -27,13 +30,21 @@ on the rows it is timed on, then times:
   and ``torch.add(acc, vec, alpha=w)``, on a 16-byte aligned row and in
   place into an odd bank row (row 1 of a (2, D) buffer: 8 bytes off;
   the 16-byte design does not run there);
-- the q4 fold at Dq = 2,155,008 in place at beta 1 (as the engine
-  folds): the package's (4 lanes a thread over an exact grid of 128) and
-  in ``fold_variants.cu`` the earlier design (one lane a thread in a
-  grid-stride loop) and the package's kernel at 2, 4, 8 and 16 lanes a
-  thread and blocks of 64, 128, 256 and 512, each through ``ctypes`` and
-  checked bitwise against ``safl_fold_q4_plain``, and the package's
-  wrapper;
+- the q4 and the q8 fold at Dq = 2,155,008 in place at beta 1 (as the
+  engine folds): the package's (4 lanes a thread over an exact grid of
+  128) and in ``fold_variants.cu`` the earlier design (one lane a thread
+  in a grid-stride loop) and the package's kernel at 2, 4, 8 and 16
+  lanes a thread and blocks of 64, 128, 256 and 512, each through
+  ``ctypes`` and checked bitwise against ``safl_fold_q4_plain`` /
+  ``safl_fold_q8_plain``, and the package's wrapper;
+- the q4 K-row aggregate at K = 4 on Dq = 2,155,008 packed lanes, in
+  fedsgd over D lanes and avg over Dq: the package's
+  (``aggregate_q4_kernel``) and in ``aggregate_variants.cu`` the earlier
+  design (``aggregate_kernel<Q4Rows>``, one lane a thread in a
+  grid-stride loop) and the package's kernel at 4, 8 and 16 lanes a
+  thread, blocks of 128 and 256 and 1 or 4 rows loaded together, each
+  through ``ctypes`` and checked bitwise against
+  ``safl_aggregate_q4_plain``, and the package's wrapper;
 - the f32 screen at K = 1 on the paper CNN's row (16-byte aligned: the
   float4 path), on a copy 4 bytes off and at K = 4 (D mod 4 = 2, so odd
   rows 8 bytes off: both on the lane-by-lane path): the
@@ -311,41 +322,92 @@ def screen_f32_cases(g) -> dict:
     return cases
 
 
-def fold_q4_cases(g) -> dict:
-    """The q4 fold's timed calls (in place at beta 1), each checked
-    bitwise first."""
+def fold_q_cases(g, wire: str) -> dict:
+    """A quantized fold's timed calls (``wire`` q4 or q8; in place at beta
+    1), each checked bitwise first."""
     from repro_torch.kernels import ref
     variants = build.load("fold_variants")
     package = k_mod._lib()
     acc = torch.randn((DQ,), device="cuda", generator=g)
-    p4 = ref.pack_q4_ref(torch.randint(-8, 8, (DQ,), device="cuda",
-                                       generator=g).to(torch.int8))
-    s4 = torch.rand((DQ // QB,), device="cuda", generator=g)
+    if wire == "q4":
+        qr = ref.pack_q4_ref(torch.randint(-8, 8, (DQ,), device="cuda",
+                                           generator=g).to(torch.int8))
+    else:
+        qr = torch.randint(-128, 128, (DQ,), device="cuda",
+                           generator=g).to(torch.int8)
+    sr = torch.rand((DQ // QB,), device="cuda", generator=g)
     w = 0.37
-    want = k_mod.safl_fold_q4_plain(acc, p4, s4, w, qblock=QB)
+    plain = getattr(k_mod, f"safl_fold_{wire}_plain")
+    want = plain(acc, qr, sr, w, qblock=QB)
     designs = {"grid-stride, one lane (parent)":
-               variants.safl_fold_q4_gridstride}
+               getattr(variants, f"safl_fold_{wire}_gridstride")}
     for v in (2, 4, 8, 16):
         for t in (64, 128, 256, 512):
             designs[f"{v} lanes x {t} threads"] = getattr(
-                variants, f"safl_fold_q4_v{v}_t{t}")
-    designs["package"] = package.safl_fold_q4
+                variants, f"safl_fold_{wire}_v{v}_t{t}")
+    designs["package"] = getattr(package, f"safl_fold_{wire}")
     p, f = ctypes.c_void_p, ctypes.c_float
     cases = {}
     for name, fn in designs.items():
         fn.argtypes = [p] * 4 + [f, f, ctypes.c_int64, ctypes.c_int, p]
         row = acc.clone()
-        call = raw_topk(fn, (row.data_ptr(), p4.data_ptr(), s4.data_ptr(),
+        call = raw_topk(fn, (row.data_ptr(), qr.data_ptr(), sr.data_ptr(),
                              row.data_ptr(), w, 1.0, DQ,
-                             QB.bit_length() - 1), row, p4, s4)
+                             QB.bit_length() - 1), row, qr, sr)
         call()
         if not torch.equal(row, want):
-            sys.exit(f"hold_timing: q4 fold {name} is not bitwise "
-                     "safl_fold_q4_plain")
-        cases[f"fold_q4 {name}"] = call
+            sys.exit(f"hold_timing: {wire} fold {name} is not bitwise "
+                     f"safl_fold_{wire}_plain")
+        cases[f"fold_{wire} {name}"] = call
     row = acc.clone()
-    cases["fold_q4 wrapper safl_fold_q4"] = (
-        lambda: k_mod.safl_fold_q4(row, p4, s4, w, qblock=QB, out=row))
+    wrapper = getattr(k_mod, f"safl_fold_{wire}")
+    cases[f"fold_{wire} wrapper safl_fold_{wire}"] = (
+        lambda: wrapper(row, qr, sr, w, qblock=QB, out=row))
+    return cases
+
+
+def aggregate_q4_cases(g) -> dict:
+    """The q4 K-row aggregate's timed calls at K = 4, fedsgd over D lanes
+    (the SS round) and avg over Dq (the SA round), each checked bitwise
+    first against ``safl_aggregate_q4_plain``."""
+    from repro_torch.kernels import ref
+    variants = build.load("aggregate_variants")
+    package = k_mod._lib()
+    k = 4
+    q = ref.pack_q4_ref(torch.randint(-8, 8, (k, DQ), device="cuda",
+                                      generator=g).to(torch.int8))
+    s = torch.rand((k, DQ // QB), device="cuda", generator=g)
+    prm = torch.randn((D,), device="cuda", generator=g)
+    ones = torch.ones((k,), device="cuda")
+    sizes = torch.tensor([113.0, 58.0, 241.0, 77.0], device="cuda")
+    designs = {"grid-stride, one lane (parent)":
+               variants.safl_aggregate_q4_gridstride}
+    for v in (4, 8, 16):
+        for t in (128, 256):
+            for r in (1, 4):
+                designs[f"{v} lanes x {t} threads x {r} rows"] = getattr(
+                    variants, f"safl_aggregate_q4_v{v}_t{t}_r{r}")
+    designs["package"] = package.safl_aggregate_q4
+    argtypes = package.safl_aggregate_q4.argtypes
+    cases = {}
+    for mode, w, n in (("fedsgd", ones, D), ("avg", sizes, DQ)):
+        kw = dict(server_lr=0.05, mode=mode)
+        want = k_mod.safl_aggregate_q4_plain(q, s, w, prm, qblock=QB, **kw)
+        for name, fn in designs.items():
+            fn.argtypes = argtypes
+            out = torch.empty((n,), device="cuda")
+            call = raw_topk(fn, (q.data_ptr(), s.data_ptr(), w.data_ptr(),
+                                 prm.data_ptr(), out.data_ptr(), k, DQ, n,
+                                 0.05, 0.5, k_mod.MODES[mode], 0,
+                                 QB.bit_length() - 1), q, s, w, prm, out)
+            call()
+            if not torch.equal(out, want):
+                sys.exit(f"hold_timing: q4 aggregate {name} ({mode}) is "
+                         "not bitwise safl_aggregate_q4_plain")
+            cases[f"aggregate_q4 {mode} {name}"] = call
+        cases[f"aggregate_q4 {mode} wrapper safl_aggregate_q4"] = (
+            lambda w=w, kw=kw: k_mod.safl_aggregate_q4(q, s, w, prm,
+                                                       qblock=QB, **kw))
     return cases
 
 
@@ -511,7 +573,10 @@ def flash_cases(g) -> dict:
 
 
 #: the groups of cases, in the order they are made and timed
-GROUPS = {"fold": fold_cases, "fold_q4": fold_q4_cases,
+GROUPS = {"fold": fold_cases,
+          "fold_q4": lambda g: fold_q_cases(g, "q4"),
+          "fold_q8": lambda g: fold_q_cases(g, "q8"),
+          "aggregate_q4": aggregate_q4_cases,
           "screen_f32": screen_f32_cases, "screen": screen_cases,
           "topk": topk_cases, "flash": flash_cases}
 

@@ -48,13 +48,20 @@ and ``wgmma`` buy nothing a bandwidth-bound pass needs first.  The f32
 fold moves 8-byte vectors, one a thread over an exact grid, from the
 output's first 128-byte line on (a bank row may start anywhere in a
 line); the grid-stride loop and 16-byte vectors timed slower
-(:mod:`repro_torch.kernels.hold_timing`).  The q4 fold takes 4 lanes a
-thread over an exact grid of 128-thread blocks: one 2-byte load of the
-packed lanes, a float4 load of acc and the lanes' scale before any
-arithmetic, the nibbles sign-extended in a word; the lanes around the
-aligned vectors (every lane where the rows disagree mod a vector) one a
-thread in the same launch; 2, 8 and 16 lanes a thread and the
-grid-stride loop timed slower.  The three screens are
+(:mod:`repro_torch.kernels.hold_timing`).  The q4 and q8 folds take 4
+lanes a thread over an exact grid of 128-thread blocks: one load of the
+vector's bytes (2 packed bytes, a 4-byte int8 word), a float4 load of acc
+and the lanes' scale before any arithmetic, the lanes sign-extended from
+the word; the lanes around the aligned vectors (every lane where the rows
+disagree mod a vector) one a thread in the same launch; 2, 8 and 16 lanes
+a thread and the grid-stride loop timed slower.  The q4 K-row aggregate
+takes 8 lanes a thread over an exact grid of 128-thread blocks the same
+way: a vector's ``p`` and its first 4 rows' words and scales loaded
+before the block's weights are computed in parallel into shared memory,
+the levels made as floats without a conversion instruction, each lane
+still summed in row order; lane by lane where the rows, ``p`` or the
+output are not vector-aligned; other lane, block and row-group shapes
+and the grid-stride loop timed slower.  The three screens are
 one launch a call (blocks of 8 warps; the f32 screen 8 float4 loads a
 thread in groups of 4 lanes,
 the quantized ones a 16-byte load a lane summed by ``__dp4a``), the
@@ -273,8 +280,12 @@ def safl_fold_q8(acc: torch.Tensor, q_row: torch.Tensor,
     """acc (Dq,) f32, q_row (Dq,) int8, s_row (Dq/qblock,) f32 scales ->
     beta*acc + w*dequant(q_row), the dequantize ((float)q * scale) fused
     into the pass.  Replaces ``repro/kernels/safl_agg.py:257
-    safl_fold_q8``.  ``out`` may be ``acc``.  Bound: 9*Dq + 4*Dq/qblock
-    bytes."""
+    safl_fold_q8``.  ``out`` may be ``acc``; a row may start at any lane
+    or byte.  4 lanes a thread (one 4-byte load of the int8 lanes) over an
+    exact grid from the first lane where acc, out and q_row are all
+    vector-aligned, the lanes around those vectors (every lane where the
+    three disagree) one a thread in the same launch.  Bound: 9*Dq +
+    4*Dq/qblock bytes."""
     return _fold_q(safl_fold_q8, safl_fold_q8_plain, False, acc, q_row,
                    s_row, w, beta, qblock, out)
 
@@ -463,8 +474,11 @@ def safl_aggregate_q4(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
                       qblock: int = BLOCK) -> torch.Tensor:
     """:func:`safl_aggregate_q8` over packed int4 rows, q (K, Dq/2) int8
     bytes.  Replaces ``repro/kernels/safl_agg.py:599 safl_aggregate_q4``.
-    Bound: K*Dq/2 + K*Dq/qblock*4 bytes read, plus 2*D*4 (fedsgd/mix) or
-    Dq*4 (avg/sum)."""
+    One launch of ``aggregate_q4_kernel``: vectors of lanes over an exact
+    grid where the rows, ``p`` and the output are vector-aligned (as in
+    the engine), else lane by lane; the same bits either way.  Bound:
+    K*Dq/2 + K*Dq/qblock*4 bytes read, plus 2*D*4 (fedsgd/mix) or Dq*4
+    (avg/sum)."""
     return _aggregate_q(safl_aggregate_q4, safl_aggregate_q4_plain, True,
                         q, scales, w, p, server_lr, mode, alpha, discount,
                         qblock)

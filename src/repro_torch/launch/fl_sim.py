@@ -179,6 +179,11 @@ def main(argv=None) -> dict:
     # convolutions in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # deterministic convolution algorithms, none picked by timing: a run
+    # on the card repeats bit for bit (some of cuDNN's weight-gradient
+    # algorithms sum with atomics in an order that varies run to run)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     mk_kw = {"hw": 16} if "cifar" in args.dataset or \
         args.dataset == "femnist" else {}
     ds = make_dataset(args.dataset, n=args.samples, seed=args.seed, **mk_kw)
