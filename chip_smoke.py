@@ -14,11 +14,12 @@ Phases, each of which exits non-zero on failure:
      sets it
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
-     ``flash_attention.cu``, and ``aggregate_variants.cu``, the q4
-     aggregate's parent design), started together; the ptxas report must
-     show no spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two
-     top-k kernels, the f32 screen, the q4 and q8 folds and the q4
-     aggregate
+     ``flash_attention.cu``, and ``aggregate_variants.cu`` and
+     ``quantize_variants.cu``, the q4 and q8 aggregates' and quantize's
+     parent designs), started together; the ptxas report must show no
+     spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two top-k
+     kernels, the f32 screen, the q4 and q8 folds, the q4 and q8
+     aggregates and quantize's B = 512 kernel
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -40,8 +41,9 @@ Phases, each of which exits non-zero on failure:
      ``safl_fold_q4`` and ``safl_fold_q8`` at both Dq, at beta 1 in
      place and 0.625 out of place, with acc 0-3 lanes and the quantized
      row 0-15 bytes off alignment (64 placements each): bitwise.
-     ``safl_aggregate_q4`` in every mode x discount at K = 1, 4 and 16,
-     both Dq, rows and p aligned and 1 byte / 1 lane off: bitwise the
+     ``safl_aggregate_q4`` and ``safl_aggregate_q8`` in every mode x
+     discount at K = 1, 4 and 16, both Dq, rows and p aligned and 1 byte
+     / 1 lane off (the q8 rows holding -128 and +-127 bytes): bitwise the
      plain version (discount none) or the parent kernel (poly).  The q4 wire's stochastic-rounding draws made
      on the card (``prng.uniform_torch``) against the numpy threefry at
      the paper CNN's (4209, 512): bitwise.  The two top-k kernels at the main
@@ -53,7 +55,8 @@ Phases, each of which exits non-zero on failure:
      bitwise; and on copies of the rows one lane off (idx and qv, then
      idx alone), bitwise the aligned calls.  The int8 pair at (4209, 512) and 37 rows with a zero
      row, exact .5 ties and a NaN row: bitwise (NaN scales in the same
-     rows).  Flash attention in f32 and bf16, causal and not, at the
+     rows); quantize also on a copy one float in and at B = 100 (its
+     general path).  Flash attention in f32 and bf16, causal and not, at the
      reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
      S 1024, H 16, Hkv 8, hd 128), a ragged S = 200 and two odd H / Hkv
      (S = 200 at hd 128, S = 130 at hd 64): within
@@ -74,8 +77,11 @@ Phases, each of which exits non-zero on failure:
      kernels, the int8 pair and flash attention at the
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
+     the parent designs of the q8 aggregate (fedsgd and avg) and of
+     quantize beside the package's kernels, both through ``ctypes``;
      3 calls of each screen (f32, q8, q4; K = 1), of the q4, q8 and top-k
-     folds (beta 1, in place), of the q4 aggregate (K = 4, fedsgd) and
+     folds (beta 1, in place), of the q4 and q8 aggregates (K = 4,
+     fedsgd), of quantize at (4209, 512) and
      of the top-k K-row sum (K = 4) captured into a CUDA
      graph, whose nodes (read through libcuda's graph API) must be one
      launch of the kernel a call and nothing else (no memset; the K-row
@@ -195,9 +201,10 @@ REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "flash_attention": "src/repro/kernels/flash_attention.py:76"}
 #: the CUDA sources, each built by its own nvcc, all started together
 SOURCES = ("safl_agg", "quantize", "flash_attention")
-#: other designs built beside them: the q4 aggregate's parent kernel,
-#: which phase 3 holds the new one against under the poly discount
-VARIANT_SOURCES = ("aggregate_variants",)
+#: other designs built beside them: the q4 and q8 aggregates' parent
+#: kernels, which phase 3 holds the new ones against under the poly
+#: discount, and the quantize kernel's; phase 4 times the parents
+VARIANT_SOURCES = ("aggregate_variants", "quantize_variants")
 INT8_KERNELS = ("quantize_int8", "dequantize_int8")
 #: the source of each kernel: the int8 pair in csrc/quantize.cu, flash
 #: attention in csrc/flash_attention.cu, every other in csrc/safl_agg.cu
@@ -680,16 +687,18 @@ def check_fold_q(torch, k_mod, report, worst, wire):
     torch.cuda.synchronize()
 
 
-def parent_aggregate_q4(torch, k_mod, lib):
-    """The q4 aggregate's parent kernel (``csrc/aggregate_variants.cu``'s
-    ``safl_aggregate_q4_gridstride``, ``aggregate_kernel<Q4Rows>``) as a
-    function of the wrapper's arguments."""
-    fn = lib.safl_aggregate_q4_gridstride
+def parent_aggregate(torch, k_mod, lib, wire):
+    """The q4 or q8 aggregate's parent kernel (``wire``;
+    ``csrc/aggregate_variants.cu``'s ``safl_aggregate_q4_gridstride`` /
+    ``safl_aggregate_q8_gridstride``, ``aggregate_kernel<Q4Rows>`` /
+    ``<Q8Rows>``) as a function of the wrapper's arguments."""
+    name = f"safl_aggregate_{wire}_gridstride"
+    fn = getattr(lib, name)
     fn.argtypes = k_mod._lib().safl_aggregate_q4.argtypes
     fn.restype = ctypes.c_int
 
     def call(q, s, w, p, *, server_lr, mode, alpha, discount):
-        dq = 2 * q.shape[1]
+        dq = 2 * q.shape[1] if wire == "q4" else q.shape[1]
         n = p.shape[0] if mode in ("fedsgd", "mix") else dq
         out = torch.empty(n, device="cuda")
         rc = fn(q.data_ptr(), s.data_ptr(), w.data_ptr(),
@@ -698,27 +707,38 @@ def parent_aggregate_q4(torch, k_mod, lib):
                 int(discount == "poly"), QB.bit_length() - 1,
                 torch.cuda.current_stream().cuda_stream)
         if rc:
-            fail(f"safl_aggregate_q4_gridstride: launch returned {rc}")
+            fail(f"{name}: launch returned {rc}")
         return out
     return call
 
 
-def check_aggregate_q4(torch, k_mod, report, worst, variants):
-    """``safl_aggregate_q4`` in every mode x discount at K = 1, 4 and 16,
-    at the main path's D (Dq = 2,155,008; fedsgd / mix over D lanes, so
-    a tail past the last whole vector) and the ragged D, on the rows and p
-    as allocated (the vector path, as in the engine) and on copies one
-    byte (rows) and one lane (p) off (lane by lane), the rows holding -8
-    nibbles: bitwise its plain version with discount none; with poly
-    weights (``powf``, within 1.9e-6 of ``torch.pow``: ``check_kernels``
-    holds that) bitwise the parent's kernel (``variants``:
-    ``csrc/aggregate_variants.cu``)."""
-    parent = parent_aggregate_q4(torch, k_mod, variants)
-    g = torch.Generator(device="cuda").manual_seed(9)
+def check_aggregate_q(torch, k_mod, report, worst, variants, wire):
+    """``safl_aggregate_q4`` / ``safl_aggregate_q8`` (``wire``) in every
+    mode x discount at K = 1, 4 and 16, at the main path's D (Dq =
+    2,155,008; fedsgd / mix over D lanes, so a tail past the last whole
+    vector) and the ragged D, on the rows and p as allocated (the vector
+    path, as in the engine) and on copies one byte (rows) and one lane
+    (p) off (lane by lane), the q4 rows holding -8 nibbles and the q8
+    rows -128 and +-127 bytes: bitwise its plain version with discount
+    none; with poly weights (``powf``, within 1.9e-6 of ``torch.pow``:
+    ``check_kernels`` holds that) bitwise the parent's kernel
+    (``variants``: ``csrc/aggregate_variants.cu``)."""
+    name = "safl_aggregate_" + wire
+    kernel = k_mod.KERNELS[name]
+    plain = getattr(k_mod, name + "_plain")
+    parent = parent_aggregate(torch, k_mod, variants, wire)
+    g = torch.Generator(device="cuda").manual_seed(9 if wire == "q4" else 10)
     for d in (D_FULL, D_RAGGED):
         dq = dq_of(d)
         p = torch.randn((d,), device="cuda", generator=g)
-        q16, s16 = q4_rows(torch, 16, d, g, flip=True)
+        if wire == "q4":
+            q16, s16 = q4_rows(torch, 16, d, g, flip=True)
+        else:
+            q16, s16 = q8_rows(torch, 16, d, g)
+            q16[:, 100:164:3] = -128
+            if not ((q16 == -128).any(dim=1).all()
+                    and (q16.abs() == 127).any(dim=1).all()):
+                fail("the q8 rows hold no -128 or no +-127 byte")
         for k in (1, 4, 16):
             q, s = q16[:k], s16[:k]
             for rows, (qq, pp) in (("aligned", (q, p)),
@@ -730,26 +750,28 @@ def check_aggregate_q4(torch, k_mod, report, worst, variants):
                         w = agg_weights(torch, k, mode, discount, g)
                         kw = dict(server_lr=0.05, mode=mode, alpha=0.5,
                                   discount=discount)
-                        got = k_mod.safl_aggregate_q4(qq, s, w, pp, **kw)
+                        got = kernel(qq, s, w, pp, **kw)
                         info = dict(dq=dq, k=k, mode=mode,
                                     discount=discount, rows=rows)
                         if discount == "poly":
                             want = parent(qq, s, w, pp, **kw)
                             info["vs"] = "parent kernel"
                         else:
-                            want = k_mod.safl_aggregate_q4_plain(q, s, w, p,
-                                                                 **kw)
-                        compare(torch, report, worst, "safl_aggregate_q4",
-                                got, want, True, **info)
+                            want = plain(q, s, w, p, **kw)
+                        compare(torch, report, worst, name, got, want, True,
+                                **info)
     torch.cuda.synchronize()
 
 
 def check_int8(torch, q_mod, report, worst):
     """The int8 pair against its plain versions at (4209, 512) and at a
-    ragged 37 rows, with an all-zero row (scale 1e-12), a row of exact .5
-    ties and a NaN row (NaN scale: the absmax propagates it; its lanes
-    store 0): int8 rows bitwise, scales bitwise with NaN in the same
-    rows, dequantized rows bitwise."""
+    ragged 37 rows (quantize on its B = 512 path; also on a copy of the
+    rows one float in, and at B = 100: the general path), with an
+    all-zero row (scale 1e-12), a row of exact .5 ties, a NaN row (NaN
+    scale: the absmax propagates it; its lanes store 0) and a row holding
+    -Inf (Inf scale; its lanes store 0): int8 rows bitwise, scales
+    bitwise with NaN in the same rows, dequantized rows bitwise (the
+    non-finite rows' scales set to 1 first)."""
     import math
 
     import numpy as np
@@ -759,27 +781,38 @@ def check_int8(torch, q_mod, report, worst):
     # +-scale/2 then divide to exactly +-0.5 and round half to even, to 0
     s_tie = float(np.float32(127.0) * np.float32(INV_127))
     g = torch.Generator(device="cuda").manual_seed(6)
-    for rows in INT8_ROWS:
-        x = torch.randn((rows, QB), device="cuda", generator=g)
+    cases = [(rows, QB, path) for rows in INT8_ROWS
+             for path in ("b512", "general: x one float in")]
+    cases.append((INT8_ROWS[1], 100, "general: B = 100"))
+    for rows, b, path in cases:
+        x = torch.randn((rows, b), device="cuda", generator=g)
         x[0] = 0.0
         x[1, 0] = 127.0
         x[1, 1::2] = 0.5 * s_tie
         x[1, 2::2] = -0.5 * s_tie
         x[2, 7] = math.nan
-        q, s = q_mod.quantize_int8(x)
+        x[3, 5] = -math.inf
+        xin = misaligned(torch, x) if "one float in" in path else x
+        q, s = q_mod.quantize_int8(xin)
         pq, ps = q_mod.quantize_int8_plain(x)
-        nan_same = torch.equal(torch.isnan(s), torch.isnan(ps))
-        fin = ~torch.isnan(ps)
+        nan_same = all(torch.equal(f(s), f(ps)) for f in (
+            torch.isnan, torch.isposinf, torch.isneginf))
+        fin = torch.isfinite(ps)
         compare(torch, report, worst, "quantize_int8", (q.float(), s[fin]),
-                (pq.float(), ps[fin]), True, rows=rows,
-                nan_rows_equal=nan_same)
+                (pq.float(), ps[fin]), True, rows=rows, b=b, path=path,
+                nonfinite_rows_equal=nan_same)
         if not (nan_same and bool(torch.isnan(s[2]))
                 and float(s[0]) == float(np.float32(1e-12))
-                and float(s[1]) == s_tie and not q[1, 1:].any()):
-            fail(f"quantize_int8 rows={rows}: zero row scale {float(s[0])}, "
-                 f"tie row {q[1, :4].tolist()} scale {float(s[1])}, NaN row "
-                 f"scale {float(s[2])}")
-        s = torch.where(fin, s, 1.0)
+                and float(s[1]) == s_tie and not q[1, 1:].any()
+                and not q[2].any() and math.isinf(float(s[3]))
+                and not q[3].any()):
+            fail(f"quantize_int8 rows={rows} b={b} {path}: zero row scale "
+                 f"{float(s[0])}, tie row {q[1, :4].tolist()} scale "
+                 f"{float(s[1])}, NaN row scale {float(s[2])}, -Inf row "
+                 f"scale {float(s[3])}")
+        if path != "b512":
+            continue
+        s = torch.where(torch.isfinite(s), s, 1.0)
         compare(torch, report, worst, "dequantize_int8",
                 q_mod.dequantize_int8(q, s),
                 q_mod.dequantize_int8_plain(q, s), True, rows=rows)
@@ -1046,7 +1079,26 @@ def time_ms(torch, fn, flush, n=TIMED_LAUNCHES, hold=False):
     return times[len(times) // 2]
 
 
-def time_kernels(torch, k_mod, q_mod, fa_mod):
+def raw_call(torch, fn, argtypes, *args):
+    """A call of the C entry ``fn`` (``argtypes`` as the package's entry
+    declares them) with ``args`` (pointers, then the scalars) made
+    beforehand, the stream appended."""
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        if fn(*args, stream):
+            fail(f"{fn.__name__}: launch failed")
+    return call
+
+
+def time_kernels(torch, k_mod, q_mod, fa_mod, variants):
+    """Phase 4's timings: the records by kernel, the timer's floor, and the
+    parent designs of the kernels this slice redesigned (``variants``:
+    the variant sources' libraries), timed in the same way through
+    ``ctypes`` beside the package's kernels through ``ctypes``."""
+    from repro_torch.kernels.ref import INV_127
     g = torch.Generator(device="cuda").manual_seed(1)
     d, k = D_FULL, K_MAIN
     dq = dq_of(d)
@@ -1130,6 +1182,21 @@ def time_kernels(torch, k_mod, q_mod, fa_mod):
                                                          mode="avg")),
         library_ms=None, bytes=k * dq + k * nb * 4 + dq * 4,
         ops=3 * k * dq + dq, shape=f"K={k} Dq={dq} mode=avg")
+    # the q8 aggregate's parent (aggregate_kernel<Q8Rows>) and the
+    # package's kernel, both through ctypes, on the same rows
+    parents = {}
+    agg_args = k_mod._lib().safl_aggregate_q8.argtypes
+    for mode, w, n in (("fedsgd", ones, d), ("avg", sizes, dq)):
+        o = torch.empty((n,), device="cuda")
+        args = (q.data_ptr(), s.data_ptr(), w.data_ptr(), p.data_ptr(),
+                o.data_ptr(), k, dq, n, lr, 0.5, k_mod.MODES[mode], 0,
+                QB.bit_length() - 1)
+        for design, fn in (
+                ("parent", variants["aggregate_variants"]
+                 .safl_aggregate_q8_gridstride),
+                ("package", k_mod._lib().safl_aggregate_q8)):
+            parents[f"safl_aggregate_q8 {mode}, {design} (ctypes)"] = t(
+                raw_call(torch, fn, agg_args, *args))
     out["sdga_aggregate_q8"] = dict(
         ms=t(lambda: k_mod.sdga_aggregate_q8(q, s, disc, p, m, e, **kw)),
         plain_ms=t(lambda: k_mod.sdga_aggregate_q8_plain(q, s, disc, p, m,
@@ -1227,6 +1294,14 @@ def time_kernels(torch, k_mod, q_mod, fa_mod):
         plain_ms=t(lambda: q_mod.quantize_int8_plain(x8)),
         library_ms=None, bytes=5 * rows * QB + 4 * rows, ops=4 * rows * QB,
         shape=f"R={rows} B={QB}")
+    qx = torch.empty((rows, QB), dtype=torch.int8, device="cuda")
+    sx = torch.empty((rows,), device="cuda")
+    args = (x8.data_ptr(), qx.data_ptr(), sx.data_ptr(), rows, QB, INV_127)
+    for design, fn in (("parent", variants["quantize_variants"]
+                        .quantize_int8_general),
+                       ("package", q_mod._lib().quantize_int8)):
+        parents[f"quantize_int8, {design} (ctypes)"] = t(raw_call(
+            torch, fn, q_mod._lib().quantize_int8.argtypes, *args))
     out["dequantize_int8"] = dict(
         ms=t(lambda: q_mod.dequantize_int8(q8r, s8r)),
         plain_ms=t(lambda: q_mod.dequantize_int8_plain(q8r, s8r)),
@@ -1264,8 +1339,10 @@ def time_kernels(torch, k_mod, q_mod, fa_mod):
               f"{r['bytes'] / 1e6:.1f} MB)  plain {r['plain_ms']:.4f} ms  "
               f"library {lib}  "
               f"achieved {r['bytes'] / r['ms'] / 1e6:.0f} GB/s")
+    for name, ms in parents.items():
+        print(f"  {name:<52} {ms:.5f} ms")
     del flush
-    return out, floor_ms
+    return out, floor_ms, parents
 
 
 class _KernelNodeParams(ctypes.Structure):
@@ -1306,12 +1383,20 @@ def graph_kernels(torch, fn, calls, restore=None, cooperative=False):
         if rc:
             fail(f"{what} returned CUresult {rc}")
 
+    def clone(o):  # an output: a tensor or a tuple of tensors
+        return tuple(t.clone() for t in o) if isinstance(o, tuple) else \
+            o.clone()
+
+    def equal(a, b):
+        return all(map(torch.equal, a, b)) if isinstance(a, tuple) else \
+            torch.equal(a, b)
+
     side = torch.cuda.Stream()
     torch.cuda.synchronize()
     with torch.cuda.stream(side):
         if restore:
             restore()
-        want = [fn().clone() for _ in range(calls)]
+        want = [clone(fn()) for _ in range(calls)]
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g, stream=side):
@@ -1350,17 +1435,18 @@ def graph_kernels(torch, fn, calls, restore=None, cooperative=False):
     g.replay()
     torch.cuda.synchronize()
     if restore:
-        same = torch.equal(outs[-1], want[-1])
+        same = equal(outs[-1], want[-1])
     else:
-        same = all(torch.equal(o, w) for o, w in zip(outs, want))
+        same = all(equal(o, w) for o, w in zip(outs, want))
     del g, outs
     return found, same
 
 
-def check_one_launch(torch, k_mod, calls=3):
+def check_one_launch(torch, k_mod, q_mod, calls=3):
     """Each screen (f32, q8, q4) at the main path's K = 1, the q4, q8 and
-    top-k folds at beta 1 in place (as the engine folds), the q4
-    aggregate (fedsgd) and the top-k K-row sum at the main path's K = 4
+    top-k folds at beta 1 in place (as the engine folds), the q4 and q8
+    aggregates (fedsgd) and the top-k K-row sum at the main path's K = 4,
+    and ``quantize_int8`` over the paper CNN's (4209, 512) blocks
     issue one device kernel a call and
     nothing else (no memset, no copy, no second kernel), seen two ways:
     ``calls`` calls of each captured into a CUDA graph, whose nodes must
@@ -1380,6 +1466,8 @@ def check_one_launch(torch, k_mod, calls=3):
     p4, s4 = q4_rows(torch, 1, D_FULL, g)
     idx, qv, sv = topk_rows(torch, K_MAIN, D_FULL, NK_FULL, g)
     p4k, s4k = q4_rows(torch, K_MAIN, D_FULL, g)
+    q8k, s8k = q8_rows(torch, K_MAIN, D_FULL, g)
+    x8 = torch.randn((INT8_ROWS[0], QB), device="cuda", generator=g)
     params = torch.randn((D_FULL,), device="cuda", generator=g)
     acc = torch.randn((D_FULL,), device="cuda", generator=g)
     base = acc.clone()
@@ -1417,6 +1505,13 @@ def check_one_launch(torch, k_mod, calls=3):
             lambda: k_mod.safl_aggregate_q4(p4k, s4k, w, params,
                                             server_lr=0.05, qblock=QB),
             None, ("aggregate_q4_kernel",), None, None),
+        "safl_aggregate_q8": (
+            lambda: k_mod.safl_aggregate_q8(q8k, s8k, w, params,
+                                            server_lr=0.05, qblock=QB),
+            None, ("aggregate_q8_kernel",), None, None),
+        "quantize_int8": (
+            lambda: q_mod.quantize_int8(x8), None,
+            ("quantize_int8_b512_kernel",), None, None),
         "safl_fold_topk": (
             lambda: k_mod.safl_fold_topk(acc, idx[0], qv[0], sv[0], 0.37,
                                          out=acc),
@@ -2358,10 +2453,15 @@ def main() -> None:
     if len(spilled) != 2 or any(spilled.values()):
         fail("the top-k kernels spill or are missing from the ptxas report")
     # the f32 screen's two load paths, the quantized folds' two beta
-    # variants each, the q4 aggregate's one shape
-    for symbol, n in (("screen_f32_kernel", 2), ("fold_q4_kernel", 2),
-                      ("fold_q8_kernel", 2), ("aggregate_q4_kernel", 1)):
-        spilled = spills(infos["safl_agg"]["log"], symbol)
+    # variants each, the quantized aggregates' and quantize's one shape
+    for source, symbol, n in (
+            ("safl_agg", "screen_f32_kernel", 2),
+            ("safl_agg", "fold_q4_kernel", 2),
+            ("safl_agg", "fold_q8_kernel", 2),
+            ("safl_agg", "aggregate_q4_kernel", 1),
+            ("safl_agg", "aggregate_q8_kernel", 1),
+            ("quantize", "quantize_int8_b512_kernel", 1)):
+        spilled = spills(infos[source]["log"], symbol)
         print(f"  {symbol}: {len(spilled)} instantiations, spill bytes "
               f"{sorted(spilled.values())} (tolerance: 0)")
         if len(spilled) != n or any(spilled.values()):
@@ -2384,8 +2484,11 @@ def main() -> None:
     check_screens(torch, k_mod, check_rows, worst)
     for wire in ("q4", "q8"):
         check_fold_q(torch, k_mod, check_rows, worst, wire)
-    check_aggregate_q4(torch, k_mod, check_rows, worst,
-                       ctypes.CDLL(infos["aggregate_variants"]["path"]))
+    variants = {name: ctypes.CDLL(infos[name]["path"])
+                for name in VARIANT_SOURCES}
+    for wire in ("q4", "q8"):
+        check_aggregate_q(torch, k_mod, check_rows, worst,
+                          variants["aggregate_variants"], wire)
     check_topk(torch, k_mod, check_rows, worst)
     check_int8(torch, q_mod, check_rows, worst)
     check_draws(torch, check_rows)
@@ -2393,8 +2496,9 @@ def main() -> None:
     left(3)
 
     print("== phase 4: timings (L2 flushed before each launch)")
-    timing, floor_ms = time_kernels(torch, k_mod, q_mod, fa_mod)
-    one_launch = check_one_launch(torch, k_mod)
+    timing, floor_ms, parent_ms = time_kernels(torch, k_mod, q_mod, fa_mod,
+                                               variants)
+    one_launch = check_one_launch(torch, k_mod, q_mod)
     codec_ms = time_codec(torch)
     left(4)
 
@@ -2437,7 +2541,8 @@ def main() -> None:
         json.dump(dict(smi=smi, torch=torch.__version__,
                        cuda=torch.version.cuda, build_s=build_s,
                        checks=check_rows, timing=timing,
-                       timer_floor_ms=floor_ms, codec_ms=codec_ms,
+                       timer_floor_ms=floor_ms, parent_ms=parent_ms,
+                       codec_ms=codec_ms,
                        one_launch=one_launch,
                        small=small, codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,

@@ -1,0 +1,46 @@
+// Other designs of quantize.cu's quantize_int8, built and timed only by
+// ``repro_torch/kernels/hold_timing.py`` (and, the parent, timed beside
+// the package's kernel by ``chip_smoke.py`` phase 4); no wrapper of the
+// package calls them.  Each takes the package's quantize_int8 arguments
+// and gives its bits.
+//
+//   quantize_int8_general
+//                        the kernel's first design, as it stood for every
+//                        shape (quantize_int8_kernel, included from
+//                        quantize.cu): one warp a row, a strided running
+//                        absmax over 16 4-byte loads a lane, then the row
+//                        read again and stored a byte at a time
+//   quantize_int8_g<G>_r<RW>_t<T>
+//                        the package's B = 512 kernel
+//                        (quantize_int8_b512_kernel) with G lanes a row
+//                        (32: a warp, 4 float4 a lane; 16: a half-warp,
+//                        8 float4 a lane), RW rows a lane group in turn (1
+//                        or 2) and blocks of T threads (128 or 256); only
+//                        where the package's kernel would run (B = 512,
+//                        x 16- and q 4-byte aligned), else it returns -1
+
+#include "quantize.cu"
+
+extern "C" {
+
+int quantize_int8_general(const void* x, void* q, void* s, int64_t r,
+                          int64_t b, float inv, void* stream) {
+  return launch_quantize_general(x, q, s, r, b, inv, stream);
+}
+
+#define QUANT_VARIANT(G, RW, T)                                             \
+  int quantize_int8_g##G##_r##RW##_t##T(const void* x, void* q, void* s,    \
+                                        int64_t r, int64_t b, float inv,    \
+                                        void* stream) {                     \
+    if (!quantize_b512_ok(x, q, b)) return -1;                              \
+    return launch_quantize_b512<G, RW, T>(x, q, s, r, inv, stream);         \
+  }
+
+QUANT_VARIANT(32, 1, 128)
+QUANT_VARIANT(32, 1, 256)
+QUANT_VARIANT(32, 2, 128)
+QUANT_VARIANT(32, 2, 256)
+QUANT_VARIANT(16, 1, 128)
+QUANT_VARIANT(16, 1, 256)
+
+}  // extern "C"

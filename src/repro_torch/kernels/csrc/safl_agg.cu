@@ -59,15 +59,17 @@
 // (int4: (n ^ 8) - 8 per byte by __vsub4), a float4 store; the lanes
 // before the first aligned vector and after the last one go one a thread
 // in the same launch, and every lane does where the rows' addresses
-// disagree mod a vector.  The q4 K-row aggregate takes kAggQ4Vec = 8
-// lanes a thread over an exact grid the same way (aggregate_q4_kernel):
-// a vector's p and its first kAggQ4Rows rows' words and scales (one a
-// row) loaded first, then the block's K weights computed in parallel
-// into shared memory (one barrier), the levels made as floats without a
-// conversion instruction, the sum still in row order; lane by lane where
-// the rows, p or out are not vector-aligned.  Its parent (thread 0's
-// serial weights, then one lane a thread in a grid-stride loop) issued
-// its K rows' loads one after another, and spent K conversions a lane.
+// disagree mod a vector.  The q4 and q8 K-row aggregates take kAggQ4Vec
+// / kAggQ8Vec lanes a thread over an exact grid the same way
+// (aggregate_q4_kernel, aggregate_q8_kernel: one body over the lane
+// format): a vector's p and its first kAggQ4Rows / kAggQ8Rows rows'
+// words and scales (one a row) loaded first, then the block's K weights
+// computed in parallel into shared memory (one barrier), the levels made
+// as floats without a conversion instruction, the sum still in row
+// order; lane by lane where the rows, p or out are not vector-aligned.
+// Their parent (aggregate_kernel<Q4Rows> / <Q8Rows>: thread 0's serial
+// weights, then one lane a thread in a grid-stride loop) issued its K
+// rows' loads one after another, and spent K conversions a lane.
 //
 // The screening reductions are bound by the same bytes (one read of the
 // rows) but are launch-bound at the engine's K = 1.  They must be
@@ -282,8 +284,8 @@ __global__ void fold_kernel(const float* acc, const float* __restrict__ vec,
 // loaded in one aligned load into 32-bit words (load_bytes), then
 // sign-extended lane by lane (unpack: the folds, one conversion a lane)
 // or made into exact float levels without a conversion (levels: the
-// K-row aggregate, K conversions a lane; Int4Lanes only, the one format
-// it is built for); lane() reads one lane alone.
+// K-row aggregates, which would spend K conversions a lane); lane()
+// reads one lane alone.
 struct Int8Lanes {
   static constexpr int kShift = 0;  // log2(lanes a byte)
   template <int V>
@@ -296,6 +298,26 @@ struct Int8Lanes {
   }
   static __device__ __forceinline__ int lane(const uint8_t* q, int64_t i) {
     return static_cast<int8_t>(q[i]);
+  }
+  // The V levels as floats, exactly (float)n without a conversion
+  // instruction: the word XORed with 0x80808080 holds n + 128 in each
+  // byte, so the float with the bits 0x4B000000 | (byte ^ 0x80) is 2^23 +
+  // n + 128, and 2^23 + 128 less it is n (an exact difference, -128
+  // included).  Each lane's byte is set under 0x4B by one byte permute.
+  template <int V>
+  static __device__ __forceinline__ void levels(const uint32_t* wd,
+                                                float (&x)[V]) {
+#pragma unroll
+    for (int k = 0; k < (V + 3) / 4; ++k) {
+      const uint32_t u = wd[k] ^ 0x80808080u;
+#pragma unroll
+      for (int b = 0; b < 4 && 4 * k + b < V; ++b) {
+        // bytes (u.b, 0, 0, 0x4B) of u and 0x4B000000
+        x[4 * k + b] = __fsub_rn(
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + b)),
+            8388736.0f);
+      }
+    }
   }
 };
 
@@ -749,6 +771,22 @@ __global__ void __launch_bounds__(T)
                         float alpha, int mode, int poly) {
   extern __shared__ float sw[];
   aggregate_quant<Int4Lanes, V, T, R>(q, s, w_in, p, out, k, dq >> 1,
+                                      dq >> qshift, qshift, sp, n, lr, alpha,
+                                      mode, poly, sw);
+}
+
+// The q8 K-row aggregate: int8 rows of dq bytes.
+template <int V, int T, int R>
+__global__ void __launch_bounds__(T)
+    aggregate_q8_kernel(const uint8_t* __restrict__ q,
+                        const float* __restrict__ s,
+                        const float* __restrict__ w_in,
+                        const float* __restrict__ p,
+                        float* __restrict__ out, int64_t k, int64_t dq,
+                        int qshift, AggSpan sp, int64_t n, float lr,
+                        float alpha, int mode, int poly) {
+  extern __shared__ float sw[];
+  aggregate_quant<Int8Lanes, V, T, R>(q, s, w_in, p, out, k, dq,
                                       dq >> qshift, qshift, sp, n, lr, alpha,
                                       mode, poly, sw);
 }
@@ -1451,6 +1489,19 @@ constexpr int kFoldQ8Threads = 128;
 constexpr int kAggQ4Vec = 8;
 constexpr int kAggQ4Threads = 128;
 constexpr int kAggQ4Rows = 4;
+// The same for the q8 K-row aggregate (aggregate_q8_kernel): 8 x 128 x
+// 4 timed fastest at K = 4 on the paper CNN's Dq in two calls (fedsgd
+// 0.01440 / 0.01453 ms, avg 0.01200 / 0.01229, against the earlier
+// grid-stride design's 0.01974 / 0.02000 and 0.01808 / 0.01840 on one
+// "NVIDIA H100 80GB HBM3, 700.00 W"); 8 x 256 x 4 0.0148-0.0150 /
+// 0.0125-0.0127, 4 lanes x 4 rows 0.0148-0.0151 / 0.0131-0.0135, 16
+// lanes 0.0179-0.0188 / 0.0155-0.0175, one row at a time 0.0152-0.0168
+// / 0.0129-0.0155 (csrc/aggregate_variants.cu, timed by
+// kernels/hold_timing.py).  Keep in step with
+// tests/test_torch_aggregate_q8.py.
+constexpr int kAggQ8Vec = 8;
+constexpr int kAggQ8Threads = 128;
+constexpr int kAggQ8Rows = 4;
 
 // The quantized fold's kernel for Lanes: fold_q4_kernel or fold_q8_kernel.
 template <class Lanes, int V, int T, bool kUnitBeta>
@@ -1486,23 +1537,35 @@ int launch_fold_q(const void* acc, const void* q, const void* scales,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The q4 K-row aggregate in one launch of aggregate_q4_kernel over
-// exactly the threads agg_span needs (at least one), K weights of
-// shared memory.  n: output lanes (D for fedsgd / mix, Dq for avg / sum).
-template <int V, int T, int R>
-int launch_aggregate_q4(const void* q, const void* scales, const void* w,
-                        const void* p, void* out, int64_t k, int64_t dq,
-                        int64_t n, float lr, float alpha, int mode, int poly,
-                        int qshift, void* stream) {
+// The quantized K-row aggregate's kernel for Lanes: aggregate_q4_kernel
+// or aggregate_q8_kernel.
+template <class Lanes, int V, int T, int R>
+auto aggregate_q_kernel() {
+  if constexpr (Lanes::kShift == 1) {
+    return aggregate_q4_kernel<V, T, R>;
+  } else {
+    return aggregate_q8_kernel<V, T, R>;
+  }
+}
+
+// A quantized K-row aggregate (Int4Lanes: aggregate_q4_kernel, Int8Lanes:
+// aggregate_q8_kernel) in one launch over exactly the threads agg_span
+// needs (at least one), K weights of shared memory.  n: output lanes (D
+// for fedsgd / mix, Dq for avg / sum).
+template <class Lanes, int V, int T, int R>
+int launch_aggregate_q(const void* q, const void* scales, const void* w,
+                       const void* p, void* out, int64_t k, int64_t dq,
+                       int64_t n, float lr, float alpha, int mode, int poly,
+                       int qshift, void* stream) {
   const bool with_p = mode == kFedsgd || mode == kMix;
   const AggSpan sp =
-      agg_span<Int4Lanes, V>(q, dq >> 1, with_p ? p : nullptr, out, n,
-                             qshift);
+      agg_span<Lanes, V>(q, dq >> Lanes::kShift, with_p ? p : nullptr, out,
+                         n, qshift);
   const int64_t threads = sp.nv > n - sp.tail ? sp.nv : n - sp.tail;
   const unsigned blocks =
       static_cast<unsigned>(threads > 0 ? (threads + T - 1) / T : 1);
-  aggregate_q4_kernel<V, T, R><<<blocks, T, weights_smem(k),
-                                 static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = aggregate_q_kernel<Lanes, V, T, R>();
+  kernel<<<blocks, T, weights_smem(k), static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(q), static_cast<const float*>(scales),
       static_cast<const float*>(w), static_cast<const float*>(p),
       static_cast<float*>(out), k, dq, qshift, sp, n, lr, alpha, mode, poly);
@@ -1747,15 +1810,15 @@ int safl_aggregate_q8(const void* q, const void* scales, const void* w,
                       const void* p, void* out, int64_t k, int64_t dq,
                       int64_t n, float lr, float alpha, int mode, int poly,
                       int qshift, void* stream) {
-  return launch_aggregate<Q8Rows>(q, scales, w, p, out, k, dq, n, lr, alpha,
-                                  mode, poly, qshift, stream);
+  return launch_aggregate_q<Int8Lanes, kAggQ8Vec, kAggQ8Threads, kAggQ8Rows>(
+      q, scales, w, p, out, k, dq, n, lr, alpha, mode, poly, qshift, stream);
 }
 
 int safl_aggregate_q4(const void* q, const void* scales, const void* w,
                       const void* p, void* out, int64_t k, int64_t dq,
                       int64_t n, float lr, float alpha, int mode, int poly,
                       int qshift, void* stream) {
-  return launch_aggregate_q4<kAggQ4Vec, kAggQ4Threads, kAggQ4Rows>(
+  return launch_aggregate_q<Int4Lanes, kAggQ4Vec, kAggQ4Threads, kAggQ4Rows>(
       q, scales, w, p, out, k, dq, n, lr, alpha, mode, poly, qshift, stream);
 }
 

@@ -1,5 +1,6 @@
 """Times the f32 fold's four designs, ``torch.add``, the q4 and q8
-folds' designs, the q4 K-row aggregate's designs, the f32 and quantized
+folds' designs, the q4 and q8 K-row aggregates' designs,
+``quantize_int8``'s designs, the f32 and quantized
 screens' designs, the top-k kernels' designs and the flash kernels on
 the card, each with and without
 ``chip_smoke.py`` phase 4's device hold, in one process, so that a
@@ -9,11 +10,12 @@ kernel's gain and the timing method's effect can be told apart.
         [--only GROUP ...]
 
 ``--only`` times some groups of cases alone (``fold``, ``fold_q4``,
-``fold_q8``, ``aggregate_q4``, ``screen_f32``, ``screen``, ``topk``,
-``flash``; all by default).
+``fold_q8``, ``aggregate_q4``, ``aggregate_q8``, ``quantize_int8``,
+``screen_f32``, ``screen``, ``topk``, ``flash``; all by default).
 
-It builds ``csrc/safl_agg.cu`` (the package's kernels),
-``csrc/fold_variants.cu``, ``csrc/aggregate_variants.cu``,
+It builds ``csrc/safl_agg.cu`` and ``csrc/quantize.cu`` (the package's
+kernels), ``csrc/fold_variants.cu``, ``csrc/aggregate_variants.cu``,
+``csrc/quantize_variants.cu``,
 ``csrc/screen_variants.cu`` and ``csrc/topk_variants.cu`` (the other
 designs, for timing only), checks each design against its plain version
 on the rows it is timed on, then times:
@@ -37,14 +39,24 @@ on the rows it is timed on, then times:
   lanes a thread and blocks of 64, 128, 256 and 512, each through
   ``ctypes`` and checked bitwise against ``safl_fold_q4_plain`` /
   ``safl_fold_q8_plain``, and the package's wrapper;
-- the q4 K-row aggregate at K = 4 on Dq = 2,155,008 packed lanes, in
-  fedsgd over D lanes and avg over Dq: the package's
-  (``aggregate_q4_kernel``) and in ``aggregate_variants.cu`` the earlier
-  design (``aggregate_kernel<Q4Rows>``, one lane a thread in a
+- the q4 and the q8 K-row aggregate at K = 4 on Dq = 2,155,008 packed
+  int4 or int8 lanes, in fedsgd over D lanes and avg over Dq: the
+  package's (``aggregate_q4_kernel`` / ``aggregate_q8_kernel``) and in
+  ``aggregate_variants.cu`` the earlier design
+  (``aggregate_kernel<Q4Rows>`` / ``<Q8Rows>``, one lane a thread in a
   grid-stride loop) and the package's kernel at 4, 8 and 16 lanes a
   thread, blocks of 128 and 256 and 1 or 4 rows loaded together, each
   through ``ctypes`` and checked bitwise against
-  ``safl_aggregate_q4_plain``, and the package's wrapper;
+  ``safl_aggregate_q4_plain`` / ``safl_aggregate_q8_plain``, and the
+  package's wrapper;
+- ``quantize_int8`` over the paper CNN's 4,209 blocks of 512 (one
+  holding a NaN): the package's (one warp a row, the row held in
+  registers) and in ``quantize_variants.cu`` the earlier design (the
+  general kernel, the row read twice; also on a row view one float in,
+  which the package routes to it) and the B = 512 kernel at a warp or
+  a half-warp a row, one or two rows a lane group and blocks of 128 and
+  256, each through ``ctypes`` and checked bitwise against
+  ``quantize_int8_plain``, and the package's wrapper;
 - the f32 screen at K = 1 on the paper CNN's row (16-byte aligned: the
   float4 path), on a copy 4 bytes off and at K = 4 (D mod 4 = 2, so odd
   rows 8 bytes off: both on the lane-by-lane path): the
@@ -366,34 +378,42 @@ def fold_q_cases(g, wire: str) -> dict:
     return cases
 
 
-def aggregate_q4_cases(g) -> dict:
-    """The q4 K-row aggregate's timed calls at K = 4, fedsgd over D lanes
-    (the SS round) and avg over Dq (the SA round), each checked bitwise
-    first against ``safl_aggregate_q4_plain``."""
+def aggregate_q_cases(g, wire: str) -> dict:
+    """A quantized K-row aggregate's timed calls (``wire`` q4 or q8) at
+    K = 4, fedsgd over D lanes (the SS round) and avg over Dq (the SA
+    round), each checked bitwise first against
+    ``safl_aggregate_q4_plain`` / ``safl_aggregate_q8_plain``."""
     from repro_torch.kernels import ref
     variants = build.load("aggregate_variants")
     package = k_mod._lib()
     k = 4
-    q = ref.pack_q4_ref(torch.randint(-8, 8, (k, DQ), device="cuda",
-                                      generator=g).to(torch.int8))
+    if wire == "q4":
+        q = ref.pack_q4_ref(torch.randint(-8, 8, (k, DQ), device="cuda",
+                                          generator=g).to(torch.int8))
+    else:
+        q = torch.randint(-128, 128, (k, DQ), device="cuda",
+                          generator=g).to(torch.int8)
     s = torch.rand((k, DQ // QB), device="cuda", generator=g)
     prm = torch.randn((D,), device="cuda", generator=g)
     ones = torch.ones((k,), device="cuda")
     sizes = torch.tensor([113.0, 58.0, 241.0, 77.0], device="cuda")
+    name = f"safl_aggregate_{wire}"
     designs = {"grid-stride, one lane (parent)":
-               variants.safl_aggregate_q4_gridstride}
+               getattr(variants, f"{name}_gridstride")}
     for v in (4, 8, 16):
         for t in (128, 256):
             for r in (1, 4):
                 designs[f"{v} lanes x {t} threads x {r} rows"] = getattr(
-                    variants, f"safl_aggregate_q4_v{v}_t{t}_r{r}")
-    designs["package"] = package.safl_aggregate_q4
-    argtypes = package.safl_aggregate_q4.argtypes
+                    variants, f"{name}_v{v}_t{t}_r{r}")
+    designs["package"] = getattr(package, name)
+    argtypes = getattr(package, name).argtypes
+    plain = getattr(k_mod, f"{name}_plain")
+    wrapper = getattr(k_mod, name)
     cases = {}
     for mode, w, n in (("fedsgd", ones, D), ("avg", sizes, DQ)):
         kw = dict(server_lr=0.05, mode=mode)
-        want = k_mod.safl_aggregate_q4_plain(q, s, w, prm, qblock=QB, **kw)
-        for name, fn in designs.items():
+        want = plain(q, s, w, prm, qblock=QB, **kw)
+        for design, fn in designs.items():
             fn.argtypes = argtypes
             out = torch.empty((n,), device="cuda")
             call = raw_topk(fn, (q.data_ptr(), s.data_ptr(), w.data_ptr(),
@@ -402,12 +422,62 @@ def aggregate_q4_cases(g) -> dict:
                                  QB.bit_length() - 1), q, s, w, prm, out)
             call()
             if not torch.equal(out, want):
-                sys.exit(f"hold_timing: q4 aggregate {name} ({mode}) is "
-                         "not bitwise safl_aggregate_q4_plain")
-            cases[f"aggregate_q4 {mode} {name}"] = call
-        cases[f"aggregate_q4 {mode} wrapper safl_aggregate_q4"] = (
-            lambda w=w, kw=kw: k_mod.safl_aggregate_q4(q, s, w, prm,
-                                                       qblock=QB, **kw))
+                sys.exit(f"hold_timing: {wire} aggregate {design} ({mode}) "
+                         f"is not bitwise {name}_plain")
+            cases[f"aggregate_{wire} {mode} {design}"] = call
+        cases[f"aggregate_{wire} {mode} wrapper {name}"] = (
+            lambda w=w, kw=kw: wrapper(q, s, w, prm, qblock=QB, **kw))
+    return cases
+
+
+def quantize_int8_cases(g) -> dict:
+    """``quantize_int8``'s timed calls over the paper CNN's (4,209, 512)
+    blocks, each checked bitwise first against ``quantize_int8_plain``:
+    the package's kernel (one warp a row, the row in registers), and in
+    ``quantize_variants.cu`` the parent (the general kernel: the row read
+    twice) and the B = 512 kernel at a warp or a half-warp a row, one or
+    two rows a lane group and blocks of 128 or 256; the package's
+    wrapper; and the parent on a row view one float in (as the wrapper
+    routes such a view)."""
+    from repro_torch.kernels import quantize as q_mod
+    from repro_torch.kernels.ref import INV_127
+    variants = build.load("quantize_variants")
+    package = q_mod._lib()
+    rows = DQ // QB
+    x = torch.randn((rows, QB), device="cuda", generator=g)
+    x[3, 7] = float("nan")
+    want_q, want_s = q_mod.quantize_int8_plain(x)
+    designs = {"general, the row read twice (parent)":
+               variants.quantize_int8_general}
+    for lanes, rw in ((32, 1), (32, 2), (16, 1)):
+        for t in (128, 256):
+            designs[f"{lanes} lanes a row x {rw} rows x {t} threads"] = (
+                getattr(variants, f"quantize_int8_g{lanes}_r{rw}_t{t}"))
+    designs["package"] = package.quantize_int8
+    argtypes = package.quantize_int8.argtypes
+    off = torch.empty(rows * QB + 4, device="cuda")[1:1 + rows * QB].view(
+        rows, QB)
+    off.copy_(x)
+    cases = {}
+    for name, fn in designs.items():
+        fn.argtypes = argtypes
+        for xin, at in ((x, ""), (off, ", x one float in")):
+            if at and "parent" not in name:
+                continue
+            q = torch.empty((rows, QB), dtype=torch.int8, device="cuda")
+            s = torch.empty((rows,), device="cuda")
+            call = raw_topk(fn, (xin.data_ptr(), q.data_ptr(), s.data_ptr(),
+                                 rows, QB, INV_127), xin, q, s)
+            call()
+            fin = ~torch.isnan(want_s)
+            if not (torch.equal(q, want_q) and torch.equal(s[fin],
+                                                           want_s[fin])
+                    and torch.equal(torch.isnan(s), ~fin)):
+                sys.exit(f"hold_timing: quantize_int8 {name}{at} is not "
+                         "bitwise quantize_int8_plain")
+            cases[f"quantize_int8 {name}{at}"] = call
+    cases["quantize_int8 wrapper quantize_int8"] = (
+        lambda: q_mod.quantize_int8(x))
     return cases
 
 
@@ -576,7 +646,9 @@ def flash_cases(g) -> dict:
 GROUPS = {"fold": fold_cases,
           "fold_q4": lambda g: fold_q_cases(g, "q4"),
           "fold_q8": lambda g: fold_q_cases(g, "q8"),
-          "aggregate_q4": aggregate_q4_cases,
+          "aggregate_q4": lambda g: aggregate_q_cases(g, "q4"),
+          "aggregate_q8": lambda g: aggregate_q_cases(g, "q8"),
+          "quantize_int8": quantize_int8_cases,
           "screen_f32": screen_f32_cases, "screen": screen_cases,
           "topk": topk_cases, "flash": flash_cases}
 

@@ -95,8 +95,11 @@ def quantize_int8(x: torch.Tensor):
     """x (R, B) f32 -> (q int8 (R, B), scales f32 (R,)): per row
     s = max(absmax * f32(1/127), 1e-12) (NaN if the row holds a NaN),
     q = clip(round(x / s), -127, 127), rounding half to even.  Replaces
-    ``repro/kernels/quantize.py:96 quantize_int8``.  One warp per row.
-    Bound: 5*R*B + 4*R bytes."""
+    ``repro/kernels/quantize.py:96 quantize_int8``.  One launch, one warp
+    a row: at B = 512 with x's rows 16-byte aligned (as
+    :func:`quantize_array` calls it) the row held in registers, read
+    once; else read twice; the same bits either way.  Bound: 5*R*B + 4*R
+    bytes."""
     if not on_cuda(x, "quantize_int8"):
         return quantize_int8_plain(x)
     if x.dim() != 2:

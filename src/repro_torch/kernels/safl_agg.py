@@ -456,8 +456,11 @@ def safl_aggregate_q8(q: torch.Tensor, scales: torch.Tensor, w: torch.Tensor,
     params (D <= Dq) for fedsgd/mix -> (D,) for fedsgd/mix, (Dq,) for
     avg/sum: :func:`safl_aggregate` with each row dequantized as
     (float)q * scale before it is weighted.  Replaces
-    ``repro/kernels/safl_agg.py:420 safl_aggregate_q8``.  Bound:
-    K*Dq + K*Dq/qblock*4 bytes read, plus 2*D*4 (fedsgd/mix) or Dq*4
+    ``repro/kernels/safl_agg.py:420 safl_aggregate_q8``.  One launch of
+    ``aggregate_q8_kernel``: vectors of lanes over an exact grid where
+    the rows, ``p`` and the output are vector-aligned (as in the engine),
+    else lane by lane; the same bits either way.  Bound: K*Dq +
+    K*Dq/qblock*4 bytes read, plus 2*D*4 (fedsgd/mix) or Dq*4
     (avg/sum)."""
     return _aggregate_q(safl_aggregate_q8, safl_aggregate_q8_plain, False,
                         q, scales, w, p, server_lr, mode, alpha, discount,
