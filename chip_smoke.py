@@ -19,7 +19,7 @@ Phases, each of which exits non-zero on failure:
      parent designs), started together; the ptxas report must show no
      spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two top-k
      kernels, the f32 screen, the q4 and q8 folds, the q4 and q8
-     aggregates and quantize's B = 512 kernel
+     aggregates and the int8 pair's B = 512 kernels
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -53,10 +53,13 @@ Phases, each of which exits non-zero on failure:
      and an empty row: the fold at beta 1 and 0.7, in place and not, the
      K-row sum, and the chain of in-place folds against the K-row sum,
      bitwise; and on copies of the rows one lane off (idx and qv, then
-     idx alone), bitwise the aligned calls.  The int8 pair at (4209, 512) and 37 rows with a zero
-     row, exact .5 ties and a NaN row: bitwise (NaN scales in the same
-     rows); quantize also on a copy one float in and at B = 100 (its
-     general path).  Flash attention in f32 and bf16, causal and not, at the
+     idx alone), bitwise the aligned calls.  The int8 pair at (4209,
+     512) and 37 rows: quantize with a zero row, exact .5 ties, a NaN and
+     a -Inf row, bitwise (NaN scales in the same rows); dequantize with
+     levels -128 and +-127, a zero row and scales NaN, Inf, -Inf, 0 and
+     negative, every non-NaN lane bitwise and NaN lanes in the same
+     places; each on its B = 512 path, on a copy one element in and at
+     B = 100 (the general path).  Flash attention in f32 and bf16, causal and not, at the
      reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
      S 1024, H 16, Hkv 8, hd 128), a ragged S = 200 and two odd H / Hkv
      (S = 200 at hd 128, S = 130 at hd 64): within
@@ -77,11 +80,12 @@ Phases, each of which exits non-zero on failure:
      kernels, the int8 pair and flash attention at the
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
-     the parent designs of the q8 aggregate (fedsgd and avg) and of
-     quantize beside the package's kernels, both through ``ctypes``;
+     the parent designs of the q8 aggregate (fedsgd and avg), of
+     quantize and of dequantize beside the package's kernels, through
+     ``ctypes``;
      3 calls of each screen (f32, q8, q4; K = 1), of the q4, q8 and top-k
      folds (beta 1, in place), of the q4 and q8 aggregates (K = 4,
-     fedsgd), of quantize at (4209, 512) and
+     fedsgd), of quantize and dequantize at (4209, 512) and
      of the top-k K-row sum (K = 4) captured into a CUDA
      graph, whose nodes (read through libcuda's graph API) must be one
      launch of the kernel a call and nothing else (no memset; the K-row
@@ -91,13 +95,17 @@ Phases, each of which exits non-zero on failure:
      and the codec's time per upload: the q4 draws alone and the
      whole q4 quantize, the top-k ranking alone and the whole top-k
      upload
-  5. the engine on the card against the engine on the CPU at a small size
-     in AS, SS, AS-fedasync, SS-sdga, AS-q8, SS-sdga-q8, AS-q4,
-     SS-sdga-q4, AS-topk, SS-topk, AS-sdga-topk, SS-sdga-topk and, with
-     faults and the screen, AS-chaos-screen and its q8 and q4 siblings
-     (exact bytes, schedule and fault / defense counts; params within
-     ``rtol=1e-4, atol=1e-5`` on f32 and within 2e-2 of the run's own
-     movement on q8, q4 and top-k); the q4 and top-k codecs on the card
+  5. the engine on the card against the engine on the CPU at a small size:
+     the sequential engine in AS, SS, AS-fedasync, SS-sdga, AS-q8,
+     SS-sdga-q8, AS-q4, SS-sdga-q4, AS-topk, SS-topk, AS-sdga-topk,
+     SS-sdga-topk and, with faults and the screen, AS-chaos-screen and
+     its q8 and q4 siblings; the batched engine (``vmap`` waves on the
+     card, ``map`` on the CPU) in AS, SS, AS-fedasync, AS-q8, SS-q4,
+     AS-topk and AS-chaos-screen, on a schedule that puts clients twice
+     into a horizon (exact bytes, schedule, staleness bins, wave sizes
+     and fault / defense counts; params within ``rtol=1e-4, atol=1e-5``
+     on f32 and within 2e-2 of the run's own movement on q8, q4 and
+     top-k); the q4 and top-k codecs on the card
      against the CPU on full-width uploads (bitwise); the server's
      streaming channel against its buffered one at full width in all six
      aggregation modes on f32, q8 and q4 and the four gradient modes on
@@ -106,7 +114,9 @@ Phases, each of which exits non-zero on failure:
      skip / fold at w*fac against zeroed rows / facs in the weights),
      bitwise; and ``quantize_pytree`` / ``dequantize_pytree`` of the
      full-width CNN's parameters on the card against the CPU, bitwise
-  6. the main path at full width: the paper CNN (width 32, 32x32 images,
+  6. the main path at full width on the batched engine (``fl_sim``'s
+     default; ``wave_impl="auto"`` runs ``map`` waves for the CNN): the
+     paper CNN (width 32, 32x32 images,
      D = 2,154,730) on synthetic CIFAR-10, 2000 samples, 16 clients,
      k = 4, hetero-Dirichlet alpha 0.3, 5 rounds in each of 33 settings
      (the paper's AS, AA, SS, SA; AS and SS with fedbuff, fedasync,
@@ -116,13 +126,22 @@ Phases, each of which exits non-zero on failure:
      buffered channel; AS-fedbuff with Byzantine uploads clipped), with
      every
      launch counter reset before each setting and read after, each
-     setting's launches held to the counts it names, every drawn fault
+     setting's launches held to the counts it names (a screen launches
+     once a wave, a fold once an upload), every drawn fault
      kind fired, ``screened == corrupted`` under the screen,
      ``clipped >= byzantine`` under clip, and finite params after every
      round; each setting then runs again from a fresh engine, which must
      repeat the first run bit for bit (final flat params bitwise; every
      round's accuracy and loss, bytes, participation, staleness,
-     launches and fault counts equal); then the int8 pair's own path,
+     waves, launches and fault counts equal); each setting then runs once
+     on the sequential engine (``batch_clients=False``), checked the same
+     way with a screen launched once an upload, its bytes, uploads,
+     participation, staleness and fault counts equal to the batched
+     run's and its params within phase 5's bounds of them; then the
+     paper's four settings once on the batched engine with ``vmap``
+     waves, checked the same way, and the three engines' wall split
+     (client_train, server_ingest, server_round, eval) printed on a line
+     each; then the int8 pair's own path,
      the compression helpers over
      the full-width CNN's parameters, its counters reset before and read
      after (one launch of each kernel per leaf)
@@ -225,9 +244,11 @@ CHAOS = dict(fault_crash_p=0.1, fault_straggler_p=0.1, fault_corrupt_p=0.15,
 FAULT_KINDS = {"fault_crash_p": "crash", "fault_straggler_p": "straggler",
                "fault_corrupt_p": "corrupt", "fault_byzantine_p": "byzantine"}
 #: phase 6: (name, paper setting, FLConfig overrides, the launches each
-#: kernel must make: "uploads" (admitted uploads), "uploads-screened", or
-#: a count); every other counter must stay 0.  ``defense="clip"`` gets its
-#: norm cap from a first clean round (3x the median upload norm).
+#: kernel must make on the batched engine: "uploads" (admitted uploads),
+#: "uploads-screened", "waves" (the wave calls the engine reports: a
+#: screen launches once a wave), or a count); every other counter must
+#: stay 0.  ``defense="clip"`` gets its norm cap from a first clean round
+#: (3x the median upload norm).
 MAIN_SETTINGS = (
     ("AS", "AS", {}, {"safl_fold": "uploads"}),
     ("AA", "AA", {}, {"safl_fold": "uploads"}),
@@ -253,15 +274,15 @@ MAIN_SETTINGS = (
     ("SS-sdga-q8", "SS", {"wire": "q8", "aggregation": "sdga"},
      {"sdga_aggregate_q8": ROUNDS}),
     ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen"),
-     {"screen_rows": "uploads", "safl_fold": "uploads-screened"}),
+     {"screen_rows": "waves", "safl_fold": "uploads-screened"}),
     ("AS-chaos-screen-q8", "AS", dict(CHAOS, defense="screen", wire="q8"),
-     {"screen_rows_q8": "uploads", "safl_fold_q8": "uploads-screened"}),
+     {"screen_rows_q8": "waves", "safl_fold_q8": "uploads-screened"}),
     ("AS-byz-clip", "AS", {"aggregation": "fedbuff", "fault_byzantine_p": 0.2,
                            "defense": "clip"},
-     {"screen_rows": "uploads", "safl_fold": "uploads"}),
+     {"screen_rows": "waves", "safl_fold": "uploads"}),
     ("AS-chaos-screen-buffered", "AS",
      dict(CHAOS, defense="screen", server_channel="buffered"),
-     {"screen_rows": "uploads", "safl_aggregate": ROUNDS}),
+     {"screen_rows": "waves", "safl_aggregate": ROUNDS}),
     ("AS-q4", "AS", {"wire": "q4"}, {"safl_fold_q4": "uploads"}),
     ("AA-q4", "AA", {"wire": "q4"}, {"safl_fold_q4": "uploads"}),
     ("SS-q4", "SS", {"wire": "q4"}, {"safl_aggregate_q4": ROUNDS}),
@@ -271,7 +292,7 @@ MAIN_SETTINGS = (
     ("AS-fedasync-q4", "AS", {"wire": "q4", "aggregation": "fedasync"},
      {"safl_fold_q4": "uploads"}),
     ("AS-chaos-screen-q4", "AS", dict(CHAOS, defense="screen", wire="q4"),
-     {"screen_rows_q4": "uploads", "safl_fold_q4": "uploads-screened"}),
+     {"screen_rows_q4": "waves", "safl_fold_q4": "uploads-screened"}),
     ("AS-topk", "AS", {"wire": "topk"}, {"safl_fold_topk": "uploads"}),
     ("SS-topk", "SS", {"wire": "topk"}, {"safl_aggregate_topk": ROUNDS}),
     ("AS-fedbuff-topk", "AS", {"wire": "topk", "aggregation": "fedbuff"},
@@ -280,8 +301,30 @@ MAIN_SETTINGS = (
      {"safl_aggregate_topk": ROUNDS}),
     ("AS-chaos-screen-topk", "AS",
      dict(CHAOS, defense="screen", wire="topk"),
-     {"screen_rows_q8": "uploads", "safl_fold_topk": "uploads-screened"}),
+     {"screen_rows_q8": "waves", "safl_fold_topk": "uploads-screened"}),
 )
+#: phase 6: the paper's four settings, run again on the batched engine
+#: with ``vmap`` waves (the default on the card is ``map``), their wall
+#: split printed beside the ``map`` and sequential engines'
+PAPER_SETTINGS = tuple(row for row in MAIN_SETTINGS
+                       if row[0] in ("AS", "AA", "SS", "SA"))
+#: phase 5: the batched engine on the card (vmap) against the CPU (map);
+#: short uploads and spread speeds put clients twice into a horizon, so
+#: the waves past the first run
+BATCHED_SMALL = (
+    ("AS", "AS", {}), ("SS", "SS", {}),
+    ("AS-fedasync", "AS", {"aggregation": "fedasync"}),
+    ("AS-q8", "AS", {"wire": "q8"}), ("SS-q4", "SS", {"wire": "q4"}),
+    ("AS-topk", "AS", {"wire": "topk"}),
+    ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen")))
+BATCHED_SCHEDULE = dict(speed_sigma=1.5, comm_mean_s=0.05)
+#: the phase-6 wall split: the engine's methods timed into each bucket
+#: (the sequential engine's, then the batched engine's)
+SPLIT = {"client_train": ("_run_local", "_train_wave"),
+         "server_ingest": ("_enqueue_upload", "_payload_rows",
+                           "_ingest_wave"),
+         "server_round": ("_aggregate",),
+         "eval": ("_eval_and_record", "_eval_round")}
 #: the paper CNN's q4 draw per upload: (n_qblocks, qblock)
 DRAW_SHAPE = (-(-D_FULL // QB), QB)
 #: kept coordinates of a full-width top-k upload at the default
@@ -765,13 +808,15 @@ def check_aggregate_q(torch, k_mod, report, worst, variants, wire):
 
 def check_int8(torch, q_mod, report, worst):
     """The int8 pair against its plain versions at (4209, 512) and at a
-    ragged 37 rows (quantize on its B = 512 path; also on a copy of the
-    rows one float in, and at B = 100: the general path), with an
+    ragged 37 rows (each on its B = 512 path; also on a copy of the rows
+    one element in, and at B = 100: the general path).  quantize with an
     all-zero row (scale 1e-12), a row of exact .5 ties, a NaN row (NaN
     scale: the absmax propagates it; its lanes store 0) and a row holding
     -Inf (Inf scale; its lanes store 0): int8 rows bitwise, scales
-    bitwise with NaN in the same rows, dequantized rows bitwise (the
-    non-finite rows' scales set to 1 first)."""
+    bitwise with NaN in the same rows.  dequantize with levels -128 and
+    +-127, a zero row and scales NaN, Inf, -Inf, 0 and negative: every
+    non-NaN lane bitwise, NaN lanes in the same places (NaN x q, Inf x
+    0)."""
     import math
 
     import numpy as np
@@ -810,12 +855,37 @@ def check_int8(torch, q_mod, report, worst):
                  f"{float(s[0])}, tie row {q[1, :4].tolist()} scale "
                  f"{float(s[1])}, NaN row scale {float(s[2])}, -Inf row "
                  f"scale {float(s[3])}")
-        if path != "b512":
-            continue
-        s = torch.where(torch.isfinite(s), s, 1.0)
+    # dequantize: random levels with a row of -128 and the extremes in
+    # another, a zero row, scales NaN, Inf, -Inf, 0 and negative; at B =
+    # 512 on the warp-a-row path (fresh q and output), on a copy of q one
+    # level in and at B = 100 (the general path): bitwise, NaN lanes in
+    # the same places
+    dcases = [(rows, QB, path) for rows in INT8_ROWS
+              for path in ("b512", "general: q one level in")]
+    dcases.append((INT8_ROWS[1], 100, "general: B = 100"))
+    for rows, b, path in dcases:
+        q = torch.randint(-128, 128, (rows, b), dtype=torch.int8,
+                          device="cuda", generator=g)
+        q[0] = -128
+        q[1, :4] = torch.tensor([-128, 127, -127, 0], dtype=torch.int8)
+        q[5] = 0
+        s = torch.rand((rows,), device="cuda", generator=g) * 2.0 + 1e-4
+        s[2], s[3], s[4] = math.nan, math.inf, -math.inf
+        s[5], s[6] = 0.0, -0.25
+        qin = misaligned(torch, q) if "one level in" in path else q
+        got = q_mod.dequantize_int8(qin, s)
+        want = q_mod.dequantize_int8_plain(q, s)
+        nan_same = torch.equal(torch.isnan(got), torch.isnan(want))
+        live = ~torch.isnan(want)
         compare(torch, report, worst, "dequantize_int8",
-                q_mod.dequantize_int8(q, s),
-                q_mod.dequantize_int8_plain(q, s), True, rows=rows)
+                got[live].view(torch.int32), want[live].view(torch.int32),
+                True, rows=rows, b=b, path=path, nan_lanes_equal=nan_same)
+        if not (nan_same and bool(torch.isnan(got[2]).all())
+                and float(got[0, 0]) == -128.0 * float(s[0])
+                and bool(torch.isnan(got[3][q[3] == 0]).all())
+                and bool(torch.isinf(got[4][q[4] != 0]).all())):
+            fail(f"dequantize_int8 rows={rows} b={b} {path}: NaN lanes "
+                 f"equal {nan_same}, -128 row {float(got[0, 0])}")
     torch.cuda.synchronize()
 
 
@@ -1308,6 +1378,13 @@ def time_kernels(torch, k_mod, q_mod, fa_mod, variants):
         library_ms=t(lambda: torch.mul(q8r, s8r[:, None])),
         bytes=5 * rows * QB + 4 * rows, ops=rows * QB,
         shape=f"R={rows} B={QB}")
+    dx = torch.empty((rows, QB), device="cuda")
+    args = (q8r.data_ptr(), s8r.data_ptr(), dx.data_ptr(), rows, QB)
+    for design, fn in (("parent", variants["quantize_variants"]
+                        .dequantize_int8_general),
+                       ("package", q_mod._lib().dequantize_int8)):
+        parents[f"dequantize_int8, {design} (ctypes)"] = t(raw_call(
+            torch, fn, q_mod._lib().dequantize_int8.argtypes, *args))
     # flash attention at the serving path's prefill shape (bf16, causal;
     # f32 rides along); the library call is PyTorch's fused attention on
     # the same tensors (heads moved ahead of the sequence by a view)
@@ -1446,8 +1523,8 @@ def check_one_launch(torch, k_mod, q_mod, calls=3):
     """Each screen (f32, q8, q4) at the main path's K = 1, the q4, q8 and
     top-k folds at beta 1 in place (as the engine folds), the q4 and q8
     aggregates (fedsgd) and the top-k K-row sum at the main path's K = 4,
-    and ``quantize_int8`` over the paper CNN's (4209, 512) blocks
-    issue one device kernel a call and
+    and ``quantize_int8`` and ``dequantize_int8`` over the paper CNN's
+    (4209, 512) blocks issue one device kernel a call and
     nothing else (no memset, no copy, no second kernel), seen two ways:
     ``calls`` calls of each captured into a CUDA graph, whose nodes must
     be ``calls`` launches of the kernel (the screens on their (chunks, K)
@@ -1468,6 +1545,7 @@ def check_one_launch(torch, k_mod, q_mod, calls=3):
     p4k, s4k = q4_rows(torch, K_MAIN, D_FULL, g)
     q8k, s8k = q8_rows(torch, K_MAIN, D_FULL, g)
     x8 = torch.randn((INT8_ROWS[0], QB), device="cuda", generator=g)
+    q8x, s8x = q_mod.quantize_int8(x8)
     params = torch.randn((D_FULL,), device="cuda", generator=g)
     acc = torch.randn((D_FULL,), device="cuda", generator=g)
     base = acc.clone()
@@ -1509,9 +1587,15 @@ def check_one_launch(torch, k_mod, q_mod, calls=3):
             lambda: k_mod.safl_aggregate_q8(q8k, s8k, w, params,
                                             server_lr=0.05, qblock=QB),
             None, ("aggregate_q8_kernel",), None, None),
+        # (quantize's name is a substring of dequantize's: match it with
+        # the namespace's "::" or the mangled length prefix)
         "quantize_int8": (
             lambda: q_mod.quantize_int8(x8), None,
-            ("quantize_int8_b512_kernel",), None, None),
+            ("::quantize_int8_b512_kernel", "25quantize_int8_b512_kernel"),
+            None, None),
+        "dequantize_int8": (
+            lambda: q_mod.dequantize_int8(q8x, s8x), None,
+            ("dequantize_int8_b512_kernel",), None, None),
         "safl_fold_topk": (
             lambda: k_mod.safl_fold_topk(acc, idx[0], qv[0], sv[0], 0.37,
                                          out=acc),
@@ -1636,9 +1720,9 @@ def build_engine(torch, setup, setting, device, **cfg_kw):
     from repro_torch.models.vision_cnn import build_paper_model
     from repro_torch.prng import prng_key
     ds, shards, te, width, hw = setup
-    cfg = dataclasses.replace(MODES[setting], n_clients=len(shards),
-                              k=K_MAIN, client_lr=0.05, speed_sigma=0.8,
-                              **cfg_kw)
+    cfg = dataclasses.replace(MODES[setting], **{
+        **dict(n_clients=len(shards), k=K_MAIN, client_lr=0.05,
+               speed_sigma=0.8), **cfg_kw})
     cfg = dataclasses.replace(
         cfg, server_lr=SERVER_LR.get(cfg.aggregation, 1.0))
     p0, s0, fn = build_paper_model(
@@ -1650,10 +1734,13 @@ def build_engine(torch, setup, setting, device, **cfg_kw):
 
 def check_engine_small(torch):
     """The engine on the card against the engine on the CPU (itself held
-    against the JAX reference by the CPU tests)."""
+    against the JAX reference by the CPU tests): the sequential engine in
+    its settings, then the batched engine (``vmap`` waves on the card,
+    ``map`` on the CPU) in ``BATCHED_SMALL``."""
     setup = make_setup(width=4, hw=8, samples=400, clients=6)
     rows = []
-    for name, setting, kw in (
+    sequential = tuple((name, setting, dict(kw, batch_clients=False))
+                       for name, setting, kw in (
             ("AS", "AS", {}), ("SS", "SS", {}),
             ("AS-fedasync", "AS", {"aggregation": "fedasync"}),
             ("SS-sdga", "SS", {"aggregation": "sdga"}),
@@ -1669,10 +1756,18 @@ def check_engine_small(torch):
             ("AS-topk", "AS", {"wire": "topk"}),
             ("SS-topk", "SS", {"wire": "topk"}),
             ("AS-sdga-topk", "AS", {"wire": "topk", "aggregation": "sdga"}),
-            ("SS-sdga-topk", "SS", {"wire": "topk", "aggregation": "sdga"})):
+            ("SS-sdga-topk", "SS", {"wire": "topk", "aggregation": "sdga"})))
+    batched = tuple((f"{name} batched", setting,
+                     dict(kw, batch_clients=True, **BATCHED_SCHEDULE))
+                    for name, setting, kw in BATCHED_SMALL)
+    for name, setting, kw in sequential + batched:
         res = {}
         for dev in ("cpu", "cuda"):
-            eng = build_engine(torch, setup, setting, dev, **kw)
+            # the card's batched engine runs vmap waves (auto would pick
+            # map for the CNN there too); the CPU's run map
+            dev_kw = (dict(kw, wave_impl="vmap")
+                      if dev == "cuda" and kw["batch_clients"] else kw)
+            eng = build_engine(torch, setup, setting, dev, **dev_kw)
             p0 = eng._flat_params.cpu()
             r = eng.run(3)
             res[dev] = (eng, r)
@@ -1684,8 +1779,15 @@ def check_engine_small(torch):
                      and ec.rx_bytes == eg.rx_bytes
                      and rc.staleness_hist == rg.staleness_hist
                      and list(rc.participation) == list(rg.participation)
+                     and list(rc.sched_stats["staleness_bins"])
+                     == list(rg.sched_stats["staleness_bins"])
+                     and ec.wave_size_hist == eg.wave_size_hist
                      and [x.sim_time for x in rc.metrics.records]
                      == [x.sim_time for x in rg.metrics.records])
+        impls = (ec.wave_impl_resolved, eg.wave_impl_resolved)
+        if kw["batch_clients"] and impls != ("map", "vmap"):
+            fail(f"{name}: waves ran as {ec.wave_impl_resolved} on the CPU "
+                 f"and {eg.wave_impl_resolved} on the card")
         pc, pg = ec._flat_params, eg._flat_params.cpu()
         err = float((pc - pg).abs().max())
         rel = float((pc - pg).norm() / (pc - p0).norm())
@@ -1698,15 +1800,19 @@ def check_engine_small(torch):
         else:
             close = torch.allclose(pg, pc, rtol=1e-4, atol=1e-5)
             tol = "rtol=1e-4, atol=1e-5"
+        waves = (f", waves {dict(sorted(eg.wave_size_hist.items()))}"
+                 if eg.wave_size_hist else "")
         print(f"  {name} card vs CPU, 3 rounds: bytes/schedule/fault "
               f"counts {'equal' if same_host else 'DIFFER'}, params "
-              f"max|err|={err:.3e} ({tol})")
+              f"max|err|={err:.3e} rel {rel:.3e} ({tol}){waves}")
         if kw.get("defense"):
             print("      (cpu, card) " + "  ".join(
                 f"{key.split('_')[0]} {v}" for key, v in counts.items()))
         rows.append(dict(setting=name, host_equal=same_host,
                          params_max_abs_err=err,
-                         params_rel_to_movement=rel, fault_counts=counts))
+                         params_rel_to_movement=rel, fault_counts=counts,
+                         batched=kw["batch_clients"],
+                         wave_sizes=eg.wave_size_hist))
         if not (same_host and close):
             fail(f"{name}: engine on the card disagrees with the CPU")
     return rows
@@ -1912,12 +2018,13 @@ def clean_clip_cap(torch, setup, setting, kw):
     return cap
 
 
-def expected_launches(spec, uploads, screened):
+def expected_launches(spec, uploads, screened, waves=0):
     """A setting's launch counts: every kernel 0 except those it names."""
     out = dict.fromkeys(KERNELS, 0)
     for name, want in spec.items():
         out[name] = {"uploads": uploads,
-                     "uploads-screened": uploads - screened}.get(want, want)
+                     "uploads-screened": uploads - screened,
+                     "waves": waves}.get(want, want)
     return out
 
 
@@ -2000,12 +2107,10 @@ def run_setting(torch, setup, setting, kw, wrappers):
     eng = build_engine(torch, setup, setting, "cuda", **kw)
     if eng.codec.d != D_FULL:
         fail(f"full-width CNN has D={eng.codec.d}, expected {D_FULL}")
-    split = {"client_train": 0.0, "server_ingest": 0.0,
-             "server_round": 0.0, "eval": 0.0}
-    timed(torch, eng, "_run_local", "client_train", split)
-    timed(torch, eng, "_enqueue_upload", "server_ingest", split)
-    timed(torch, eng, "_aggregate", "server_round", split)
-    timed(torch, eng, "_eval_and_record", "eval", split)
+    split = dict.fromkeys(SPLIT, 0.0)
+    for bucket, methods in SPLIT.items():
+        for method in methods:
+            timed(torch, eng, method, bucket, split)
     # finite global params after every round, checked outside the timed
     # span; the fault kinds the plan draws, tallied
     finite, drawn = [], {}
@@ -2045,60 +2150,110 @@ def run_record(eng, res, counts, drawn):
                 loss=[r.loss for r in recs], tx_bytes=eng.tx_bytes,
                 rx_bytes=eng.rx_bytes,
                 uploads=int(res.participation.sum()),
+                waves=sum(eng.wave_size_hist.values()),
                 participation=res.participation.tolist(),
                 staleness_hist=dict(res.staleness_hist),
+                staleness_bins=res.sched_stats["staleness_bins"].tolist(),
                 launches=counts, faults_drawn=drawn,
                 fault_counts={key.split("_")[0]: res.sched_stats[key]
                               for key in FAULT_COUNTS})
 
 
+def check_run(torch, name, kw, spec, eng, res, counts, finite, drawn):
+    """A run's checks: finite eval and params every round, the launches
+    its setting names, every drawn fault kind fired, the screen's and
+    clip's counts."""
+    st = res.sched_stats
+    recs = res.metrics.records
+    if len(recs) != ROUNDS or any(r.nan_event for r in recs):
+        fail(f"{name}: non-finite eval loss or missing rounds")
+    if len(finite) != ROUNDS or not all(finite):
+        fail(f"{name}: non-finite global parameters after a round "
+             f"({finite})")
+    uploads = int(res.participation.sum())
+    # the sequential engine screens each upload as a wave of one
+    waves = (sum(eng.wave_size_hist.values()) if eng.cfg.batch_clients
+             else uploads)
+    expected = expected_launches(spec, uploads, st["screened_uploads"],
+                                 waves)
+    if counts != expected or not all(counts[n] for n in spec):
+        fail(f"{name}: launches {counts}, expected {expected}")
+    for field, kind in FAULT_KINDS.items():
+        if kw.get(field) and not drawn.get(kind):
+            fail(f"{name}: no {kind} fault was drawn ({drawn})")
+    if kw.get("defense") == "screen" and \
+            st["screened_uploads"] != st["corrupted_uploads"]:
+        fail(f"{name}: screened {st['screened_uploads']} != corrupted "
+             f"{st['corrupted_uploads']} under the screen with cap 0")
+    if kw.get("defense") == "clip" and \
+            st["clipped_uploads"] < st["byzantine_uploads"]:
+        fail(f"{name}: clipped {st['clipped_uploads']} < byzantine "
+             f"{st['byzantine_uploads']}")
+
+
+def split_line(split) -> str:
+    return "  ".join(f"{k} {v:.3f} s" for k, v in split.items())
+
+
+def params_distance(torch, kw, got, want, p0):
+    """(max |got - want|, |got - want| / |want - p0|, within the bound,
+    the bound's text): phase 5's bounds, ``rtol=1e-4, atol=1e-5`` on f32
+    and 2e-2 of the run's movement on the lossy wires."""
+    err = float((got - want).abs().max())
+    rel = float((got - want).norm() / (want - p0).norm())
+    if kw.get("wire") in ("q8", "q4", "topk"):
+        return err, rel, rel <= 2e-2, "relative <= 2e-2"
+    return (err, rel, torch.allclose(got, want, rtol=1e-4, atol=1e-5),
+            "rtol=1e-4, atol=1e-5")
+
+
+#: the fields two engines' runs of one setting must share
+HOST_FIELDS = ("tx_bytes", "rx_bytes", "uploads", "participation",
+               "staleness_hist", "fault_counts")
+
+
 def run_main_path(torch, wrappers):
-    """Every setting of ``MAIN_SETTINGS`` run twice, each time from a fresh
-    engine: the first run is checked (launch counts, faults, finite
-    params) and counted; the second must repeat it bit for bit (the final
-    flat params bitwise, every round's accuracy and loss, and the bytes,
-    uploads, participation, staleness, launches and fault counts equal)."""
+    """Every setting of ``MAIN_SETTINGS`` run twice on the batched engine
+    (the default; ``map`` waves on the card for the CNN), each time from a
+    fresh engine: the first run is checked (launch counts, screens once a
+    wave, faults, finite params) and counted; the second must repeat it
+    bit for bit (the final flat params bitwise, every round's accuracy
+    and loss, and the bytes, uploads, waves, participation, staleness,
+    launches and fault counts equal).  Then once on the sequential engine
+    (``batch_clients=False``): checked the same way with a screen
+    launched once an upload, its bytes, uploads, participation,
+    staleness and fault counts equal to the batched run's, and its params
+    within phase 5's bounds of them.  Then the paper's four settings once
+    on the batched engine with ``vmap`` waves, checked the same way, their
+    wall split printed beside the ``map`` and sequential engines'."""
     setup = make_setup(width=32, hw=32, samples=2000, clients=16)
-    rows = []
+    p0 = build_engine(torch, setup, "AS", "cuda")._flat_params.clone()
+    rows, sequential = [], []
     launches = dict.fromkeys(KERNELS, 0)
+    settings_kw = {}
     for name, setting, kw, spec in MAIN_SETTINGS:
         if kw.get("defense") == "clip":
             kw = dict(kw, defense_norm_cap=clean_clip_cap(torch, setup,
                                                           setting, kw))
+        settings_kw[name] = kw
         eng, res, counts, wall, split, finite, drawn = run_setting(
             torch, setup, setting, kw, wrappers)
         rec = run_record(eng, res, counts, drawn)
-        uploads = rec["uploads"]
-        st = res.sched_stats
-        faults = rec["fault_counts"]
-        recs = res.metrics.records
         acc = [round(a, 4) for a in rec["accuracy"]]
         print(f"  {name}: acc/round {acc}  tx_bytes={eng.tx_bytes} "
-              f"rx_bytes={eng.rx_bytes}  uploads={uploads}  launches "
+              f"rx_bytes={eng.rx_bytes}  uploads={rec['uploads']}  waves "
+              f"{dict(sorted(eng.wave_size_hist.items()))} "
+              f"({eng.wave_impl_resolved})  launches "
               + " ".join(f"{n}={c}" for n, c in counts.items() if c))
         if drawn:
-            print(f"      faults drawn {drawn}; counts {faults}")
-        print(f"      wall {wall:.3f} s: " + "  ".join(
-            f"{k} {v:.3f} s" for k, v in split.items()))
-        if len(recs) != ROUNDS or any(r.nan_event for r in recs):
-            fail(f"{name}: non-finite eval loss or missing rounds")
-        if len(finite) != ROUNDS or not all(finite):
-            fail(f"{name}: non-finite global parameters after a round "
-                 f"({finite})")
-        expected = expected_launches(spec, uploads, st["screened_uploads"])
-        if counts != expected or not all(counts[n] for n in spec):
-            fail(f"{name}: launches {counts}, expected {expected}")
-        for field, kind in FAULT_KINDS.items():
-            if kw.get(field) and not drawn.get(kind):
-                fail(f"{name}: no {kind} fault was drawn ({drawn})")
-        if kw.get("defense") == "screen" and \
-                st["screened_uploads"] != st["corrupted_uploads"]:
-            fail(f"{name}: screened {st['screened_uploads']} != corrupted "
-                 f"{st['corrupted_uploads']} under the screen with cap 0")
-        if kw.get("defense") == "clip" and \
-                st["clipped_uploads"] < st["byzantine_uploads"]:
-            fail(f"{name}: clipped {st['clipped_uploads']} < byzantine "
-                 f"{st['byzantine_uploads']}")
+            print(f"      faults drawn {drawn}; counts "
+                  f"{rec['fault_counts']}")
+        print(f"      wall {wall:.3f} s: {split_line(split)}")
+        if eng.wave_impl_resolved != "map":
+            fail(f"{name}: wave_impl auto resolved "
+                 f"{eng.wave_impl_resolved} for the CNN on the card, not "
+                 "map")
+        check_run(torch, name, kw, spec, eng, res, counts, finite, drawn)
         for n, c in counts.items():
             launches[n] += c
         params = eng._flat_params.clone()
@@ -2112,8 +2267,7 @@ def run_main_path(torch, wrappers):
         print(f"      repeat from a fresh engine: params "
               f"{'bitwise equal' if same_params else 'DIFFER'}, "
               f"{'every record equal' if not differ else f'differ in {differ}'}"
-              f"; wall {wall2:.3f} s: " + "  ".join(
-                  f"{k} {v:.3f} s" for k, v in split2.items()))
+              f"; wall {wall2:.3f} s: {split_line(split2)}")
         rows.append(dict(setting=name, **rec, wall_s=wall, split_s=split,
                          defense_norm_cap=kw.get("defense_norm_cap", 0.0),
                          repeat=dict(params_bitwise=same_params,
@@ -2125,7 +2279,58 @@ def run_main_path(torch, wrappers):
                  f"repeat the first (params bitwise {same_params}, "
                  f"differing {differ})")
         del eng2, res2
-    return rows, launches
+        # the sequential engine, once
+        skw = dict(kw, batch_clients=False)
+        eng, res, counts, wall, split, finite, drawn = run_setting(
+            torch, setup, setting, skw, wrappers)
+        check_run(torch, name, skw, spec, eng, res, counts, finite, drawn)
+        srec = run_record(eng, res, counts, drawn)
+        host_differ = [key for key in HOST_FIELDS if srec[key] != rec[key]]
+        bitwise = torch.equal(params.view(torch.int32),
+                              eng._flat_params.view(torch.int32))
+        err, rel, close, tol = params_distance(torch, kw, params,
+                                               eng._flat_params, p0)
+        print(f"      sequential engine: launches "
+              + " ".join(f"{n}={c}" for n, c in counts.items() if c)
+              + f"; bytes/uploads/staleness/faults "
+              f"{'equal' if not host_differ else f'DIFFER in {host_differ}'}; "
+              f"params {'bitwise equal' if bitwise else 'differ'} "
+              f"(max|err|={err:.3e} rel {rel:.3e}, {tol}); wall "
+              f"{wall:.3f} s: {split_line(split)}")
+        sequential.append(dict(setting=name, **srec, wall_s=wall,
+                               split_s=split, params_bitwise=bitwise,
+                               params_max_abs_err=err,
+                               params_rel_to_movement=rel))
+        if host_differ or not close:
+            fail(f"{name}: the sequential engine disagrees with the "
+                 f"batched one (host fields {host_differ}, params {err})")
+        del eng, res, params
+    batched = {row["setting"]: row for row in rows}
+    seq = {row["setting"]: row for row in sequential}
+    vmapped = []
+    for name, setting, _, spec in PAPER_SETTINGS:
+        kw = dict(settings_kw[name], wave_impl="vmap")
+        eng, res, counts, wall, split, finite, drawn = run_setting(
+            torch, setup, setting, kw, wrappers)
+        check_run(torch, name, kw, spec, eng, res, counts, finite, drawn)
+        rec = run_record(eng, res, counts, drawn)
+        b = batched[name]
+        host_differ = [key for key in HOST_FIELDS if rec[key] != b[key]]
+        print(f"  {name} sequential:    wall {seq[name]['wall_s']:.3f} s: "
+              f"{split_line(seq[name]['split_s'])}")
+        print(f"  {name} batched, map:  wall {b['wall_s']:.3f} s: "
+              f"{split_line(b['split_s'])}")
+        print(f"  {name} batched, vmap: wall {wall:.3f} s: "
+              f"{split_line(split)}; acc/round "
+              f"{[round(a, 4) for a in rec['accuracy']]}; bytes/uploads/"
+              f"staleness "
+              f"{'equal' if not host_differ else f'DIFFER in {host_differ}'}")
+        if host_differ or eng.wave_impl_resolved != "vmap":
+            fail(f"{name}: the vmapped engine's run differs from the map "
+                 f"engine's in {host_differ} or ran {eng.wave_impl_resolved}")
+        vmapped.append(dict(setting=name, **rec, wall_s=wall, split_s=split))
+        del eng, res
+    return rows, launches, sequential, vmapped
 
 
 # ---------------------------------------------------------------------------
@@ -2460,7 +2665,10 @@ def main() -> None:
             ("safl_agg", "fold_q8_kernel", 2),
             ("safl_agg", "aggregate_q4_kernel", 1),
             ("safl_agg", "aggregate_q8_kernel", 1),
-            ("quantize", "quantize_int8_b512_kernel", 1)):
+            # the mangled names' length prefixes tell the pair apart
+            # (quantize_int8_b512_kernel is a substring of the other)
+            ("quantize", "25quantize_int8_b512_kernel", 1),
+            ("quantize", "27dequantize_int8_b512_kernel", 1)):
         spilled = spills(infos[source]["log"], symbol)
         print(f"  {symbol}: {len(spilled)} instantiations, spill bytes "
               f"{sorted(spilled.values())} (tolerance: 0)")
@@ -2513,7 +2721,8 @@ def main() -> None:
 
     print(f"== phase 6: main path, full-width CNN (D = {D_FULL:,}), "
           f"{len(MAIN_SETTINGS)} settings; the compression path")
-    main_rows, launches = run_main_path(torch, wrappers)
+    main_rows, launches, sequential_rows, vmap_rows = run_main_path(
+        torch, wrappers)
     compression = run_compression_path(torch, q_mod, wrappers)
     for name in INT8_KERNELS:
         launches[name] = compression["launches"][name]
@@ -2546,6 +2755,8 @@ def main() -> None:
                        one_launch=one_launch,
                        small=small, codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,
+                       main_path_sequential=sequential_rows,
+                       main_path_vmap=vmap_rows,
                        compression_path=compression, serving=serving,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)

@@ -9,10 +9,11 @@ read them), the same defaults, ``round_up``, ``hd``,
 
 ``FLConfig`` is a copy of the reference's and its ``validate()``: the
 same fields, defaults and checks, so a config written for the reference
-means the same experiment here.  The one default that differs is
-``batch_clients`` (False here): the horizon-batched engine is not ported
-yet, and :class:`repro_torch.core.safl.FLEngine` refuses every setting it
-does not run (see ``FLEngine.PORTED``) instead of ignoring it.
+means the same experiment here.  ``batch_clients=True`` (the default, as
+in the reference) runs the horizon-batched engine, ``False`` the
+sequential per-upload engine, its parity oracle;
+:class:`repro_torch.core.safl.FLEngine` refuses every setting it does not
+run (see ``FLEngine.PORTED``) instead of ignoring it.
 """
 from __future__ import annotations
 
@@ -122,12 +123,17 @@ class FLConfig:
     compress_updates: bool = False  # legacy alias for wire="q8"
     quant_block: int = 512
     error_feedback: bool = True
-    # horizon-batched engine: not ported yet, so the default here is the
-    # sequential per-upload engine (the reference's parity oracle)
-    batch_clients: bool = False
+    # horizon-batched engine: a horizon's K local trainings run as waves
+    # of K lanes (FLEngine._run_semi_async_batched, the batched sync
+    # round); False forces the sequential per-upload engine, the parity
+    # oracle
+    batch_clients: bool = True
     devices: int = 1
     mesh_shape: Optional[Tuple[int, int]] = None
     wave_impl: str = "auto"
+    # the reference pads a wave to a power of two so XLA compiles few
+    # shapes; PyTorch compiles nothing per shape, so the port accepts the
+    # field and runs every wave at its own size either way
     wave_buckets: bool = True
     eval_every: int = 1
     fault_crash_p: float = 0.0

@@ -15,9 +15,12 @@
     byte.  On the top-k wire it keeps the ``nk`` largest-|x| coordinates
     of input + residual as (int32 index, int8 value) pairs with one scale
     per ``qblock`` of the compacted values, and carries everything the
-    wire dropped in the residual.
+    wire dropped in the residual.  The batched engine's row forms
+    (``quantize_rows*``) serialize a wave's (K, D) rows, each row bitwise
+    the per-upload codec's.
   * :func:`alloc_buffer` / :func:`write_slot` are the buffered f32
-    channel's resident (K, D) rows and their in-place row write;
+    channel's resident (K, D) rows and their in-place row write
+    (:func:`write_rows` a wave's rows at once, a slot past K dropped);
     :class:`QuantBuffer` is its quantized counterpart (int8 (K, Dq) rows,
     or (K, Dq/2) packed bytes on q4, plus (K, Dq/qblock) scales), and
     :class:`TopkBuffer` the sparse one ((K, nk) indices, values and
@@ -28,7 +31,7 @@
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -227,6 +230,67 @@ class PytreeCodec:
         reference codec's ``ravel_topk``; the engine does not call it)."""
         return self._topk(self.ravel(tree), residual)
 
+    def ravel_rows(self, trees) -> torch.Tensor:
+        """K-stacked dict (each leaf (K, *shape)) -> (K, D) rows."""
+        return torch.cat([trees[k].reshape(trees[k].shape[0], -1)
+                          .to(torch.float32) for k in self.keys], dim=1)
+
+    def unravel_rows(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """(K, D) rows -> dict of (K, *shape) leaves (copies where a leaf's
+        columns are not contiguous)."""
+        o, k = self.offsets, rows.shape[0]
+        return {key: rows[:, int(o[i]):int(o[i + 1])].reshape((k,) + shape)
+                for i, (key, shape) in enumerate(zip(self.keys,
+                                                     self.shapes))}
+
+    # ---- the row forms of the batched engine: each row is bitwise the
+    # per-upload codec's output for that row ----
+
+    @staticmethod
+    def _stack_rows(outs) -> tuple:
+        """Per-row output tuples -> one stacked tensor per output."""
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+
+    def quantize_rows(self, vecs: torch.Tensor, residuals: torch.Tensor):
+        """(K, D) rows and (K, dq) residuals on the q8 wire -> (q (K, dq),
+        scales (K, n_qblocks), new residuals (K, dq))."""
+        return self._stack_rows(self._quantize(v, r)
+                                for v, r in zip(vecs, residuals))
+
+    def quantize_rows_nores(self, vecs: torch.Tensor):
+        """(K, D) rows on the q8 wire, error feedback off."""
+        return self._stack_rows(self._quantize_nores(v) for v in vecs)
+
+    def quantize_rows_q4(self, vecs: torch.Tensor, residuals: torch.Tensor,
+                         seed: int, cids: Sequence[int],
+                         counters: Sequence[int]):
+        """(K, D) rows on the q4 wire with per-lane residuals, client ids
+        and upload counters and one seed: row i draws with the key of
+        (seed, cids[i], counters[i]), as that upload on the sequential
+        path -> (packed (K, dq/2), scales, new residuals)."""
+        return self._stack_rows(
+            self._quantize_q4(v, r, seed, int(c), int(n))
+            for v, r, c, n in zip(vecs, residuals, cids, counters))
+
+    def quantize_rows_q4_nores(self, vecs: torch.Tensor, seed: int,
+                               cids: Sequence[int],
+                               counters: Sequence[int]):
+        """(K, D) rows on the q4 wire, error feedback off."""
+        return self._stack_rows(
+            self._quantize_q4_nores(v, seed, int(c), int(n))
+            for v, c, n in zip(vecs, cids, counters))
+
+    def quantize_rows_topk(self, vecs: torch.Tensor,
+                           residuals: torch.Tensor):
+        """(K, D) rows on the top-k wire -> (idx (K, nk), qv (K, nk),
+        scales (K, nk_qblocks), new residuals (K, dq))."""
+        return self._stack_rows(self._topk(v, r)
+                                for v, r in zip(vecs, residuals))
+
+    def quantize_rows_topk_nores(self, vecs: torch.Tensor):
+        """(K, D) rows on the top-k wire, error feedback off."""
+        return self._stack_rows(self._topk_nores(v) for v in vecs)
+
     def zero_residual(self, device) -> torch.Tensor:
         """Initial (dq,) error-feedback residual of a client."""
         return torch.zeros(self.dq, dtype=torch.float32, device=device)
@@ -240,6 +304,29 @@ def alloc_buffer(k: int, d: int, device) -> torch.Tensor:
 def write_slot(buf: torch.Tensor, vec: torch.Tensor, slot: int) -> None:
     """buf[slot] <- vec, in place."""
     buf[slot].copy_(vec)
+
+
+def _scatter_rows(bufs: Sequence[torch.Tensor],
+                  rows: Sequence[torch.Tensor], slots) -> None:
+    """bufs[j][slots] <- rows[j] for each j, in place; a slot outside the
+    buffers' K rows drops its row (the reference's ``mode="drop"``)."""
+    slots = np.asarray(slots, np.int64)
+    keep = np.flatnonzero((slots >= 0) & (slots < bufs[0].shape[0]))
+    if keep.size == 0:
+        return
+    dev = bufs[0].device
+    dst = torch.as_tensor(slots[keep], device=dev)
+    src = None if keep.size == slots.size else torch.as_tensor(keep,
+                                                               device=dev)
+    for buf, r in zip(bufs, rows):
+        buf.index_copy_(0, dst, (r if src is None else r.index_select(
+            0, src)).to(buf.dtype))
+
+
+def write_rows(buf: torch.Tensor, rows: torch.Tensor, slots) -> None:
+    """buf[slots] <- rows, in place, one wave's (Kw, D) rows at once;
+    slots outside the buffer's rows are dropped (:func:`_scatter_rows`)."""
+    _scatter_rows((buf,), (rows,), slots)
 
 
 class AccumBuffer:
@@ -338,6 +425,22 @@ class QuantBuffer:
         self.q[slot].copy_(q_vec)
         self.scales[slot].copy_(s_vec)
 
+    def write_rows(self, q_rows: torch.Tensor, s_rows: torch.Tensor,
+                   slots) -> None:
+        """Scatter one wave's quantized rows into their slots, in place;
+        out-of-range slots dropped."""
+        _scatter_rows((self.q, self.scales), (q_rows, s_rows), slots)
+
+    def set_rows(self, q: torch.Tensor, scales: torch.Tensor) -> None:
+        """Adopt a whole round's rows at once (the batched sync round)."""
+        if q.shape != self.q.shape or q.dtype != torch.int8 or \
+                scales.shape != self.scales.shape:
+            raise ValueError(f"rows {tuple(q.shape)} {q.dtype} / scales "
+                             f"{tuple(scales.shape)} do not fit the buffer's "
+                             f"{tuple(self.q.shape)} / "
+                             f"{tuple(self.scales.shape)}")
+        self.q, self.scales = q, scales
+
     @property
     def views(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(q, scales) as the quantized server step takes them."""
@@ -370,6 +473,23 @@ class TopkBuffer:
         self.idx[slot].copy_(idx_vec)
         self.qv[slot].copy_(qv_vec)
         self.scales[slot].copy_(s_vec)
+
+    def write_rows(self, idx_rows: torch.Tensor, qv_rows: torch.Tensor,
+                   s_rows: torch.Tensor, slots) -> None:
+        """Scatter one wave's sparse rows into their slots, in place;
+        out-of-range slots dropped."""
+        _scatter_rows((self.idx, self.qv, self.scales),
+                      (idx_rows, qv_rows, s_rows), slots)
+
+    def set_rows(self, idx: torch.Tensor, qv: torch.Tensor,
+                 scales: torch.Tensor) -> None:
+        """Adopt a whole round's rows at once (the batched sync round)."""
+        if idx.shape != self.idx.shape or idx.dtype != torch.int32 or \
+                qv.shape != self.qv.shape or qv.dtype != torch.int8 or \
+                scales.shape != self.scales.shape:
+            raise ValueError("top-k rows do not fit the buffer's "
+                             f"{tuple(self.idx.shape)} rows")
+        self.idx, self.qv, self.scales = idx, qv, scales
 
     @property
     def views(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

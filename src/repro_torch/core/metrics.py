@@ -8,8 +8,9 @@ Tracks per-round accuracy/loss/time/bytes and derives:
   * resource utilization: cumulative transmission bytes per direction,
     simulated training duration (§4.4.2).
 
-The device-resident metrics ring of the reference's horizon-batched
-engine is not ported yet.
+:class:`DeviceMetricsRing` is the device-resident half of the batched
+engine's metric path: per-round eval / update-norm scalars stay on the
+device, and cross to the host once when the run flushes.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -135,3 +137,46 @@ class MetricsLog:
                 [r.mean_staleness for r in self.records])) if self.records
             else 0.0,
         }
+
+
+class DeviceMetricsRing:
+    """Per-round scalar metrics kept on the device: the batched engine's
+    metric path, so its loop never waits on a metric.
+
+    A (capacity, channels) f32 buffer on ``device``; ``append`` writes the
+    next row from device scalars (eval accuracy and loss, the server
+    round's update norm) or host numbers, with no host transfer, and
+    ``flush`` makes the one device-to-host copy at run end.  ``capacity``
+    is a hint: appending past it doubles the buffer (the rows written stay
+    as they were).  The staleness and participation counts the
+    reference's ring also keeps are host numbers here (the engine's
+    ``staleness_bins`` and the scheduler's participation): nothing on the
+    device computes them.
+    """
+
+    def __init__(self, capacity: int, channels: int = 3, *, device):
+        self.capacity = max(int(capacity), 1)
+        self.channels = int(channels)
+        self.device = device
+        self._buf = torch.zeros((self.capacity, self.channels),
+                                dtype=torch.float32, device=device)
+        self._n = 0
+
+    def append(self, *scalars) -> None:
+        if len(scalars) != self.channels:
+            raise ValueError(f"{len(scalars)} scalars for a ring of "
+                             f"{self.channels} channels")
+        if self._n >= self._buf.shape[0]:
+            self._buf = torch.cat([self._buf, torch.zeros_like(self._buf)])
+            self.capacity = self._buf.shape[0]
+        self._buf[self._n] = torch.stack([
+            torch.as_tensor(s, dtype=torch.float32).to(self.device)
+            .reshape(()) for s in scalars])
+        self._n += 1
+
+    def __len__(self) -> int:
+        return self._n
+
+    def flush(self) -> np.ndarray:
+        """One host transfer: the (n, channels) rows appended so far."""
+        return self._buf[:self._n].cpu().numpy()

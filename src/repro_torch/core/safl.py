@@ -6,8 +6,9 @@ computation.
 
 Synchronous (SFL, Fig. 1a): each round the server activates K random
 clients, waits for all of them (round time = slowest active client, the
-straggler effect), aggregates, broadcasts.  The K clients train one after
-another into the (K, D) buffer (int8 (K, Dq) rows on the q8 wire, packed
+straggler effect), aggregates, broadcasts.  The K clients train (one
+after another on the sequential engine, as one wave on the batched one)
+into the (K, D) buffer (int8 (K, Dq) rows on the q8 wire, packed
 int4 (K, Dq/2) bytes on q4, (K, nk) sparse index / value rows on top-k),
 and the round is one aggregate kernel
 (:func:`repro_torch.kernels.safl_agg.safl_aggregate`, ``sdga_aggregate``
@@ -37,13 +38,35 @@ top-k upload's values), then
 by the streaming channel and zeroed on the buffered one, a clipped row
 keeps its payload at a reduced weight.
 
-This is the reference's sequential per-upload engine (its parity oracle),
-with its host arithmetic copied exactly: np.float32 weight vectors, the
-simulated-time model, the byte envelopes, the ``rng.choice`` of the sync
-round, and the q4 wire's per-client upload counters, which key its
-stochastic-rounding draws.  So bytes, staleness and participation match
-the reference bit for bit.  Parameters live on ``device`` (CUDA unless the caller asks for the
-CPU); the global model is a flat (D,) row in the reference's layout.
+Horizon-batched execution (``batch_clients=True``, the default, as in
+the reference): between two aggregation boundaries the K uploads of a
+horizon depend only on state fixed at the previous boundary, so the
+engine pops the scheduler to the next horizon up front, groups its
+events into *waves* (a client's j-th event of the horizon is wave j) and
+trains each wave as one call over K flat parameter rows
+(:func:`repro_torch.core.client.make_batched_hetero_train`; the sync
+round's K lanes start from one global model).  A wave's rows are
+quantized by the codec's row forms, faulted, screened in one launch with
+one host fetch, and folded in slot order (the streaming channel: the
+sequential engine's order, since fedasync's mix does not commute and a
+float sum depends on its order) or scattered into their slots
+(buffered).  Clients carry flat (D,) rows; eval and update-norm scalars
+stay in a device ring
+(:class:`repro_torch.core.metrics.DeviceMetricsRing`) until the run ends.
+``batch_clients=False`` runs the sequential per-upload engine, the
+parity oracle; with ``wave_impl="map"`` (what ``auto`` picks for the CNN)
+the batched engine equals it bit for bit.  ``wave_buckets`` is accepted
+for the reference's configs and changes nothing: the reference pads a
+wave to a power of two so XLA compiles few shapes, and PyTorch compiles
+nothing per shape, so every wave runs at its own size.
+
+Both engines copy the reference's host arithmetic exactly: np.float32
+weight vectors, the simulated-time model, the byte envelopes, the
+``rng.choice`` of the sync round, and the q4 wire's per-client upload
+counters, which key its stochastic-rounding draws.  So bytes, staleness
+and participation match the reference bit for bit.  Parameters live on
+``device`` (CUDA unless the caller asks for the CPU); the global model is
+a flat (D,) row in the reference's layout.
 
 Ported: the settings in :data:`FLEngine.PORTED`.  Anything else raises
 ``NotImplementedError`` rather than running something else.
@@ -61,13 +84,16 @@ from repro_torch import sched as schedmod
 from repro_torch.core import flatbuf
 from repro_torch.core.aggregation import FlatServer
 from repro_torch.core.client import (ClientState, evaluate, local_epoch,
-                                     make_loss_fn, pytree_bytes)
-from repro_torch.core.metrics import MetricsLog
+                                     make_batched_hetero_train,
+                                     make_batched_local_train,
+                                     make_flat_eval_fn, make_loss_fn,
+                                     pytree_bytes, resolve_wave_impl)
+from repro_torch.core.metrics import DeviceMetricsRing, MetricsLog
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quantize import payload_nbytes
 
-# width of the reference's device-resident staleness histogram (filled
-# only by its horizon-batched path; zeros here, as on its sequential path)
+# width of the ``staleness_bins`` histogram (last bin = overflow; filled
+# by the horizon-batched semi-async path only, as in the reference)
 _STALE_BINS = 32
 
 # simulated samples/second at speed 1.0
@@ -104,7 +130,7 @@ class FLEngine:
         "horizon": ("k",),
         "sched_timing": ("static",),
         "sched_policy": ("full",),
-        "batch_clients": (False,),
+        "batch_clients": (False, True),
         "devices": (1,),
         "mesh_shape": (None,),
         "trace_level": ("off",),
@@ -212,6 +238,15 @@ class FLEngine:
         self.clipped_uploads = 0
         self.corrupted_uploads = 0
         self.byzantine_uploads = 0
+        # the batched engine's state: the staleness histogram of
+        # ``staleness_bins``, summed over run() calls; the lane execution
+        # (resolved at first use); the histogram of wave sizes; the
+        # (n_clients, ...) shard bank; each client's flat row
+        self._staleness_bins = np.zeros(_STALE_BINS, np.int64)
+        self.wave_impl_resolved: Optional[str] = None
+        self.wave_size_hist: Dict[int, int] = {}
+        self._shard_bank: Optional[Dict] = None
+        self._client_flats: Optional[List[torch.Tensor]] = None
         self._accum = None
         self._buf = None
         self._qbuf = None
@@ -332,37 +367,45 @@ class FLEngine:
             c.params, w_end, cfg.client_lr, self._residual(c.cid), *key)
         return q, s
 
-    def _apply_payload_fault(self, payload: tuple, fault) -> tuple:
-        """A corrupt / byzantine draw applied to one upload's payload,
-        lifted to the appliers' K = 1 stack and back.  Untouched lanes
-        come back bitwise; a top-k upload's indices are never touched."""
-        corrupt = [fault.kind == "corrupt"]
-        byz = [fault.kind == "byzantine"]
-        self.corrupted_uploads += corrupt[0]
-        self.byzantine_uploads += byz[0]
-        rows = tuple(a[None] for a in payload)
+    def _apply_payload_faults(self, rows: tuple, faults: List) -> tuple:
+        """Corrupt / byzantine draws (None: no fault) applied to a K-stack
+        of payload rows (K = 1 on the sequential path).  Untouched lanes
+        come back bitwise; a top-k upload's indices are never touched.
+        No-op without a fault in the stack."""
+        if not any(f is not None for f in faults):
+            return rows
+        corrupt = [f is not None and f.kind == "corrupt" for f in faults]
+        byz = [f is not None and f.kind == "byzantine" for f in faults]
+        locs = [f.loc if f is not None else 0.0 for f in faults]
+        self.corrupted_uploads += sum(corrupt)
+        self.byzantine_uploads += sum(byz)
         resc = self.cfg.fault_byzantine_rescale
         if self._wire == "topk":
-            rows = rows[:1] + faultsmod.apply_faults_q(
-                *rows[1:], corrupt, byz, [fault.loc], resc)
-        elif self._lossy:
-            rows = faultsmod.apply_faults_q(*rows, corrupt, byz, [fault.loc],
-                                            resc)
-        else:
-            rows = (faultsmod.apply_faults_flat(rows[0], corrupt, byz,
-                                                [fault.loc], resc),)
-        return tuple(a[0] for a in rows)
+            return rows[:1] + faultsmod.apply_faults_q(*rows[1:], corrupt,
+                                                       byz, locs, resc)
+        if self._lossy:
+            return faultsmod.apply_faults_q(*rows, corrupt, byz, locs, resc)
+        return (faultsmod.apply_faults_flat(rows[0], corrupt, byz, locs,
+                                            resc),)
 
-    def _screen_factor(self, payload: tuple) -> np.float32:
-        """The defense's weight factor of one upload: the server's sum of
-        squares over the payload screened as a K = 1 stack (one host
-        fetch), then the host's screen / clip composition."""
-        sumsq = self._server.screen(tuple(a[None] for a in payload))
+    def _screen_factors(self, rows: tuple) -> np.ndarray:
+        """The defense's weight factors of a K-stack of payload rows (K = 1
+        on the sequential path): one screen launch and one host fetch for
+        the stack, then the host's screen / clip composition."""
+        sumsq = self._server.screen(rows).cpu().numpy()
         fac, ns, ncl = faultsmod.defense_factors(
-            sumsq.cpu().numpy(), self._defense, self.cfg.defense_norm_cap)
+            sumsq, self._defense, self.cfg.defense_norm_cap)
         self.screened_uploads += ns
         self.clipped_uploads += ncl
-        return fac[0]
+        return fac
+
+    def _zero_screened_rows(self, rows: tuple, mask: np.ndarray) -> tuple:
+        """Zero the payload of the screened rows of a K-stack before the
+        buffered scatter: the f32 row, or on a lossy wire the scales (a
+        zero scale dequantizes any row to 0).  Unmasked rows come back
+        bitwise."""
+        m = torch.as_tensor(mask, device=rows[-1].device)[:, None]
+        return rows[:-1] + (torch.where(m, 0.0, rows[-1]),)
 
     def _enqueue_upload(self, buffer: List[Dict], c: ClientState,
                         w_end, s_end, staleness: int, fault=None) -> None:
@@ -382,10 +425,12 @@ class FLEngine:
                        "n": c.n_samples}
         payload = self._payload(c, w_end)
         if fault is not None:
-            payload = self._apply_payload_fault(payload, fault)
+            payload = tuple(a[0] for a in self._apply_payload_faults(
+                tuple(a[None] for a in payload), [fault]))
         fac = None
         if self._defense != "none":
-            fac = entry["fac"] = self._screen_factor(payload)
+            fac = entry["fac"] = self._screen_factors(
+                tuple(a[None] for a in payload))[0]
         dropped = fac is not None and fac == np.float32(0.0)
         if self._streaming:
             if dropped:
@@ -508,10 +553,12 @@ class FLEngine:
     def run(self, n_rounds: int, log_every: int = 0) -> FLResult:
         if self.cfg.mode == "sync":
             self._run_sync(n_rounds, log_every)
+        elif self.cfg.batch_clients:
+            self._run_semi_async_batched(n_rounds, log_every)
         else:
             self._run_semi_async(n_rounds, log_every)
         stats = self.sched.stats()
-        stats["staleness_bins"] = np.zeros(_STALE_BINS, np.int64)
+        stats["staleness_bins"] = self._staleness_bins.copy()
         stats["screened_uploads"] = self.screened_uploads
         stats["clipped_uploads"] = self.clipped_uploads
         stats["corrupted_uploads"] = self.corrupted_uploads
@@ -521,24 +568,167 @@ class FLEngine:
                         participation=self.sched.participation.copy(),
                         sched_stats=stats)
 
+    # ----- the batched engine's parts -----
+    def _wave_program(self, sync: bool = False):
+        """The wave training call of this engine's target and lane
+        execution (``wave_impl``, resolved once per engine): the
+        heterogeneous wave, or with ``sync`` the SFL round's."""
+        cfg = self.cfg
+        target = "params" if cfg.aggregation in _MODEL_TARGETS else "grad"
+        if self.wave_impl_resolved is None:
+            self.wave_impl_resolved = resolve_wave_impl(
+                cfg.wave_impl, self.apply_fn, self.global_params,
+                self.global_state, self.test_x[:1])
+        make = make_batched_local_train if sync else \
+            make_batched_hetero_train
+        return make(self.apply_fn, self.kind, target, cfg.local_epochs,
+                    self.codec, self.wave_impl_resolved)
+
+    def _bank(self) -> Dict:
+        """The (n_clients, n_batches, B, ...) shard bank on the device and
+        its host validity bools, made once per engine."""
+        if self._shard_bank is None:
+            self._shard_bank = {
+                f: torch.stack([s[f] for s in self.shards])
+                for f in ("xs", "ys", "mask")}
+            self._shard_bank["valid"] = np.stack(
+                [s["valid"] for s in self.shards])
+        return self._shard_bank
+
+    def _train_wave(self, wave_fn, starts: torch.Tensor, cids: List[int]):
+        """Client training of one wave from its (K, D) start rows, or of
+        the sync round from the global (D,) row: the wave call's
+        outputs."""
+        return wave_fn(starts, self.global_state, self._bank(), cids,
+                       self.cfg.client_lr)
+
+    def _payload_rows(self, vecs: torch.Tensor, cids: List[int]) -> tuple:
+        """A wave's (K, D) upload rows serialized on the wire by the
+        codec's row forms, each row bitwise its sequential upload:
+        ``(vecs,)`` f32, ``(q, scales)`` q8 / q4, ``(idx, qv, scales)``
+        top-k.  Gradient targets thread the clients' error-feedback
+        residuals; q4 lanes draw with their clients' next upload
+        counters."""
+        cfg, codec = self.cfg, self.codec
+        if not self._lossy:
+            return (vecs,)
+        model = cfg.aggregation in _MODEL_TARGETS
+        use_ef = cfg.error_feedback and not model
+        res = (torch.stack([self._residual(cid) for cid in cids])
+               if use_ef else None)
+        if self._wire == "q4":
+            ctrs = [self._next_counter(cid) for cid in cids]
+            out = (codec.quantize_rows_q4(vecs, res, cfg.seed, cids, ctrs)
+                   if use_ef else
+                   codec.quantize_rows_q4_nores(vecs, cfg.seed, cids, ctrs))
+        elif self._wire == "topk":
+            out = (codec.quantize_rows_topk(vecs, res) if use_ef
+                   else codec.quantize_rows_topk_nores(vecs))
+        else:
+            out = (codec.quantize_rows(vecs, res) if use_ef
+                   else codec.quantize_rows_nores(vecs))
+        if use_ef:
+            *out, new_res = out
+            for row, cid in enumerate(cids):
+                self._residuals[cid] = new_res[row]
+        return tuple(out)
+
+    def _ingest_wave(self, h: Dict, members: List, prows: tuple) -> None:
+        """Serialize one wave's payload rows into the server channel:
+        faults, then the defense screen (one launch and one host fetch for
+        the wave), then the streaming channel's folds in slot order
+        (``h["pend"]`` holds rows that arrive ahead of their turn: waves
+        surface slots out of order, and the sequential engine folds in
+        arrival order) or the buffered channel's scatter into the wave's
+        slots."""
+        prows = self._apply_payload_faults(
+            prows, [h["faults"][slot] for slot, _ in members])
+        hfac = h["fac"]
+        if hfac is not None:
+            fac = self._screen_factors(prows)
+            for row, (slot, _) in enumerate(members):
+                hfac[slot] = fac[row]
+            if not self._streaming and bool((fac == 0.0).any()):
+                prows = self._zero_screened_rows(prows,
+                                                 fac == np.float32(0.0))
+        if not self._streaming:
+            slots = [slot for slot, _ in members]
+            if self._lossy:
+                self._qbuf.write_rows(*prows, slots)
+            else:
+                flatbuf.write_rows(self._buf, prows[0], slots)
+            return
+        for row, (slot, _) in enumerate(members):
+            h["pend"][slot] = tuple(a[row] for a in prows)
+        while h["next"] in h["pend"]:
+            i = h["next"]
+            payload = h["pend"].pop(i)
+            h["next"] += 1
+            w = h["w"][i]
+            if hfac is not None:
+                if hfac[i] == np.float32(0.0):
+                    # screened: the fold is skipped outright (0 x NaN is
+                    # NaN); skip() records the arrival at weight 0.0
+                    self._accum.skip()
+                    continue
+                w = np.float32(w * hfac[i])
+            beta = (np.float32(1.0) - w
+                    if self.cfg.aggregation == "fedasync" else 1.0)
+            self._accum.fold(payload, w=w, beta=beta)
+
+    def _eval_round(self, eval_fn, ring: DeviceMetricsRing,
+                    m: Dict) -> tuple:
+        """Eval of the flat global row into the device ring (no host
+        fetch) -> the (acc, loss) device scalars."""
+        acc, loss = eval_fn(self._flat_params, self.global_state,
+                            self.test_x, self.test_y)
+        ring.append(acc, loss, m["update_norm"],
+                    np.float32(self.screened_uploads),
+                    np.float32(self.clipped_uploads))
+        return acc, loss
+
     # ----- SFL -----
     def _run_sync(self, n_rounds: int, log_every: int) -> None:
         cfg = self.cfg
+        batched = cfg.batch_clients
+        round_fn = self._wave_program(sync=True) if batched else None
         now = 0.0
         for _ in range(n_rounds):
             active = self.rng.choice(len(self.clients), cfg.k,
                                      replace=False)
             buffer: List[Dict] = []
             durations = []
-            for cid in active:
-                c = self.clients[cid]
-                c.params, c.model_state = (self.global_params,
-                                           self.global_state)
-                c.version = self.t_global
-                w_end, s_end, _ = self._run_local(c)
-                self._enqueue_upload(buffer, c, w_end, s_end, 0)
-                durations.append(self.sched.timing.sync_duration(c))
-                self.sched.participation[cid] += 1
+            if batched:
+                # the K clients as one round from the global row, their
+                # rows serialized at once into the buffer
+                cids = [int(cid) for cid in active]
+                vecs, _, _ = self._train_wave(round_fn, self._flat_params,
+                                              cids)
+                prows = self._payload_rows(vecs, cids)
+                if self._lossy:
+                    self._qbuf.set_rows(*prows)
+                else:
+                    self._buf = prows[0]
+                for cid in cids:
+                    c = self.clients[cid]
+                    c.params, c.model_state = (self.global_params,
+                                               self.global_state)
+                    c.version = self.t_global
+                    self.tx_bytes += self._upload_nbytes()
+                    buffer.append({"staleness": 0, "cid": cid,
+                                   "n": c.n_samples})
+                    durations.append(self.sched.timing.sync_duration(c))
+                    self.sched.participation[cid] += 1
+            else:
+                for cid in active:
+                    c = self.clients[cid]
+                    c.params, c.model_state = (self.global_params,
+                                               self.global_state)
+                    c.version = self.t_global
+                    w_end, s_end, _ = self._run_local(c)
+                    self._enqueue_upload(buffer, c, w_end, s_end, 0)
+                    durations.append(self.sched.timing.sync_duration(c))
+                    self.sched.participation[cid] += 1
             round_t = max(durations) + self._agg_overhead()
             self.idle_time += sum(round_t - d for d in durations)
             now += round_t
@@ -596,3 +786,158 @@ class FLEngine:
                               f"loss={r.loss:.4f} "
                               f"stale={r.mean_staleness:.2f}")
                 buffer = []
+
+    # ----- SAFL: horizon-batched path -----
+    def _run_semi_async_batched(self, n_rounds: int, log_every: int) -> None:
+        """Pop the scheduler to each aggregation horizon (K admitted
+        uploads), train the horizon's uploads as one wave call per wave (a
+        client's j-th event of the horizon is wave j), serialize each
+        wave into the channel, then the server round; eval every
+        ``eval_every`` rounds into the device ring, flushed at the end."""
+        cfg = self.cfg
+        wave_fn = self._wave_program()
+        eval_fn = make_flat_eval_fn(self.apply_fn, self.kind, self.codec)
+        if self._client_flats is None:
+            self._client_flats = [self._flat_params] * len(self.clients)
+        flats = self._client_flats
+        # acc, loss, update_norm, cumulative screened and clipped counts
+        ring = DeviceMetricsRing(n_rounds + 1, channels=5,
+                                 device=self.device)
+        pending: List[Dict] = []  # the host fields of each recorded round
+        self.sched.resume()
+        while self.t_global < n_rounds:
+            r = self.t_global
+            # ---- pop to the horizon; the scheduler pushes each client's
+            # successor at pop time from schedule data only, so the heap
+            # evolves as on the sequential path.  A crash before the
+            # client's first admitted event of the horizon resyncs it at
+            # once; one after it cannot (its earlier training still
+            # runs): the client's next lane restarts from the round-r
+            # global row (force_global), and a crash after its last lane
+            # leaves it on the global row when the horizon closes
+            # (resync_after), where the sequential engine puts it ----
+            events: List[tuple] = []  # (time, cid) per admitted slot
+            stal: List[int] = []
+            faults: List = []
+            n_adm: Dict[int, int] = {}
+            force_global: set = set()
+            resync_after: set = set()
+            t_pop = 0.0
+            while not (events and self._horizon_due(len(events))):
+                ev = self.sched.pop(r)
+                if ev is None:
+                    break
+                t_pop = ev.time
+                if not ev.admitted:
+                    k_adm = n_adm.get(ev.cid, 0)
+                    if k_adm == 0:
+                        flats[ev.cid] = self._flat_params
+                        c = self.clients[ev.cid]
+                        c.model_state = self.global_state
+                        c.version = r
+                    else:
+                        force_global.add((ev.cid, k_adm))
+                        resync_after.add(ev.cid)
+                    continue
+                n_adm[ev.cid] = n_adm.get(ev.cid, 0) + 1
+                resync_after.discard(ev.cid)
+                stal.append(ev.staleness)
+                faults.append(ev.fault)
+                events.append((ev.time, ev.cid))
+            if not events:
+                break
+            now = t_pop
+            kh = len(events)
+            sizes = [self.clients[cid].n_samples for _, cid in events]
+            # the horizon's channel state: slot-ordered ingest weights
+            # (the sequential engine's per-upload values: numpy's scalar
+            # and vector kernels agree bitwise), the defense factors by
+            # slot, the rows held for their turn to fold
+            h = {"w": self._weight_vector(stal, sizes), "faults": faults,
+                 "fac": {} if self._defense != "none" else None,
+                 "pend": {}, "next": 0}
+
+            waves: List[List[tuple]] = []  # per wave: (slot, cid)
+            n_events: Dict[int, int] = {}
+            for slot, (_, cid) in enumerate(events):
+                w = n_events.get(cid, 0)
+                n_events[cid] = w + 1
+                if w == len(waves):
+                    waves.append([])
+                waves[w].append((slot, cid))
+
+            g_flat = self._flat_params
+            nbytes = self._upload_nbytes()
+            prev_new_flat = None
+            # a client with further events this horizon: None = it adopted
+            # the round-r global row, int = its row in the previous wave's
+            # outputs (it continues its local chain)
+            carry: Dict[int, Optional[int]] = {}
+            for w, members in enumerate(waves):
+                kw = len(members)
+                self.wave_size_hist[kw] = self.wave_size_hist.get(kw, 0) + 1
+                cids = [cid for _, cid in members]
+                if w == 0:
+                    starts = torch.stack([flats[cid] for cid in cids])
+                else:
+                    rows = [None if (cid, w) in force_global
+                            else carry.get(cid) for cid in cids]
+                    if all(rv is None for rv in rows):
+                        starts = g_flat.expand(kw, self.codec.d)
+                    elif all(rv is not None for rv in rows):
+                        starts = prev_new_flat[torch.as_tensor(
+                            rows, device=self.device)]
+                    else:
+                        starts = torch.stack(
+                            [g_flat if rv is None else prev_new_flat[rv]
+                             for rv in rows])
+                vecs, new_flat, _, _ = self._train_wave(wave_fn, starts,
+                                                        cids)
+                self._ingest_wave(h, members, self._payload_rows(vecs, cids))
+                for row, (slot, cid) in enumerate(members):
+                    c = self.clients[cid]
+                    self.tx_bytes += nbytes
+                    # refresh rule (paper §2.2.2): adopt the round-r
+                    # global row iff one arrived since the client's
+                    # version, else continue from its final local row
+                    adopt = c.version < r
+                    c.version = r
+                    if n_events[cid] > w + 1:
+                        carry[cid] = None if adopt else row
+                    else:
+                        flats[cid] = g_flat if adopt else new_flat[row]
+                prev_new_flat = new_flat
+            for cid in resync_after:
+                flats[cid] = g_flat
+                self.clients[cid].version = r
+
+            if self._streaming and h["next"] != kh:
+                raise RuntimeError(f"{h['next']} of {kh} uploads folded")
+            m = self._aggregate([
+                {"staleness": stal[i], "n": sizes[i],
+                 "fac": None if h["fac"] is None else h["fac"][i]}
+                for i in range(kh)])
+            self._staleness_bins += np.bincount(
+                np.minimum(stal, _STALE_BINS - 1), minlength=_STALE_BINS)
+            rnd = self.t_global
+            if self._eval_due(rnd, n_rounds):
+                acc, loss = self._eval_round(eval_fn, ring, m)
+                pending.append(dict(
+                    round=rnd, sim_time=now + self._agg_overhead(),
+                    tx_bytes=self.tx_bytes, rx_bytes=self.rx_bytes,
+                    mean_staleness=float(np.mean(stal)),
+                    max_staleness=int(max(stal))))
+                if log_every and rnd % log_every == 0:
+                    # opt-in logging is the one place a fetch is allowed
+                    print(f"  [SAFL-{cfg.aggregation}] round {rnd} "
+                          f"acc={float(acc):.4f} loss={float(loss):.4f} "
+                          f"stale={np.mean(stal):.2f}")
+
+        # ---- the run's one device-to-host copy of the metrics ----
+        for fields, (acc, loss, unorm, nscr, nclip) in zip(pending,
+                                                           ring.flush()):
+            self.metrics.record(
+                accuracy=float(acc), loss=float(loss),
+                nan_event=not np.isfinite(loss), update_norm=float(unorm),
+                screened_uploads=int(nscr), clipped_uploads=int(nclip),
+                **fields)

@@ -23,7 +23,17 @@
 // misaligned row, takes quantize_int8_kernel (the host picks by B and
 // the two pointers): one warp a row, a strided running absmax over the
 // row, then every lane quantizes its strided lanes, reading the row
-// again.  Both give the same bits.  dequantize takes one block per row.
+// again.  Both give the same bits.  dequantize at B = 512 with q's rows
+// 4-byte and out's 16-byte aligned takes one warp a row as well
+// (dequantize_int8_b512_kernel): lane l loads the packed words l, 32 + l,
+// 64 + l and 96 + l of its row (levels 4l .. 4l+3 of each 128-level
+// slice: 128 contiguous bytes a warp load) before any arithmetic and the
+// row's scale, makes each word's four levels as floats without a
+// conversion instruction (XOR 0x80808080, each byte set under 0x4B by a
+// byte permute, less 2^23 + 128: exact, -128 and +0 included) and stores
+// them as one float4 (512 contiguous bytes a warp store).  Any other B,
+// or a misaligned row, takes dequantize_int8_kernel: one block a row, a
+// level a thread at a time, converted with I2F.  Both give the same bits.
 // The division, product and rounding use the _rn
 // intrinsics and rintf (half to even, as jnp.round and torch.round), so
 // both equal the plain PyTorch versions bitwise.  NaN propagates as in
@@ -209,6 +219,7 @@ int launch_quantize_general(const void* x, void* q, void* s, int64_t r,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Any B, any alignment: one block a row, the general path.
 __global__ void dequantize_int8_kernel(const int8_t* __restrict__ q,
                                        const float* __restrict__ s,
                                        float* __restrict__ out, int64_t b) {
@@ -217,6 +228,107 @@ __global__ void dequantize_int8_kernel(const int8_t* __restrict__ q,
   for (int64_t i = threadIdx.x; i < b; i += kThreads) {
     out[row * b + i] = __fmul_rn(static_cast<float>(q[row * b + i]), sc);
   }
+}
+
+// The four int8 levels of a packed word (lane j at byte j) as exact
+// floats, without a conversion instruction (I2F runs at a quarter of the
+// f32 rate on sm_90): the word XORed with 0x80808080 holds n + 128 in
+// each byte, the float with the bits 0x4B000000 | (n + 128) is 2^23 + n +
+// 128, and 2^23 + 128 less it is n exactly (n = 0 gives +0.0, as
+// (float)0 does; n = -128 gives -128.0).  Each byte goes under 0x4B by
+// one byte permute (Int8Lanes::levels in safl_agg.cu).
+__device__ __forceinline__ float4 word_levels(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float x[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // bytes (u.j, 0, 0, 0x4B) of u and 0x4B000000
+    x[j] = __fsub_rn(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650u + j)),
+        8388736.0f);
+  }
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// B = 512: G lanes a row (32: a warp, 16: a half-warp), each holding 128 /
+// G packed words of it, and RW rows a lane group one after another (all
+// their words and scales loaded first), in blocks of T threads over an
+// exact grid.  Lane l's word m of a row is word G*m + l, and its four
+// levels the row's float4 G*m + l (levels 4l .. 4l+3 of each slice of 4G
+// levels).  Each level is multiplied by the row's scale with one
+// rounding (__fmul_rn), as the plain version's product: a NaN scale gives
+// NaN, an Inf one +-Inf, or NaN at a level 0.  No shuffles, so rows past
+// r simply do nothing.
+template <int G, int RW, int T>
+__global__ void __launch_bounds__(T)
+    dequantize_int8_b512_kernel(const uint32_t* __restrict__ q,
+                                const float* __restrict__ s,
+                                float4* __restrict__ out, int64_t r) {
+  static_assert(G == 16 || G == 32, "a warp or a half-warp a row");
+  constexpr int kL = 128 / G;  // words a lane a row
+  const int lane = threadIdx.x % G;
+  const int64_t row0 =
+      (static_cast<int64_t>(blockIdx.x) * (T / G) + threadIdx.x / G) * RW;
+  uint32_t w[RW][kL];
+  float sc[RW];
+#pragma unroll
+  for (int k = 0; k < RW; ++k) {
+    if (row0 + k < r) {
+#pragma unroll
+      for (int m = 0; m < kL; ++m) {
+        w[k][m] = q[(row0 + k) * 128 + G * m + lane];
+      }
+      sc[k] = s[row0 + k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < RW; ++k) {
+    if (row0 + k >= r) continue;
+    float4* orow = out + (row0 + k) * 128 + lane;
+#pragma unroll
+    for (int m = 0; m < kL; ++m) {
+      const float4 v = word_levels(w[k][m]);
+      orow[G * m] = make_float4(__fmul_rn(v.x, sc[k]), __fmul_rn(v.y, sc[k]),
+                                __fmul_rn(v.z, sc[k]), __fmul_rn(v.w, sc[k]));
+    }
+  }
+}
+
+// Lanes a row, rows a lane group and threads a block of the B = 512
+// dequantize kernel, a warp a row in blocks of 256 as quantize's; the
+// half-warp, two-row and 128-thread layouts are timed beside it
+// (csrc/quantize_variants.cu, kernels/hold_timing.py).  Keep in step with
+// tests/test_torch_quantize_int8.py.
+constexpr int kDequantLanes = 32;
+constexpr int kDequantRows = 1;
+constexpr int kDequantThreads = 256;
+
+// Whether q (R, b) int8 and out (R, b) f32 take the B = 512 kernel: b =
+// 512, q 4-byte and out 16-byte aligned (then every row is).
+inline bool dequantize_b512_ok(const void* q, const void* out, int64_t b) {
+  return b == 512 && reinterpret_cast<uintptr_t>(q) % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+template <int G, int RW, int T>
+int launch_dequantize_b512(const void* q, const void* s, void* out,
+                           int64_t r, void* stream) {
+  constexpr int64_t kRowsBlock = T / G * RW;
+  dequantize_int8_b512_kernel<G, RW, T>
+      <<<static_cast<unsigned>((r + kRowsBlock - 1) / kRowsBlock), T, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(q), static_cast<const float*>(s),
+          static_cast<float4*>(out), r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dequantize_general(const void* q, const void* s, void* out,
+                              int64_t r, int64_t b, void* stream) {
+  dequantize_int8_kernel<<<static_cast<unsigned>(r), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(s),
+      static_cast<float*>(out), b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -236,13 +348,15 @@ int quantize_int8(const void* x, void* q, void* s, int64_t r, int64_t b,
   return launch_quantize_general(x, q, s, r, b, inv, stream);
 }
 
+// q (R, b) int8 and s (R,) -> out (R, b) f32: the B = 512 kernel where
+// dequantize_b512_ok, else the general one; the same bits either way.
 int dequantize_int8(const void* q, const void* s, void* out, int64_t r,
                     int64_t b, void* stream) {
-  dequantize_int8_kernel<<<static_cast<unsigned>(r), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q), static_cast<const float*>(s),
-      static_cast<float*>(out), b);
-  return static_cast<int>(cudaGetLastError());
+  if (dequantize_b512_ok(q, out, b)) {
+    return launch_dequantize_b512<kDequantLanes, kDequantRows,
+                                  kDequantThreads>(q, s, out, r, stream);
+  }
+  return launch_dequantize_general(q, s, out, r, b, stream);
 }
 
 }  // extern "C"

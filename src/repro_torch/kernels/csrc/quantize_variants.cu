@@ -18,6 +18,22 @@
 //                        or 2) and blocks of T threads (128 or 256); only
 //                        where the package's kernel would run (B = 512,
 //                        x 16- and q 4-byte aligned), else it returns -1
+//
+// and of its dequantize_int8, with the package's dequantize_int8
+// arguments and bits:
+//
+//   dequantize_int8_general
+//                        the kernel's first design, as it stood for every
+//                        shape (dequantize_int8_kernel): one block of 256
+//                        a row, a level a thread at a time, read a byte
+//                        and converted with I2F, stored as one float
+//   dequantize_int8_g<G>_r<RW>_t<T>
+//                        the package's B = 512 kernel
+//                        (dequantize_int8_b512_kernel) with G lanes a row
+//                        (32: 4 words a lane; 16: 8), RW rows a lane group
+//                        (1 or 2) and blocks of T threads (128 or 256);
+//                        only where the package's kernel would run (B =
+//                        512, q 4- and out 16-byte aligned), else -1
 
 #include "quantize.cu"
 
@@ -42,5 +58,25 @@ QUANT_VARIANT(32, 2, 128)
 QUANT_VARIANT(32, 2, 256)
 QUANT_VARIANT(16, 1, 128)
 QUANT_VARIANT(16, 1, 256)
+
+int dequantize_int8_general(const void* q, const void* s, void* out,
+                            int64_t r, int64_t b, void* stream) {
+  return launch_dequantize_general(q, s, out, r, b, stream);
+}
+
+#define DEQUANT_VARIANT(G, RW, T)                                           \
+  int dequantize_int8_g##G##_r##RW##_t##T(const void* q, const void* s,     \
+                                          void* out, int64_t r, int64_t b,  \
+                                          void* stream) {                   \
+    if (!dequantize_b512_ok(q, out, b)) return -1;                          \
+    return launch_dequantize_b512<G, RW, T>(q, s, out, r, stream);          \
+  }
+
+DEQUANT_VARIANT(32, 1, 128)
+DEQUANT_VARIANT(32, 1, 256)
+DEQUANT_VARIANT(32, 2, 128)
+DEQUANT_VARIANT(32, 2, 256)
+DEQUANT_VARIANT(16, 1, 128)
+DEQUANT_VARIANT(16, 1, 256)
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Times the f32 fold's four designs, ``torch.add``, the q4 and q8
 folds' designs, the q4 and q8 K-row aggregates' designs,
-``quantize_int8``'s designs, the f32 and quantized
+``quantize_int8``'s and ``dequantize_int8``'s designs, the f32 and quantized
 screens' designs, the top-k kernels' designs and the flash kernels on
 the card, each with and without
 ``chip_smoke.py`` phase 4's device hold, in one process, so that a
@@ -11,7 +11,8 @@ kernel's gain and the timing method's effect can be told apart.
 
 ``--only`` times some groups of cases alone (``fold``, ``fold_q4``,
 ``fold_q8``, ``aggregate_q4``, ``aggregate_q8``, ``quantize_int8``,
-``screen_f32``, ``screen``, ``topk``, ``flash``; all by default).
+``dequantize_int8``, ``screen_f32``, ``screen``, ``topk``, ``flash``;
+all by default).
 
 It builds ``csrc/safl_agg.cu`` and ``csrc/quantize.cu`` (the package's
 kernels), ``csrc/fold_variants.cu``, ``csrc/aggregate_variants.cu``,
@@ -57,6 +58,14 @@ on the rows it is timed on, then times:
   a half-warp a row, one or two rows a lane group and blocks of 128 and
   256, each through ``ctypes`` and checked bitwise against
   ``quantize_int8_plain``, and the package's wrapper;
+- ``dequantize_int8`` over the same (4,209, 512) blocks (one scale NaN,
+  one Inf): the package's (one warp a row, 4-byte loads of packed
+  levels, float4 stores) and in ``quantize_variants.cu`` the earlier
+  design (a block a row, a level a thread; also on a view of q one level
+  in, which the package routes to it) and the B = 512 kernel at a warp
+  or a half-warp a row, one or two rows a lane group and blocks of 128
+  and 256, each through ``ctypes`` and checked bitwise against
+  ``dequantize_int8_plain``, and the package's wrapper;
 - the f32 screen at K = 1 on the paper CNN's row (16-byte aligned: the
   float4 path), on a copy 4 bytes off and at K = 4 (D mod 4 = 2, so odd
   rows 8 bytes off: both on the lane-by-lane path): the
@@ -481,6 +490,57 @@ def quantize_int8_cases(g) -> dict:
     return cases
 
 
+def dequantize_int8_cases(g) -> dict:
+    """``dequantize_int8``'s timed calls over the paper CNN's (4,209,
+    512) blocks (levels -128 .. 127, one row's scale NaN and one Inf),
+    each checked bitwise first against ``dequantize_int8_plain``: the
+    package's kernel (one warp a row, each lane's four packed words
+    loaded first, float4 stores), and in ``quantize_variants.cu`` the
+    parent (the general kernel: a block a row, a level a thread) and the
+    B = 512 kernel at a warp or a half-warp a row, one or two rows a lane
+    group and blocks of 128 or 256; the package's wrapper; and the
+    parent on a view of q one level in (as the wrapper routes such a
+    view)."""
+    from repro_torch.kernels import quantize as q_mod
+    variants = build.load("quantize_variants")
+    package = q_mod._lib()
+    rows = DQ // QB
+    q = torch.randint(-128, 128, (rows, QB), dtype=torch.int8,
+                      device="cuda", generator=g)
+    s = torch.rand((rows,), device="cuda", generator=g) + 1e-3
+    s[3], s[4] = float("nan"), float("inf")
+    want = q_mod.dequantize_int8_plain(q, s)
+    designs = {"general, a block a row (parent)":
+               variants.dequantize_int8_general}
+    for lanes, rw in ((32, 1), (32, 2), (16, 1)):
+        for t in (128, 256):
+            designs[f"{lanes} lanes a row x {rw} rows x {t} threads"] = (
+                getattr(variants, f"dequantize_int8_g{lanes}_r{rw}_t{t}"))
+    designs["package"] = package.dequantize_int8
+    argtypes = package.dequantize_int8.argtypes
+    off = torch.empty(rows * QB + 4, dtype=torch.int8,
+                      device="cuda")[1:1 + rows * QB].view(rows, QB)
+    off.copy_(q)
+    cases = {}
+    for name, fn in designs.items():
+        fn.argtypes = argtypes
+        for qin, at in ((q, ""), (off, ", q one level in")):
+            if at and "parent" not in name:
+                continue
+            out = torch.empty((rows, QB), device="cuda")
+            call = raw_topk(fn, (qin.data_ptr(), s.data_ptr(),
+                                 out.data_ptr(), rows, QB), qin, s, out)
+            call()
+            if not torch.equal(out.nan_to_num(7.0), want.nan_to_num(7.0)) \
+                    or not torch.equal(out.isnan(), want.isnan()):
+                sys.exit(f"hold_timing: dequantize_int8 {name}{at} is not "
+                         "bitwise dequantize_int8_plain")
+            cases[f"dequantize_int8 {name}{at}"] = call
+    cases["dequantize_int8 wrapper dequantize_int8"] = (
+        lambda: q_mod.dequantize_int8(q, s))
+    return cases
+
+
 def topk_rows(k: int, g):
     """k sparse rows of D as ``chip_smoke.py`` makes them: the top-|x|
     NK lanes of random rows, ranked by a stable descending sort, their
@@ -649,6 +709,7 @@ GROUPS = {"fold": fold_cases,
           "aggregate_q4": lambda g: aggregate_q_cases(g, "q4"),
           "aggregate_q8": lambda g: aggregate_q_cases(g, "q8"),
           "quantize_int8": quantize_int8_cases,
+          "dequantize_int8": dequantize_int8_cases,
           "screen_f32": screen_f32_cases, "screen": screen_cases,
           "topk": topk_cases, "flash": flash_cases}
 

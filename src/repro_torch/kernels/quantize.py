@@ -121,8 +121,12 @@ quantize_int8.launches = 0
 
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """q (R, B) int8, scales (R,) f32 -> (float)q * scale, (R, B) f32.
-    Replaces ``repro/kernels/quantize.py:121 dequantize_int8``.  One block
-    per row.  Bound: 5*R*B + 4*R bytes."""
+    Replaces ``repro/kernels/quantize.py:121 dequantize_int8``.  One
+    launch: at B = 512 with q's rows 4-byte and the output's 16-byte
+    aligned (as :func:`dequantize_array` calls it) one warp a row, each
+    lane's packed words loaded first and their levels made without a
+    conversion, stored as float4; else one block a row; the same bits
+    either way.  Bound: 5*R*B + 4*R bytes."""
     if not on_cuda(q, "dequantize_int8"):
         return dequantize_int8_plain(q, scales)
     if q.dim() != 2:

@@ -6,13 +6,17 @@
 
 The reference launcher's flags and ``--json-out`` schema, plus
 ``--device`` (``cuda`` by default; raises when no GPU is visible).  The
-run is the sequential engine, which is what the reference runs with
-``--sequential``.  Every ``--aggregation`` of the study runs (fedsgd,
-fedavg, fedbuff, fedasync, fedopt, sdga), on the f32 wire, ``--wire
-q8`` (``--compress`` is its legacy alias), ``--wire q4`` or ``--wire
-topk`` (the gradient schemes; ``--topk-frac`` of the coordinates kept
-per upload), with fault injection (``--fault-*``, semi-async only) and
-the server defense (``--defense screen|clip``, ``--defense-norm-cap``).
+run is the horizon-batched engine, as in the reference (``--wave-impl``
+picks how a wave's lanes run; ``--no-wave-buckets`` is accepted and
+changes nothing, since the port runs every wave at its own size);
+``--sequential`` runs the sequential per-upload engine, the parity
+oracle.  Every ``--aggregation`` of the
+study runs (fedsgd, fedavg, fedbuff, fedasync, fedopt, sdga), on the
+f32 wire, ``--wire q8`` (``--compress`` is its legacy alias), ``--wire
+q4`` or ``--wire topk`` (the gradient schemes; ``--topk-frac`` of the
+coordinates kept per upload), with fault injection (``--fault-*``,
+semi-async only) and the server defense (``--defense screen|clip``,
+``--defense-norm-cap``).
 Flags for parts not ported yet are refused with a "not ported yet" error
 when given anything but their default.
 """
@@ -36,8 +40,8 @@ SUMMARY_SCHEMA = 1
 
 #: flags of parts not ported yet -> the only value accepted (the default)
 NOT_PORTED = {
-    "model": "cnn", "devices": 1, "mesh": None, "wave_impl": "auto",
-    "no_wave_buckets": False, "sched_timing": "static", "horizon": "k",
+    "model": "cnn", "devices": 1, "mesh": None,
+    "sched_timing": "static", "horizon": "k",
     "horizon_queue": 0, "horizon_timeout_s": 0.0, "sched_policy": "full",
     "sched_rate_limit": 0, "sched_c": 0, "sched_stale_cap": 4,
     "sched_jitter_sigma": 0.25, "sched_drop_p": 0.1, "sched_seed": 0,
@@ -101,14 +105,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="evaluate every Nth aggregation round (the final "
                          "round is always evaluated)")
     ap.add_argument("--sequential", action="store_true",
-                    help="the sequential per-upload engine; it is the only "
-                         "engine ported, so this is also the default")
+                    help="force the sequential per-upload engine "
+                         "(batch_clients=False), the parity oracle of the "
+                         "default horizon-batched engine")
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
                     metavar=("E", "P"))
     ap.add_argument("--wave-impl", default="auto",
-                    choices=["auto", "vmap", "map"])
-    ap.add_argument("--no-wave-buckets", action="store_true")
+                    choices=["auto", "vmap", "map"],
+                    help="batched-wave lanes: vmap (one batched step), map "
+                         "(one lane after another, the sequential step), "
+                         "auto (map for a conv model such as the CNN, vmap "
+                         "for one without a convolution)")
+    ap.add_argument("--no-wave-buckets", action="store_true",
+                    help="accepted for the reference's command lines; the "
+                         "port runs every wave at its own size")
     ap.add_argument("--sched-timing", default="static",
                     choices=["static", "lognormal", "markov"])
     ap.add_argument("--horizon", default="k",
@@ -211,6 +222,9 @@ def main(argv=None) -> dict:
                    seed=args.seed, speed_sigma=0.8,
                    compress_updates=args.compress, wire=args.wire,
                    topk_frac=args.topk_frac, eval_every=args.eval_every,
+                   batch_clients=not args.sequential,
+                   wave_impl=args.wave_impl,
+                   wave_buckets=not args.no_wave_buckets,
                    server_channel=args.server_channel,
                    fault_crash_p=args.fault_crash_p,
                    fault_straggler_p=args.fault_straggler_p,

@@ -54,7 +54,8 @@ def _run_pair(setup, setting):
     slr = 0.05 if jpaper.MODES[setting].aggregation == "fedsgd" else 1.0
     jcfg = dataclasses.replace(jpaper.MODES[setting], server_lr=slr,
                                batch_clients=False, **KW)
-    tcfg = dataclasses.replace(tpaper.MODES[setting], server_lr=slr, **KW)
+    tcfg = dataclasses.replace(tpaper.MODES[setting], server_lr=slr,
+                               batch_clients=False, **KW)
     x, y = te.x[:N_TEST], te.y[:N_TEST]
     jeng = JEngine(jcfg, jcnn.cnn_apply, "image", p_j, s_j, shards, x, y)
     jres = jeng.run(ROUNDS)
@@ -105,7 +106,8 @@ def test_streaming_equals_buffered_bitwise(setup):
     flats = []
     for channel in ("streaming", "buffered"):
         cfg = dataclasses.replace(tpaper.MODES["AS"], server_lr=0.05,
-                                  server_channel=channel, **KW)
+                                  server_channel=channel,
+                                  batch_clients=False, **KW)
         eng = TEngine(cfg, tcnn.cnn_apply, "image",
                       params_from_jax(p_np, "cpu"), {}, shards,
                       te.x[:N_TEST], te.y[:N_TEST], device="cpu")
@@ -117,7 +119,7 @@ def test_streaming_equals_buffered_bitwise(setup):
 @pytest.mark.parametrize("field,value", [
     ("sched_timing", "markov"), ("sched_policy", "ratelimit"),
     ("sched_timing", "lognormal"), ("sched_policy", "uniform"),
-    ("batch_clients", True), ("horizon", "queue"),
+    ("devices", 3), ("horizon", "queue"),
     ("mesh_shape", (1, 1)), ("sched_policy", "seafl"),
     ("trace_level", "round")])
 def test_unported_settings_raise(setup, field, value):
@@ -157,7 +159,8 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
                                      "--json-out", str(jout)])
     jfl_sim.main()
     j_log = capsys.readouterr().out
-    tfl_sim.main([*args, "--device", "cpu", "--json-out", str(tout)])
+    tfl_sim.main([*args, "--sequential", "--device", "cpu", "--json-out",
+                  str(tout)])
     t_log = capsys.readouterr().out
     j, t = json.loads(jout.read_text()), json.loads(tout.read_text())
     acc_j = [float(a) for a in re.findall(r" acc=([0-9.]+)", j_log)]

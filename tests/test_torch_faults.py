@@ -307,7 +307,8 @@ def _kw(agg, **kw):
 def _port(setup, agg, **kw):
     shards, te, p_j, _ = setup
     p_np = jax.tree_util.tree_map(np.asarray, p_j)
-    return TEngine(TConfig(**_kw(agg, **kw)), tcnn.cnn_apply, "image",
+    return TEngine(TConfig(batch_clients=False, **_kw(agg, **kw)),
+                   tcnn.cnn_apply, "image",
                    params_from_jax(p_np, "cpu"), {}, shards,
                    te.x[:N_TEST], te.y[:N_TEST], device="cpu")
 
@@ -465,7 +466,27 @@ def test_fl_sim_faults_and_defense(tmp_path, monkeypatch, capsys, extra):
 def test_fl_sim_without_defense_fails_on_corruption(capsys):
     with pytest.raises(SystemExit) as exc:
         tfl_sim.main(["--rounds", "3", "--samples", "240", "--clients", "6",
+                      "--k", "3", "--fault-corrupt-p", "0.3", "--sequential",
+                      "--device", "cpu"])
+    assert exc.value.code == 1
+    assert "# FAILED: non-finite eval" in capsys.readouterr().out
+
+
+def test_fl_sim_batched_without_defense_fails_on_corruption(capsys,
+                                                           monkeypatch):
+    """The same abort on the launcher's default engine, the batched one."""
+    ran = []
+    batched = TEngine._run_semi_async_batched
+
+    def spy(self, *a, **kw):
+        ran.append(self.cfg.batch_clients)
+        return batched(self, *a, **kw)
+
+    monkeypatch.setattr(TEngine, "_run_semi_async_batched", spy)
+    with pytest.raises(SystemExit) as exc:
+        tfl_sim.main(["--rounds", "3", "--samples", "240", "--clients", "6",
                       "--k", "3", "--fault-corrupt-p", "0.3",
                       "--device", "cpu"])
     assert exc.value.code == 1
+    assert ran == [True]
     assert "# FAILED: non-finite eval" in capsys.readouterr().out

@@ -338,7 +338,8 @@ def run_pair(setup, setting, rounds=ROUNDS, **cfg_kw):
     kw = dict(KW, server_lr=SLR.get(agg, 1.0), **cfg_kw)
     jcfg = dataclasses.replace(jpaper.MODES[setting], batch_clients=False,
                                **kw)
-    tcfg = dataclasses.replace(tpaper.MODES[setting], **kw)
+    tcfg = dataclasses.replace(tpaper.MODES[setting], batch_clients=False,
+                               **kw)
     x, y = te.x[:N_TEST], te.y[:N_TEST]
     jeng = JEngine(jcfg, jcnn.cnn_apply, "image", p_j, s_j, shards, x, y)
     jres = jeng.run(rounds)
@@ -397,7 +398,8 @@ def test_engine_streaming_equals_buffered_bitwise(setup, agg):
     for channel in ("streaming", "buffered"):
         cfg = dataclasses.replace(tpaper.MODES["AS"], aggregation=agg,
                                   server_lr=SLR.get(agg, 1.0),
-                                  server_channel=channel, **KW)
+                                  server_channel=channel,
+                                  batch_clients=False, **KW)
         eng = TEngine(cfg, tcnn.cnn_apply, "image",
                       params_from_jax(p_np, "cpu"), {}, shards,
                       te.x[:N_TEST], te.y[:N_TEST], device="cpu")
@@ -407,13 +409,14 @@ def test_engine_streaming_equals_buffered_bitwise(setup, agg):
 
 
 def fl_sim_pair(tmp_path, monkeypatch, capsys, args):
-    """The reference's launcher (``--sequential``) and the port's (on the
-    CPU) with the same flags: their --json-out summaries."""
+    """The reference's launcher and the port's (on the CPU), both
+    ``--sequential``, with the same flags: their --json-out summaries."""
     jout, tout = tmp_path / "j.json", tmp_path / "t.json"
     monkeypatch.setattr("sys.argv", ["fl_sim", *args, "--sequential",
                                      "--json-out", str(jout)])
     jfl_sim.main()
-    tfl_sim.main([*args, "--device", "cpu", "--json-out", str(tout)])
+    tfl_sim.main([*args, "--sequential", "--device", "cpu", "--json-out",
+                  str(tout)])
     capsys.readouterr()
     return json.loads(jout.read_text()), json.loads(tout.read_text())
 

@@ -263,7 +263,7 @@ def test_engine_q4_without_error_feedback_matches_reference(setup):
 def _engine(setup, setting, **kw):
     shards, te, p_j, _ = setup
     agg = kw.get("aggregation", tpaper.MODES[setting].aggregation)
-    cfg = dataclasses.replace(tpaper.MODES[setting],
+    cfg = dataclasses.replace(tpaper.MODES[setting], batch_clients=False,
                               server_lr=SLR.get(agg, 1.0), **KW, **kw)
     return TEngine(cfg, tcnn.cnn_apply, "image",
                    params_from_jax(jax.tree_util.tree_map(np.asarray, p_j),

@@ -192,7 +192,7 @@ def test_engine_q8_without_error_feedback_matches_reference(setup):
 def _engine(setup, setting, **kw):
     shards, te, p_j, _ = setup
     cfg = dataclasses.replace(tpaper.MODES[setting], server_lr=0.05,
-                              **KW, **kw)
+                              batch_clients=False, **KW, **kw)
     return TEngine(cfg, tcnn.cnn_apply, "image",
                    params_from_jax(jax.tree_util.tree_map(np.asarray, p_j),
                                    "cpu"), {}, shards, te.x[:N_TEST],

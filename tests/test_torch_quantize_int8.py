@@ -28,6 +28,20 @@ source text):
   +-0.5 ties, +-127 saturation, NaN rows and -Inf rows (NaN and Inf
   scales in the same rows; their lanes store 0).
 
+``dequantize_int8`` likewise runs one kernel a call: at B = 512 with q's
+rows 4-byte and the output's 16-byte aligned,
+``dequantize_int8_b512_kernel`` (one warp a row, lane l's packed words
+l, 32 + l, 64 + l and 96 + l loaded first, each word's four levels made
+without a conversion by XOR 0x80808080, a byte permute under 0x4B and a
+subtraction of 2^23 + 128, multiplied by the row's scale and stored as
+one float4); any other B or a misaligned row takes
+``dequantize_int8_kernel`` (a block a row).  Modelled here: the host's
+route, the layout (every word loaded and its float4 stored by one lane,
+at the package's shape and every timed one), the levels of all 256 bytes
+bitwise ``f32(q)`` (+0.0 for a zero, -128.0 for 0x80), and the B = 512
+kernel's output bitwise ``dequantize_int8_plain`` and the reference's
+Pallas ``dequantize_int8`` with level -128, NaN, Inf and -Inf scales.
+
 ``chip_smoke.py`` holds the kernels themselves against the plain version
 on the card, on both paths.
 """
@@ -78,6 +92,49 @@ def test_cu_constants_and_route_match_the_model():
     assert timed == set(TIMED) and (LANES, ROWS, THREADS) in timed
 
 
+def test_cu_dequantize_constants_and_route_match_the_model():
+    src = CU.read_text()
+    assert _const(src, "kDequantLanes") == LANES
+    assert _const(src, "kDequantRows") == ROWS
+    assert _const(src, "kDequantThreads") == THREADS
+    ok = re.search(r"bool dequantize_b512_ok\(.*?\{(.*?)\}", src,
+                   flags=re.S).group(1)
+    assert re.sub(r"\s+", " ", ok).strip() == (
+        "return b == 512 && reinterpret_cast<uintptr_t>(q) % 4 == 0 && "
+        "reinterpret_cast<uintptr_t>(out) % 16 == 0;")
+    # the level trick's constants: XOR, the byte permute's selector and
+    # 2^23 + 128
+    body = re.search(r"float4 word_levels\(uint32_t w\) \{(.*?)\n\}", src,
+                     flags=re.S).group(1)
+    assert "w ^ 0x80808080u" in body
+    assert "__byte_perm(u, 0x4B000000u, 0x7650u + j)" in body
+    assert "8388736.0f" in body and 8388736 == 2 ** 23 + 128
+    timed = {tuple(int(v) for v in m) for m in re.findall(
+        r"^DEQUANT_VARIANT\((\d+), (\d+), (\d+)\)", VARIANTS.read_text(),
+        flags=re.M)}
+    assert timed == set(TIMED) and (LANES, ROWS, THREADS) in timed
+
+
+def dequant_route(b: int, q_off: int, out_off: int) -> str:
+    """The host's choice of dequantize kernel for q and out ``q_off`` /
+    ``out_off`` bytes past a 256-byte boundary."""
+    ok = b == B and (BASE + q_off) % 4 == 0 and (BASE + out_off) % 16 == 0
+    return "b512" if ok else "general"
+
+
+def test_dequantize_route_by_width_and_offsets():
+    # as dequantize_array calls it: a fresh q and a fresh output
+    assert dequant_route(B, 0, 0) == "b512"
+    # a row view of q one level in (1 byte off), and 2 / 3 bytes off
+    for q_off in (1, 2, 3):
+        assert dequant_route(B, q_off, 0) == "general"
+    assert dequant_route(B, 4, 0) == "b512"
+    for out_off in (4, 8, 12):
+        assert dequant_route(B, 0, out_off) == "general"
+    for b in (100, 256, 511, 513, 1024):
+        assert dequant_route(b, 0, 0) == "general"
+
+
 def route(b: int, x_off: int, q_off: int) -> str:
     """The host's choice for x and q ``x_off`` / ``q_off`` bytes past a
     256-byte boundary."""
@@ -125,6 +182,113 @@ def test_layout_covers_every_float4_once(r, shape):
     assert ((4 * f4) % (4 * g) == 4 * lane).all()
     # a lane's rows and float4s: 128 / G float4 of each of its rows
     assert (np.bincount(f4 // g, minlength=128 // g) == r * g).all()
+
+
+@pytest.mark.parametrize("shape", [(LANES, ROWS, THREADS), *TIMED])
+@pytest.mark.parametrize("r", [1, 7, 9, 37, 4_209])
+def test_dequantize_layout_loads_and_stores_every_word_once(r, shape):
+    """The B = 512 dequantize kernel's items: lane l of a group loads the
+    packed words G*m + l of its rows (4 bytes of 4 levels each; a warp
+    load 4G contiguous bytes) and stores float4 G*m + l of the output row
+    (the same four levels; a warp store 16G contiguous bytes), each word
+    and float4 of every row once, and no item for rows past r."""
+    g, rw, t = shape
+    row, word, lane = layout(r, g, rw, t)
+    seen = np.bincount(row * 128 + word, minlength=r * 128)
+    assert seen.size == r * 128 and (seen == 1).all()
+    assert (word % g == lane).all()
+    # the levels a lane holds: 4l .. 4l+3 of each slice of 4G levels
+    levels = 4 * word[:, None] + np.arange(4)
+    assert ((levels % (4 * g)) // 4 == lane[:, None]).all()
+    # blocks a row group: an exact grid of ceil(r / (T / G * RW)) blocks
+    assert -(-r // (t // g * rw)) * (t // g * rw) - r < t // g * rw
+
+
+def word_levels(words: np.ndarray) -> np.ndarray:
+    """``word_levels``: each packed word's four levels as floats, byte j
+    of the word XORed with 0x80 under the exponent byte 0x4B (the
+    selector 0x7650 + j takes byte j of the first operand and bytes 1-3
+    of 0x4B000000), less 2^23 + 128 in f32."""
+    u = np.asarray(words, "<u4") ^ np.uint32(0x80808080)
+    out = np.empty(u.shape + (4,), np.float32)
+    for j in range(4):
+        bits = byte_perm(u, np.full_like(u, 0x4B000000), 0x7650 + j)
+        out[..., j] = (bits.view(np.float32)
+                       - np.float32(8388736.0)).astype(np.float32)
+    return out
+
+
+def test_byte_permute_levels_of_every_byte():
+    """All 256 bytes, in each of the four byte positions: the levels
+    equal f32(q) bitwise (+0.0 for 0, -128.0 for 0x80)."""
+    q = np.arange(-128, 128, dtype=np.int8)
+    for j in range(4):
+        b = np.zeros((256, 4), np.int8)
+        b[:, j] = q
+        b[:, (j + 1) % 4] = q[::-1]  # a neighbour byte that varies too
+        words = np.ascontiguousarray(b).view("<u4")[:, 0]
+        got = word_levels(words)
+        want = b.astype(np.float32)
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+    assert word_levels(np.array([0x80], "<u4"))[0, 0] == np.float32(-128.0)
+    z = word_levels(np.array([0], "<u4"))[0]
+    assert (z == 0).all() and not np.signbit(z).any()
+
+
+def model_dequant_b512(q: np.ndarray, s: np.ndarray,
+                       g: int = LANES) -> np.ndarray:
+    """The B = 512 dequantize kernel: lane l of a row's group reads
+    words G*m + l, makes their levels and stores float4 G*m + l = levels
+    times the row's scale, each product rounded once (f32 multiply)."""
+    r = q.shape[0]
+    words = np.ascontiguousarray(q).view("<u4").reshape(r, 128 // g, g)
+    lv = word_levels(words)  # (row, m, lane, 4)
+    with np.errstate(invalid="ignore", over="ignore"):
+        out = (lv * s[:, None, None, None]).astype(np.float32)
+    return out.reshape(r, B)
+
+
+def _dequant_inputs(r: int, seed: int):
+    """Random int8 rows holding -128 and +-127, a zero row, and scales
+    with a NaN, an Inf, a -Inf, a zero and a negative scale."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-128, 128, (r, B)).astype(np.int8)
+    q[0] = 0
+    q[1, :4] = (-128, 127, -127, 0)
+    q[2, ::7] = -128
+    s = rng.uniform(1e-4, 3.0, r).astype(np.float32)
+    s[3] = np.nan
+    s[4] = np.inf
+    s[5] = -np.inf
+    s[6] = 0.0
+    s[min(7, r - 1)] = -0.25
+    return q, s
+
+
+@pytest.mark.parametrize("g", [16, 32])
+@pytest.mark.parametrize("r", [8, 37, 4_209])
+def test_model_dequant_b512_bitwise_plain_and_pallas(r, g):
+    q, s = _dequant_inputs(r, seed=r + g)
+    got = model_dequant_b512(q, s, g)
+    want = tquant.dequantize_int8_plain(torch.from_numpy(q),
+                                        torch.from_numpy(s)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    live = ~np.isnan(want)
+    np.testing.assert_array_equal(got[live].view(np.int32),
+                                  want[live].view(np.int32))
+    # a NaN scale gives NaN lanes, an Inf scale NaN at a level 0
+    assert np.isnan(got[3]).all()
+    assert np.isnan(got[4][q[4] == 0]).all()
+    assert np.isinf(got[4][q[4] != 0]).all()
+    assert got[2, 0] == np.float32(-128.0) * s[2]
+    if r <= 37:  # interpret mode is slow at the full 4,209 rows
+        jw = np.asarray(jquant.dequantize_int8(jnp.asarray(q),
+                                               jnp.asarray(s),
+                                               interpret=True))
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(jw))
+        np.testing.assert_array_equal(got[live].view(np.int32),
+                                      jw[live].view(np.int32))
 
 
 def pack(levels: np.ndarray) -> np.ndarray:

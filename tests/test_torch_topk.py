@@ -444,7 +444,8 @@ def test_engine_topk_without_error_feedback_matches_reference(setup):
 
 def _engine(setup, **kw):
     shards, te, p_j, _ = setup
-    cfg = dataclasses.replace(tpaper.MODES["AS"], **KW, **kw)
+    cfg = dataclasses.replace(tpaper.MODES["AS"], batch_clients=False,
+                              **KW, **kw)
     cfg = dataclasses.replace(cfg, server_lr=SLR.get(cfg.aggregation, 1.0))
     return TEngine(cfg, tcnn.cnn_apply, "image",
                    params_from_jax(jax.tree_util.tree_map(np.asarray, p_j),
