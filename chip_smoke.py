@@ -28,7 +28,10 @@ Phases, each of which exits non-zero on failure:
      the f32 fold in place into an odd bank row (d lanes into a (2, d)
      buffer: 8-byte aligned at the main D, 4-byte at the ragged one):
      bitwise, except the poly discount (``powf``): ``rtol=1e-5,
-     atol=1e-6``.  The three screens at the same D and Dq with K = 1, 3
+     atol=1e-6``; ``safl_fold``, ``safl_aggregate`` (fedsgd and avg)
+     and ``safl_fold_q8`` bitwise at the other models' D (11,173,962
+     and 15,240,906), as their main path calls them.  The three
+     screens at the same D and Dq with K = 1, 3
      and 4 (5 on q4), and ``screen_rows_q8`` over the top-k upload's
      values (nk = 215,552) with K = 1, 3 and 4, on clean, corrupted (NaN
      lanes; flipped bytes and an Inf scale), Byzantine, all-zero and (q4)
@@ -94,7 +97,9 @@ Phases, each of which exits non-zero on failure:
      the same where it sees any device activity;
      and the codec's time per upload: the q4 draws alone and the
      whole q4 quantize, the top-k ranking alone and the whole top-k
-     upload
+     upload; and ``safl_fold``, ``safl_aggregate`` (fedsgd, K = 4) and
+     ``safl_fold_q8`` at the full-width ResNet-18's and VGG-16's D
+     (11,173,962 and 15,240,906)
   5. the engine on the card against the engine on the CPU at a small size:
      the sequential engine in AS, SS, AS-fedasync, SS-sdga, AS-q8,
      SS-sdga-q8, AS-q4, SS-sdga-q4, AS-topk, SS-topk, AS-sdga-topk,
@@ -112,8 +117,22 @@ Phases, each of which exits non-zero on failure:
      top-k, with clean rows and with corrupted and Byzantine rows
      screened or clipped (``FlatServer.screen`` -> ``defense_factors`` ->
      skip / fold at w*fac against zeroed rows / facs in the weights),
-     bitwise; and ``quantize_pytree`` / ``dequantize_pytree`` of the
-     full-width CNN's parameters on the card against the CPU, bitwise
+     bitwise; ``quantize_pytree`` / ``dequantize_pytree`` of the
+     full-width CNN's parameters on the card against the CPU, bitwise;
+     and the paper's other models on the card against the CPU:
+     ResNet-18 (width 4, 16x16), VGG-16 (width 1/8, 32x32), the LSTM's
+     sentiment head (Sentiment140, ``lognormal_text``) and char head
+     (Shakespeare, ``by_role``) at embed 32, hidden 64: one SGD step
+     from the same weights (logits in train and eval, params and
+     BatchNorm state within ``rtol=1e-4, atol=1e-5``), then AS and SA
+     (ResNet-18 also AA on q8, its state on the q8 wire) on the
+     sequential and the batched engine (``auto`` waves on both devices),
+     3 rounds, both engines free-running (a conv model's CPU run takes
+     the card run's ReLU, max-pool and q8 ``round`` branches,
+     ``repro_torch.models.kinks``): bytes, schedule, staleness and waves
+     exact, params within the bounds above, the global BatchNorm state
+     within ``rtol=1e-4, atol=1e-5``, each unit that the CPU would have
+     put on the other side of a branch within 1e-3 of its branch point
   6. the main path at full width on the batched engine (``fl_sim``'s
      default; ``wave_impl="auto"`` runs ``map`` waves for the CNN): the
      paper CNN (width 32, 32x32 images,
@@ -144,7 +163,17 @@ Phases, each of which exits non-zero on failure:
      each; then the int8 pair's own path,
      the compression helpers over
      the full-width CNN's parameters, its counters reset before and read
-     after (one launch of each kernel per leaf)
+     after (one launch of each kernel per leaf); then the paper's other
+     models at full width, each in the paper's four settings for 3
+     rounds on the batched engine (ResNet-18 also AA on q8): ResNet-18
+     (width 64, D = 11,173,962, 9,600 state floats in 40 leaves) and
+     VGG-16 (width 1, D = 15,240,906) on 32x32 CIFAR-10, the LSTM at
+     the reference's defaults (embed 64, hidden 128; char D = 114,256,
+     sentiment D = 163,074) on Shakespeare / Sentiment140; 2000 samples,
+     16 clients, k = 4; launch counts held (a fold an upload, an
+     aggregate a sync round), finite params and state after every round,
+     a second run from a fresh engine bitwise the first (params, state,
+     every record), each setting's wall split printed
   7. the serving path at full width: ``repro_torch.launch.serve.run`` of
      qwen3-1.7b (28 layers, d_model 2048, 2,038,555,648 params, f32
      params and bf16 compute, weights from ``prng_key(0)`` drawn on the
@@ -170,6 +199,7 @@ The line before the last is the per-kernel JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import gc
@@ -318,6 +348,40 @@ BATCHED_SMALL = (
     ("AS-topk", "AS", {"wire": "topk"}),
     ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen")))
 BATCHED_SCHEDULE = dict(speed_sigma=1.5, comm_mean_s=0.05)
+#: the paper's other three models (the LSTM with both heads), each on its
+#: dataset and partition: builder, builder kwargs at phase 5's small size
+#: and at phase 6's full width, the image side (images only), and the
+#: full width's D and model-state floats
+OTHER_MODELS = {
+    "resnet18": dict(dataset="cifar10", dist=("hetero_dirichlet",
+                                              {"alpha": 0.3}),
+                     small=dict(width=4), small_hw=16, full=dict(width=64),
+                     d_full=11_173_962, state_full=9_600),
+    "vgg16": dict(dataset="cifar10", dist=("hetero_dirichlet",
+                                           {"alpha": 0.3}),
+                  small=dict(width_mult=0.125, image_size=32), small_hw=32,
+                  full=dict(width_mult=1.0, image_size=32),
+                  d_full=15_240_906, state_full=0),
+    "lstm-sentiment": dict(dataset="sentiment140",
+                           dist=("lognormal_text", {"sigma": 0.5}),
+                           small=dict(embed=32, hidden=64), full={},
+                           d_full=163_074, state_full=0),
+    "lstm-char": dict(dataset="shakespeare", dist=("by_role", {}),
+                      small=dict(embed=32, hidden=64, vocab=80, n_out=80),
+                      full=dict(vocab=80, n_out=80), d_full=114_256,
+                      state_full=0),
+}
+#: phase 5 and 6 settings of the other models: (name, paper setting,
+#: FLConfig overrides, launches on ``OTHER_ROUNDS`` rounds); ResNet-18
+#: also runs AA on q8, where its BatchNorm state rides the q8 wire
+OTHER_ROUNDS = 3
+OTHER_SETTINGS = {
+    "AS": ("AS", {}, {"safl_fold": "uploads"}),
+    "AA": ("AA", {}, {"safl_fold": "uploads"}),
+    "SS": ("SS", {}, {"safl_aggregate": OTHER_ROUNDS}),
+    "SA": ("SA", {}, {"safl_aggregate": OTHER_ROUNDS}),
+    "AA-q8": ("AA", {"wire": "q8"}, {"safl_fold_q8": "uploads"}),
+}
 #: the phase-6 wall split: the engine's methods timed into each bucket
 #: (the sequential engine's, then the batched engine's)
 SPLIT = {"client_train": ("_run_local", "_train_wave"),
@@ -551,6 +615,35 @@ def check_kernels(torch, k_mod, report):
                         getattr(k_mod, name + "_plain")(q, s, w, p, m, e,
                                                         **kw),
                         exact, k=k, discount=discount, **lanes_q)
+    # the other models' main path at their full widths' D (ResNet-18's,
+    # VGG-16's): the three kernels it launches, as it launches them (a
+    # fold in place into the accumulator at beta 1, the K-row aggregate
+    # of the sync round's two modes, the q8 fold in place)
+    for d in (OTHER_MODELS["resnet18"]["d_full"],
+              OTHER_MODELS["vgg16"]["d_full"]):
+        u = torch.randn((K_MAIN, d), device="cuda", generator=g)
+        p = torch.randn((d,), device="cuda", generator=g)
+        row = p.clone()
+        k_mod.safl_fold(row, u[0], 0.5, 1.0, out=row)
+        compare(torch, report, worst, "safl_fold", row,
+                k_mod.safl_fold_plain(p, u[0], 0.5, 1.0), True, d=d,
+                in_place=True)
+        for mode, kw in (("fedsgd", dict(p=p, server_lr=0.05)),
+                         ("avg", {})):
+            w = agg_weights(torch, K_MAIN, mode, "none", g)
+            compare(torch, report, worst, "safl_aggregate",
+                    k_mod.safl_aggregate(u, w, mode=mode, **kw),
+                    k_mod.safl_aggregate_plain(u, w, mode=mode, **kw), True,
+                    d=d, k=K_MAIN, mode=mode)
+        del u, p, row
+        q, s = q8_rows(torch, 1, d, g)
+        acc_q = torch.randn((dq_of(d),), device="cuda", generator=g)
+        row = acc_q.clone()
+        k_mod.safl_fold_q8(row, q[0], s[0], 0.5, 1.0, out=row)
+        compare(torch, report, worst, "safl_fold_q8", row,
+                k_mod.safl_fold_q8_plain(acc_q, q[0], s[0], 0.5, 1.0), True,
+                dq=dq_of(d), in_place=True)
+        del q, s, acc_q, row
     torch.cuda.synchronize()
     return worst
 
@@ -1404,6 +1497,39 @@ def time_kernels(torch, k_mod, q_mod, fa_mod, variants):
             shape=f"B={b} S={s_} H={h}/{hkv} hd={hd} "
                   f"{str(dtype).split('.')[-1]} causal")
         del fq, fk, fv, tq, tk, tv
+    # the main path's three kernels of the other models at their full
+    # widths' D: ResNet-18's and VGG-16's (the LSTM's rows are 114,256
+    # and 163,074 lanes, launch-bound)
+    for dd in (OTHER_MODELS["resnet18"]["d_full"],
+               OTHER_MODELS["vgg16"]["d_full"]):
+        ddq = dq_of(dd)
+        uu = torch.randn((k, dd), device="cuda", generator=g)
+        pp, aa = (torch.randn((dd,), device="cuda", generator=g)
+                  for _ in range(2))
+        qq, ss = q8_rows(torch, 1, dd, g)
+        aq = torch.randn((ddq,), device="cuda", generator=g)
+        cf = -lr / float(ones.sum())
+        out[f"safl_fold D={dd}"] = dict(
+            ms=t(lambda: k_mod.safl_fold(aa, uu[0], w_host, out=aa)),
+            plain_ms=t(lambda: k_mod.safl_fold_plain(aa, uu[0], w_host)),
+            library_ms=t(lambda: torch.add(aa, uu[0], alpha=w_host)),
+            bytes=3 * dd * 4, ops=2 * dd, shape=f"D={dd}")
+        out[f"safl_aggregate D={dd}"] = dict(
+            ms=t(lambda: k_mod.safl_aggregate(uu, ones, pp, server_lr=lr,
+                                              mode="fedsgd")),
+            plain_ms=t(lambda: k_mod.safl_aggregate_plain(
+                uu, ones, pp, server_lr=lr, mode="fedsgd")),
+            library_ms=t(lambda: torch.addmv(pp, uu.t(), ones, alpha=cf)),
+            bytes=(k + 2) * dd * 4, ops=2 * k * dd + 3 * dd,
+            shape=f"K={k} D={dd} mode=fedsgd")
+        out[f"safl_fold_q8 D={dd}"] = dict(
+            ms=t(lambda: k_mod.safl_fold_q8(aq, qq[0], ss[0], w_host,
+                                            out=aq)),
+            plain_ms=t(lambda: k_mod.safl_fold_q8_plain(aq, qq[0], ss[0],
+                                                        w_host)),
+            library_ms=None, bytes=9 * ddq + (ddq // QB) * 4, ops=3 * ddq,
+            shape=f"Dq={ddq}")
+        del uu, pp, aa, qq, ss, aq
     for name, r in out.items():
         b_ms = r["bytes"] / HBM_BYTES_PER_S * 1e3
         o_ms = r["ops"] / r.get("peak", F32_FLOPS) * 1e3
@@ -1702,34 +1828,38 @@ def time_codec(torch):
 
 
 def make_setup(width, hw, samples, clients):
+    """The paper CNN's setup: synthetic CIFAR-10 at ``hw``, split and
+    partitioned, and the CNN at ``width`` drawn from prng_key(0) on the
+    CPU (each engine moves it to its device)."""
     from repro_torch.data import (build_client_shards, make_dataset,
                                   train_test_split)
+    from repro_torch.models.vision_cnn import build_paper_model
+    from repro_torch.prng import prng_key
     ds = make_dataset("cifar10", n=samples, seed=0, hw=hw)
     tr, te = train_test_split(ds)
     shards = build_client_shards(tr, "hetero_dirichlet", clients, 32,
                                  seed=0, alpha=0.3)
-    return ds, shards, te, width, hw
+    model = build_paper_model("cnn", prng_key(0), device="cpu",
+                              n_classes=ds.n_classes, in_ch=3, width=width,
+                              image_size=hw)
+    return dict(ds=ds, shards=shards, te=te, model=model)
 
 
 def build_engine(torch, setup, setting, device, **cfg_kw):
-    """The engine of paper setting ``setting`` with ``cfg_kw`` on top, the
-    server lr from the launcher's table."""
+    """The engine of paper setting ``setting`` with ``cfg_kw`` on top over
+    the setup's model, the server lr from the launcher's table."""
     from repro_torch.configs.paper import MODES
     from repro_torch.core import FLEngine
     from repro_torch.launch.fl_sim import SERVER_LR
-    from repro_torch.models.vision_cnn import build_paper_model
-    from repro_torch.prng import prng_key
-    ds, shards, te, width, hw = setup
     cfg = dataclasses.replace(MODES[setting], **{
-        **dict(n_clients=len(shards), k=K_MAIN, client_lr=0.05,
+        **dict(n_clients=len(setup["shards"]), k=K_MAIN, client_lr=0.05,
                speed_sigma=0.8), **cfg_kw})
     cfg = dataclasses.replace(
         cfg, server_lr=SERVER_LR.get(cfg.aggregation, 1.0))
-    p0, s0, fn = build_paper_model(
-        "cnn", prng_key(0), device="cpu",
-        n_classes=ds.n_classes, in_ch=3, width=width, image_size=hw)
-    return FLEngine(cfg, fn, ds.kind, p0, s0, shards, te.x[:400],
-                    te.y[:400], device=device)
+    p0, s0, fn = setup["model"]
+    te = setup["te"]
+    return FLEngine(cfg, fn, setup["ds"].kind, p0, s0, setup["shards"],
+                    te.x[:400], te.y[:400], device=device)
 
 
 def check_engine_small(torch):
@@ -2100,13 +2230,26 @@ def run_compression_path(torch, q_mod, wrappers):
 
 def run_setting(torch, setup, setting, kw, wrappers):
     """One run of ROUNDS rounds from a fresh engine of ``setting`` with
-    ``kw``, every launch counter reset before and read after.  Returns
-    the engine, its result, the counts, the wall seconds and their split,
-    whether the global params were finite after each round and the fault
-    kinds the plan drew."""
+    ``kw`` (the full-width CNN's), as :func:`run_engine` runs it."""
     eng = build_engine(torch, setup, setting, "cuda", **kw)
     if eng.codec.d != D_FULL:
         fail(f"full-width CNN has D={eng.codec.d}, expected {D_FULL}")
+    return run_engine(torch, eng, wrappers, ROUNDS)
+
+
+def state_finite(torch, state) -> bool:
+    from repro_torch import tree
+    return all(bool(torch.isfinite(v).all()) for v in tree.tree_leaves(state))
+
+
+def run_engine(torch, eng, wrappers, rounds):
+    """``rounds`` rounds of the fresh engine ``eng``, every launch counter
+    reset before and read after.  Returns the engine, its result, the
+    counts, the wall seconds and their split, whether the global params
+    and the global model state were finite after each round (the state
+    read as each server round starts, and once more at the end: the
+    batched semi-async engine closes a round's state after its server
+    round) and the fault kinds the plan drew."""
     split = dict.fromkeys(SPLIT, 0.0)
     for bucket, methods in SPLIT.items():
         for method in methods:
@@ -2116,9 +2259,11 @@ def run_setting(torch, setup, setting, kw, wrappers):
     finite, drawn = [], {}
     agg = eng._aggregate
 
-    def aggregate(*a, _agg=agg, _eng=eng, _finite=finite):
-        out = _agg(*a)
-        _finite.append(bool(torch.isfinite(_eng._flat_params).all()))
+    def aggregate(*a, _agg=agg, _eng=eng, _finite=finite, **k):
+        state_ok = state_finite(torch, _eng.global_state)
+        out = _agg(*a, **k)
+        _finite.append(bool(torch.isfinite(_eng._flat_params).all())
+                       and state_ok)
         return out
 
     eng._aggregate = aggregate
@@ -2135,10 +2280,12 @@ def run_setting(torch, setup, setting, kw, wrappers):
         f.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = eng.run(ROUNDS)
+    res = eng.run(rounds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: f.launches for n, f in wrappers.items()}
+    if finite:
+        finite[-1] = finite[-1] and state_finite(torch, eng.global_state)
     return eng, res, counts, wall, split, finite, drawn
 
 
@@ -2159,17 +2306,18 @@ def run_record(eng, res, counts, drawn):
                               for key in FAULT_COUNTS})
 
 
-def check_run(torch, name, kw, spec, eng, res, counts, finite, drawn):
-    """A run's checks: finite eval and params every round, the launches
-    its setting names, every drawn fault kind fired, the screen's and
-    clip's counts."""
+def check_run(torch, name, kw, spec, eng, res, counts, finite, drawn,
+              rounds=ROUNDS):
+    """A run's checks: finite eval, params and state every round, the
+    launches its setting names, every drawn fault kind fired, the
+    screen's and clip's counts."""
     st = res.sched_stats
     recs = res.metrics.records
-    if len(recs) != ROUNDS or any(r.nan_event for r in recs):
+    if len(recs) != rounds or any(r.nan_event for r in recs):
         fail(f"{name}: non-finite eval loss or missing rounds")
-    if len(finite) != ROUNDS or not all(finite):
-        fail(f"{name}: non-finite global parameters after a round "
-             f"({finite})")
+    if len(finite) != rounds or not all(finite):
+        fail(f"{name}: non-finite global parameters or state after a "
+             f"round ({finite})")
     uploads = int(res.participation.sum())
     # the sequential engine screens each upload as a wave of one
     waves = (sum(eng.wave_size_hist.values()) if eng.cfg.batch_clients
@@ -2331,6 +2479,265 @@ def run_main_path(torch, wrappers):
         vmapped.append(dict(setting=name, **rec, wall_s=wall, split_s=split))
         del eng, res
     return rows, launches, sequential, vmapped
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the paper's other models (ResNet-18, VGG-16, the LSTM)
+# ---------------------------------------------------------------------------
+
+
+def other_model(name, size, n_classes):
+    """(params, state, apply_fn) of ``name`` at ``size`` ("small" or
+    "full"), drawn from prng_key(0) on the CPU."""
+    from repro_torch.models.lstm import build_lstm
+    from repro_torch.models.vision_cnn import build_paper_model
+    from repro_torch.prng import prng_key
+    kw = dict(OTHER_MODELS[name][size])
+    if name.startswith("lstm"):
+        return build_lstm(prng_key(0), name.split("-")[1], device="cpu",
+                          **kw)
+    return build_paper_model(name, prng_key(0), device="cpu",
+                             n_classes=n_classes, in_ch=3, **kw)
+
+
+def other_setup(name, size, samples, clients):
+    """The model's dataset (images at 32x32, or the small ResNet's
+    16x16), split and partitioned, and its CPU-drawn model."""
+    from repro_torch.data import (build_client_shards, make_dataset,
+                                  train_test_split)
+    spec = OTHER_MODELS[name]
+    kw = {}
+    if spec["dataset"] == "cifar10":
+        kw["hw"] = spec.get("small_hw", 32) if size == "small" else 32
+    ds = make_dataset(spec["dataset"], n=samples, seed=0, **kw)
+    tr, te = train_test_split(ds)
+    dist, dist_kw = spec["dist"]
+    shards = build_client_shards(tr, dist, clients, 32, seed=0, **dist_kw)
+    return dict(ds=ds, shards=shards, te=te,
+                model=other_model(name, size, ds.n_classes))
+
+
+def flat_state(torch, state):
+    from repro_torch import tree
+    leaves = tree.tree_leaves(state)
+    return (torch.cat([v.reshape(-1).cpu() for v in leaves]) if leaves
+            else torch.zeros(0))
+
+
+def check_one_step(torch, name, setup):
+    """Train- and eval-mode logits and one local SGD step (one batch) of
+    the model on the card against the CPU from the same weights: within
+    ``rtol=1e-4, atol=1e-5`` (the model state too)."""
+    import numpy as np
+
+    from repro_torch import tree
+    from repro_torch.core import client
+    p, s, fn = setup["model"]
+    shard = setup["shards"][0]
+    x = np.asarray(shard["xs"][0])
+    x = x.astype(np.int64 if x.dtype.kind in "iu" else np.float32)
+    y = np.asarray(shard["ys"][0], np.int64)
+    kind = setup["ds"].kind
+    out = {}
+    for dev in ("cpu", "cuda"):
+        to = lambda t, dev=dev: tree.tree_map(lambda v: v.to(dev), t)
+        xs = torch.as_tensor(x, device=dev)
+        lt, _ = fn(to(p), to(s), xs, True)
+        le, _ = fn(to(p), to(s), xs, False)
+        step = client.local_epoch(
+            client.make_loss_fn(fn, kind), to(p), to(s), xs[None],
+            torch.as_tensor(y, device=dev)[None],
+            torch.as_tensor(shard["mask"][:1], device=dev),
+            np.array([True]), 0.05)
+        out[dev] = [t.detach().cpu() for t in (
+            lt, le, torch.cat([v.reshape(-1) for v in
+                               tree.tree_leaves(step[0])]))] + [
+            flat_state(torch, step[1])]
+    errs = [float((a - b).abs().max()) if a.numel() else 0.0
+            for a, b in zip(out["cuda"], out["cpu"])]
+    ok = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+             for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"  {name} one step, card vs CPU: max|err| logits train "
+          f"{errs[0]:.2e} eval {errs[1]:.2e}, params {errs[2]:.2e}, state "
+          f"{errs[3]:.2e} (rtol=1e-4, atol=1e-5): "
+          f"{'within' if ok else 'OUTSIDE'}")
+    return ok, errs
+
+
+def check_models_small(torch):
+    """Phase 5 for the other models: ResNet-18 (width 4, 16x16), VGG-16
+    (width 1/8, 32x32), the LSTM's sentiment head (Sentiment140,
+    ``lognormal_text``) and char head (Shakespeare, ``by_role``), each in
+    AS and SA (ResNet-18 also AA on q8) on the sequential and the
+    batched engine (``auto`` waves: ``map`` for the conv models, ``vmap``
+    for the LSTM, on both devices), the card against the CPU for
+    OTHER_ROUNDS rounds.  One SGD step of each model on the card against
+    the CPU from the same weights, within ``rtol=1e-4, atol=1e-5``.
+    Then each setting, both engines free-running: bytes, schedule,
+    staleness and waves exact, params within phase 5's bounds of the
+    CPU's and the global BatchNorm state within ``rtol=1e-4,
+    atol=1e-5``.  A conv model's CPU run takes the card run's ReLU and
+    max-pool branches (:mod:`repro_torch.models.kinks`): a unit whose
+    input lies within rounding of its kink lands on either side in two
+    correct f32 runs and moves the step's gradient by its whole term, and
+    free-running CPU runs of these settings that differ only so (oneDNN
+    on and off) part by up to 1.2 of their movement; the q8 wire's
+    ``round`` is taken likewise.  The units whose branch the CPU would
+    have taken the other way are counted, and each must lie within 1e-3
+    of its branch point (relative to its call's largest input), where a
+    run that computes other values flips at order 1.  Every setting
+    runs; the phase then fails if any missed."""
+    from repro_torch.core import client
+    from repro_torch.models import kinks
+    rows, missed = [], []
+    for name in OTHER_MODELS:
+        setup = other_setup(name, "small", samples=400, clients=6)
+        ok, errs = check_one_step(torch, name, setup)
+        rows.append(dict(model=name, one_step_max_abs_err=errs,
+                         one_step_within=ok))
+        if not ok:
+            missed.append(f"{name} one step")
+        conv = not name.startswith("lstm")
+        if conv:  # resolve auto's conv test outside the recorded runs
+            p, s, fn = setup["model"]
+            client.model_has_conv(fn, p, s,
+                                  torch.as_tensor(setup["te"].x[:1]))
+        names = ("AS", "SA") + (("AA-q8",) if name == "resnet18" else ())
+        for sname in names:
+            setting, kw, _ = OTHER_SETTINGS[sname]
+            for batched in (False, True):
+                eg = build_engine(torch, setup, setting, "cuda",
+                                  batch_clients=batched, **kw)
+                p0 = eg._flat_params.cpu()
+                record = kinks.Record() if conv else contextlib.nullcontext()
+                with record:
+                    rg = eg.run(OTHER_ROUNDS)
+                ec = build_engine(torch, setup, setting, "cpu",
+                                  batch_clients=batched, **kw)
+                replay = (kinks.Replay(record.choices) if conv
+                          else contextlib.nullcontext())
+                with replay:
+                    rc = ec.run(OTHER_ROUNDS)
+                same_host = (
+                    ec.tx_bytes == eg.tx_bytes
+                    and ec.rx_bytes == eg.rx_bytes
+                    and rc.staleness_hist == rg.staleness_hist
+                    and list(rc.participation) == list(rg.participation)
+                    and list(rc.sched_stats["staleness_bins"])
+                    == list(rg.sched_stats["staleness_bins"])
+                    and ec.wave_size_hist == eg.wave_size_hist
+                    and ec.wave_impl_resolved == eg.wave_impl_resolved
+                    and [x.sim_time for x in rc.metrics.records]
+                    == [x.sim_time for x in rg.metrics.records])
+                err, rel, close, tol = params_distance(
+                    torch, kw, eg._flat_params.cpu(), ec._flat_params, p0)
+                sg, sc = (flat_state(torch, e.global_state)
+                          for e in (eg, ec))
+                s_err = float((sg - sc).abs().max()) if sc.numel() else 0.0
+                s_close = torch.allclose(sg, sc, rtol=1e-4, atol=1e-5)
+                taken = (f"the card's {len(record.choices)} branch points "
+                         f"taken, {replay.flips} units the other side of "
+                         f"the CPU's own, margin {replay.margin:.1e}"
+                         if conv else "no branch points")
+                label = (f"{name} {sname} "
+                         f"{'batched' if batched else 'sequential'}")
+                print(f"  {label} card vs CPU, {OTHER_ROUNDS} rounds: "
+                      f"bytes/schedule {'equal' if same_host else 'DIFFER'}"
+                      f", params max|err|={err:.3e} rel {rel:.3e}, state "
+                      f"max|err|={s_err:.3e} ({tol}; state rtol=1e-4, "
+                      f"atol=1e-5); {taken}"
+                      + (f", waves {ec.wave_impl_resolved}"
+                         if batched else ""))
+                if not (same_host and close and s_close and (
+                        not conv or (replay.done and replay.margin <= 1e-3))):
+                    missed.append(label)
+                rows.append(dict(
+                    setting=f"{name} {sname}", batched=batched,
+                    wave_impl=ec.wave_impl_resolved, host_equal=same_host,
+                    params_max_abs_err=err, params_rel_to_movement=rel,
+                    state_max_abs_err=s_err, within=close and s_close,
+                    branch_points=len(record.choices) if conv else 0,
+                    flipped_units=replay.flips if conv else 0,
+                    flip_margin=replay.margin if conv else 0.0))
+    if missed:
+        fail(f"the other models on the card disagree with the CPU: "
+             f"{missed}")
+    return rows
+
+
+def run_other_models(torch, wrappers):
+    """Phase 6 for the other models at full width: ResNet-18 (width 64,
+    D = 11,173,962, 9,600 state floats in 40 leaves) and VGG-16 (width 1,
+    D = 15,240,906) on 32x32 synthetic CIFAR-10, the LSTM at the
+    reference's defaults (embed 64, hidden 128: char D = 114,256,
+    sentiment D = 163,074); 2000 samples, 16 clients, k = 4; the paper's
+    four settings (ResNet-18 also AA on q8), OTHER_ROUNDS rounds each on
+    the batched engine, every launch counter reset before and read after
+    (a fold an upload, an aggregate a sync round), finite params and
+    state after every round, then again from a fresh engine, which must
+    repeat the first bit for bit (params, state, every record).  Returns
+    the rows and the first runs' launches summed."""
+    from repro_torch import tree
+    rows = []
+    launches = dict.fromkeys(KERNELS, 0)
+    for name, spec in OTHER_MODELS.items():
+        setup = other_setup(name, "full", samples=2000, clients=16)
+        p0, s0, _ = setup["model"]
+        d = sum(v.numel() for v in tree.tree_leaves(p0))
+        n_state = sum(v.numel() for v in tree.tree_leaves(s0))
+        if (d, n_state) != (spec["d_full"], spec["state_full"]):
+            fail(f"{name}: D={d} and {n_state} state floats, expected "
+                 f"{spec['d_full']} and {spec['state_full']}")
+        names = ("AS", "AA", "SS", "SA") + (
+            ("AA-q8",) if name == "resnet18" else ())
+        print(f"  {name}: D = {d:,}, {n_state:,} state floats in "
+              f"{len(tree.tree_leaves(s0))} leaves")
+        for sname in names:
+            setting, kw, spec_l = OTHER_SETTINGS[sname]
+            runs = []
+            for _ in range(2):
+                eng = build_engine(torch, setup, setting, "cuda", **kw)
+                out = run_engine(torch, eng, wrappers, OTHER_ROUNDS)
+                runs.append(out)
+            (eng, res, counts, wall, split, finite, drawn), \
+                (eng2, res2, counts2, wall2, split2, _, drawn2) = runs
+            label = f"{name} {sname}"
+            check_run(torch, label, kw, spec_l, eng, res, counts, finite,
+                      drawn, rounds=OTHER_ROUNDS)
+            rec, rec2 = (run_record(e, r, c, dr) for e, r, c, dr in
+                         ((eng, res, counts, drawn),
+                          (eng2, res2, counts2, drawn2)))
+            same = (torch.equal(eng._flat_params.view(torch.int32),
+                                eng2._flat_params.view(torch.int32))
+                    and torch.equal(
+                        flat_state(torch, eng.global_state).view(torch.int32),
+                        flat_state(torch, eng2.global_state).view(
+                            torch.int32)))
+            differ = [key for key in rec if rec[key] != rec2[key]]
+            print(f"  {label}: acc/round "
+                  f"{[round(a, 4) for a in rec['accuracy']]}  tx_bytes="
+                  f"{eng.tx_bytes} uploads={rec['uploads']} waves "
+                  f"{dict(sorted(eng.wave_size_hist.items()))} "
+                  f"({eng.wave_impl_resolved})  launches "
+                  + " ".join(f"{n}={c}" for n, c in counts.items() if c))
+            print(f"      wall {wall:.3f} s: {split_line(split)}")
+            records = ("every record equal" if not differ
+                       else f"differ in {differ}")
+            print(f"      repeat from a fresh engine: params and state "
+                  f"{'bitwise equal' if same else 'DIFFER'}, {records}; "
+                  f"wall {wall2:.3f} s: {split_line(split2)}")
+            rows.append(dict(setting=label, d=d, state_floats=n_state,
+                             **rec, wall_s=wall, split_s=split,
+                             repeat=dict(bitwise=same, differing=differ,
+                                         wall_s=wall2, split_s=split2)))
+            if not same or differ:
+                fail(f"{label}: a second run from a fresh engine does not "
+                     f"repeat the first (params and state bitwise {same}, "
+                     f"differing {differ})")
+            for n, c in counts.items():
+                launches[n] += c
+            del eng, res, eng2, res2, runs
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2714,6 +3121,9 @@ def main() -> None:
           "top-k codecs, server channels and pytree compression at full "
           "width")
     small = check_engine_small(torch)
+    t0 = time.perf_counter()
+    small_models = check_models_small(torch)
+    print(f"  the other models' phase 5: {time.perf_counter() - t0:.1f} s")
     codec = check_codec(torch)
     channels = check_channels(torch)
     pytree = check_pytree(torch, q_mod)
@@ -2723,6 +3133,11 @@ def main() -> None:
           f"{len(MAIN_SETTINGS)} settings; the compression path")
     main_rows, launches, sequential_rows, vmap_rows = run_main_path(
         torch, wrappers)
+    t0 = time.perf_counter()
+    other_rows, other_launches = run_other_models(torch, wrappers)
+    print(f"  the other models' phase 6: {time.perf_counter() - t0:.1f} s")
+    for name, c in other_launches.items():
+        launches[name] += c
     compression = run_compression_path(torch, q_mod, wrappers)
     for name in INT8_KERNELS:
         launches[name] = compression["launches"][name]
@@ -2753,10 +3168,12 @@ def main() -> None:
                        timer_floor_ms=floor_ms, parent_ms=parent_ms,
                        codec_ms=codec_ms,
                        one_launch=one_launch,
-                       small=small, codec=codec, channels=channels,
+                       small=small, small_models=small_models,
+                       codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,
                        main_path_sequential=sequential_rows,
                        main_path_vmap=vmap_rows,
+                       other_models=other_rows,
                        compression_path=compression, serving=serving,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)

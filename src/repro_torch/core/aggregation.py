@@ -13,6 +13,9 @@ wire:
   * ``sdga``: discounted mean + server momentum + EMA anchor
   * ``fedasync``: K sequential mixes p <- (1 - a_i) p + a_i w_i
 
+:func:`weighted_mean` is fedavg's mean of the uploads' non-trainable
+state (BatchNorm statistics), taken over trees of tensors.
+
 Two channels:
 
   * buffered (``step``): the resident (K, D) rows (f32), (K, Dq) int8
@@ -51,6 +54,7 @@ from typing import Callable, Dict, NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tree
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import BLOCK as QBLOCK
@@ -123,6 +127,25 @@ def sum_in_order(w: np.ndarray) -> np.float32:
     for x in np.asarray(w, np.float32):
         s = np.float32(s + x)
     return s
+
+
+def weighted_mean(stacked, weights):
+    """``sum_k(w_k * leaf[k]) / max(sum w, 1e-12)`` in f32, per leaf of
+    the K-stacked tree ``stacked`` (the reference's
+    ``aggregation.weighted_mean``; fedavg's mean of the uploads'
+    BatchNorm states).  The K terms and the weights sum in k order, and
+    the quotient is a true division by an f32 tensor."""
+    w = np.asarray(weights, np.float32)
+    denom = max(sum_in_order(w), np.float32(1e-12))
+
+    def red(leaf):
+        acc = leaf[0].to(torch.float32) * float(w[0])
+        for k in range(1, len(w)):
+            acc = acc + leaf[k].to(torch.float32) * float(w[k])
+        return (acc / torch.tensor(denom, dtype=torch.float32,
+                                   device=acc.device)).to(leaf.dtype)
+
+    return tree.tree_map(red, stacked)
 
 
 def edge_traffic(partial_nbytes: int) -> Dict:

@@ -45,6 +45,8 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from repro_torch import tree
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -53,7 +55,7 @@ class ClientState:
     """Host-side record for one simulated client."""
     cid: int
     params: Params  # current local weights
-    model_state: Any  # non-trainables (none for the paper CNN)
+    model_state: Any  # non-trainables (ResNet-18's BatchNorm statistics)
     version: int  # global round the local model derives from
     n_samples: int
     speed: float  # relative compute speed (samples/sec multiplier)
@@ -71,38 +73,47 @@ def sequence_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def make_loss_fn(apply_fn: Callable, kind: str):
-    """kind: image | sentiment.  ``char`` (next-character prediction)
-    belongs with the LSTM, which is not ported yet."""
-    if kind == "char":
-        raise NotImplementedError("kind='char' (LSTM) is not ported yet")
+    """kind: image | char | sentiment -> ``loss(params, state, x, y,
+    mask) -> (loss, new state)``.  ``char`` (next-character prediction)
+    scores ``logits[:, :-1]`` against ``y[:, 1:]``, the (B,) mask
+    broadcast over the positions."""
+    if kind not in ("image", "char", "sentiment"):
+        raise ValueError(f"kind={kind!r} not in (image, char, sentiment)")
 
     def loss(params, model_state, x, y, mask):
         logits, new_state = apply_fn(params, model_state, x, True)
+        if kind == "char":
+            m = mask[:, None] * torch.ones_like(y[:, 1:],
+                                                dtype=torch.float32)
+            return sequence_loss(logits[:, :-1], y[:, 1:], m), new_state
         return sequence_loss(logits, y, mask), new_state
 
     return loss
 
 
-def local_epoch(loss_fn: Callable, params: Params, model_state, xs, ys,
+def local_epoch(loss_fn: Callable, params, model_state, xs, ys,
                 mask, valid: np.ndarray, lr: float):
-    """One epoch of plain SGD.  xs (n_batches, B, ...), ys (n_batches, B),
-    mask (n_batches, B) on the device; ``valid`` (n_batches,) host bools,
-    True where the batch has any real sample.  Returns (params', state',
-    mean loss over valid batches) with the loss as a device scalar."""
-    names = list(params)
-    p = {k: v.detach() for k, v in params.items()}
+    """One epoch of plain SGD.  xs (n_batches, B, ...), ys (n_batches, B,
+    ...), mask (n_batches, B) on the device; ``valid`` (n_batches,) host
+    bools, True where the batch has any real sample (a batch without one
+    keeps params and state, as the reference's ``where(any_valid, ...)``).
+    Returns (params', state', mean loss over valid batches) with the loss
+    as a device scalar."""
+    leaves0, treedef = tree.tree_flatten(params)
+    p = [v.detach() for v in leaves0]
     s = model_state
     loss_sum = torch.zeros((), device=xs.device)
     for b in np.flatnonzero(valid):
-        leaves = [p[k].requires_grad_(True) for k in names]
-        loss, s = loss_fn(dict(zip(names, leaves)), s, xs[b], ys[b],
-                          mask[b])
+        leaves = [v.requires_grad_(True) for v in p]
+        loss, s = loss_fn(tree.tree_unflatten(treedef, leaves), s, xs[b],
+                          ys[b], mask[b])
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
-            p = {k: leaf - lr * g for k, leaf, g in zip(names, leaves,
-                                                        grads)}
+            p = [leaf - lr * g for leaf, g in zip(leaves, grads)]
+        s = tree.tree_map(torch.Tensor.detach, s)
         loss_sum = loss_sum + loss.detach()
-    return p, s, loss_sum / max(int(valid.sum()), 1)
+    return (tree.tree_unflatten(treedef, p), s,
+            loss_sum / max(int(valid.sum()), 1))
 
 
 def _pair(v):
@@ -145,37 +156,40 @@ class _GemmConvs(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-def _vmap_epoch(loss_fn: Callable, params: Params, model_state, xs, ys,
+def _vmap_epoch(loss_fn: Callable, params, model_state, xs, ys,
                 mask, valid: np.ndarray, lr: float):
-    """One epoch of plain SGD for K lanes at once: params (K, ...) each,
-    xs (K, n_batches, B, ...), ys and mask likewise, ``valid`` (K,
-    n_batches) host bools.  Each step is one ``vmap`` of
-    ``grad_and_value`` over the lanes, its convolutions as unfold +
-    matmul (:class:`_GemmConvs`); a lane whose batch holds no valid
-    sample keeps its params (``torch.where``), so its epoch is its
-    sequential one up to the reduction order of the batched ops.  A batch
-    that no lane holds is skipped on the host.  The state passes through
-    (the ported models have none).  Returns (params', state, (K,) mean
-    loss over each lane's valid batches)."""
+    """One epoch of plain SGD for K lanes at once: params and state (K,
+    ...) each, xs (K, n_batches, B, ...), ys and mask likewise, ``valid``
+    (K, n_batches) host bools.  Each step is one ``vmap`` of
+    ``grad_and_value(..., has_aux=True)`` over the lanes, the new state
+    the aux, convolutions as unfold + matmul (:class:`_GemmConvs`); a
+    lane whose batch holds no valid sample keeps its params and state
+    (``torch.where``), so its epoch is its sequential one up to the
+    reduction order of the batched ops.  A batch that no lane holds is
+    skipped on the host.  Returns (params', state', (K,) mean loss over
+    each lane's valid batches)."""
     from torch.func import grad_and_value, vmap
 
-    def lane_loss(p, x, y, m):
-        return loss_fn(p, model_state, x, y, m)[0]
-
-    step = vmap(grad_and_value(lane_loss))
+    step = vmap(grad_and_value(loss_fn, has_aux=True))
     ok_all = torch.as_tensor(valid, device=xs.device)
-    p = dict(params)
+    p, s = params, model_state
     loss_sum = torch.zeros(valid.shape[0], device=xs.device)
+
+    def keep(ok):
+        return lambda new, old: torch.where(
+            ok.view((-1,) + (1,) * (old.dim() - 1)), new, old)
+
     for b in np.flatnonzero(valid.any(axis=0)):
         with _GemmConvs():
-            grads, losses = step(p, xs[:, b], ys[:, b], mask[:, b])
+            grads, (losses, s_new) = step(p, s, xs[:, b], ys[:, b],
+                                          mask[:, b])
         ok = ok_all[:, b]
-        p = {k: torch.where(ok.view((-1,) + (1,) * (v.dim() - 1)),
-                            v - lr * grads[k], v) for k, v in p.items()}
+        p = tree.tree_map(lambda v, g: keep(ok)(v - lr * g, v), p, grads)
+        s = tree.tree_map(keep(ok), s_new, s)
         loss_sum = loss_sum + torch.where(ok, losses.detach(), 0.0)
     n_valid = torch.as_tensor(np.maximum(valid.sum(axis=1), 1),
                               dtype=torch.float32, device=xs.device)
-    return p, model_state, loss_sum / n_valid
+    return p, s, loss_sum / n_valid
 
 
 class _ConvSeen(TorchFunctionMode):
@@ -238,8 +252,9 @@ def make_batched_hetero_train(apply_fn: Callable, kind: str, target: str,
         - row_end) / lr for ``target="grad"`` (Eq. 3, divided by an f32
         tensor on the rows' device, as ``PytreeCodec.ravel_delta``
         divides), the final local weights for ``target="params"``;
-      * ``new_flat`` (K, D) the final local weights; ``states`` the final
-        model state (passed through: the ported models have none);
+      * ``new_flat`` (K, D) the final local weights; ``states`` the K
+        lanes' final model states, K-stacked (``states_k`` is the lanes'
+        K-stacked start states; ``{}`` for a model without state);
         ``losses`` (K,) mean losses as device values, never fetched.
 
     ``impl`` ``map`` runs the lanes one after another through
@@ -256,17 +271,20 @@ def make_batched_hetero_train(apply_fn: Callable, kind: str, target: str,
         idx = [int(i) for i in idx]
         lr_t = torch.tensor(lr, dtype=torch.float32, device=flat_k.device)
         if impl == "map":
-            new_rows, losses = [], []
+            new_rows, new_states, losses = [], [], []
             for i, cid in enumerate(idx):
-                p, s = codec.unravel(flat_k[i]), states_k
+                p = codec.unravel(flat_k[i])
+                s = tree.tree_map(lambda leaf, i=i: leaf[i], states_k)
                 loss = torch.zeros((), device=flat_k.device)
                 for _ in range(local_epochs):
                     p, s, loss = local_epoch(
                         loss_fn, p, s, bank["xs"][cid], bank["ys"][cid],
                         bank["mask"][cid], bank["valid"][cid], lr)
                 new_rows.append(codec.ravel(p))
+                new_states.append(s)
                 losses.append(loss)
             new_flat = torch.stack(new_rows)
+            states = tree.tree_stack(new_states)
             losses = torch.stack(losses)
         else:
             gather = torch.as_tensor(idx, device=flat_k.device)
@@ -275,14 +293,16 @@ def make_batched_hetero_train(apply_fn: Callable, kind: str, target: str,
             # contiguous rows: the sync round's rows are one broadcast
             # (D,) row, and a vmapped step on CUDA must not see its leaves
             # with a stride-0 lane dimension
-            p, s = codec.unravel_rows(flat_k.contiguous()), states_k
+            p = codec.unravel_rows(flat_k.contiguous())
+            s = tree.tree_map(torch.Tensor.contiguous, states_k)
             losses = None
             for _ in range(local_epochs):
                 p, s, losses = _vmap_epoch(loss_fn, p, s, xs, ys, mask,
                                            bank["valid"][idx], lr)
             new_flat = codec.ravel_rows(p)
+            states = s
         vecs = (flat_k - new_flat) / lr_t if target == "grad" else new_flat
-        return vecs, new_flat, states_k, losses
+        return vecs, new_flat, states, losses
 
     return round_fn
 
@@ -293,14 +313,18 @@ def make_batched_local_train(apply_fn: Callable, kind: str, target: str,
     broadcast global model: ``round_fn(flat, state, bank, idx, lr) ->
     (vecs, states, losses)``, the wave of
     :func:`make_batched_hetero_train` with every lane's row the global
-    (D,) row ``flat``."""
+    (D,) row ``flat`` and its state the global ``state``; ``states`` the
+    K lanes' final states, K-stacked."""
     wave = make_batched_hetero_train(apply_fn, kind, target, local_epochs,
                                      codec, impl)
 
     def round_fn(flat: torch.Tensor, state, bank: Dict,
                  idx: Sequence[int], lr: float):
-        vecs, _, states, losses = wave(flat.expand(len(idx), flat.numel()),
-                                       state, bank, idx, lr)
+        k = len(idx)
+        states_k = tree.tree_map(
+            lambda leaf: leaf.expand((k,) + tuple(leaf.shape)), state)
+        vecs, _, states, losses = wave(flat.expand(k, flat.numel()),
+                                       states_k, bank, idx, lr)
         return vecs, states, losses
 
     return round_fn
@@ -318,15 +342,17 @@ def make_flat_eval_fn(apply_fn: Callable, kind: str, codec):
 @torch.no_grad()
 def evaluate(apply_fn: Callable, kind: str, params: Params, model_state,
              x: torch.Tensor, y: torch.Tensor):
-    """(accuracy, loss) over the test set, as device scalars."""
-    if kind == "char":
-        raise NotImplementedError("kind='char' (LSTM) is not ported yet")
+    """(accuracy, loss) over the test set, as device scalars; for
+    ``char`` the next-character accuracy and loss, averaged over the
+    positions."""
     logits, _ = apply_fn(params, model_state, x, False)
+    if kind == "char":
+        logits, y = logits[:, :-1], y[:, 1:]
     pred = torch.argmax(logits, dim=-1)
     acc = torch.mean((pred == y).to(torch.float32))
     return acc, sequence_loss(logits, y)
 
 
-def pytree_bytes(tree: Dict[str, torch.Tensor]) -> int:
-    """Bytes of a dict of tensors."""
-    return sum(t.numel() * t.element_size() for t in tree.values())
+def pytree_bytes(tree_) -> int:
+    """Bytes of the leaves of a (nested) dict of tensors."""
+    return sum(t.numel() * t.element_size() for t in tree.tree_leaves(tree_))

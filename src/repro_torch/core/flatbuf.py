@@ -1,9 +1,10 @@
 """Flat (K, D) update-buffer codec and the server channel buffers.
 
-  * :class:`PytreeCodec` fixes the layout of the model's parameter dict
-    once: leaves in sorted-key order (the order ``jax.tree_util`` gives a
-    dict), each leaf flattened in its own (row-major) layout, so a flat
-    row is element for element the reference's.  On the q8 wire it also
+  * :class:`PytreeCodec` fixes the layout of the model's parameter tree
+    once: leaves in sorted-key order at every level (the order
+    ``jax.tree_util`` gives nested dicts), each leaf flattened in its
+    own (row-major) layout, so a flat row is element for element the
+    reference's.  On the q8 wire it also
     emits an upload as int8 blocks: pad to ``dq``, add the client's
     error-feedback residual, quantize each ``qblock`` block
     (:func:`repro_torch.kernels.ref.quantize_ref`), and keep what the
@@ -31,20 +32,23 @@
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch import prng
+from repro_torch import prng, tree
 from repro_torch.kernels import ref
 from repro_torch.kernels.quantize import BLOCK as QBLOCK
 
 
 class PytreeCodec:
-    """Flat dict of tensors (the paper CNN's parameters) <-> flat (D,) f32
-    vector, leaves in sorted-key order.
+    """Nested dict of tensors (a model's parameters or its BatchNorm
+    state) <-> flat (D,) f32 vector, leaves in sorted-key order at every
+    level (:func:`repro_torch.tree.tree_leaves`, ``jax.tree_util``'s
+    order), each leaf flattened row-major.  ``keys`` are the leaves'
+    ``/``-joined key paths (a flat dict's keys).
 
     ``qblock`` is the quantization granule (one f32 absmax scale per
     ``qblock`` lanes); ``dq`` is D rounded up to a qblock multiple, the
@@ -53,10 +57,11 @@ class PytreeCodec:
     rounded up to a qblock multiple (at most ``dq``) kept coordinates per
     upload, ``nk_qblocks = nk / qblock`` value scales."""
 
-    def __init__(self, template: Dict[str, torch.Tensor],
-                 qblock: int = QBLOCK, topk_frac: float = 0.1):
-        self.keys = sorted(template)
-        self.shapes = [tuple(template[k].shape) for k in self.keys]
+    def __init__(self, template, qblock: int = QBLOCK,
+                 topk_frac: float = 0.1):
+        leaves, self.treedef = tree.tree_flatten(template)
+        self.keys = tree.tree_paths(template)
+        self.shapes = [tuple(leaf.shape) for leaf in leaves]
         self.sizes = [int(np.prod(s)) if s else 1 for s in self.shapes]
         self.offsets = np.concatenate([[0], np.cumsum(self.sizes)])
         self.d = int(self.offsets[-1])
@@ -72,9 +77,9 @@ class PytreeCodec:
         self.nk = min(-(-nk_raw // self.qblock) * self.qblock, self.dq)
         self.nk_qblocks = self.nk // self.qblock
 
-    def ravel(self, tree) -> torch.Tensor:
-        return torch.cat([tree[k].reshape(-1).to(torch.float32)
-                          for k in self.keys])
+    def ravel(self, tree_) -> torch.Tensor:
+        return torch.cat([leaf.reshape(-1).to(torch.float32)
+                          for leaf in tree.tree_leaves(tree_)])
 
     def ravel_delta(self, start, end, scale: float) -> torch.Tensor:
         """ravel((start - end) / scale): FedSGD's cumulative gradient
@@ -82,19 +87,42 @@ class PytreeCodec:
         tensor on the rows' device: a true division, as the reference's
         (PyTorch turns a division by a Python number on CUDA into a
         multiply by its reciprocal, which rounds differently)."""
-        diff = torch.cat([start[k].reshape(-1).to(torch.float32)
-                          - end[k].reshape(-1).to(torch.float32)
-                          for k in self.keys])
+        diff = torch.cat([a.reshape(-1).to(torch.float32)
+                          - b.reshape(-1).to(torch.float32)
+                          for a, b in zip(tree.tree_leaves(start),
+                                          tree.tree_leaves(end))])
         return diff / torch.tensor(scale, dtype=torch.float32,
                                    device=diff.device)
 
-    def unravel(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(D,) -> dict of VIEWS into ``flat`` (no copies).  The engine
+    def unravel(self, flat: torch.Tensor):
+        """(D,) -> tree of VIEWS into ``flat`` (no copies).  The engine
         never writes a flat params row in place, so the views stay valid
         for as long as anyone holds them."""
         o = self.offsets
-        return {k: flat[int(o[i]):int(o[i + 1])].view(shape)
-                for i, (k, shape) in enumerate(zip(self.keys, self.shapes))}
+        return tree.tree_unflatten(self.treedef, [
+            flat[int(o[i]):int(o[i + 1])].view(shape)
+            for i, shape in enumerate(self.shapes)])
+
+    def roundtrip_q8(self, tree_):
+        """quantize -> dequantize -> unravel of the tree on the q8 wire
+        (no residual): the server's view of a model-target upload's
+        BatchNorm state, which rides the int8 channel beside the weights
+        and is consumed as a tree by the state aggregation (the
+        reference codec's ``roundtrip_q8``)."""
+        rows = self.roundtrip_q8_rows(tree.tree_map(lambda v: v[None],
+                                                    tree_))
+        return tree.tree_map(lambda v: v[0], rows)
+
+    def roundtrip_q8_rows(self, stacked):
+        """K-stacked tree -> K-stacked :meth:`roundtrip_q8`: each row's
+        blocks quantized alone (an absmax and elementwise steps), so a
+        row is bitwise its tree's roundtrip."""
+        rows = self.ravel_rows(stacked)
+        x = F.pad(rows, (0, self.dq - self.d))
+        q, s = ref.quantize_ref(x.reshape(-1, self.qblock))
+        deq = (q.to(torch.float32) * s[:, None]).view(rows.shape[0],
+                                                      self.dq)
+        return self.unravel_rows(deq[:, :self.d])
 
     # ---- q8 wire ----
 
@@ -231,17 +259,17 @@ class PytreeCodec:
         return self._topk(self.ravel(tree), residual)
 
     def ravel_rows(self, trees) -> torch.Tensor:
-        """K-stacked dict (each leaf (K, *shape)) -> (K, D) rows."""
-        return torch.cat([trees[k].reshape(trees[k].shape[0], -1)
-                          .to(torch.float32) for k in self.keys], dim=1)
+        """K-stacked tree (each leaf (K, *shape)) -> (K, D) rows."""
+        return torch.cat([leaf.reshape(leaf.shape[0], -1).to(torch.float32)
+                          for leaf in tree.tree_leaves(trees)], dim=1)
 
-    def unravel_rows(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(K, D) rows -> dict of (K, *shape) leaves (copies where a leaf's
+    def unravel_rows(self, rows: torch.Tensor):
+        """(K, D) rows -> tree of (K, *shape) leaves (copies where a leaf's
         columns are not contiguous)."""
         o, k = self.offsets, rows.shape[0]
-        return {key: rows[:, int(o[i]):int(o[i + 1])].reshape((k,) + shape)
-                for i, (key, shape) in enumerate(zip(self.keys,
-                                                     self.shapes))}
+        return tree.tree_unflatten(self.treedef, [
+            rows[:, int(o[i]):int(o[i + 1])].reshape((k,) + shape)
+            for i, shape in enumerate(self.shapes)])
 
     # ---- the row forms of the batched engine: each row is bitwise the
     # per-upload codec's output for that row ----

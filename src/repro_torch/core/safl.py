@@ -54,11 +54,20 @@ float sum depends on its order) or scattered into their slots
 stay in a device ring
 (:class:`repro_torch.core.metrics.DeviceMetricsRing`) until the run ends.
 ``batch_clients=False`` runs the sequential per-upload engine, the
-parity oracle; with ``wave_impl="map"`` (what ``auto`` picks for the CNN)
-the batched engine equals it bit for bit.  ``wave_buckets`` is accepted
-for the reference's configs and changes nothing: the reference pads a
-wave to a power of two so XLA compiles few shapes, and PyTorch compiles
-nothing per shape, so every wave runs at its own size.
+parity oracle; with ``wave_impl="map"`` (what ``auto`` picks for the
+conv models) the batched engine equals it bit for bit.  ``wave_buckets``
+is accepted for the reference's configs and changes nothing: the
+reference pads a wave to a power of two so XLA compiles few shapes, and
+PyTorch compiles nothing per shape, so every wave runs at its own size.
+
+The non-trainable model state (ResNet-18's BatchNorm statistics) rides
+beside the flat rows as a tree (:mod:`repro_torch.tree`): each upload
+carries its client's new state, fedavg's server round takes the uploads'
+sample-weighted mean and every other mode adopts the newest upload's; a
+model target on the q8 / q4 wire ships the state on the q8 wire, so the
+server sees its quantize -> dequantize roundtrip and the upload's bytes
+count ``dq + 4 * n_qblocks`` of the state codec (the clients keep their
+exact state).  Token inputs (the LSTM's) stay int64 on the device.
 
 Both engines copy the reference's host arithmetic exactly: np.float32
 weight vectors, the simulated-time model, the byte envelopes, the
@@ -81,8 +90,9 @@ import torch
 
 from repro_torch import faults as faultsmod
 from repro_torch import sched as schedmod
+from repro_torch import tree
 from repro_torch.core import flatbuf
-from repro_torch.core.aggregation import FlatServer
+from repro_torch.core.aggregation import FlatServer, weighted_mean
 from repro_torch.core.client import (ClientState, evaluate, local_epoch,
                                      make_batched_hetero_train,
                                      make_batched_local_train,
@@ -105,6 +115,14 @@ _GRAD_ENVELOPE = 0.002
 
 # aggregation targets that upload model weights (vs cumulative gradients)
 _MODEL_TARGETS = ("fedavg", "fedasync")
+
+
+def _inputs(x) -> np.ndarray:
+    """A dataset's inputs as the models take them: integer tokens (the
+    LSTM's embedding indices) as int64, images as float32."""
+    x = np.asarray(x)
+    return x.astype(np.int64 if np.issubdtype(x.dtype, np.integer)
+                    else np.float32)
 
 
 @dataclasses.dataclass
@@ -148,19 +166,16 @@ class FLEngine:
                 raise NotImplementedError(
                     f"FLConfig.{field}={val!r} is not ported yet "
                     f"(ported: {ok})")
-        if init_state:
-            raise NotImplementedError(
-                "non-trainable model state (BatchNorm) is not ported yet")
         self.device = dev = resolve_device(device)
         self.cfg = fl_cfg
         self.kind = kind
         self.apply_fn = apply_fn
         self.loss_fn = make_loss_fn(apply_fn, kind)
-        self.test_x = torch.as_tensor(np.asarray(test_x, np.float32),
-                                      device=dev)
+        self.test_x = torch.as_tensor(_inputs(test_x), device=dev)
         self.test_y = torch.as_tensor(np.asarray(test_y, np.int64),
                                       device=dev)
-        init_params = {k: v.to(dev) for k, v in init_params.items()}
+        init_params = tree.tree_map(lambda v: v.to(dev), init_params)
+        init_state = tree.tree_map(lambda v: v.to(dev), init_state)
 
         rng = np.random.default_rng(fl_cfg.seed)
         self.clients: List[ClientState] = []
@@ -176,8 +191,7 @@ class FLEngine:
         # shards move to the device once; which batches hold a real
         # sample is kept on the host
         self.shards = [{
-            "xs": torch.as_tensor(np.asarray(s["xs"], np.float32),
-                                  device=dev),
+            "xs": torch.as_tensor(_inputs(s["xs"]), device=dev),
             "ys": torch.as_tensor(np.asarray(s["ys"], np.int64), device=dev),
             "mask": torch.as_tensor(np.asarray(s["mask"], np.float32),
                                     device=dev),
@@ -223,6 +237,17 @@ class FLEngine:
             ema_anchor=fl_cfg.ema_anchor or 0.05, wire=self._wire,
             qblock=fl_cfg.quant_block, device=dev)
         self._opt = self._server.init_opt(self._flat_params)
+        # model targets on the q8 / q4 wire: the non-trainable state
+        # (BatchNorm statistics) ships on the q8 wire beside the weights
+        # (q4 too: the state is tiny next to D); the server sees its
+        # quantize -> dequantize roundtrip, the clients keep their exact
+        # state
+        self._state_codec = None
+        if (self._wire in ("q8", "q4")
+                and fl_cfg.aggregation in _MODEL_TARGETS
+                and not tree.is_empty(init_state)):
+            self._state_codec = flatbuf.PytreeCodec(
+                init_state, qblock=fl_cfg.quant_block)
         # server channel: "auto" is streaming for semi-async (uploads
         # trickle in) and buffered for sync (a round's rows come together)
         self._channel = fl_cfg.server_channel
@@ -302,7 +327,9 @@ class FLEngine:
         values + block scales; q4: two lanes per byte + the same scales;
         topk: index + value per kept coordinate + the compacted values'
         scales) plus the serialization envelope of its target (model
-        weights carry the state and the layer structure)."""
+        weights carry the state and the layer structure; the state at its
+        q8 bytes, ``dq + 4 * n_qblocks`` of the state codec, where it
+        rides the lossy wire, else its raw bytes)."""
         if self._lossy:
             payload = payload_nbytes(self._wire, d=self.codec.d,
                                      dq=self.codec.dq,
@@ -312,9 +339,24 @@ class FLEngine:
         else:
             payload = self._params_bytes
         if self.cfg.aggregation in _MODEL_TARGETS:
-            return int((payload + self._state_bytes)
-                       * (1 + _MODEL_ENVELOPE))
+            sc = self._state_codec
+            state = (self._state_bytes if sc is None
+                     else sc.dq + sc.n_qblocks * 4)
+            return int((payload + state) * (1 + _MODEL_ENVELOPE))
         return int(payload * (1 + _GRAD_ENVELOPE))
+
+    def _state_q8(self, state):
+        """The server's view of a model-target upload's state: its q8
+        roundtrip where the state rides the lossy wire, else itself."""
+        if self._state_codec is None:
+            return state
+        return self._state_codec.roundtrip_q8(state)
+
+    def _state_q8_rows(self, states):
+        """:meth:`_state_q8` of K-stacked states."""
+        if self._state_codec is None:
+            return states
+        return self._state_codec.roundtrip_q8_rows(states)
 
     def _residual(self, cid: int) -> torch.Tensor:
         """Client-side error-feedback residual (zeros before the client's
@@ -449,6 +491,8 @@ class FLEngine:
                 self._qbuf.write(*payload, len(buffer))
             else:
                 flatbuf.write_slot(self._buf, payload[0], len(buffer))
+        if cfg.aggregation in _MODEL_TARGETS:
+            s_end = self._state_q8(s_end)
         entry["state"] = s_end
         self.tx_bytes += self._upload_nbytes()
         buffer.append(entry)
@@ -517,9 +561,15 @@ class FLEngine:
         self._broadcast_bytes()
         return m
 
-    def _aggregate(self, buffer: List[Dict]) -> Dict:
+    def _aggregate(self, buffer: List[Dict], states_stacked=None) -> Dict:
         """Server round + unravel of the global model (views into the new
-        flat row).  The paper CNN has no non-trainable state to merge."""
+        flat row) + the non-trainable state: fedavg takes the uploads'
+        sample-weighted mean (:func:`~repro_torch.core.aggregation.
+        weighted_mean`), every other mode adopts the newest buffered
+        state.  The states are ``states_stacked`` (K-stacked, the batched
+        sync round's) or the entries' ``"state"``; entries without one
+        (the batched semi-async path, which closes the state itself)
+        leave the global state as it is."""
         stal = [b["staleness"] for b in buffer]
         if self._streaming:
             m = self._server_round_streaming(stal)
@@ -529,6 +579,19 @@ class FLEngine:
             m = self._server_round(stal, [b["n"] for b in buffer], facs)
         self.global_params = self.codec.unravel(self._flat_params)
         self._last_update_norm = m["update_norm"]
+        if self.cfg.aggregation == "fedavg":
+            if states_stacked is None and buffer and "state" in buffer[0]:
+                states_stacked = tree.tree_stack(
+                    [b["state"] for b in buffer])
+            if states_stacked is not None and \
+                    not tree.is_empty(states_stacked):
+                self.global_state = weighted_mean(
+                    states_stacked, [b["n"] for b in buffer])
+        elif states_stacked is not None:
+            self.global_state = tree.tree_map(lambda leaf: leaf[-1],
+                                              states_stacked)
+        else:
+            self.global_state = buffer[-1].get("state", self.global_state)
         return m
 
     def _eval_due(self, rnd: int, n_rounds: int) -> bool:
@@ -595,11 +658,12 @@ class FLEngine:
                 [s["valid"] for s in self.shards])
         return self._shard_bank
 
-    def _train_wave(self, wave_fn, starts: torch.Tensor, cids: List[int]):
-        """Client training of one wave from its (K, D) start rows, or of
-        the sync round from the global (D,) row: the wave call's
-        outputs."""
-        return wave_fn(starts, self.global_state, self._bank(), cids,
+    def _train_wave(self, wave_fn, starts: torch.Tensor, states,
+                    cids: List[int]):
+        """Client training of one wave from its (K, D) start rows and
+        K-stacked start states, or of the sync round from the global (D,)
+        row and state: the wave call's outputs."""
+        return wave_fn(starts, states, self._bank(), cids,
                        self.cfg.client_lr)
 
     def _payload_rows(self, vecs: torch.Tensor, cids: List[int]) -> tuple:
@@ -698,12 +762,16 @@ class FLEngine:
                                      replace=False)
             buffer: List[Dict] = []
             durations = []
+            states_k = None
             if batched:
                 # the K clients as one round from the global row, their
                 # rows serialized at once into the buffer
                 cids = [int(cid) for cid in active]
-                vecs, _, _ = self._train_wave(round_fn, self._flat_params,
-                                              cids)
+                vecs, states_k, _ = self._train_wave(
+                    round_fn, self._flat_params, self.global_state, cids)
+                if cfg.aggregation in _MODEL_TARGETS:
+                    # the server sees the q8-shipped state's roundtrip
+                    states_k = self._state_q8_rows(states_k)
                 prows = self._payload_rows(vecs, cids)
                 if self._lossy:
                     self._qbuf.set_rows(*prows)
@@ -732,7 +800,7 @@ class FLEngine:
             round_t = max(durations) + self._agg_overhead()
             self.idle_time += sum(round_t - d for d in durations)
             now += round_t
-            self._aggregate(buffer)
+            self._aggregate(buffer, states_stacked=states_k)
             if self._eval_due(self.t_global, n_rounds):
                 self._eval_and_record(now, [0] * len(buffer))
                 if log_every and self.t_global % log_every == 0:
@@ -866,37 +934,64 @@ class FLEngine:
                     waves.append([])
                 waves[w].append((slot, cid))
 
-            g_flat = self._flat_params
+            g_flat, g_state = self._flat_params, self.global_state
             nbytes = self._upload_nbytes()
-            prev_new_flat = None
+            prev_new_flat = prev_states = None
             # a client with further events this horizon: None = it adopted
             # the round-r global row, int = its row in the previous wave's
             # outputs (it continues its local chain)
             carry: Dict[int, Optional[int]] = {}
+            # the horizon's state close: the uploads' server-side states
+            # and sizes in wave order (fedavg's mean), or the state of the
+            # upload in the last slot (every other mode)
+            state_parts: List = []
+            size_parts: List[int] = []
+            last_slot_state = None
             for w, members in enumerate(waves):
                 kw = len(members)
                 self.wave_size_hist[kw] = self.wave_size_hist.get(kw, 0) + 1
                 cids = [cid for _, cid in members]
                 if w == 0:
                     starts = torch.stack([flats[cid] for cid in cids])
+                    states = tree.tree_stack(
+                        [self.clients[cid].model_state for cid in cids])
                 else:
                     rows = [None if (cid, w) in force_global
                             else carry.get(cid) for cid in cids]
                     if all(rv is None for rv in rows):
                         starts = g_flat.expand(kw, self.codec.d)
+                        states = tree.tree_map(
+                            lambda leaf: leaf.expand(
+                                (kw,) + tuple(leaf.shape)), g_state)
                     elif all(rv is not None for rv in rows):
-                        starts = prev_new_flat[torch.as_tensor(
-                            rows, device=self.device)]
+                        ridx = torch.as_tensor(rows, device=self.device)
+                        starts = prev_new_flat[ridx]
+                        states = tree.tree_map(lambda leaf: leaf[ridx],
+                                               prev_states)
                     else:
                         starts = torch.stack(
                             [g_flat if rv is None else prev_new_flat[rv]
                              for rv in rows])
-                vecs, new_flat, _, _ = self._train_wave(wave_fn, starts,
-                                                        cids)
+                        states = tree.tree_stack([
+                            g_state if rv is None else tree.tree_map(
+                                lambda leaf, rv=rv: leaf[rv], prev_states)
+                            for rv in rows])
+                vecs, new_flat, new_states, _ = self._train_wave(
+                    wave_fn, starts, states, cids)
                 self._ingest_wave(h, members, self._payload_rows(vecs, cids))
+                # the server's view of the uploaded states (the q8
+                # roundtrip for a model target on a lossy wire)
+                up_states = (self._state_q8_rows(new_states)
+                             if cfg.aggregation in _MODEL_TARGETS
+                             else new_states)
+                state_parts.append(up_states)
                 for row, (slot, cid) in enumerate(members):
                     c = self.clients[cid]
                     self.tx_bytes += nbytes
+                    size_parts.append(c.n_samples)
+                    if slot == kh - 1:
+                        last_slot_state = tree.tree_map(
+                            lambda leaf, row=row: leaf[row], up_states)
                     # refresh rule (paper §2.2.2): adopt the round-r
                     # global row iff one arrived since the client's
                     # version, else continue from its final local row
@@ -904,12 +999,19 @@ class FLEngine:
                     c.version = r
                     if n_events[cid] > w + 1:
                         carry[cid] = None if adopt else row
+                    elif adopt:
+                        flats[cid] = g_flat
+                        c.model_state = g_state
                     else:
-                        flats[cid] = g_flat if adopt else new_flat[row]
-                prev_new_flat = new_flat
+                        flats[cid] = new_flat[row]
+                        c.model_state = tree.tree_map(
+                            lambda leaf, row=row: leaf[row], new_states)
+                prev_new_flat, prev_states = new_flat, new_states
             for cid in resync_after:
                 flats[cid] = g_flat
-                self.clients[cid].version = r
+                c = self.clients[cid]
+                c.model_state = g_state
+                c.version = r
 
             if self._streaming and h["next"] != kh:
                 raise RuntimeError(f"{h['next']} of {kh} uploads folded")
@@ -917,6 +1019,13 @@ class FLEngine:
                 {"staleness": stal[i], "n": sizes[i],
                  "fac": None if h["fac"] is None else h["fac"][i]}
                 for i in range(kh)])
+            if cfg.aggregation == "fedavg":
+                stacked = tree.tree_map(lambda *ls: torch.cat(ls),
+                                        *state_parts)
+                if not tree.is_empty(stacked):
+                    self.global_state = weighted_mean(stacked, size_parts)
+            else:
+                self.global_state = last_slot_state
             self._staleness_bins += np.bincount(
                 np.minimum(stal, _STALE_BINS - 1), minlength=_STALE_BINS)
             rnd = self.t_global

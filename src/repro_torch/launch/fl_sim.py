@@ -5,7 +5,9 @@
         --mode semi_async --aggregation fedsgd --rounds 30 --device cuda
 
 The reference launcher's flags and ``--json-out`` schema, plus
-``--device`` (``cuda`` by default; raises when no GPU is visible).  The
+``--device`` (``cuda`` by default; raises when no GPU is visible).
+``--model`` takes the paper's four (``cnn``, ``resnet18``, ``vgg16``,
+``lstm``) at the reference launcher's sizes (:func:`build_model`).  The
 run is the horizon-batched engine, as in the reference (``--wave-impl``
 picks how a wave's lanes run; ``--no-wave-buckets`` is accepted and
 changes nothing, since the port runs every wave at its own size);
@@ -32,6 +34,7 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core import FLEngine
 from repro_torch.device import resolve_device
 from repro_torch.data import build_client_shards, make_dataset, train_test_split
+from repro_torch.models.lstm import build_lstm
 from repro_torch.models.vision_cnn import build_paper_model
 from repro_torch.prng import prng_key
 
@@ -40,7 +43,7 @@ SUMMARY_SCHEMA = 1
 
 #: flags of parts not ported yet -> the only value accepted (the default)
 NOT_PORTED = {
-    "model": "cnn", "devices": 1, "mesh": None,
+    "devices": 1, "mesh": None,
     "sched_timing": "static", "horizon": "k",
     "horizon_queue": 0, "horizon_timeout_s": 0.0, "sched_policy": "full",
     "sched_rate_limit": 0, "sched_c": 0, "sched_stale_cap": 4,
@@ -183,6 +186,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def build_model(name: str, ds, device):
+    """(params, state, apply_fn) of ``--model`` at the reference
+    launcher's CPU sizes, drawn from PRNGKey(0) whatever ``--seed`` is, as
+    the reference draws them: the LSTM at embed 32, hidden 64 with the
+    dataset's task head (vocab and outputs 80 for ``char``); the CNN at
+    width 8 on 16x16 images; ResNet-18 at width 8; VGG-16 at width 1/8
+    for 32x32 inputs (on the launcher's 16x16 images its fifth pool leaves
+    no pixel and the first forward raises, as the reference's does)."""
+    key = prng_key(0)
+    if name == "lstm":
+        task = "char" if ds.kind == "char" else "sentiment"
+        kw = dict(embed=32, hidden=64)
+        if task == "char":
+            kw.update(vocab=80, n_out=80)
+        return build_lstm(key, task, device=device, **kw)
+    kw = dict(n_classes=ds.n_classes, in_ch=3)
+    if name == "cnn":
+        kw.update(width=8, image_size=16)
+    elif name == "resnet18":
+        kw.update(width=8)
+    else:
+        kw.update(width_mult=0.125, image_size=32)
+    return build_paper_model(name, key, device=device, **kw)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     device = resolve_device(args.device)  # cuda without a GPU raises
@@ -210,11 +238,7 @@ def main(argv=None) -> dict:
     shards = build_client_shards(tr, args.dist, args.clients, 32,
                                  seed=args.seed, **dist_kw)
 
-    # the reference's CPU-sized CNN (width 8 on 16x16 images), drawn from
-    # PRNGKey(0) whatever --seed is, as the reference draws it
-    p0, s0, fn = build_paper_model(args.model, prng_key(0), device=device,
-                                   n_classes=ds.n_classes, in_ch=3,
-                                   width=8, image_size=16)
+    p0, s0, fn = build_model(args.model, ds, device)
 
     cfg = FLConfig(n_clients=args.clients, k=args.k, mode=args.mode,
                    aggregation=args.aggregation, client_lr=0.05,

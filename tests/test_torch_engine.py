@@ -189,7 +189,7 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
                                   ["--devices", "2"], ["--horizon", "queue"],
                                   ["--sched-timing", "markov"],
                                   ["--sched-policy", "seafl"],
-                                  ["--model", "resnet18"],
+                                  ["--sched-policy", "uniform"],
                                   ["--trace-dir", "x"],
                                   ["--ckpt-every", "5"]])
 def test_fl_sim_refuses_unported_flags(flag, capsys):

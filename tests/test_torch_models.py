@@ -21,7 +21,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import client as tclient  # noqa: E402
 from repro_torch.core.flatbuf import PytreeCodec  # noqa: E402
 from repro_torch.models import vision_cnn as tcnn  # noqa: E402
-from repro_torch import prng  # noqa: E402
+from repro_torch import prng, tree  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = torch.device("cpu")
@@ -120,9 +120,18 @@ def test_init_matches_reference_key(kw):
 
 
 def test_unported_models_raise():
-    for name in ("resnet18", "vgg16"):
-        with pytest.raises(NotImplementedError):
-            tcnn.build_paper_model(name, prng.prng_key(0))
+    """The models this test once saw refused, ResNet-18 and VGG-16, now
+    build from the reference key (params and state on the CPU); a name
+    that is not a paper image model raises."""
+    for name, kw in (("resnet18", dict(width=4)),
+                     ("vgg16", dict(width_mult=0.125))):
+        p, s, fn = tcnn.build_paper_model(name, prng.prng_key(0),
+                                          device="cpu", **kw)
+        assert callable(fn) and p
+        assert all(v.device == CPU for v in tree.tree_leaves(p))
+        assert bool(tree.tree_leaves(s)) == (name == "resnet18")
+    with pytest.raises(ValueError):
+        tcnn.build_paper_model("lstm", prng.prng_key(0), device="cpu")
 
 
 @pytest.mark.parametrize("cid", [0, 3])
