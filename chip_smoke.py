@@ -103,12 +103,16 @@ Phases, each of which exits non-zero on failure:
   5. the engine on the card against the engine on the CPU at a small size:
      the sequential engine in AS, SS, AS-fedasync, SS-sdga, AS-q8,
      SS-sdga-q8, AS-q4, SS-sdga-q4, AS-topk, SS-topk, AS-sdga-topk,
-     SS-sdga-topk and, with faults and the screen, AS-chaos-screen and
-     its q8 and q4 siblings; the batched engine (``vmap`` waves on the
-     card, ``map`` on the CPU) in AS, SS, AS-fedasync, AS-q8, SS-q4,
-     AS-topk and AS-chaos-screen, on a schedule that puts clients twice
-     into a horizon (exact bytes, schedule, staleness bins, wave sizes
-     and fault / defense counts; params within ``rtol=1e-4, atol=1e-5``
+     SS-sdga-topk, with faults and the screen, AS-chaos-screen and
+     its q8 and q4 siblings, and the scheduler's AS-markov-seafl (Markov
+     availability, staleness cap 1) and AS-fedbuff-timeout-ratelimit (a
+     timeout horizon of about k arrivals, 2 admitted a round); the
+     batched engine (``vmap`` waves on the card, ``map`` on the CPU) in
+     AS, SS, AS-fedasync, AS-q8, SS-q4, AS-topk, AS-chaos-screen and the
+     same two scheduler settings, on a schedule that puts clients twice
+     into a horizon (exact bytes, schedule, staleness bins, wave sizes,
+     fault / defense counts and the rejected, idle and no-show counts;
+     params within ``rtol=1e-4, atol=1e-5``
      on f32 and within 2e-2 of the run's own movement on q8, q4 and
      top-k); the q4 and top-k codecs on the card
      against the CPU on full-width uploads (bitwise); the server's
@@ -142,12 +146,19 @@ Phases, each of which exits non-zero on failure:
      fedopt and sdga; AS, AA, SS, SA and SS-sdga on the q8 and on the q4
      wire, AS-fedasync on q4; AS, SS, AS-fedbuff and SS-sdga on top-k;
      AS under the fault mix with the screen on f32, q8, q4, top-k and the
-     buffered channel; AS-fedbuff with Byzantine uploads clipped), with
-     every
+     buffered channel; AS-fedbuff with Byzantine uploads clipped; the
+     scheduler's AS-lognormal-fedqs, AS-markov-seafl-q8, AS-uniform
+     (C = 8), AS-fedbuff under a timeout horizon of about k arrivals
+     with ratelimit 2, AS-hybrid-q4, AA-queue on the buffered channel
+     (queue 2) and SS-lognormal), with every
      launch counter reset before each setting and read after, each
      setting's launches held to the counts it names (a screen launches
-     once a wave, a fold once an upload), every drawn fault
-     kind fired, ``screened == corrupted`` under the screen,
+     once a wave, a fold once an ADMITTED upload: none for a rejected,
+     idled, crashed or no-show event), every drawn fault
+     kind and every setting's verdict (seafl and uniform reject,
+     ratelimit idles, Markov no-shows) fired, the admitted uploads and
+     arrivals per horizon printed, ``screened == corrupted`` under the
+     screen,
      ``clipped >= byzantine`` under clip, and finite params after every
      round; each setting then runs again from a fresh engine, which must
      repeat the first run bit for bit (final flat params bitwise; every
@@ -155,8 +166,13 @@ Phases, each of which exits non-zero on failure:
      waves, launches and fault counts equal); each setting then runs once
      on the sequential engine (``batch_clients=False``), checked the same
      way with a screen launched once an upload, its bytes, uploads,
-     participation, staleness and fault counts equal to the batched
-     run's and its params within phase 5's bounds of them; then the
+     participation, staleness, simulated times, fault and verdict counts
+     equal to the batched run's and its params within phase 5's bounds
+     of them; then kill and resume on both engines (AS-markov-seafl-q8
+     and AS-lognormal-q4: a snapshot under ``chiprun_out/`` at round 2,
+     loaded by a fresh engine that runs to round 5, which must end
+     bitwise where the uninterrupted run ends; the snapshot's bytes and
+     save / load seconds printed); then the
      paper's four settings once on the batched engine with ``vmap``
      waves, checked the same way, and the three engines' wall split
      (client_train, server_ingest, server_round, eval) printed on a line
@@ -265,6 +281,15 @@ SDGA_KW = dict(server_lr=0.05, momentum=0.8, ema_anchor=0.05,
 AGGREGATIONS = ("fedsgd", "fedavg", "fedbuff", "fedopt", "sdga", "fedasync")
 FAULT_COUNTS = ("crashed_uploads", "corrupted_uploads", "byzantine_uploads",
                 "screened_uploads", "clipped_uploads")
+#: the scheduler's verdict counts (a crash is counted in FAULT_COUNTS)
+SCHED_COUNTS = ("rejected_uploads", "idle_requests", "no_shows")
+#: a clock horizon's ``horizon_timeout_s`` placeholder: resolved per setup
+#: to the time K uploads take to arrive (:func:`resolve_timeout`)
+K_ARRIVALS = "k-arrivals"
+#: the scheduler settings' Markov + seafl: 30 % of transitions go offline,
+#: staleness above 2 is rejected (both fire within 5 rounds at full width)
+MARKOV_SEAFL = dict(sched_timing="markov", sched_drop_p=0.3,
+                    sched_policy="seafl", sched_stale_cap=2)
 #: the fault mix of the fault settings; fault_seed 19 fires every kind
 #: within 5 rounds on phase 6's schedule (crash 1, straggler 4, corrupt 3,
 #: byzantine 2: the schedule depends on the seeds, clients and counters
@@ -332,7 +357,41 @@ MAIN_SETTINGS = (
     ("AS-chaos-screen-topk", "AS",
      dict(CHAOS, defense="screen", wire="topk"),
      {"screen_rows_q8": "waves", "safl_fold_topk": "uploads-screened"}),
+    # the scheduler's timings, policies and horizons: a fold an ADMITTED
+    # upload, nothing for a rejected, idled, crashed or no-show event
+    ("AS-lognormal-fedqs", "AS",
+     {"sched_timing": "lognormal", "sched_policy": "fedqs"},
+     {"safl_fold": "uploads"}),
+    ("AS-markov-seafl-q8", "AS", dict(MARKOV_SEAFL, wire="q8"),
+     {"safl_fold_q8": "uploads"}),
+    ("AS-uniform", "AS", {"sched_policy": "uniform", "sched_c": 8},
+     {"safl_fold": "uploads"}),
+    ("AS-fedbuff-timeout-ratelimit", "AS",
+     {"aggregation": "fedbuff", "horizon": "timeout",
+      "horizon_timeout_s": K_ARRIVALS, "sched_policy": "ratelimit",
+      "sched_rate_limit": 2},
+     {"safl_fold": "uploads"}),
+    ("AS-hybrid-q4", "AS",
+     {"wire": "q4", "horizon": "hybrid", "horizon_timeout_s": K_ARRIVALS},
+     {"safl_fold_q4": "uploads"}),
+    ("AA-queue-buffered", "AA",
+     {"horizon": "queue", "horizon_queue": 2, "server_channel": "buffered"},
+     {"safl_aggregate": ROUNDS}),
+    ("SS-lognormal", "SS", {"sched_timing": "lognormal"},
+     {"safl_aggregate": ROUNDS}),
 )
+#: each of these settings must fire its verdict in a run: (field, value,
+#: the count that must not be 0)
+VERDICT_FIRES = (("sched_policy", "seafl", "rejected_uploads"),
+                 ("sched_policy", "uniform", "rejected_uploads"),
+                 ("sched_policy", "ratelimit", "idle_requests"),
+                 ("sched_timing", "markov", "no_shows"))
+#: phase 6: kill and resume on the card, both engines: a snapshot under
+#: chiprun_out/ at round RESUME_AT, a fresh engine loads it and runs on
+RESUME_AT = 2
+RESUME_SETTINGS = (
+    ("AS-markov-seafl-q8", "AS", dict(MARKOV_SEAFL, wire="q8")),
+    ("AS-lognormal-q4", "AS", {"sched_timing": "lognormal", "wire": "q4"}))
 #: phase 6: the paper's four settings, run again on the batched engine
 #: with ``vmap`` waves (the default on the card is ``map``), their wall
 #: split printed beside the ``map`` and sequential engines'
@@ -346,7 +405,12 @@ BATCHED_SMALL = (
     ("AS-fedasync", "AS", {"aggregation": "fedasync"}),
     ("AS-q8", "AS", {"wire": "q8"}), ("SS-q4", "SS", {"wire": "q4"}),
     ("AS-topk", "AS", {"wire": "topk"}),
-    ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen")))
+    ("AS-chaos-screen", "AS", dict(CHAOS, defense="screen")),
+    ("AS-markov-seafl", "AS", dict(MARKOV_SEAFL, sched_stale_cap=1)),
+    ("AS-fedbuff-timeout-ratelimit", "AS",
+     {"aggregation": "fedbuff", "horizon": "timeout",
+      "horizon_timeout_s": K_ARRIVALS, "sched_policy": "ratelimit",
+      "sched_rate_limit": 2}))
 BATCHED_SCHEDULE = dict(speed_sigma=1.5, comm_mean_s=0.05)
 #: the paper's other three models (the LSTM with both heads), each on its
 #: dataset and partition: builder, builder kwargs at phase 5's small size
@@ -1862,6 +1926,22 @@ def build_engine(torch, setup, setting, device, **cfg_kw):
                     te.x[:400], te.y[:400], device=device)
 
 
+def resolve_timeout(torch, setup, setting, kw) -> dict:
+    """``kw`` with a K_ARRIVALS timeout replaced by its seconds for
+    ``setup``: the simulated time in which K_MAIN uploads arrive at the
+    static schedule's mean rate (the sum over clients of 1 / (compute +
+    comm)), so that a horizon takes about k arrivals; read off an engine
+    built on the CPU."""
+    if kw.get("horizon_timeout_s") != K_ARRIVALS:
+        return kw
+    eng = build_engine(torch, setup, setting, "cpu",
+                       **{k: v for k, v in kw.items()
+                          if not k.startswith(("horizon", "sched_"))})
+    rate = sum(1.0 / (eng._base_compute(c) + c.comm_time)
+               for c in eng.clients)
+    return dict(kw, horizon_timeout_s=K_MAIN / rate)
+
+
 def check_engine_small(torch):
     """The engine on the card against the engine on the CPU (itself held
     against the JAX reference by the CPU tests): the sequential engine in
@@ -1886,11 +1966,17 @@ def check_engine_small(torch):
             ("AS-topk", "AS", {"wire": "topk"}),
             ("SS-topk", "SS", {"wire": "topk"}),
             ("AS-sdga-topk", "AS", {"wire": "topk", "aggregation": "sdga"}),
-            ("SS-sdga-topk", "SS", {"wire": "topk", "aggregation": "sdga"})))
+            ("SS-sdga-topk", "SS", {"wire": "topk", "aggregation": "sdga"}),
+            ("AS-markov-seafl", "AS", dict(MARKOV_SEAFL, sched_stale_cap=1)),
+            ("AS-fedbuff-timeout-ratelimit", "AS",
+             {"aggregation": "fedbuff", "horizon": "timeout",
+              "horizon_timeout_s": K_ARRIVALS, "sched_policy": "ratelimit",
+              "sched_rate_limit": 2})))
     batched = tuple((f"{name} batched", setting,
                      dict(kw, batch_clients=True, **BATCHED_SCHEDULE))
                     for name, setting, kw in BATCHED_SMALL)
     for name, setting, kw in sequential + batched:
+        kw = resolve_timeout(torch, setup, setting, kw)
         res = {}
         for dev in ("cpu", "cuda"):
             # the card's batched engine runs vmap waves (auto would pick
@@ -1903,7 +1989,7 @@ def check_engine_small(torch):
             res[dev] = (eng, r)
         (ec, rc), (eg, rg) = res["cpu"], res["cuda"]
         counts = {key: (rc.sched_stats[key], rg.sched_stats[key])
-                  for key in FAULT_COUNTS}
+                  for key in FAULT_COUNTS + SCHED_COUNTS}
         same_host = (all(a == b for a, b in counts.values())
                      and ec.tx_bytes == eg.tx_bytes
                      and ec.rx_bytes == eg.rx_bytes
@@ -1935,9 +2021,10 @@ def check_engine_small(torch):
         print(f"  {name} card vs CPU, 3 rounds: bytes/schedule/fault "
               f"counts {'equal' if same_host else 'DIFFER'}, params "
               f"max|err|={err:.3e} rel {rel:.3e} ({tol}){waves}")
-        if kw.get("defense"):
+        if kw.get("defense") or kw.get("sched_policy"):
             print("      (cpu, card) " + "  ".join(
-                f"{key.split('_')[0]} {v}" for key, v in counts.items()))
+                f"{key.replace('_uploads', '').replace('_requests', '')} "
+                f"{v}" for key, v in counts.items()))
         rows.append(dict(setting=name, host_equal=same_host,
                          params_max_abs_err=err,
                          params_rel_to_movement=rel, fault_counts=counts,
@@ -2254,6 +2341,17 @@ def run_engine(torch, eng, wrappers, rounds):
     for bucket, methods in SPLIT.items():
         for method in methods:
             timed(torch, eng, method, bucket, split)
+    # the scheduler's pops (host only: timing draws, verdicts, the heap)
+    split["scheduler"] = 0.0
+    pop = eng.sched.pop
+
+    def timed_pop(rnd, _pop=pop, _split=split):
+        t0 = time.perf_counter()
+        ev = _pop(rnd)
+        _split["scheduler"] += time.perf_counter() - t0
+        return ev
+
+    eng.sched.pop = timed_pop
     # finite global params after every round, checked outside the timed
     # span; the fault kinds the plan draws, tallied
     finite, drawn = [], {}
@@ -2301,9 +2399,12 @@ def run_record(eng, res, counts, drawn):
                 participation=res.participation.tolist(),
                 staleness_hist=dict(res.staleness_hist),
                 staleness_bins=res.sched_stats["staleness_bins"].tolist(),
+                sim_time=[r.sim_time for r in recs],
                 launches=counts, faults_drawn=drawn,
                 fault_counts={key.split("_")[0]: res.sched_stats[key]
-                              for key in FAULT_COUNTS})
+                              for key in FAULT_COUNTS},
+                sched_counts={key: res.sched_stats[key]
+                              for key in SCHED_COUNTS})
 
 
 def check_run(torch, name, kw, spec, eng, res, counts, finite, drawn,
@@ -2337,6 +2438,9 @@ def check_run(torch, name, kw, spec, eng, res, counts, finite, drawn,
             st["clipped_uploads"] < st["byzantine_uploads"]:
         fail(f"{name}: clipped {st['clipped_uploads']} < byzantine "
              f"{st['byzantine_uploads']}")
+    for field, value, key in VERDICT_FIRES:
+        if kw.get(field) == value and not st[key]:
+            fail(f"{name}: {field}={value} gave no {key}")
 
 
 def split_line(split) -> str:
@@ -2357,7 +2461,7 @@ def params_distance(torch, kw, got, want, p0):
 
 #: the fields two engines' runs of one setting must share
 HOST_FIELDS = ("tx_bytes", "rx_bytes", "uploads", "participation",
-               "staleness_hist", "fault_counts")
+               "staleness_hist", "fault_counts", "sched_counts", "sim_time")
 
 
 def run_main_path(torch, wrappers):
@@ -2383,6 +2487,7 @@ def run_main_path(torch, wrappers):
         if kw.get("defense") == "clip":
             kw = dict(kw, defense_norm_cap=clean_clip_cap(torch, setup,
                                                           setting, kw))
+        kw = resolve_timeout(torch, setup, setting, kw)
         settings_kw[name] = kw
         eng, res, counts, wall, split, finite, drawn = run_setting(
             torch, setup, setting, kw, wrappers)
@@ -2396,6 +2501,15 @@ def run_main_path(torch, wrappers):
         if drawn:
             print(f"      faults drawn {drawn}; counts "
                   f"{rec['fault_counts']}")
+        if kw.get("sched_timing") or kw.get("sched_policy") or \
+                kw.get("horizon"):
+            sc = rec["sched_counts"]
+            arrivals = (rec["uploads"] + sc["rejected_uploads"]
+                        + sc["idle_requests"])
+            print(f"      verdicts {sc}; per horizon: {rec['uploads'] / ROUNDS:.2f} "
+                  f"admitted of {arrivals / ROUNDS:.2f} arrivals"
+                  + (f" (timeout {kw['horizon_timeout_s']:.6f} s)"
+                     if "horizon_timeout_s" in kw else ""))
         print(f"      wall {wall:.3f} s: {split_line(split)}")
         if eng.wave_impl_resolved != "map":
             fail(f"{name}: wave_impl auto resolved "
@@ -2453,6 +2567,7 @@ def run_main_path(torch, wrappers):
             fail(f"{name}: the sequential engine disagrees with the "
                  f"batched one (host fields {host_differ}, params {err})")
         del eng, res, params
+    resume = check_resume(torch, setup)
     batched = {row["setting"]: row for row in rows}
     seq = {row["setting"]: row for row in sequential}
     vmapped = []
@@ -2478,7 +2593,74 @@ def run_main_path(torch, wrappers):
                  f"engine's in {host_differ} or ran {eng.wave_impl_resolved}")
         vmapped.append(dict(setting=name, **rec, wall_s=wall, split_s=split))
         del eng, res
-    return rows, launches, sequential, vmapped
+    return rows, launches, sequential, vmapped, resume
+
+
+def run_outcome(eng, res) -> dict:
+    """What a resumed run must end with: every record, the counters, the
+    staleness bins and histogram, bytes, waves and the clock."""
+    stats = dict(res.sched_stats)
+    bins = stats.pop("staleness_bins").tolist()
+    return dict(records=[dataclasses.asdict(r) for r in res.metrics.records],
+                stats=stats, bins=bins, hist=dict(res.staleness_hist),
+                tx=eng.tx_bytes, rx=eng.rx_bytes,
+                waves=dict(eng.wave_size_hist), last_agg=eng._last_agg_time)
+
+
+def check_resume(torch, setup):
+    """Kill and resume on the card: each of ``RESUME_SETTINGS`` on both
+    engines runs ROUNDS rounds uninterrupted; then a fresh engine runs
+    RESUME_AT rounds and snapshots under ``chiprun_out/``, a second fresh
+    engine loads the snapshot and runs to ROUNDS.  Its flat params must
+    be bitwise the uninterrupted run's, and its records, counters,
+    staleness, bytes and waves equal.  The snapshot's bytes and the save
+    and load seconds are printed; the snapshot is removed afterwards."""
+    import shutil
+    rows = []
+    for name, setting, kw in RESUME_SETTINGS:
+        for batched in (True, False):
+            label = f"{name} {'batched' if batched else 'sequential'}"
+            skw = dict(kw, batch_clients=batched)
+            full = build_engine(torch, setup, setting, "cuda", **skw)
+            want = run_outcome(full, full.run(ROUNDS))
+            want_params = full._flat_params.clone()
+            del full
+            ckpt = os.path.join(ROOT, "chiprun_out", "snapshots",
+                                label.replace(" ", "-"))
+            shutil.rmtree(ckpt, ignore_errors=True)
+            first = build_engine(torch, setup, setting, "cuda", **skw)
+            first.run(RESUME_AT)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first.save_snapshot(ckpt)
+            save_s = time.perf_counter() - t0
+            del first
+            nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                         for f in os.listdir(ckpt))
+            again = build_engine(torch, setup, setting, "cuda", **skw)
+            t0 = time.perf_counter()
+            step = again.load_snapshot(ckpt)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            got = run_outcome(again, again.run(ROUNDS))
+            bitwise = torch.equal(want_params.view(torch.int32),
+                                  again._flat_params.view(torch.int32))
+            differ = [key for key in want if want[key] != got[key]]
+            print(f"  resume {label}: snapshot at round {step}, {nbytes:,} "
+                  f"bytes, save {save_s:.3f} s, load {load_s:.3f} s; params "
+                  f"{'bitwise equal' if bitwise else 'DIFFER'}, "
+                  f"{'every record equal' if not differ else f'differ in {differ}'}"
+                  f"; verdicts {dict((k, got['stats'][k]) for k in SCHED_COUNTS)}")
+            rows.append(dict(setting=label, step=step, snapshot_bytes=nbytes,
+                             save_s=save_s, load_s=load_s,
+                             params_bitwise=bitwise, differing=differ))
+            shutil.rmtree(ckpt, ignore_errors=True)
+            del again
+            if step != RESUME_AT or not bitwise or differ:
+                fail(f"resume {label}: the resumed run does not end where "
+                     f"the uninterrupted run ends (params bitwise "
+                     f"{bitwise}, differing {differ})")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3131,7 +3313,7 @@ def main() -> None:
 
     print(f"== phase 6: main path, full-width CNN (D = {D_FULL:,}), "
           f"{len(MAIN_SETTINGS)} settings; the compression path")
-    main_rows, launches, sequential_rows, vmap_rows = run_main_path(
+    main_rows, launches, sequential_rows, vmap_rows, resume = run_main_path(
         torch, wrappers)
     t0 = time.perf_counter()
     other_rows, other_launches = run_other_models(torch, wrappers)
@@ -3172,7 +3354,7 @@ def main() -> None:
                        codec=codec, channels=channels,
                        pytree=pytree, main_path=main_rows,
                        main_path_sequential=sequential_rows,
-                       main_path_vmap=vmap_rows,
+                       main_path_vmap=vmap_rows, resume=resume,
                        other_models=other_rows,
                        compression_path=compression, serving=serving,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,

@@ -38,6 +38,18 @@ top-k upload's values), then
 by the streaming channel and zeroed on the buffered one, a clipped row
 keeps its payload at a reduced weight.
 
+Scheduling (:mod:`repro_torch.sched`): the timing model (static,
+lognormal, Markov) sets when each upload lands, the policy gives each a
+verdict (admit; reject and crash, which resync the client to the global
+model; idle, which leaves its chain alone) and FedQS's scores enter the
+weights (:meth:`FLEngine._weight_vector`).  A horizon closes on K admitted
+uploads (``k``), on ``horizon_queue`` of them (``queue``), on the first
+event ``horizon_timeout_s`` simulated seconds after the last aggregation
+(``timeout``; streaming channel only), or on whichever of the two comes
+first (``hybrid``), checked on every popped event's clock.
+:meth:`FLEngine.save_snapshot` / :meth:`FLEngine.load_snapshot` carry a
+semi-async engine across a kill at a ``run()`` boundary bit for bit.
+
 Horizon-batched execution (``batch_clients=True``, the default, as in
 the reference): between two aggregation boundaries the K uploads of a
 horizon depend only on state fixed at the previous boundary, so the
@@ -91,6 +103,7 @@ import torch
 from repro_torch import faults as faultsmod
 from repro_torch import sched as schedmod
 from repro_torch import tree
+from repro_torch.checkpoint import io as ckptio
 from repro_torch.core import flatbuf
 from repro_torch.core.aggregation import FlatServer, weighted_mean
 from repro_torch.core.client import (ClientState, evaluate, local_epoch,
@@ -98,7 +111,8 @@ from repro_torch.core.client import (ClientState, evaluate, local_epoch,
                                      make_batched_local_train,
                                      make_flat_eval_fn, make_loss_fn,
                                      pytree_bytes, resolve_wave_impl)
-from repro_torch.core.metrics import DeviceMetricsRing, MetricsLog
+from repro_torch.core.metrics import (DeviceMetricsRing, MetricsLog,
+                                      RoundRecord)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quantize import payload_nbytes
 
@@ -145,9 +159,9 @@ class FLEngine:
                         "sdga"),
         "wire": ("f32", "q8", "q4", "topk"),
         "compress_updates": (False, True),
-        "horizon": ("k",),
-        "sched_timing": ("static",),
-        "sched_policy": ("full",),
+        "horizon": ("k", "queue", "timeout", "hybrid"),
+        "sched_timing": ("static", "lognormal", "markov"),
+        "sched_policy": ("full", "uniform", "seafl", "fedqs", "ratelimit"),
         "batch_clients": (False, True),
         "devices": (1,),
         "mesh_shape": (None,),
@@ -255,7 +269,18 @@ class FLEngine:
             self._channel = ("streaming" if fl_cfg.mode == "semi_async"
                              else "buffered")
         self._streaming = self._channel == "streaming"
-        self._horizon_target = fl_cfg.k
+        # per-horizon upload target: the k and queue horizons close on a
+        # count, timeout / hybrid on the clock (None: streaming only,
+        # validate() refuses the buffered channel there)
+        if fl_cfg.horizon == "queue":
+            self._horizon_target: Optional[int] = (fl_cfg.horizon_queue
+                                                   or fl_cfg.k)
+        elif fl_cfg.horizon in ("timeout", "hybrid"):
+            self._horizon_target = None
+        else:
+            self._horizon_target = fl_cfg.k
+        # simulated time of the last aggregation (the clock horizons)
+        self._last_agg_time = 0.0
         # defense layer (none | screen | clip) and the fault / defense
         # counts of the run
         self._defense = fl_cfg.defense
@@ -303,10 +328,21 @@ class FLEngine:
         # buffered update; FedSGD's unweighted mean a flat 0.01 s
         return 0.05 * self.cfg.k if self.cfg.aggregation != "fedsgd" else 0.01
 
-    def _horizon_due(self, count: int) -> bool:
-        """The ``k`` horizon: close after exactly K admitted uploads
-        (clock-triggered horizons are not ported yet)."""
-        return count >= self._horizon_target
+    def _horizon_due(self, count: int, now: float) -> bool:
+        """Aggregation-horizon trigger (``FLConfig.horizon``), the
+        reference's rule: close on the paper's K count or an explicit
+        queue length, on a simulated-clock timeout since the last
+        aggregation (at least one upload buffered), or on whichever of
+        queue / timeout comes first (hybrid)."""
+        if count <= 0:
+            return False
+        cfg = self.cfg
+        if cfg.horizon in ("k", "queue"):
+            return count >= self._horizon_target
+        timed = now >= self._last_agg_time + cfg.horizon_timeout_s
+        if cfg.horizon == "timeout":
+            return timed
+        return timed or count >= (cfg.horizon_queue or cfg.k)  # hybrid
 
     def _run_local(self, c: ClientState):
         """Run one local upload period (local_epochs) for client c.  The
@@ -503,24 +539,31 @@ class FLEngine:
         """FINAL per-upload aggregation weights, np.float32 on host
         (discount-at-ingest): fedavg data sizes, fedsgd units, the
         (1+tau)^-alpha discount of fedbuff / fedopt / sdga, fedasync's raw
-        mix rates a_i = fedasync_alpha * (1+tau)^-alpha.  The streaming
-        channel folds weight i when upload i lands, the buffered one
-        applies the whole vector in its reduction (numpy's scalar and
+        mix rates a_i = clip(fedasync_alpha * (1+tau)^-alpha * score, 0,
+        1), each times a reweighting policy's score (fedqs).  The
+        streaming channel folds weight i when upload i lands, the buffered
+        one applies the whole vector in its reduction (numpy's scalar and
         vector kernels agree bitwise)."""
         cfg = self.cfg
+        policy = self.sched.policy
+        score = (policy.score(staleness, sizes)
+                 if policy.reweights else None)
         stal = np.asarray(staleness, np.float32)
         if cfg.aggregation == "fedasync":
             a = cfg.fedasync_alpha * np.power(
                 stal + 1.0, -np.float32(cfg.staleness_alpha))
+            if score is not None:
+                a = np.clip(a * np.asarray(score, np.float32), 0.0, 1.0)
             return np.asarray(a, np.float32)
         if cfg.aggregation == "fedavg":
-            return np.asarray(sizes, np.float32)
-        if cfg.aggregation == "fedsgd":
-            return np.ones((len(staleness),), np.float32)
-        # fedbuff / fedopt / sdga: the poly discount
-        return np.asarray(
-            np.power(stal + 1.0, -np.float32(cfg.staleness_alpha)),
-            np.float32)
+            base = np.asarray(sizes, np.float32)
+        elif cfg.aggregation == "fedsgd":
+            base = np.ones((len(staleness),), np.float32)
+        else:  # fedbuff / fedopt / sdga: the poly discount
+            base = np.power(stal + 1.0, -np.float32(cfg.staleness_alpha))
+        if score is not None:
+            base = base * np.asarray(score, np.float32)
+        return np.asarray(base, np.float32)
 
     def _record_staleness(self, staleness: Sequence[int]) -> None:
         for s in staleness:
@@ -630,6 +673,149 @@ class FLEngine:
                         self.staleness_hist, self.idle_time,
                         participation=self.sched.participation.copy(),
                         sched_stats=stats)
+
+    # ----- crash-consistent snapshots -----
+    def _snapshot_tree(self) -> Dict:
+        """The snapshot's tensor tree, the reference's keys: the global
+        flat row, the server's optimizer state (fedopt's moments, sdga's
+        momentum and EMA, their step count), the global model state, the
+        clients' error-feedback residuals and model states, and each
+        client's carried model (flat rows on the batched engine, param
+        trees on the sequential one)."""
+        snap: Dict = {
+            "flat_params": self._flat_params,
+            "opt": self._opt,
+            "global_state": self.global_state,
+            "residuals": {str(k): v for k, v in self._residuals.items()},
+            "client_state": {str(c.cid): c.model_state
+                             for c in self.clients},
+        }
+        if self.cfg.batch_clients:
+            flats = (self._client_flats
+                     or [self._flat_params] * len(self.clients))
+            snap["client_rows"] = {str(c.cid): flats[c.cid]
+                                   for c in self.clients}
+        else:
+            snap["client_params"] = {str(c.cid): c.params
+                                     for c in self.clients}
+        return snap
+
+    def save_snapshot(self, ckpt_dir: str, keep: int = 3) -> int:
+        """Snapshot the semi-async engine at a ``run()`` boundary (the
+        channel is then empty and the streaming bank sealed) as step
+        ``t_global``: the tensors through
+        :func:`repro_torch.checkpoint.io.save_checkpoint`, the host state
+        into the ``engine_{step}.json`` sidecar.  The sidecar is written
+        first and the checkpoint's own ``.json`` last (the commit record
+        ``latest_step`` reads), so a kill between the two leaves no
+        resumable-looking step.  The sidecar carries the reference's keys:
+        clocks, bytes, counters, the q4 upload counters, the residuals'
+        owners, client versions, ``Scheduler.state()`` (with the fault
+        plan's and timing stream's counters) and the metric records;
+        ``dev_stale_hist`` is the batched engine's ``staleness_bins``.
+        The port keeps no ``dev_participation`` (the batched engine's
+        participation is the scheduler's, which the sidecar carries) and
+        adds ``wave_size_hist``.  A resumed run replays the uninterrupted
+        one bit for bit."""
+        if self.cfg.mode != "semi_async":
+            raise ValueError("snapshots cover the semi-async engines")
+        step = int(self.t_global)
+        state = {
+            "t_global": step,
+            "batched": bool(self.cfg.batch_clients),
+            "last_agg_time": float(self._last_agg_time),
+            "tx_bytes": int(self.tx_bytes),
+            "rx_bytes": int(self.rx_bytes),
+            "idle_time": float(self.idle_time),
+            "last_update_norm": float(self._last_update_norm),
+            "staleness_hist": {str(k): int(v)
+                               for k, v in self.staleness_hist.items()},
+            "sr_counter": {str(k): int(v)
+                           for k, v in self._sr_counter.items()},
+            "residual_cids": sorted(self._residuals),
+            "client_versions": [int(c.version) for c in self.clients],
+            "screened_uploads": int(self.screened_uploads),
+            "clipped_uploads": int(self.clipped_uploads),
+            "corrupted_uploads": int(self.corrupted_uploads),
+            "byzantine_uploads": int(self.byzantine_uploads),
+            "dev_stale_hist": self._staleness_bins.tolist(),
+            "wave_size_hist": {str(k): int(v)
+                               for k, v in self.wave_size_hist.items()},
+            "sched": self.sched.state(),
+            "metrics": [dataclasses.asdict(rec)
+                        for rec in self.metrics.records],
+        }
+        ckptio.save_state_json(ckpt_dir, step, state)
+        ckptio.save_checkpoint(ckpt_dir, step, self._snapshot_tree(),
+                               keep=keep)
+        return step
+
+    def load_snapshot(self, ckpt_dir: str,
+                      step: Optional[int] = None) -> int:
+        """Restore a :meth:`save_snapshot` state into this freshly built,
+        identically configured engine (the latest step by default).  The
+        tensor template is the engine's own structures plus the sidecar's
+        residual owners, so every leaf's shape and dtype is checked; each
+        leaf lands on the engine's device.  A snapshot of the other
+        engine (batched or sequential) is refused."""
+        if step is None:
+            step = ckptio.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no snapshots in {ckpt_dir}")
+        state = ckptio.load_state_json(ckpt_dir, step)
+        if state["batched"] != bool(self.cfg.batch_clients):
+            raise ValueError("snapshot was taken on the other engine path")
+        tpl: Dict = {
+            "flat_params": self._flat_params,
+            "opt": self._opt,
+            "global_state": self.global_state,
+            "residuals": {str(cid): self.codec.zero_residual(self.device)
+                          for cid in state["residual_cids"]},
+            "client_state": {str(c.cid): c.model_state
+                             for c in self.clients},
+        }
+        if state["batched"]:
+            tpl["client_rows"] = {str(c.cid): self._flat_params
+                                  for c in self.clients}
+        else:
+            tpl["client_params"] = {str(c.cid): c.params
+                                    for c in self.clients}
+        snap, _ = ckptio.load_checkpoint(ckpt_dir, tpl, step=step)
+        self._flat_params = snap["flat_params"]
+        self._opt = snap["opt"]
+        self.global_state = snap["global_state"]
+        self.global_params = self.codec.unravel(self._flat_params)
+        self._residuals = {int(k): v for k, v in snap["residuals"].items()}
+        for c in self.clients:
+            c.model_state = snap["client_state"][str(c.cid)]
+            c.version = int(state["client_versions"][c.cid])
+        if state["batched"]:
+            self._client_flats = [snap["client_rows"][str(c.cid)]
+                                  for c in self.clients]
+        else:
+            for c in self.clients:
+                c.params = snap["client_params"][str(c.cid)]
+        self.t_global = int(state["t_global"])
+        self._last_agg_time = float(state["last_agg_time"])
+        self.tx_bytes = int(state["tx_bytes"])
+        self.rx_bytes = int(state["rx_bytes"])
+        self.idle_time = float(state["idle_time"])
+        self._last_update_norm = float(state["last_update_norm"])
+        self.staleness_hist = {int(k): int(v)
+                               for k, v in state["staleness_hist"].items()}
+        self._sr_counter = {int(k): int(v)
+                            for k, v in state["sr_counter"].items()}
+        self.screened_uploads = int(state["screened_uploads"])
+        self.clipped_uploads = int(state["clipped_uploads"])
+        self.corrupted_uploads = int(state["corrupted_uploads"])
+        self.byzantine_uploads = int(state["byzantine_uploads"])
+        self._staleness_bins = np.asarray(state["dev_stale_hist"], np.int64)
+        self.wave_size_hist = {int(k): int(v)
+                               for k, v in state["wave_size_hist"].items()}
+        self.sched.load_state(state["sched"])
+        self.metrics.records = [RoundRecord(**rec)
+                                for rec in state["metrics"]]
+        return step
 
     # ----- the batched engine's parts -----
     def _wave_program(self, sync: bool = False):
@@ -811,8 +997,9 @@ class FLEngine:
     # ----- SAFL: sequential per-upload path -----
     def _run_semi_async(self, n_rounds: int, log_every: int) -> None:
         """Per-upload loop over the scheduler's event stream (every pop
-        schedules the client's successor event; the full policy admits
-        every upload the fault plan does not crash)."""
+        schedules the client's successor event and carries a verdict: a
+        rejected or crashed upload discards the client's local progress
+        and resyncs it, an idled one leaves its chain untouched)."""
         self.sched.resume()
         buffer: List[Dict] = []
         now = 0.0
@@ -822,28 +1009,35 @@ class FLEngine:
                 break
             now, c = ev.time, self.clients[ev.cid]
             if not ev.admitted:
-                # a crash: the upload is lost, the rebooted client
-                # discards its local progress and resyncs
-                c.params, c.model_state = (self.global_params,
-                                           self.global_state)
-                c.version = self.t_global
-                continue
-            w_end, s_end, _ = self._run_local(c)
-            self._enqueue_upload(buffer, c, w_end, s_end, ev.staleness,
-                                 fault=ev.fault)
-            # client-side refresh (paper §2.2.2): adopt the newest global
-            # model if one arrived since this client's version, else
-            # continue local
-            if c.version < self.t_global:
-                c.params, c.model_state = (self.global_params,
-                                           self.global_state)
-                c.version = self.t_global
+                # reject (selective training) and crash (the rebooted
+                # client) discard the local progress and resync; idle is
+                # back-pressure only
+                if ev.verdict != "idle":
+                    c.params, c.model_state = (self.global_params,
+                                               self.global_state)
+                    c.version = self.t_global
             else:
-                c.params, c.model_state = w_end, s_end
+                w_end, s_end, _ = self._run_local(c)
+                self._enqueue_upload(buffer, c, w_end, s_end, ev.staleness,
+                                     fault=ev.fault)
+                # client-side refresh (paper §2.2.2): adopt the newest
+                # global model if one arrived since this client's
+                # version, else continue local
+                if c.version < self.t_global:
+                    c.params, c.model_state = (self.global_params,
+                                               self.global_state)
+                    c.version = self.t_global
+                else:
+                    c.params, c.model_state = w_end, s_end
 
-            if self._horizon_due(len(buffer)):
+            # the horizon is checked on every popped event's clock,
+            # admitted or not: under rate control the deadline of a
+            # timeout horizon is typically crossed by an idled upload (a
+            # no-op for the count horizons: the buffer did not grow)
+            if self._horizon_due(len(buffer), now):
                 stale_vals = [b["staleness"] for b in buffer]
                 self._aggregate(buffer)
+                self._last_agg_time = now
                 if self._eval_due(self.t_global, n_rounds):
                     self._eval_and_record(now + self._agg_overhead(),
                                           stale_vals)
@@ -857,8 +1051,9 @@ class FLEngine:
 
     # ----- SAFL: horizon-batched path -----
     def _run_semi_async_batched(self, n_rounds: int, log_every: int) -> None:
-        """Pop the scheduler to each aggregation horizon (K admitted
-        uploads), train the horizon's uploads as one wave call per wave (a
+        """Pop the scheduler to each aggregation horizon (its admitted
+        uploads; refused ones act on the clients' chains at once), train
+        the horizon's uploads as one wave call per wave (a
         client's j-th event of the horizon is wave j), serialize each
         wave into the channel, then the server round; eval every
         ``eval_every`` rounds into the device ring, flushed at the end."""
@@ -877,26 +1072,34 @@ class FLEngine:
             r = self.t_global
             # ---- pop to the horizon; the scheduler pushes each client's
             # successor at pop time from schedule data only, so the heap
-            # evolves as on the sequential path.  A crash before the
-            # client's first admitted event of the horizon resyncs it at
-            # once; one after it cannot (its earlier training still
-            # runs): the client's next lane restarts from the round-r
-            # global row (force_global), and a crash after its last lane
-            # leaves it on the global row when the horizon closes
-            # (resync_after), where the sequential engine puts it ----
+            # evolves as on the sequential path.  A reject or crash
+            # before the client's first admitted event of the horizon
+            # resyncs it at once; one after it cannot (its earlier
+            # training still runs): the client's next lane restarts from
+            # the round-r global row (force_global), and a reset after its
+            # last lane leaves it on the global row when the horizon
+            # closes (resync_after), where the sequential engine puts it;
+            # an idle changes nothing ----
             events: List[tuple] = []  # (time, cid) per admitted slot
             stal: List[int] = []
             faults: List = []
             n_adm: Dict[int, int] = {}
             force_global: set = set()
             resync_after: set = set()
+            # the horizon clock advances on every popped event, admitted
+            # or not, as on the sequential engine
             t_pop = 0.0
-            while not (events and self._horizon_due(len(events))):
+            while not (events and self._horizon_due(len(events), t_pop)):
                 ev = self.sched.pop(r)
                 if ev is None:
                     break
                 t_pop = ev.time
                 if not ev.admitted:
+                    if ev.verdict == "idle":
+                        # back-pressure: the client's wave chain and
+                        # version stay; only the horizon clock moved
+                        continue
+                    # reject and crash resync the client
                     k_adm = n_adm.get(ev.cid, 0)
                     if k_adm == 0:
                         flats[ev.cid] = self._flat_params
@@ -1019,6 +1222,7 @@ class FLEngine:
                 {"staleness": stal[i], "n": sizes[i],
                  "fac": None if h["fac"] is None else h["fac"][i]}
                 for i in range(kh)])
+            self._last_agg_time = now
             if cfg.aggregation == "fedavg":
                 stacked = tree.tree_map(lambda *ls: torch.cat(ls),
                                         *state_parts)

@@ -18,9 +18,19 @@ f32 wire, ``--wire q8`` (``--compress`` is its legacy alias), ``--wire
 q4`` or ``--wire topk`` (the gradient schemes; ``--topk-frac`` of the
 coordinates kept per upload), with fault injection (``--fault-*``,
 semi-async only) and the server defense (``--defense screen|clip``,
-``--defense-norm-cap``).
-Flags for parts not ported yet are refused with a "not ported yet" error
-when given anything but their default.
+``--defense-norm-cap``).  The scheduler's flags run as the reference's:
+``--sched-timing static|lognormal|markov``, ``--sched-policy
+full|uniform|seafl|fedqs|ratelimit`` (with ``--sched-c``,
+``--sched-stale-cap``, ``--sched-rate-limit``, ``--sched-jitter-sigma``,
+``--sched-drop-p``, ``--sched-seed``) and ``--horizon
+k|queue|timeout|hybrid`` (``--horizon-queue``, ``--horizon-timeout-s``).
+``--ckpt-dir`` snapshots the engine at the end of the run, and every
+``--ckpt-every`` rounds with the run cut into segments; ``--resume``
+restores the latest snapshot there first, so a killed run run again ends
+bit for bit where the uninterrupted run ends.
+Flags for parts not ported yet (``--devices``, ``--mesh``, tracing) are
+refused with a "not ported yet" error when given anything but their
+default.
 """
 from __future__ import annotations
 
@@ -42,15 +52,8 @@ from repro_torch.prng import prng_key
 SUMMARY_SCHEMA = 1
 
 #: flags of parts not ported yet -> the only value accepted (the default)
-NOT_PORTED = {
-    "devices": 1, "mesh": None,
-    "sched_timing": "static", "horizon": "k",
-    "horizon_queue": 0, "horizon_timeout_s": 0.0, "sched_policy": "full",
-    "sched_rate_limit": 0, "sched_c": 0, "sched_stale_cap": 4,
-    "sched_jitter_sigma": 0.25, "sched_drop_p": 0.1, "sched_seed": 0,
-    "ckpt_dir": "", "ckpt_every": 0,
-    "resume": False, "trace_dir": "", "trace_jax": False,
-}
+NOT_PORTED = {"devices": 1, "mesh": None, "trace_dir": "",
+              "trace_jax": False}
 #: server learning rate per aggregation (the reference launcher's table)
 SERVER_LR = {"fedsgd": 0.05, "sdga": 0.05, "fedbuff": 0.05, "fedopt": 0.005}
 
@@ -124,11 +127,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="accepted for the reference's command lines; the "
                          "port runs every wave at its own size")
     ap.add_argument("--sched-timing", default="static",
-                    choices=["static", "lognormal", "markov"])
+                    choices=["static", "lognormal", "markov"],
+                    help="device-time model: static (deterministic), "
+                         "lognormal (heavy-tailed compute jitter), markov "
+                         "(drop-out / rejoin on top of the jitter)")
     ap.add_argument("--horizon", default="k",
-                    choices=["k", "queue", "timeout", "hybrid"])
-    ap.add_argument("--horizon-queue", type=int, default=0)
-    ap.add_argument("--horizon-timeout-s", type=float, default=0.0)
+                    choices=["k", "queue", "timeout", "hybrid"],
+                    help="aggregation trigger (semi-async): k uploads, "
+                         "--horizon-queue uploads, the first upload after "
+                         "--horizon-timeout-s simulated seconds since the "
+                         "last aggregation (streaming channel only), or "
+                         "whichever of queue / timeout comes first")
+    ap.add_argument("--horizon-queue", type=int, default=0,
+                    help="queue / hybrid: admitted uploads a horizon "
+                         "(0 -> k)")
+    ap.add_argument("--horizon-timeout-s", type=float, default=0.0,
+                    help="timeout / hybrid: simulated seconds between "
+                         "aggregations")
     ap.add_argument("--server-channel", default="auto",
                     choices=["auto", "streaming", "buffered"],
                     help="streaming folds each upload into an O(D) "
@@ -137,13 +152,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "streaming for semi_async, buffered for sync")
     ap.add_argument("--sched-policy", default="full",
                     choices=["full", "uniform", "seafl", "fedqs",
-                             "ratelimit"])
-    ap.add_argument("--sched-rate-limit", type=int, default=0)
-    ap.add_argument("--sched-c", type=int, default=0)
-    ap.add_argument("--sched-stale-cap", type=int, default=4)
-    ap.add_argument("--sched-jitter-sigma", type=float, default=0.25)
-    ap.add_argument("--sched-drop-p", type=float, default=0.1)
-    ap.add_argument("--sched-seed", type=int, default=0)
+                             "ratelimit"],
+                    help="participation policy: full, uniform C-of-N "
+                         "(--sched-c), seafl staleness cap "
+                         "(--sched-stale-cap), fedqs staleness x sample "
+                         "reweighting, ratelimit back-pressure "
+                         "(--sched-rate-limit; idled clients keep "
+                         "training and retry)")
+    ap.add_argument("--sched-rate-limit", type=int, default=0,
+                    help="ratelimit: admitted uploads a round (0 -> k)")
+    ap.add_argument("--sched-c", type=int, default=0,
+                    help="uniform: clients admitted a round (0 = all)")
+    ap.add_argument("--sched-stale-cap", type=int, default=4,
+                    help="seafl: the largest admissible staleness")
+    ap.add_argument("--sched-jitter-sigma", type=float, default=0.25,
+                    help="lognormal / markov: compute jitter sigma")
+    ap.add_argument("--sched-drop-p", type=float, default=0.1,
+                    help="markov: P(go offline) after each upload")
+    ap.add_argument("--sched-seed", type=int, default=0,
+                    help="seed of the timing jitter and policy sampling")
     ap.add_argument("--fault-crash-p", type=float, default=0.0,
                     help="P(an upload is lost and its client crashes; it "
                          "resyncs and retries after a backoff)")
@@ -167,9 +194,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--defense-norm-cap", type=float, default=0.0,
                     help="L2 norm cap of the defense (0 with screen: "
                          "integrity only)")
-    ap.add_argument("--ckpt-dir", default="")
-    ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="engine snapshot directory (semi-async); with "
+                         "--ckpt-every the run is cut into segments, each "
+                         "snapshotted, so a killed run resumes bit for "
+                         "bit with --resume")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="snapshot every N aggregation rounds (0 = only "
+                         "at the end of the run when --ckpt-dir is set)")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest snapshot of --ckpt-dir "
+                         "before running (none there: start afresh)")
     ap.add_argument("--trace-dir", default="")
     ap.add_argument("--trace-level", default="",
                     choices=["", "off", "round", "upload"])
@@ -250,6 +285,15 @@ def main(argv=None) -> dict:
                    wave_impl=args.wave_impl,
                    wave_buckets=not args.no_wave_buckets,
                    server_channel=args.server_channel,
+                   horizon=args.horizon, horizon_queue=args.horizon_queue,
+                   horizon_timeout_s=args.horizon_timeout_s,
+                   sched_timing=args.sched_timing,
+                   sched_policy=args.sched_policy, sched_c=args.sched_c,
+                   sched_rate_limit=args.sched_rate_limit,
+                   sched_stale_cap=args.sched_stale_cap,
+                   sched_jitter_sigma=args.sched_jitter_sigma,
+                   sched_drop_p=args.sched_drop_p,
+                   sched_seed=args.sched_seed,
                    fault_crash_p=args.fault_crash_p,
                    fault_straggler_p=args.fault_straggler_p,
                    fault_corrupt_p=args.fault_corrupt_p,
@@ -258,7 +302,28 @@ def main(argv=None) -> dict:
                    defense_norm_cap=args.defense_norm_cap)
     eng = FLEngine(cfg, fn, ds.kind, p0, s0, shards, te.x[:400], te.y[:400],
                    device=device)
-    res = eng.run(args.rounds, log_every=max(args.rounds // 10, 1))
+    log_every = max(args.rounds // 10, 1)
+    if args.resume and args.ckpt_dir:
+        try:
+            start = eng.load_snapshot(args.ckpt_dir)
+            print(f"# resumed from snapshot at round {start}")
+        except FileNotFoundError:
+            pass
+    if args.ckpt_dir and args.ckpt_every > 0:
+        # segmented run: run() stops at each snapshot boundary (the
+        # channel is empty between aggregations), so a kill loses at most
+        # ckpt_every rounds and --resume replays the rest bit for bit
+        res = None
+        while eng.t_global < args.rounds:
+            upto = min(eng.t_global + args.ckpt_every, args.rounds)
+            res = eng.run(upto, log_every=log_every)
+            eng.save_snapshot(args.ckpt_dir)
+        if res is None:  # resumed at the last round: nothing left to run
+            res = eng.run(args.rounds, log_every=log_every)
+    else:
+        res = eng.run(args.rounds, log_every=log_every)
+        if args.ckpt_dir:
+            eng.save_snapshot(args.ckpt_dir)
     summary = res.metrics.summary()
     summary["schema"] = SUMMARY_SCHEMA
     summary["tx_bytes"] = int(res.metrics.total_tx_bytes())
@@ -273,7 +338,10 @@ def main(argv=None) -> dict:
     print(json.dumps(summary, indent=1))
     print(f"# device: {device}  sched[{ss['policy']}/{ss['timing']}] "
           f"participation per client: {ss['participation']}")
-    print(f"# staleness hist: {ss['staleness_hist']}")
+    print(f"# rejected uploads: {ss['rejected_uploads']}  "
+          f"idle requests: {ss['idle_requests']}  "
+          f"no-shows: {ss['no_shows']}  staleness hist: "
+          f"{ss['staleness_hist']}")
     print(f"# faults: crashed {ss['crashed_uploads']}  corrupted "
           f"{ss['corrupted_uploads']}  byzantine "
           f"{ss['byzantine_uploads']}  defense[{args.defense}]: "

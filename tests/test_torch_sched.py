@@ -1,5 +1,6 @@
 """repro_torch.sched (static timing, full policy) against repro.sched:
-the event trace must be identical, float for float."""
+the event trace must be identical, float for float.  The other timings
+and policies are held in ``test_torch_sched_policies.py``."""
 import pytest
 
 pytest.importorskip("torch")
@@ -37,9 +38,8 @@ def _trace(mod, cfg, clients, n_events, k):
     rnd, out = 0, []
     for i in range(n_events):
         ev = s.pop(rnd)
-        # the full policy admits every upload (the port has no verdicts)
-        assert getattr(ev, "admitted", True) and \
-            getattr(ev, "verdict", "admit") == "admit"
+        # the full policy admits every upload
+        assert ev.admitted and ev.verdict == "admit"
         out.append((ev.time, ev.cid, ev.staleness, ev.compute_s))
         if (i + 1) % k == 0:  # the k horizon closes: next round
             rnd += 1
@@ -61,12 +61,3 @@ def test_sync_duration_equal():
         tj = jsched.timing.StaticTiming(_base)
         tt = tsched.timing.StaticTiming(_base)
         assert tt.sync_duration(ct) == tj.sync_duration(cj)
-
-
-@pytest.mark.parametrize("field,value", [
-    ("sched_timing", "lognormal"), ("sched_timing", "markov"),
-    ("sched_policy", "uniform"), ("sched_policy", "fedqs")])
-def test_unported_timing_and_policy_raise(field, value):
-    cfg = TConfig(n_clients=4, k=2, **{field: value})
-    with pytest.raises(NotImplementedError):
-        tsched.build_scheduler(cfg, _clients(TClient, 4), _base)
