@@ -14,7 +14,13 @@ wire:
   * ``fedasync``: K sequential mixes p <- (1 - a_i) p + a_i w_i
 
 :func:`weighted_mean` is fedavg's mean of the uploads' non-trainable
-state (BatchNorm statistics), taken over trees of tensors.
+state (BatchNorm statistics), taken over trees of tensors.  The
+reference's pytree-level server functions (:func:`fedsgd`,
+:func:`fedavg`, :func:`fedasync_mix`, :func:`fedbuff`,
+:func:`fedopt_adam`, :func:`sdga` and their :class:`ServerOptState`) run
+over the same nested trees, in its f32 arithmetic; they are the
+per-leaf oracle of :class:`FlatServer` and are not on the engine's
+path.
 
 Two channels:
 
@@ -49,7 +55,8 @@ come later.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Sequence
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -63,6 +70,9 @@ from repro_torch.kernels.safl_agg import (
     safl_aggregate_topk, safl_fold, safl_fold_q4, safl_fold_q8,
     safl_fold_topk, screen_rows, screen_rows_q4, screen_rows_q8,
     sdga_aggregate, sdga_aggregate_q4, sdga_aggregate_q8)
+
+Tree = Any
+
 
 class _QuantKernels(NamedTuple):
     """The kernels of one quantized wire."""
@@ -146,6 +156,126 @@ def weighted_mean(stacked, weights):
                                    device=acc.device)).to(leaf.dtype)
 
     return tree.tree_map(red, stacked)
+
+
+# ---------------------------------------------------------------------------
+# pytree-level server functions (the reference's aggregators over nested
+# trees of tensors, :mod:`repro_torch.tree`; the engine runs FlatServer)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServerOptState:
+    """Server-side slow state of :func:`fedopt_adam` and :func:`sdga`:
+    trees shaped as the params (None until the first step) and the host
+    step count."""
+    momentum: Tree = None
+    adam_m: Tree = None
+    adam_v: Tree = None
+    ema: Tree = None
+    step: int = 0
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to f32, as a 0-dim tensor on ``like``'s device:
+    dividing by it is a true division (on CUDA a division by a Python
+    number becomes a multiply by its reciprocal)."""
+    return torch.tensor(np.float32(x), dtype=torch.float32,
+                        device=like.device)
+
+
+def _poly_host(staleness, alpha: float) -> np.ndarray:
+    """(1 + tau)^-alpha of host staleness ints, np.float32 (the engine's
+    discount)."""
+    return np.power(np.float32(1.0) + np.asarray(staleness, np.float32),
+                    -np.float32(alpha))
+
+
+def _zeros_f32(params: Tree) -> Tree:
+    return tree.tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
+
+
+def fedsgd(global_params: Tree, grads_stacked: Tree, weights,
+           server_lr: float) -> Tree:
+    """Eq. (4)-(5): p - lr * (the weighted gradient mean), per leaf;
+    ``weights`` the (K,) host weights."""
+    g = weighted_mean(grads_stacked, weights)
+    return tree.tree_map(
+        lambda p, gl: (p - server_lr * gl.to(p.dtype)).to(p.dtype),
+        global_params, g)
+
+
+def fedavg(params_stacked: Tree, data_sizes) -> Tree:
+    """Eq. (6): the data-size-weighted parameter mean."""
+    return weighted_mean(params_stacked, np.asarray(data_sizes, np.float32))
+
+
+def fedasync_mix(global_params: Tree, client_params: Tree,
+                 alpha_tau: float) -> Tree:
+    """One fedasync mix, ``(1 - a) * g + a * c`` in f32 per leaf."""
+    a = float(np.float32(alpha_tau))
+    one_minus = float(np.float32(1.0) - np.float32(alpha_tau))
+    return tree.tree_map(
+        lambda g, c: (one_minus * g.to(torch.float32)
+                      + a * c.to(torch.float32)).to(g.dtype),
+        global_params, client_params)
+
+
+def fedbuff(global_params: Tree, grads_stacked: Tree, staleness,
+            server_lr: float, alpha: float = 0.5) -> Tree:
+    """fedsgd over the (1 + tau)^-alpha discounted weights."""
+    return fedsgd(global_params, grads_stacked,
+                  _poly_host(staleness, alpha), server_lr)
+
+
+def fedopt_adam(global_params: Tree, grads_stacked: Tree, weights,
+                opt: ServerOptState, server_lr: float,
+                b1: float = ADAM_B1, b2: float = ADAM_B2,
+                eps: float = ADAM_EPS) -> tuple:
+    """Server Adam over the weighted gradient mean -> (new params, new
+    opt)."""
+    g = weighted_mean(grads_stacked, weights)
+    step = opt.step + 1
+    m = opt.adam_m if opt.adam_m is not None else _zeros_f32(global_params)
+    v = opt.adam_v if opt.adam_v is not None else _zeros_f32(global_params)
+    m = tree.tree_map(
+        lambda mm, gg: b1 * mm + (1 - b1) * gg.to(torch.float32), m, g)
+    v = tree.tree_map(
+        lambda vv, gg: b2 * vv + (1 - b2) * torch.square(
+            gg.to(torch.float32)), v, g)
+    mh = tree.tree_map(lambda mm: mm / _f32(1 - b1 ** step, mm), m)
+    vh = tree.tree_map(lambda vv: vv / _f32(1 - b2 ** step, vv), v)
+    new = tree.tree_map(
+        lambda p, mm, vv: (p.to(torch.float32) - server_lr * mm
+                           / (torch.sqrt(vv) + eps)).to(p.dtype),
+        global_params, mh, vh)
+    return new, dataclasses.replace(opt, adam_m=m, adam_v=v, step=step)
+
+
+def sdga(global_params: Tree, grads_stacked: Tree, staleness,
+         opt: ServerOptState, *, server_lr: float, alpha: float = 0.5,
+         momentum: float = 0.8, ema_anchor: float = 0.05,
+         ema_decay: float = EMA_DECAY) -> tuple:
+    """Staleness-damped gradient aggregation: the discounted gradient
+    mean into server momentum, plus a pull of ``ema_anchor`` toward the
+    EMA of past global models -> (new params, new opt)."""
+    g = weighted_mean(grads_stacked, _poly_host(staleness, alpha))
+    mom = (opt.momentum if opt.momentum is not None
+           else _zeros_f32(global_params))
+    mom = tree.tree_map(
+        lambda mm, gg: momentum * mm + gg.to(torch.float32), mom, g)
+    ema = opt.ema if opt.ema is not None else tree.tree_map(
+        lambda p: p.to(torch.float32), global_params)
+    new = tree.tree_map(
+        lambda p, mm, e: (p.to(torch.float32) - server_lr * mm
+                          + ema_anchor * (e - p.to(torch.float32)))
+        .to(p.dtype), global_params, mom, ema)
+    ema = tree.tree_map(
+        lambda e, p: ema_decay * e + (1 - ema_decay) * p.to(torch.float32),
+        ema, new)
+    return new, dataclasses.replace(opt, momentum=mom, ema=ema,
+                                    step=opt.step + 1)
 
 
 def edge_traffic(partial_nbytes: int) -> Dict:

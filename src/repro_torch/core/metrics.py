@@ -20,6 +20,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs.profile import record_transfer
+
 
 @dataclasses.dataclass
 class RoundRecord:
@@ -151,7 +153,7 @@ class DeviceMetricsRing:
     as they were).  The staleness and participation counts the
     reference's ring also keeps are host numbers here (the engine's
     ``staleness_bins`` and the scheduler's participation): nothing on the
-    device computes them.
+    device computes them, so the port's ring has no ``flush_sched``.
     """
 
     def __init__(self, capacity: int, channels: int = 3, *, device):
@@ -178,5 +180,8 @@ class DeviceMetricsRing:
         return self._n
 
     def flush(self) -> np.ndarray:
-        """One host transfer: the (n, channels) rows appended so far."""
+        """One host transfer: the (n, channels) rows appended so far
+        (counted as ``metrics_ring.flush`` by
+        :func:`repro_torch.obs.profile.record_transfer`)."""
+        record_transfer("metrics_ring.flush")
         return self._buf[:self._n].cpu().numpy()

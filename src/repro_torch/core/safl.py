@@ -89,12 +89,20 @@ and participation match the reference bit for bit.  Parameters live on
 ``device`` (CUDA unless the caller asks for the CPU); the global model is
 a flat (D,) row in the reference's layout.
 
+Tracing (``trace_level`` ``round`` or ``upload``): a
+:class:`repro_torch.obs.trace.SpanTracer` on the simulated clock, fed by
+the three run paths and the scheduler's pops with values the engine
+already holds on the host, so a traced run launches the same kernels
+and ends bitwise where the untraced one ends; ``wall_run_s`` sums the
+wall seconds inside :meth:`FLEngine.run`.
+
 Ported: the settings in :data:`FLEngine.PORTED`.  Anything else raises
 ``NotImplementedError`` rather than running something else.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -115,6 +123,7 @@ from repro_torch.core.metrics import (DeviceMetricsRing, MetricsLog,
                                       RoundRecord)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quantize import payload_nbytes
+from repro_torch.obs.trace import SpanTracer
 
 # width of the ``staleness_bins`` histogram (last bin = overflow; filled
 # by the horizon-batched semi-async path only, as in the reference)
@@ -165,7 +174,7 @@ class FLEngine:
         "batch_clients": (False, True),
         "devices": (1,),
         "mesh_shape": (None,),
-        "trace_level": ("off",),
+        "trace_level": ("off", "round", "upload"),
     }
 
     def __init__(self, fl_cfg, apply_fn: Callable, kind: str,
@@ -315,6 +324,20 @@ class FLEngine:
         else:
             self._buf = flatbuf.alloc_buffer(self._horizon_target,
                                              self.codec.d, dev)
+        # wall seconds inside run() (the folds-per-second gauge)
+        self.wall_run_s = 0.0
+        # the span tracer (repro_torch.obs.trace), none with tracing off;
+        # every site is gated on it and records host values only
+        self.tracer: Optional[SpanTracer] = None
+        if fl_cfg.trace_level != "off":
+            self.tracer = SpanTracer(
+                fl_cfg.trace_dir, fl_cfg.trace_level,
+                meta=dict(mode=fl_cfg.mode, aggregation=fl_cfg.aggregation,
+                          wire=self._wire, channel=self._channel,
+                          horizon=fl_cfg.horizon, defense=self._defense,
+                          n_clients=len(self.clients), k=fl_cfg.k,
+                          d=self.codec.d, seed=fl_cfg.seed))
+            self.sched.tracer = self.tracer
 
     # ------------------------------------------------------------------
     def _base_compute(self, c: ClientState) -> float:
@@ -655,14 +678,40 @@ class FLEngine:
             screened_uploads=self.screened_uploads,
             clipped_uploads=self.clipped_uploads)
 
+    def _trace_round(self, stal: Sequence[int], sizes: Sequence[int],
+                     facs, t0: float, t1: float) -> None:
+        """Close the tracer's horizon: its aggregate and round spans, the
+        ingest records' final weights (the ``_weight_vector`` x defense
+        factor product both channels fold) and the counters."""
+        w = self._weight_vector(stal, sizes)
+        if facs is not None:
+            w = w * np.asarray(
+                [np.float32(1.0) if f is None else f for f in facs],
+                np.float32)
+        self.tracer.round(
+            self.t_global, t0=t0, t1=t1, agg_s=self._agg_overhead(),
+            k=len(stal), staleness=stal, weights=[float(x) for x in w],
+            counts=dict(tx_bytes=int(self.tx_bytes),
+                        rx_bytes=int(self.rx_bytes),
+                        screened=int(self.screened_uploads),
+                        clipped=int(self.clipped_uploads),
+                        corrupted=int(self.corrupted_uploads),
+                        byzantine=int(self.byzantine_uploads)))
+
     # ------------------------------------------------------------------
     def run(self, n_rounds: int, log_every: int = 0) -> FLResult:
+        wall0 = time.perf_counter()
         if self.cfg.mode == "sync":
             self._run_sync(n_rounds, log_every)
         elif self.cfg.batch_clients:
             self._run_semi_async_batched(n_rounds, log_every)
         else:
             self._run_semi_async(n_rounds, log_every)
+        self.wall_run_s += time.perf_counter() - wall0
+        if self.tracer is not None:
+            # a horizon left open at the run's end (it would stay pending
+            # across run() calls otherwise)
+            self.tracer.tail()
         stats = self.sched.stats()
         stats["staleness_bins"] = self._staleness_bins.copy()
         stats["screened_uploads"] = self.screened_uploads
@@ -684,7 +733,7 @@ class FLEngine:
         trees on the sequential one)."""
         snap: Dict = {
             "flat_params": self._flat_params,
-            "opt": self._opt,
+            "opt": self._opt_leaves(self._opt),
             "global_state": self.global_state,
             "residuals": {str(k): v for k, v in self._residuals.items()},
             "client_state": {str(c.cid): c.model_state
@@ -700,6 +749,14 @@ class FLEngine:
                                      for c in self.clients}
         return snap
 
+    @staticmethod
+    def _opt_leaves(opt: Dict) -> Dict:
+        """The server optimizer state as the snapshot stores it: the step
+        count an int32 scalar, the reference's dtype."""
+        if "step" not in opt:
+            return opt
+        return {**opt, "step": np.int32(opt["step"])}
+
     def save_snapshot(self, ckpt_dir: str, keep: int = 3) -> int:
         """Snapshot the semi-async engine at a ``run()`` boundary (the
         channel is then empty and the streaming bank sealed) as step
@@ -712,11 +769,13 @@ class FLEngine:
         clocks, bytes, counters, the q4 upload counters, the residuals'
         owners, client versions, ``Scheduler.state()`` (with the fault
         plan's and timing stream's counters) and the metric records;
-        ``dev_stale_hist`` is the batched engine's ``staleness_bins``.
-        The port keeps no ``dev_participation`` (the batched engine's
-        participation is the scheduler's, which the sidecar carries) and
-        adds ``wave_size_hist``.  A resumed run replays the uninterrupted
-        one bit for bit."""
+        ``dev_stale_hist`` is the batched engine's ``staleness_bins`` and
+        ``dev_participation`` its admitted uploads per client (the
+        scheduler's participation; zeros on the sequential engine, as the
+        reference's), and nothing else: each package resumes the other's
+        snapshot (``wave_size_hist`` restarts at a resume, as the
+        reference's).  A resumed run replays the uninterrupted one bit
+        for bit."""
         if self.cfg.mode != "semi_async":
             raise ValueError("snapshots cover the semi-async engines")
         step = int(self.t_global)
@@ -739,8 +798,9 @@ class FLEngine:
             "corrupted_uploads": int(self.corrupted_uploads),
             "byzantine_uploads": int(self.byzantine_uploads),
             "dev_stale_hist": self._staleness_bins.tolist(),
-            "wave_size_hist": {str(k): int(v)
-                               for k, v in self.wave_size_hist.items()},
+            "dev_participation": (
+                self.sched.participation.tolist() if self.cfg.batch_clients
+                else [0] * len(self.clients)),
             "sched": self.sched.state(),
             "metrics": [dataclasses.asdict(rec)
                         for rec in self.metrics.records],
@@ -757,7 +817,8 @@ class FLEngine:
         tensor template is the engine's own structures plus the sidecar's
         residual owners, so every leaf's shape and dtype is checked; each
         leaf lands on the engine's device.  A snapshot of the other
-        engine (batched or sequential) is refused."""
+        engine (batched or sequential) is refused; the reference's
+        snapshot of the same engine loads as the port's own."""
         if step is None:
             step = ckptio.latest_step(ckpt_dir)
             if step is None:
@@ -767,7 +828,7 @@ class FLEngine:
             raise ValueError("snapshot was taken on the other engine path")
         tpl: Dict = {
             "flat_params": self._flat_params,
-            "opt": self._opt,
+            "opt": self._opt_leaves(self._opt),
             "global_state": self.global_state,
             "residuals": {str(cid): self.codec.zero_residual(self.device)
                           for cid in state["residual_cids"]},
@@ -782,7 +843,9 @@ class FLEngine:
                                     for c in self.clients}
         snap, _ = ckptio.load_checkpoint(ckpt_dir, tpl, step=step)
         self._flat_params = snap["flat_params"]
-        self._opt = snap["opt"]
+        self._opt = dict(snap["opt"])
+        if "step" in self._opt:
+            self._opt["step"] = int(self._opt["step"])
         self.global_state = snap["global_state"]
         self.global_params = self.codec.unravel(self._flat_params)
         self._residuals = {int(k): v for k, v in snap["residuals"].items()}
@@ -810,8 +873,6 @@ class FLEngine:
         self.corrupted_uploads = int(state["corrupted_uploads"])
         self.byzantine_uploads = int(state["byzantine_uploads"])
         self._staleness_bins = np.asarray(state["dev_stale_hist"], np.int64)
-        self.wave_size_hist = {int(k): int(v)
-                               for k, v in state["wave_size_hist"].items()}
         self.sched.load_state(state["sched"])
         self.metrics.records = [RoundRecord(**rec)
                                 for rec in state["metrics"]]
@@ -985,8 +1046,23 @@ class FLEngine:
                     self.sched.participation[cid] += 1
             round_t = max(durations) + self._agg_overhead()
             self.idle_time += sum(round_t - d for d in durations)
+            t_open = now
             now += round_t
             self._aggregate(buffer, states_stacked=states_k)
+            if self.tracer is not None:
+                # every active client trains from t_open; a sync duration
+                # is its compute plus its comm
+                nb = self._upload_nbytes()
+                for slot, cid in enumerate(active):
+                    d = durations[slot]
+                    comm = min(self.clients[cid].comm_time, d)
+                    self.tracer.upload(
+                        slot=slot, cid=int(cid), t=t_open + d,
+                        compute_s=d - comm, comm_s=comm, staleness=0,
+                        nbytes=nb, wire=self._wire, fac=None)
+                self._trace_round([0] * len(buffer),
+                                  [b["n"] for b in buffer], None,
+                                  t_open, now - self._agg_overhead())
             if self._eval_due(self.t_global, n_rounds):
                 self._eval_and_record(now, [0] * len(buffer))
                 if log_every and self.t_global % log_every == 0:
@@ -1020,6 +1096,13 @@ class FLEngine:
                 w_end, s_end, _ = self._run_local(c)
                 self._enqueue_upload(buffer, c, w_end, s_end, ev.staleness,
                                      fault=ev.fault)
+                if self.tracer is not None:
+                    self.tracer.upload(
+                        slot=len(buffer) - 1, cid=c.cid, t=ev.time,
+                        compute_s=ev.compute_s, comm_s=c.comm_time,
+                        staleness=ev.staleness,
+                        nbytes=self._upload_nbytes(), wire=self._wire,
+                        fac=buffer[-1].get("fac"))
                 # client-side refresh (paper §2.2.2): adopt the newest
                 # global model if one arrived since this client's
                 # version, else continue local
@@ -1036,8 +1119,14 @@ class FLEngine:
             # no-op for the count horizons: the buffer did not grow)
             if self._horizon_due(len(buffer), now):
                 stale_vals = [b["staleness"] for b in buffer]
+                t_open = self._last_agg_time
                 self._aggregate(buffer)
                 self._last_agg_time = now
+                if self.tracer is not None:
+                    self._trace_round(
+                        stale_vals, [b["n"] for b in buffer],
+                        ([b["fac"] for b in buffer]
+                         if self._defense != "none" else None), t_open, now)
                 if self._eval_due(self.t_global, n_rounds):
                     self._eval_and_record(now + self._agg_overhead(),
                                           stale_vals)
@@ -1081,6 +1170,7 @@ class FLEngine:
             # closes (resync_after), where the sequential engine puts it;
             # an idle changes nothing ----
             events: List[tuple] = []  # (time, cid) per admitted slot
+            evcomp: List[float] = []  # their compute seconds (the tracer)
             stal: List[int] = []
             faults: List = []
             n_adm: Dict[int, int] = {}
@@ -1115,6 +1205,7 @@ class FLEngine:
                 stal.append(ev.staleness)
                 faults.append(ev.fault)
                 events.append((ev.time, ev.cid))
+                evcomp.append(ev.compute_s)
             if not events:
                 break
             now = t_pop
@@ -1218,11 +1309,25 @@ class FLEngine:
 
             if self._streaming and h["next"] != kh:
                 raise RuntimeError(f"{h['next']} of {kh} uploads folded")
+            facs = (None if h["fac"] is None
+                    else [h["fac"][i] for i in range(kh)])
             m = self._aggregate([
                 {"staleness": stal[i], "n": sizes[i],
-                 "fac": None if h["fac"] is None else h["fac"][i]}
+                 "fac": None if facs is None else facs[i]}
                 for i in range(kh)])
+            t_open = self._last_agg_time
             self._last_agg_time = now
+            if self.tracer is not None:
+                # the sequential engine's per-slot values; the tracer's
+                # sorted flush makes the order of the records irrelevant
+                for slot, (t_ev, cid) in enumerate(events):
+                    self.tracer.upload(
+                        slot=slot, cid=cid, t=t_ev, compute_s=evcomp[slot],
+                        comm_s=self.clients[cid].comm_time,
+                        staleness=stal[slot], nbytes=nbytes,
+                        wire=self._wire,
+                        fac=None if facs is None else facs[slot])
+                self._trace_round(stal, sizes, facs, t_open, now)
             if cfg.aggregation == "fedavg":
                 stacked = tree.tree_map(lambda *ls: torch.cat(ls),
                                         *state_parts)

@@ -11,6 +11,7 @@ or a failed build raises.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -24,6 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# libraries loaded by :func:`load` in this process, by source name
+_LOADS: "collections.Counter[str]" = collections.Counter()
 
 
 def find_nvcc() -> str:
@@ -86,4 +89,12 @@ def compile_source(name: str) -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built if needed and loaded.
     Callers keep the handle (one per process)."""
-    return ctypes.CDLL(compile_source(name)["path"])
+    lib = ctypes.CDLL(compile_source(name)["path"])
+    _LOADS[name] += 1
+    return lib
+
+
+def load_counts() -> dict:
+    """How many times :func:`load` loaded each source's library in this
+    process (``repro_torch.obs.profile.engine_compile_log`` reads it)."""
+    return dict(_LOADS)

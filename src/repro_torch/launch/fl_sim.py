@@ -27,15 +27,21 @@ k|queue|timeout|hybrid`` (``--horizon-queue``, ``--horizon-timeout-s``).
 ``--ckpt-dir`` snapshots the engine at the end of the run, and every
 ``--ckpt-every`` rounds with the run cut into segments; ``--resume``
 restores the latest snapshot there first, so a killed run run again ends
-bit for bit where the uninterrupted run ends.
-Flags for parts not ported yet (``--devices``, ``--mesh``, tracing) are
-refused with a "not ported yet" error when given anything but their
-default.
+bit for bit where the uninterrupted run ends.  ``--trace-dir D`` traces
+the run (:mod:`repro_torch.obs`; ``--trace-level round|upload``, upload
+by default with a directory) and writes ``D/trace.jsonl``,
+``D/trace.json`` (Chrome trace, Perfetto), ``D/metrics.prom`` and
+``D/metrics.json``; ``python -m repro_torch.obs.report D/trace.jsonl``
+renders the trace.  ``--trace-jax`` (the reference's flag name) wraps the
+run in ``torch.profiler`` and writes ``D/torch_profile.json``.
+Flags for parts not ported yet (``--devices``, ``--mesh``) are refused
+with a "not ported yet" error when given anything but their default.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import numpy as np
 import torch
@@ -46,36 +52,18 @@ from repro_torch.device import resolve_device
 from repro_torch.data import build_client_shards, make_dataset, train_test_split
 from repro_torch.models.lstm import build_lstm
 from repro_torch.models.vision_cnn import build_paper_model
+from repro_torch.obs import export as obs_export
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import profile as obs_profile
 from repro_torch.prng import prng_key
 
 #: --json-out summary schema version (the reference's)
 SUMMARY_SCHEMA = 1
 
 #: flags of parts not ported yet -> the only value accepted (the default)
-NOT_PORTED = {"devices": 1, "mesh": None, "trace_dir": "",
-              "trace_jax": False}
+NOT_PORTED = {"devices": 1, "mesh": None}
 #: server learning rate per aggregation (the reference launcher's table)
 SERVER_LR = {"fedsgd": 0.05, "sdga": 0.05, "fedbuff": 0.05, "fedopt": 0.005}
-
-
-def to_native(obj):
-    """Recursively convert to JSON-native types that round-trip through
-    ``json.dumps``/``json.loads`` by equality."""
-    if isinstance(obj, dict):
-        return {str(k): to_native(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [to_native(v) for v in obj]
-    if isinstance(obj, np.ndarray):
-        return [to_native(v) for v in obj.tolist()]
-    if isinstance(obj, (bool, np.bool_)):
-        return bool(obj)
-    if isinstance(obj, (int, np.integer)):
-        return int(obj)
-    if isinstance(obj, (float, np.floating)):
-        return float(obj)
-    if obj is None or isinstance(obj, str):
-        return obj
-    return str(obj)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -205,10 +193,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--resume", action="store_true",
                     help="restore the latest snapshot of --ckpt-dir "
                          "before running (none there: start afresh)")
-    ap.add_argument("--trace-dir", default="")
+    ap.add_argument("--trace-dir", default="",
+                    help="write the span trace into this directory: "
+                         "trace.jsonl (the records), trace.json (Chrome "
+                         "trace, Perfetto), metrics.prom / metrics.json "
+                         "(the registry); render with python -m "
+                         "repro_torch.obs.report <dir>/trace.jsonl")
     ap.add_argument("--trace-level", default="",
-                    choices=["", "off", "round", "upload"])
-    ap.add_argument("--trace-jax", action="store_true")
+                    choices=["", "off", "round", "upload"],
+                    help="round (horizon spans only) or upload (each "
+                         "upload's life and the scheduler's instants); "
+                         "upload when --trace-dir is given, else off")
+    ap.add_argument("--trace-jax", action="store_true",
+                    help="also wrap the run in torch.profiler (the "
+                         "reference's flag name) and write its Chrome "
+                         "trace into --trace-dir (torch_profile.json)")
     ap.add_argument("--json-out", default="")
     args = ap.parse_args(argv)
     for name, default in NOT_PORTED.items():
@@ -216,8 +215,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error(f"--{name.replace('_', '-')}="
                      f"{getattr(args, name)!r} is not ported yet (only "
                      f"{default!r})")
-    if args.trace_level not in ("", "off"):
-        ap.error(f"--trace-level={args.trace_level!r} is not ported yet")
     return args
 
 
@@ -299,7 +296,10 @@ def main(argv=None) -> dict:
                    fault_corrupt_p=args.fault_corrupt_p,
                    fault_byzantine_p=args.fault_byzantine_p,
                    fault_seed=args.fault_seed, defense=args.defense,
-                   defense_norm_cap=args.defense_norm_cap)
+                   defense_norm_cap=args.defense_norm_cap,
+                   trace_level=args.trace_level or (
+                       "upload" if args.trace_dir else "off"),
+                   trace_dir=args.trace_dir)
     eng = FLEngine(cfg, fn, ds.kind, p0, s0, shards, te.x[:400], te.y[:400],
                    device=device)
     log_every = max(args.rounds // 10, 1)
@@ -309,21 +309,40 @@ def main(argv=None) -> dict:
             print(f"# resumed from snapshot at round {start}")
         except FileNotFoundError:
             pass
-    if args.ckpt_dir and args.ckpt_every > 0:
-        # segmented run: run() stops at each snapshot boundary (the
-        # channel is empty between aggregations), so a kill loses at most
-        # ckpt_every rounds and --resume replays the rest bit for bit
-        res = None
-        while eng.t_global < args.rounds:
-            upto = min(eng.t_global + args.ckpt_every, args.rounds)
-            res = eng.run(upto, log_every=log_every)
-            eng.save_snapshot(args.ckpt_dir)
-        if res is None:  # resumed at the last round: nothing left to run
+    with obs_profile.torch_profile(args.trace_dir, enabled=args.trace_jax):
+        if args.ckpt_dir and args.ckpt_every > 0:
+            # segmented run: run() stops at each snapshot boundary (the
+            # channel is empty between aggregations), so a kill loses at
+            # most ckpt_every rounds and --resume replays the rest bit
+            # for bit
+            res = None
+            while eng.t_global < args.rounds:
+                upto = min(eng.t_global + args.ckpt_every, args.rounds)
+                res = eng.run(upto, log_every=log_every)
+                eng.save_snapshot(args.ckpt_dir)
+            if res is None:  # resumed at the last round: nothing to run
+                res = eng.run(args.rounds, log_every=log_every)
+        else:
             res = eng.run(args.rounds, log_every=log_every)
-    else:
-        res = eng.run(args.rounds, log_every=log_every)
-        if args.ckpt_dir:
-            eng.save_snapshot(args.ckpt_dir)
+            if args.ckpt_dir:
+                eng.save_snapshot(args.ckpt_dir)
+    if eng.tracer is not None:
+        eng.tracer.close()
+        if args.trace_dir:
+            # beside trace.jsonl: the Chrome trace and the registry
+            obs_export.export_chrome_trace(
+                eng.tracer.records,
+                os.path.join(args.trace_dir, "trace.json"))
+            reg = obs_metrics.from_engine(eng)
+            with open(os.path.join(args.trace_dir, "metrics.prom"),
+                      "w") as f:
+                f.write(reg.to_prometheus())
+            with open(os.path.join(args.trace_dir, "metrics.json"),
+                      "w") as f:
+                json.dump(reg.to_json(), f, indent=1)
+            print(f"# trace: {len(eng.tracer.records)} records -> "
+                  f"{args.trace_dir}/trace.jsonl (Perfetto: trace.json, "
+                  "metrics: metrics.prom/.json)")
     summary = res.metrics.summary()
     summary["schema"] = SUMMARY_SCHEMA
     summary["tx_bytes"] = int(res.metrics.total_tx_bytes())
@@ -334,7 +353,7 @@ def main(argv=None) -> dict:
                             for kk, v in sorted(res.staleness_hist.items())}
     summary["sched"] = ss
     summary["traffic"] = dict(eng._server.traffic)
-    summary = to_native(summary)
+    summary = obs_export.to_native(summary)
     print(json.dumps(summary, indent=1))
     print(f"# device: {device}  sched[{ss['policy']}/{ss['timing']}] "
           f"participation per client: {ss['participation']}")

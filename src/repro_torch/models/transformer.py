@@ -11,8 +11,9 @@ leaves at index i of axis 0).  :meth:`DecoderLM.init` draws every
 weight from a reference key in the reference's order (``split(key, 5)``
 -> embed, dense stack, moe stack, head, projector; the stack splits its
 key into ``n_layers``, each layer in 2, attention then MLP), so
-``init(prng_key(0))`` gives the reference's ``init(PRNGKey(0))`` to a
-few ulp, drawn on the device (:func:`repro_torch.prng.normal_torch`).
+``init(prng_key(0))`` gives the reference's ``init(PRNGKey(0))``, drawn
+on the device (:func:`repro_torch.prng.normal_torch`, bitwise
+``jax.random.normal``).
 
 Parameters take no gradient: this is the serving path.  The KV cache is
 ``{"k", "v"}`` of (n_layers, B, capacity, Hkv, hd) in the compute dtype,

@@ -46,7 +46,7 @@ def cnn_init(key: prng.Key, *, in_ch=3, n_classes=10, image_size=32,
     """He-normal init from a reference key (:func:`repro_torch.prng.
     prng_key`), consumed as the reference's ``cnn_init`` consumes it
     (``split(key, 5)``, then ``normal(k, shape) * sqrt(2 / fan_in)``), so
-    the weights are ``jax.random``'s to a few ulp.  Drawn on the CPU and
+    the weights are ``jax.random``'s bit for bit.  Drawn on the CPU and
     moved to ``device`` (the GPU unless the caller asks for the CPU; no
     GPU raises), so a key gives the same weights on any device."""
     device = resolve_device(device)

@@ -11,12 +11,11 @@
     32 random bits per lane, lane i the xor of the two output words of
     threefry2x32 over the counter pair (0, i), the top 23 bits put under
     the exponent of 1.0, minus 1.
-  * :func:`normal` is ``jax.random.normal(key, shape)`` (f32) to a few
-    ulp: ``f32(sqrt 2) * erfinv(u)`` with u uniform on
+  * :func:`normal` is ``jax.random.normal(key, shape)`` (f32) bit for
+    bit: ``f32(sqrt 2) * erfinv(u)`` with u uniform on
     (nextafter(-1, 0), 1) from the same bits, erfinv being XLA's f32
-    polynomial (Giles), its steps single-rounded as XLA's FMA.  The
-    log1p inside is the platform's, not XLA's, so about 1 % of lanes
-    differ from ``jax.random.normal`` by 1-3 ulp.
+    polynomial (Giles) over XLA's f32 log1p (:func:`_log1p`), every
+    multiply-add rounded once as XLA's FMA.
 
 Draws are keyed by (seed, client, counter) only, never by the order in
 which they are made.  Keys are host numpy (:func:`prng_key`,
@@ -126,22 +125,100 @@ _SQRT2 = np.float32(np.sqrt(2.0))
 _F32_MAX = float(np.finfo(np.float32).max)
 
 
-def _erfinv(x, xp, to):
+#: XLA's f32 log: Cephes' logf polynomial, highest degree first, and
+#: ln 2 split in two
+_LOG_P = [float(np.float32(v)) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1)]
+_LN2_LO = float(np.float32(-2.12194440e-4))
+_LN2_HI = 0.693359375
+#: XLA's f32 log1p below sqrt(2) - 1: x - x^2/2 + x^3 * num(x) / den(x)
+#: (Cephes), the coefficients highest degree first
+_LOG1P_NUM = [float(np.float32(v)) for v in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1)]
+_LOG1P_DEN = [float(np.float32(v)) for v in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1)]
+_LOG1P_SMALL = float(np.float32(0.41421356237309504880))
+_SQRT_HALF = float(np.float32(0.707106781186547524))
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _fma(a, b, c, to):
+    """``a * b + c`` of f32 operands rounded once, as XLA's FMA: the
+    product is exact in f64, the sum is rounded from f64 to f32 (twice
+    rounded, which parts from one FMA in about 2^-29 of the sums)."""
+    if not isinstance(c, float):
+        c = to(c, "float64")
+    return to(to(a, "float64") * b + c, "float32")
+
+
+def _log(v, xp, to, view):
+    """XLA's f32 log on the CPU (Eigen's Cephes ``plog``, as XLA's
+    optimizer leaves it): frexp of the bits, the fold of the mantissa
+    into [sqrt(1/2), sqrt(2)), the degree-9 polynomial in three
+    interleaved Horner chains joined by x^3, ln 2 added in two parts;
+    each ``a*b + c`` whose product has no other use is one FMA, the rest
+    rounded per operation.  0 -> -inf, +inf -> +inf, below 0 or NaN ->
+    NaN."""
+    t = xp.where(v > _F32_TINY, v, _F32_TINY)
+    bits = view(t, "int32")
+    m = view((bits & 0x7FFFFF) | 0x3F000000, "float32")
+    e = to((bits >> 23) - 127, "float32") + 1.0
+    fold = m < _SQRT_HALF
+    e = e - to(fold, "float32")
+    u = (m - 1.0) + xp.where(fold, m, 0.0)
+    x2 = u * u
+    x3 = x2 * u
+    p = _LOG_P
+    y = _fma(_fma(u, p[0], p[1], to), u, p[2], to)
+    y1 = _fma(_fma(u, p[3], p[4], to), u, p[5], to)
+    y2 = _fma(_fma(u, p[6], p[7], to), u, p[8], to)
+    y = _fma(_fma(y, x3, y1, to), x3, y2, to)
+    y = _fma(y, x3, e * _LN2_LO, to)
+    r = _fma(e, _LN2_HI, (u - x2 * 0.5) + y, to)
+    r = xp.where(v > 0.0, r, float("nan"))
+    r = xp.where(v == 0.0, float("-inf"), r)
+    return xp.where(v == float("inf"), float("inf"), r)
+
+
+def _log1p(x, xp, to, view):
+    """XLA's f32 log1p on the CPU (``EmitLog1p``): ``log(1 + x)`` for
+    |x| >= sqrt(2) - 1, below it the rational form, its Horner steps and
+    the ``-x^2/2`` term one FMA each."""
+    x2 = x * x
+    num = den = None
+    for cn, cd in zip(_LOG1P_NUM, _LOG1P_DEN):
+        # the first step is 0 * x + c: exactly c
+        num = cn + 0.0 * x if num is None else _fma(num, x, cn, to)
+        den = cd + 0.0 * x if den is None else _fma(den, x, cd, to)
+    small = x + _fma(x2, -0.5, (x * x2) * (num / den), to)
+    return xp.where(xp.abs(x) < _LOG1P_SMALL, small,
+                    _log(x + 1.0, xp, to, view))
+
+
+def _erfinv(x, xp, to, view):
     """XLA's f32 erfinv of the f32 array ``x`` in the array module ``xp``
-    (numpy or torch; ``to(a, "float64")`` casts): w = -log1p(-x*x);
-    below 5, p(w - 2.5), else p(sqrt(w) - 3); the result p * x, and +-inf
-    at +-1.  Each Horner step ``c + p*w`` is one FMA in XLA: here the
-    product of two f32 is exact in f64 and the sum is rounded from f64 to
-    f32 (twice rounded, which parts from one FMA in far fewer lanes than
-    the platform's log1p parts from XLA's)."""
-    w = -xp.log1p(-(x * x))
+    (numpy or torch; ``to(a, "float64")`` casts, ``view(a, "int32")``
+    reinterprets): w = -log1p(-x*x) (:func:`_log1p`); below 5,
+    p(w - 2.5), else p(sqrt(w) - 3); the result p * x, and +-inf at +-1.
+    Each Horner step ``c + p*w`` is one FMA in XLA (:func:`_fma`)."""
+    w = -_log1p(-(x * x), xp, to, view)
     lt = w < 5.0
-    w = to(xp.where(lt, w - 2.5, xp.sqrt(w) - 3.0), "float64")
+    # the f32 sqrt correctly rounded, from f64 (torch's vectorized f32
+    # sqrt on the CPU is not)
+    w = xp.where(lt, w - 2.5,
+                 to(xp.sqrt(to(w, "float64")), "float32") - 3.0)
     p = None
     for lo, hi in zip(_ERFINV_LT5.tolist(), _ERFINV_GE5.tolist()):
-        c = to(xp.where(lt, lo, hi), "float64")
-        p = c if p is None else to(to(p * w + c, "float32"), "float64")
-    r = to(p, "float32") * x
+        c = xp.where(lt, lo, hi)
+        p = c if p is None else _fma(p, w, c, to)
+    r = p * x
     return xp.where(xp.abs(x) == 1.0, x * _F32_MAX, r)
 
 
@@ -149,20 +226,28 @@ def _np_to(a, dtype):
     return a.astype(dtype)
 
 
+def _np_view(a, dtype):
+    return a.view(dtype)
+
+
 def _torch_to(a, dtype):
     return a.to(getattr(torch, dtype))
 
 
+def _torch_view(a, dtype):
+    return a.view(getattr(torch, dtype))
+
+
 def normal(key: Key, shape) -> np.ndarray:
-    """``jax.random.normal(key, shape)``: standard normal f32, to a few
-    ulp (see the module docstring)."""
+    """``jax.random.normal(key, shape)``: standard normal f32, bit for
+    bit (see the module docstring)."""
     shape = tuple(int(x) for x in np.atleast_1d(shape))
     n = int(np.prod(shape, dtype=np.int64))
     bits = _random_bits(key, n)
     f = ((bits >> _U32(9)) | _U32(0x3F800000)).view(np.float32) \
         - np.float32(1.0)
     u = np.maximum(_NORMAL_LO, f * np.float32(2.0) + _NORMAL_LO)
-    return (_SQRT2 * _erfinv(u, np, _np_to)).reshape(shape)
+    return (_SQRT2 * _erfinv(u, np, _np_to, _np_view)).reshape(shape)
 
 
 _MASK = 0xFFFFFFFF
@@ -223,7 +308,7 @@ def normal_torch(key: Key, shape, device) -> torch.Tensor:
     """:func:`normal` made on ``device``: the same bits and the same
     erfinv steps in PyTorch ops, in passes of :data:`NORMAL_CHUNK` lanes
     (the bits of lane i depend on i alone).  Equal to the numpy twin
-    except where the two platforms' f32 log1p differ (a few ulp)."""
+    bit for bit on every device."""
     shape, n = _lanes(shape)
     out = torch.empty(n, dtype=torch.float32, device=device)
     lo = float(_NORMAL_LO)
@@ -231,5 +316,6 @@ def normal_torch(key: Key, shape, device) -> torch.Tensor:
         m = min(NORMAL_CHUNK, n - start)
         u = torch.clamp(_unit_torch(_bits_torch(key, start, m, device))
                         * 2.0 + lo, min=lo)
-        out[start:start + m] = float(_SQRT2) * _erfinv(u, torch, _torch_to)
+        out[start:start + m] = float(_SQRT2) * _erfinv(u, torch, _torch_to,
+                                                        _torch_view)
     return out.reshape(shape)

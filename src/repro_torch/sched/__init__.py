@@ -20,6 +20,12 @@ admitted event into the engine.  :meth:`Scheduler.state` /
 :meth:`Scheduler.load_state` carry all of it (heap, versions, counters,
 the timing stream's and the fault plan's PRNG counters, rate control's
 round count) through an engine snapshot.
+
+With tracing on, the engine sets :attr:`Scheduler.tracer` and ``pop``
+records the reference's instants on it: ``wake``, ``crash`` (staleness,
+backoff), ``offline`` (until) and each refused verdict (``reject`` /
+``idle``, staleness).  Both engines pop the same events, so they record
+the same instants.
 """
 from __future__ import annotations
 
@@ -86,6 +92,8 @@ class Scheduler:
         self.idle = np.zeros(len(clients), np.int64)
         self.crashed = np.zeros(len(clients), np.int64)
         self.no_shows = 0
+        # a repro_torch.obs.trace.SpanTracer when tracing is on
+        self.tracer = None
 
     def resume(self) -> None:
         self.queue.resume(self.clients, self.timing)
@@ -95,10 +103,13 @@ class Scheduler:
         are consumed here).  Returns None only if the heap is empty, which
         the engine never lets happen (every pop schedules the client's
         next event)."""
+        tr = self.tracer
         while len(self.queue):
             t, cid, kind, comp = self.queue.pop()
             c = self.clients[cid]
             if kind == WAKE:
+                if tr is not None:
+                    tr.sched("wake", t, cid)
                 nt, nkind, ncomp = self.timing.after_wake(c, t)
                 self.queue.push(nt, cid, nkind, ncomp)
                 continue
@@ -117,6 +128,9 @@ class Scheduler:
                 self.crashed[cid] += 1
                 stal = rnd - self._version.get(cid, 0)
                 self._version[cid] = rnd  # mirrors the engine's resync
+                if tr is not None:
+                    tr.sched("crash", t, cid, staleness=int(stal),
+                             backoff=float(backoff))
                 return SchedEvent(t, cid, stal, False, "crash")
             self._crash_streak.pop(cid, None)  # the streak ends on delivery
             # schedule the client's next event first: the heap evolves on
@@ -129,6 +143,8 @@ class Scheduler:
                 ncomp *= fault.mult
             if nkind == WAKE:
                 self.no_shows += 1  # the client goes offline (Markov)
+                if tr is not None:
+                    tr.sched("offline", t, cid, until=float(nt))
             self.queue.push(nt, cid, nkind, ncomp)
             stal = rnd - self._version.get(cid, 0)
             v = self.policy.verdict(cid, stal, c.n_samples, rnd)
@@ -146,6 +162,8 @@ class Scheduler:
                 self.idle[cid] += 1
             else:
                 self.rejected[cid] += 1
+            if tr is not None:
+                tr.sched(v, t, cid, staleness=int(stal))
             return SchedEvent(t, cid, stal, False, v)
         return None
 

@@ -20,11 +20,9 @@ reference's:
 The stochastic draws come from :class:`PRNGStream`, keyed per ``(seed,
 cid, block)`` with :mod:`repro_torch.prng`'s threefry (the bits of
 ``jax.random``), so a draw never depends on the order of events.  The
-uniform lanes are the reference's bit for bit; :func:`repro_torch.prng.
-normal` differs from ``jax.random.normal`` by 1-3 ulp in about 1 % of
-lanes (the platform's ``log1p``), so a lognormal or Markov event time can
-differ from the reference's in its last bits, while every decision made
-from a uniform (Markov's drop and its off time) is exact.
+uniform and normal lanes (:func:`repro_torch.prng.normal`, XLA's f32
+erfinv and log1p) are the reference's bit for bit, so every event time
+equals the reference's.
 """
 from __future__ import annotations
 

@@ -117,7 +117,7 @@ def test_streaming_equals_buffered_bitwise(setup):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("devices", 3), ("mesh_shape", (1, 1)), ("trace_level", "round")])
+    ("devices", 3), ("mesh_shape", (1, 1)), ("mesh_shape", (3, 1))])
 def test_unported_settings_raise(setup, field, value):
     shards, te, p_j, _ = setup
     p = params_from_jax(jax.tree_util.tree_map(np.asarray, p_j), "cpu")
@@ -180,7 +180,7 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
         assert t[k] == j[k], k
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--trace-dir", "x"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--mesh", "2", "2"]])
 def test_fl_sim_refuses_unported_flags(flag, capsys):
     with pytest.raises(SystemExit):
         tfl_sim.parse_args(flag)

@@ -15,8 +15,8 @@ the port's engines:
     histogram, participation, bytes, and the rejected, idle, no-show and
     crash counts;
   * every popped event's time and every record's ``sim_time`` bitwise
-    under static timing and within ``rtol=1e-6`` under lognormal and
-    Markov (1 % of the timing stream's normal lanes differ by 1-3 ulp);
+    under every timing model (the timing stream's normal lanes are
+    ``jax.random.normal``'s bit for bit);
   * params at ``PERF.md`` §2's bounds: ``rtol=1e-5, atol=1e-6`` on f32
     (fedopt ``atol=1e-5``), 1e-3 of the run's movement on q8 for a
     gradient target with error feedback.
@@ -213,16 +213,11 @@ COUNTS = ("rejected_uploads", "idle_requests", "no_shows", "crashed_uploads",
 ALL = list(SETTINGS) + [CNN_SETTING[0]]
 
 
-def _stochastic(kw):
-    return kw.get("sched_timing", "static") != "static"
-
-
 @pytest.mark.parametrize("batched", [False, True])
 @pytest.mark.parametrize("name", ALL)
 def test_schedule_matches_reference(runs, name, batched):
     je, jr, jlog, _ = runs.ref(name)
     te, tr, tlog, _ = runs.port(name, batched)
-    kw = runs._kw(name)
     assert [e[1:] for e in tlog] == [e[1:] for e in jlog]
     assert tr.staleness_hist == jr.staleness_hist
     np.testing.assert_array_equal(tr.participation, jr.participation)
@@ -239,12 +234,8 @@ def test_schedule_matches_reference(runs, name, batched):
     want = np.asarray([e[0] for e in jlog])
     sim = np.asarray([r.sim_time for r in tr.metrics.records])
     want_sim = np.asarray([r.sim_time for r in jr.metrics.records])
-    if _stochastic(kw):
-        np.testing.assert_allclose(times, want, rtol=1e-6)
-        np.testing.assert_allclose(sim, want_sim, rtol=1e-6)
-    else:
-        np.testing.assert_array_equal(times, want)
-        np.testing.assert_array_equal(sim, want_sim)
+    np.testing.assert_array_equal(times, want)
+    np.testing.assert_array_equal(sim, want_sim)
     assert len(tr.metrics.records) == ROUNDS
 
 

@@ -103,8 +103,8 @@ def test_init_is_seeded_he_normal():
                                 dict(width=4, image_size=8), {}])
 def test_init_matches_reference_key(kw):
     """cnn_init(prng_key(0)) is the reference's cnn_init(PRNGKey(0)) within
-    4 ulp in every lane (the launcher's width-8 CNN, the tests' width 4
-    and the full width); most lanes are equal bitwise."""
+    0 ulp in every lane (the launcher's width-8 CNN, the tests' width 4
+    and the full width): the normal draws take XLA's f32 log1p."""
     got, _ = tcnn.cnn_init(prng.prng_key(0), device="cpu", **kw)
     want, _ = jcnn.cnn_init(jax.random.PRNGKey(0), **kw)
     same = total = 0
@@ -112,7 +112,7 @@ def test_init_matches_reference_key(kw):
         w = np.asarray(v, np.float32)
         g = got[k].numpy()
         assert g.shape == w.shape and g.dtype == w.dtype, k
-        np.testing.assert_array_max_ulp(g, w, maxulp=4)
+        np.testing.assert_array_max_ulp(g, w, maxulp=0)
         same += int((g.view(np.int32) == w.view(np.int32)).sum())
         total += w.size
     print(f"cnn_init {kw}: {same / total:.2%} of {total} lanes bitwise")

@@ -4,10 +4,10 @@ bit for bit, for the fault plan's (5,) draws and for (n_qblocks, qblock)
 blocks of the shape the q4 wire's stochastic rounding draws, from the
 numpy twin and from the torch-op twin the q4 codec uses (on the CPU
 here; ``chip_smoke.py`` holds it to the numpy twin on the card).  The
-key splits equal ``jax.random.split`` bit for bit; the normal draws of
-the model inits (numpy and torch-op twins) are ``jax.random.normal``
-within 4 ulp in every lane (the platform's f32 log1p is not XLA's), most
-of them bitwise."""
+key splits equal ``jax.random.split`` bit for bit; so do the normal
+draws of the model inits (numpy and torch-op twins) and the f32 log1p
+inside them, which is XLA's (``jax.jit(jnp.log1p)``) on a dense sweep of
+[-1, 0]."""
 import pytest
 
 pytest.importorskip("torch")
@@ -99,11 +99,36 @@ def test_split_bitwise(seed):
 
 
 @pytest.mark.parametrize("twin", ["numpy", "torch"])
+def test_log1p_bitwise(twin):
+    """XLA's f32 log1p (the normal draws' ``w = -log1p(-x*x)``) against
+    ``jax.jit(jnp.log1p)`` on 2^20 evenly spaced lanes of [-1, 0] and on
+    ``-u*u`` for 2^18 uniform u: every lane bitwise, both branches (the
+    rational form below sqrt(2) - 1, XLA's log above) and the ends
+    (-1 -> -inf, 0 -> 0)."""
+    import torch
+    xs = np.concatenate([
+        np.linspace(-1.0, 0.0, 1 << 20, dtype=np.float32),
+        -np.square(np.random.default_rng(0).uniform(-1, 1, 1 << 18)
+                   .astype(np.float32))])
+    want = np.asarray(jax.jit(jnp.log1p)(xs))
+    if twin == "numpy":
+        got = prng._log1p(xs, np, prng._np_to, prng._np_view)
+    else:
+        got = prng._log1p(torch.from_numpy(xs), torch, prng._torch_to,
+                          prng._torch_view).numpy()
+    assert got.dtype == np.float32
+    assert got[0] == -np.inf and got[(1 << 20) - 1] == 0.0
+    small = np.abs(xs) < np.float32(0.41421356)
+    assert 0.3 < small.mean() < 0.7
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("twin", ["numpy", "torch"])
 @pytest.mark.parametrize("shape", [(1,), (4099,), (256, 512), (3, 5, 7)])
 def test_normal_within_4_ulp(twin, shape):
     """``prng.normal`` / ``normal_torch`` (CPU) against
-    ``jax.random.normal``: every lane within 4 ulp; the bitwise share is
-    printed (about 99 %)."""
+    ``jax.random.normal``: every lane bitwise (the name is older than
+    the port of XLA's log1p, when 4 ulp was the bound)."""
     import torch
     for key in (prng.prng_key(0), prng.split(prng.prng_key(3), 4)[2],
                 _port_key(7, 5, 3)):
@@ -112,10 +137,8 @@ def test_normal_within_4_ulp(twin, shape):
         got = (prng.normal(key, shape) if twin == "numpy" else
                prng.normal_torch(key, shape, "cpu").numpy())
         assert got.dtype == np.float32 and got.shape == shape
-        np.testing.assert_array_max_ulp(got, want, maxulp=4)
-        same = float((got.view(np.uint32) == want.view(np.uint32)).mean())
-        print(f"normal {twin} {shape} key {key.tolist()}: {same:.2%} "
-              "bitwise")
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
     if twin == "torch":
         assert prng.normal_torch(key, shape, "cpu").dtype == torch.float32
 

@@ -7,10 +7,8 @@ decisions and off times; the ``uniform`` policy's sets; FedQS's
 ``RateControl``'s verdict stream; every scheduler pop's ``(cid, verdict,
 staleness, compute_s)`` and the counters, under each timing x policy,
 with and without faults; ``Scheduler.state()`` key by key.  The normal
-lanes are held within 4 ulp: the port's ``prng.normal`` takes the
-platform's ``log1p`` (about 1 % of lanes differ from ``jax.random.normal``
-by 1-3 ulp), so lognormal and Markov event times are held within
-``rtol=1e-6`` (static: bitwise).
+lanes are bitwise too (the port's ``prng.normal`` takes XLA's f32
+``log1p``), so every timing model's event times are held bitwise.
 """
 import pytest
 
@@ -64,8 +62,8 @@ def _ulps(a, b):
 
 def test_stream_blocks_match_reference():
     """The reference's blocks (fold_in twice, split, normal (64, 1),
-    uniform (64, 2)) for 3 seeds x 16 clients x 3 blocks: uniform lanes
-    bitwise, normal lanes within 4 ulp."""
+    uniform (64, 2)) for 3 seeds x 16 clients x 3 blocks: uniform and
+    normal lanes bitwise (0 of the 9,216 normal lanes differ)."""
     draw = jtiming._block_fn()
     n_diff = n_lanes = 0
     worst = 0
@@ -83,8 +81,8 @@ def test_stream_blocks_match_reference():
                 worst = max(worst, int(u.max()))
     print(f"normal lanes differing: {n_diff} of {n_lanes}, worst {worst} "
           "ulp")
-    assert worst <= 4
-    assert n_diff < n_lanes // 20
+    assert n_lanes == 9216
+    assert n_diff == 0 and worst == 0
 
 
 def test_stream_is_counter_keyed():
@@ -104,8 +102,8 @@ def test_stream_is_counter_keyed():
 
 def test_markov_transitions_match_reference():
     """300 post-upload transitions of 6 clients: the drop decision (WAKE
-    or UPLOAD) and a WAKE's off time bitwise, an UPLOAD's time within
-    rtol=1e-6 (its jitter is a normal lane)."""
+    or UPLOAD), a WAKE's off time and an UPLOAD's time (its jitter a
+    normal lane) bitwise."""
     cfg_kw = dict(n_clients=6, k=2, sched_timing="markov", sched_drop_p=0.3,
                   sched_jitter_sigma=0.5, sched_seed=2, seed=5)
     jt = jtiming.make_timing(JConfig(**cfg_kw), _base)
@@ -117,17 +115,11 @@ def test_markov_transitions_match_reference():
         now = 0.25 * i
         want = jt.after_upload(cj[cid], now)
         got = tt.after_upload(ct[cid], now)
-        assert got[1] == want[1]
-        if got[1] == jsched.WAKE:
-            n_wake += 1
-            assert got == want
-        else:
-            np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
-            np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
+        assert got == want
+        n_wake += got[1] == jsched.WAKE
     assert 30 < n_wake < 150
     for a, b in zip(cj, ct):
-        np.testing.assert_allclose(tt.sync_duration(b),
-                                   jt.sync_duration(a), rtol=1e-6)
+        assert tt.sync_duration(b) == jt.sync_duration(a)
 
 
 # ----------------------------- policies -----------------------------
@@ -220,10 +212,7 @@ def _assert_traces(got, want, timing):
     assert [e[1:4] + e[5:] for e in got] == [e[1:4] + e[5:] for e in want]
     t_got = np.asarray([(e[0], e[4]) for e in got])
     t_want = np.asarray([(e[0], e[4]) for e in want])
-    if timing == "static":
-        np.testing.assert_array_equal(t_got, t_want)
-    else:
-        np.testing.assert_allclose(t_got, t_want, rtol=1e-6)
+    np.testing.assert_array_equal(t_got, t_want)
 
 
 @pytest.mark.parametrize("faults", [False, True])
@@ -241,11 +230,7 @@ def test_scheduler_trace_matches_reference(timing, policy, faults):
     assert st == sj
     assert set(stt) == set(stj)
     for key in stt:
-        if key == "heap" and timing != "static":
-            np.testing.assert_allclose(np.asarray(stt[key]),
-                                       np.asarray(stj[key]), rtol=1e-6)
-        else:
-            assert stt[key] == stj[key], key
+        assert stt[key] == stj[key], key
     verdicts = {e[2] for e in tt}
     if policy in ("uniform", "seafl"):
         assert "reject" in verdicts

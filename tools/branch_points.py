@@ -13,10 +13,17 @@ round (:mod:`repro_torch.models.kinks`).
   3. ``onednn``: the weight gradient of a 1x1 stride-2 convolution of a
      channels-last batch of 17 (ResNet-18's first ``down`` convolution at
      width 4), four calls, against f64, and of the same input made
-     contiguous.
+     contiguous;
+  4. ``horizons``: the paper CNN's q8 Markov + seafl run of
+     ``tests/test_torch_horizons.py`` (width 4 on 8x8, 6 clients, k = 3,
+     4 rounds, both engines) on torch's thread pool, recorded, and on one
+     thread, free and taking the pool run's branches: each one-thread
+     run's distance from the pool run over its movement, and how many
+     units the replay found on the other side of its own choice.
 
 Run from the repo root: ``PYTHONPATH=src python tools/branch_points.py
-[steps] [engines] [onednn]`` (all three without arguments).  CPU only.
+[steps] [engines] [onednn] [horizons]`` (the first three without
+arguments).  CPU only.
 """
 import contextlib
 import os
@@ -131,6 +138,59 @@ def onednn():
               + ", ".join(f"{e:.3e}" for e in errs))
 
 
+def horizons():
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import FLEngine
+    from repro_torch.data import (build_client_shards, make_dataset,
+                                  train_test_split)
+    from repro_torch.models import vision_cnn
+    from repro_torch.prng import prng_key
+    ds = make_dataset("cifar10", n=300, seed=0, hw=8)
+    tr, te = train_test_split(ds)
+    shards = build_client_shards(tr, "hetero_dirichlet", 6, 16, seed=0,
+                                 alpha=0.3)
+    p, s, fn = vision_cnn.build_paper_model("cnn", prng_key(0), width=4,
+                                            image_size=8, device="cpu")
+    # resolve the batched engine's wave_impl (a probe forward) outside
+    # the recorded runs
+    client.model_has_conv(fn, p, s, torch.as_tensor(te.x[:1]))
+    n_threads = torch.get_num_threads()
+    for batched in (False, True):
+        cfg = FLConfig(n_clients=6, k=3, aggregation="fedsgd",
+                       client_lr=0.05, server_lr=0.05, target_accuracy=0.9,
+                       speed_sigma=0.8, wire="q8", sched_timing="markov",
+                       sched_policy="seafl", sched_stale_cap=1,
+                       sched_jitter_sigma=0.5, sched_drop_p=0.3,
+                       sched_off_mean_s=2.0, batch_clients=batched)
+
+        def run(mode, threads):
+            torch.set_num_threads(threads)
+            eng = FLEngine(cfg, fn, "image", p, s, shards, te.x[:150],
+                           te.y[:150], device="cpu")
+            p0 = eng._flat_params.clone()
+            with mode:
+                eng.run(4)
+            torch.set_num_threads(n_threads)
+            return eng._flat_params, p0
+
+        rec = kinks.Record()
+        pool, p0 = run(rec, n_threads)
+        move = float((pool - p0).norm())
+        one, _ = run(contextlib.nullcontext(), 1)
+        rep = kinks.Replay(rec.choices)
+        taken, _ = run(rep, 1)
+        label = "batched" if batched else "sequential"
+        print(f"horizons cnn q8 markov seafl {label}, {n_threads} threads "
+              f"vs one: free {float((one - pool).norm()) / move:.3e} of "
+              f"the movement (max|err| {float((one - pool).abs().max()):.3e})"
+              f"; on the pool run's {len(rec.choices)} branch points "
+              f"{float((taken - pool).norm()) / move:.3e} (max|err| "
+              f"{float((taken - pool).abs().max()):.3e}), {rep.flips} units "
+              f"the other side of the one-thread run's own, margin "
+              f"{rep.margin:.1e}")
+
+
 if __name__ == "__main__":
     for part in sys.argv[1:] or ("steps", "engines", "onednn"):
-        {"steps": steps, "engines": engines, "onednn": onednn}[part]()
+        {"steps": steps, "engines": engines, "onednn": onednn,
+         "horizons": horizons}[part]()
