@@ -213,6 +213,25 @@ Phases, each of which exits non-zero on failure:
      where the profiler sees none, CUDA event pairs around every op read
      it without CUPTI), its Chrome trace in
      ``chiprun_out/torch_profile/``
+  6c. the mesh (``repro_torch.sharding.flat``), every shard on the one
+     card (``[cuda:0] * N``): ``FlatServer`` on the (2, 2), (1, 4) and
+     ``devices=2`` meshes at the CNN's full D, K = 4, in every mode x
+     wire (top-k: the gradient modes), bitwise the same round on the CPU
+     (params and slow state), the counters showing one ``sum`` partial
+     launch a shard (fedasync: K folds); then the full-width CNN in AS,
+     SS, AS-q8 and SS-q4 on the batched engine for 5 rounds: the
+     single-device run again with its ReLU / max-pool / ``round``
+     branches recorded (``repro_torch.models.kinks``), bitwise phase 6's
+     run; the (2, 2) mesh taking those branches, its bytes, uploads,
+     staleness and simulated times phase 6's, its params within phase
+     5's bounds of phase 6's, run twice (the repeat bitwise);
+     ``devices=4`` free-running (one row a shard, so the shards add in
+     the single device's order): bitwise phase 6's run; ``mesh_shape=(1,
+     4)`` bitwise ``devices=4``; AS also on the sequential engine, the
+     (2, 2) mesh on the sequential single-device run's branches; every
+     launch counter reset before each mesh run and read after (a fold an
+     admitted upload, one partial a shard a sync round), each run's
+     wall split and the traffic record printed
   7. the serving path at full width: ``repro_torch.launch.serve.run`` of
      qwen3-1.7b (28 layers, d_model 2048, 2,038,555,648 params, f32
      params and bf16 compute, weights from ``prng_key(0)`` drawn on the
@@ -443,6 +462,18 @@ LONG_ROUNDS = 10
 #: traced at level "upload" on both engines
 TRACED_SETTINGS = ("AS-chaos-screen-q8", "AS-markov-seafl-q8",
                    "AS-fedbuff-timeout-ratelimit", "SS-lognormal")
+#: phase 6c: the mesh runs' settings: (name, paper setting, FLConfig
+#: overrides, the launches each kernel must make: "uploads", or
+#: "shards" = one partial a shard a sync round)
+MESH_SETTINGS = (
+    ("AS", "AS", {}, {"safl_fold": "uploads"}),
+    ("SS", "SS", {}, {"safl_aggregate": "shards"}),
+    ("AS-q8", "AS", {"wire": "q8"}, {"safl_fold_q8": "uploads"}),
+    ("SS-q4", "SS", {"wire": "q4"}, {"safl_aggregate_q4": "shards"}),
+)
+MESH_NAMES = tuple(row[0] for row in MESH_SETTINGS)
+#: phase 6c: the meshes the server round is held on (a shape, or N)
+MESH_SERVER = {"2x2": (2, 2), "1x4": (1, 4), "devices2": 2}
 #: a record's keys that scale with the model's width (the payload's
 #: bytes, D), left out where a stream is held to the width-1 CPU run's
 WIDTH_KEYS = ("bytes", "d", "tx_bytes", "rx_bytes")
@@ -742,6 +773,36 @@ def check_kernels(torch, k_mod, report):
                 k_mod.safl_fold_q8_plain(acc_q, q[0], s[0], 0.5, 1.0), True,
                 dq=dq_of(d), in_place=True)
         del q, s, acc_q, row
+    # the mesh's per-shard partials (phase 6c): mode "sum" over the block
+    # of K/N rows a shard holds (K = 1 on the (2, 2) mesh at k = 4, K = 2
+    # on devices=2), the first and the last block of the K rows
+    u = torch.randn((K_MAIN, D_FULL), device="cuda", generator=g)
+    quant = {"q8": q8_rows(torch, K_MAIN, D_FULL, g),
+             "q4": q4_rows(torch, K_MAIN, D_FULL, g)}
+    sparse = topk_rows(torch, K_MAIN, D_FULL, NK_FULL, g)
+    for k in (1, 2):
+        for lo in (0, K_MAIN - k):
+            w = agg_weights(torch, k, "sum", "none", g)
+            block = dict(k=k, rows=f"{lo}-{lo + k - 1}", mode="sum")
+            compare(torch, report, worst, "safl_aggregate",
+                    k_mod.safl_aggregate(u[lo:lo + k], w, mode="sum"),
+                    k_mod.safl_aggregate_plain(u[lo:lo + k], w, mode="sum"),
+                    True, d=D_FULL, **block)
+            for wire, (q, s) in quant.items():
+                name = "safl_aggregate_" + wire
+                compare(torch, report, worst, name,
+                        k_mod.KERNELS[name](q[lo:lo + k], s[lo:lo + k], w,
+                                            mode="sum"),
+                        getattr(k_mod, name + "_plain")(
+                            q[lo:lo + k], s[lo:lo + k], w, mode="sum"),
+                        True, dq=dq_of(D_FULL), **block)
+            rows = tuple(a[lo:lo + k] for a in sparse)
+            compare(torch, report, worst, "safl_aggregate_topk",
+                    k_mod.safl_aggregate_topk(*rows, w, D_FULL, qblock=QB),
+                    k_mod.safl_aggregate_topk_plain(*rows, w, D_FULL,
+                                                    qblock=QB),
+                    True, d=D_FULL, nk=NK_FULL, **block)
+    del u, quant, sparse
     torch.cuda.synchronize()
     return worst
 
@@ -2601,7 +2662,7 @@ def run_main_path(torch, wrappers):
         for n, c in counts.items():
             launches[n] += c
         params = eng._flat_params.clone()
-        if name in TRACED_SETTINGS:
+        if name in TRACED_SETTINGS or name in MESH_NAMES:
             untraced[name, "batched"] = dict(params=params, rec=rec,
                                              wall=wall)
         del eng, res
@@ -2648,7 +2709,7 @@ def run_main_path(torch, wrappers):
                                split_s=split, params_bitwise=bitwise,
                                params_max_abs_err=err,
                                params_rel_to_movement=rel))
-        if name in TRACED_SETTINGS:
+        if name in TRACED_SETTINGS or name in MESH_NAMES:
             untraced[name, "sequential"] = dict(
                 params=eng._flat_params.clone(), rec=srec, wall=wall)
         if host_differ or not close:
@@ -3030,6 +3091,226 @@ def run_traced(torch, k_mod, wrappers, untraced):
         busy.update(event_pairs=n_pairs, event_busy_ms=ev_busy,
                     event_wall_s=events_s)
     return dict(runs=rows, busy=busy)
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: the mesh, every shard on the one card
+# ---------------------------------------------------------------------------
+
+
+def card_mesh(torch, spec, devices):
+    """The mesh of ``spec`` ((E, P), or N for the 1-D mesh) over
+    ``devices``."""
+    from repro_torch.sharding import flat
+    if isinstance(spec, tuple):
+        return flat.make_hier_mesh(*spec, devices=devices)
+    return flat.make_pod_mesh(spec, devices=devices)
+
+
+def check_mesh_server(torch, wrappers):
+    """``FlatServer`` on each mesh of ``MESH_SERVER`` with every shard on
+    cuda:0, at the CNN's full D, K = 4, in every mode x wire (top-k: the
+    gradient modes): one round from fresh slow state, bitwise the same
+    round on a CPU mesh of the same shape (params and slow state: the
+    kernels are bitwise their plain versions, the tree and the step body
+    are the same ops in the same order on both), the counters reset
+    before the card's round and read after: one ``sum`` partial a shard
+    (fedasync: its K folds)."""
+    import numpy as np
+
+    from repro_torch.core.aggregation import FlatServer
+    from repro_torch.launch.fl_sim import SERVER_LR
+    from repro_torch.sharding import flat
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tau = np.random.default_rng(6).integers(0, 5, K_MAIN).astype(np.float32)
+    disc = np.asarray(np.power(tau + 1.0, -np.float32(0.5)), np.float32)
+    weights = {"fedsgd": np.ones(K_MAIN, np.float32),
+               "fedavg": np.float32([113, 58, 241, 77]),
+               "fedasync": np.asarray(0.6 * disc, np.float32)}
+    p = torch.randn((D_FULL,), device="cuda", generator=g)
+    payloads = {
+        "f32": (0.1 * torch.randn((K_MAIN, D_FULL), device="cuda",
+                                  generator=g),),
+        "q8": q8_rows(torch, K_MAIN, D_FULL, g),
+        "q4": q4_rows(torch, K_MAIN, D_FULL, g),
+        "topk": topk_rows(torch, K_MAIN, D_FULL, NK_FULL, g)}
+    on_cpu = {wire: tuple(a.cpu() for a in rows)
+              for wire, rows in payloads.items()}
+    partial = {"f32": "safl_aggregate", "q8": "safl_aggregate_q8",
+               "q4": "safl_aggregate_q4", "topk": "safl_aggregate_topk"}
+    fold = {"f32": "safl_fold", "q8": "safl_fold_q8", "q4": "safl_fold_q4"}
+    rows_out = []
+    for mesh_name, spec in MESH_SERVER.items():
+        n = spec[0] * spec[1] if isinstance(spec, tuple) else spec
+        meshes = {"cuda": card_mesh(torch, spec,
+                                    [torch.device("cuda", 0)] * n),
+                  "cpu": card_mesh(torch, spec, "cpu")}
+        for wire in ("f32", "q8", "q4", "topk"):
+            modes = TOPK_AGGREGATIONS if wire == "topk" else AGGREGATIONS
+            for mode in modes:
+                got = {}
+                for where, mesh in meshes.items():
+                    rows = payloads[wire] if where == "cuda" else \
+                        on_cpu[wire]
+                    pp = p if where == "cuda" else p.cpu()
+                    srv = FlatServer(mode, D_FULL,
+                                     server_lr=SERVER_LR.get(mode, 1.0),
+                                     wire=wire, mesh=mesh)
+                    buf = flat.shard_rows(rows[0] if wire == "f32" else rows,
+                                          mesh)
+                    for f in wrappers.values():
+                        f.launches = 0
+                    new, opt, _ = srv.step(pp, buf,
+                                           weights.get(mode, disc),
+                                           srv.init_opt(pp))
+                    torch.cuda.synchronize()
+                    got[where] = (new, opt, {nm: f.launches for nm, f
+                                             in wrappers.items()
+                                             if f.launches})
+                (new, opt, counts), (new_c, opt_c, _) = (got["cuda"],
+                                                         got["cpu"])
+                want = ({fold[wire]: K_MAIN} if mode == "fedasync"
+                        else {partial[wire]: n})
+                bitwise = torch.equal(new.cpu(), new_c) and all(
+                    opt[key] == opt_c[key] if key == "step"
+                    else torch.equal(opt[key].cpu(), opt_c[key])
+                    for key in opt_c)
+                err = float((new.cpu() - new_c).abs().max())
+                rows_out.append(dict(mesh=mesh_name, wire=wire, mode=mode,
+                                     bitwise=bitwise, max_abs_err=err,
+                                     launches=counts,
+                                     traffic=srv.traffic))
+                if not bitwise or counts != want or \
+                        not bool(torch.isfinite(new).all()):
+                    fail(f"mesh server {mesh_name} {mode}/{wire}: card vs "
+                         f"CPU bitwise {bitwise} (max|err|={err:.3e}), "
+                         f"launches {counts}, expected {want}")
+            print(f"  server on {mesh_name} ({n} shards on cuda:0), {wire}: "
+                  f"{' '.join(modes)} bitwise the CPU's round; launches a "
+                  f"round {partial[wire]}={n}"
+                  + (f", fedasync {fold[wire]}={K_MAIN}"
+                     if "fedasync" in modes else "")
+                  + f"; traffic {srv.traffic}")
+    del payloads, on_cpu
+    return rows_out
+
+
+def run_mesh(torch, wrappers, untraced):
+    """The full-width CNN on the meshes (every shard on cuda:0), 5 rounds
+    a run, each setting of ``MESH_SETTINGS`` on the batched engine (AS
+    also on the sequential one): the single-device run again with its
+    branch points recorded (bitwise phase 6's run), then the (2, 2) mesh
+    on those branches twice (host fields phase 6's, params within phase
+    5's bounds, the repeat bitwise), ``devices=4`` free-running (bitwise
+    phase 6's run: a row a shard, added in the single device's order)
+    and ``mesh_shape=(1, 4)`` (bitwise ``devices=4``).  Every mesh run's
+    counters are reset before it and read after (a fold an admitted
+    upload; one partial a shard a sync round).  Returns the rows and the
+    mesh runs' launch counts."""
+    from repro_torch.models import kinks
+    setup = make_setup(width=32, hw=32, samples=2000, clients=16)
+    # the wave program resolved once outside the recorded runs (``auto``
+    # runs one forward pass per model), and the initial params
+    warm = build_engine(torch, setup, "AS", "cuda")
+    warm._wave_program()
+    p0 = warm._flat_params.clone()
+    del warm
+    launches = dict.fromkeys(KERNELS, 0)
+    rows = []
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    for name, setting, kw, spec in MESH_SETTINGS:
+        for engine, batched in (("batched", True), ("sequential", False)):
+            if not batched and name != "AS":
+                continue
+            skw = dict(kw, batch_clients=batched)
+            base = untraced["runs"][name, engine]
+            record = kinks.Record()
+            with record:
+                eng, res, _, _, _, _, _ = run_setting(torch, setup, setting,
+                                                      skw, wrappers)
+            if not same(eng._flat_params, base["params"]):
+                fail(f"{name} {engine}: the recorded single-device run is "
+                     "not phase 6's")
+            del eng, res
+            out = {}
+            for label, n, mesh_kw, replayed in (
+                    ("(2, 2)", 4, dict(mesh_shape=(2, 2)), True),
+                    ("(2, 2) repeat", 4, dict(mesh_shape=(2, 2)), True),
+                    ("devices=4", 4, dict(devices=4), False),
+                    ("(1, 4)", 4, dict(mesh_shape=(1, 4)), False)):
+                if not batched and label in ("(2, 2) repeat", "(1, 4)"):
+                    continue
+                eng = build_engine(torch, setup, setting,
+                                   [torch.device("cuda", 0)] * n,
+                                   **skw, **mesh_kw)
+                replay = (kinks.Replay(record.choices) if replayed
+                          else contextlib.nullcontext())
+                with replay:
+                    eng, res, counts, wall, split, finite, drawn = \
+                        run_engine(torch, eng, wrappers, ROUNDS)
+                want = {k: ROUNDS * n if v == "shards" else v
+                        for k, v in spec.items()}
+                check_run(torch, f"{name} {engine} {label}", skw, want, eng,
+                          res, counts, finite, drawn)
+                for k, c in counts.items():
+                    launches[k] += c
+                rec = run_record(eng, res, counts, drawn)
+                host_differ = [key for key in HOST_FIELDS
+                               if rec[key] != base["rec"][key]]
+                err, rel, close, tol = params_distance(
+                    torch, kw, eng._flat_params, base["params"], p0)
+                params = eng._flat_params.clone()
+                out[label] = dict(params=params, rec=rec)
+                bitwise = same(params, base["params"])
+                flips = (f"; the recorded branches: {replay.flips} units "
+                         f"flipped, margin {replay.margin:.1e}"
+                         if replayed else "")
+                print(f"  {name} {engine} mesh {label}: launches "
+                      + " ".join(f"{k}={c}" for k, c in counts.items() if c)
+                      + f"; bytes/uploads/staleness/times "
+                      f"{'equal' if not host_differ else f'DIFFER in {host_differ}'}"
+                      f"; params {'bitwise' if bitwise else 'max|err|='}"
+                      + ("" if bitwise else f"{err:.3e} rel {rel:.3e} ({tol})")
+                      + f" vs phase 6{flips}; wall {wall:.3f} s "
+                      f"(phase 6: {base['wall']:.3f}): {split_line(split)}")
+                row = dict(setting=name, engine=engine, mesh=label,
+                           host_equal=not host_differ,
+                           params_bitwise=bitwise, params_max_abs_err=err,
+                           params_rel_to_movement=rel, wall_s=wall,
+                           phase6_wall_s=base["wall"], split_s=split,
+                           launches=counts, traffic=eng._server.traffic)
+                if replayed:
+                    row.update(flips=replay.flips, margin=replay.margin)
+                rows.append(row)
+                if label == "(2, 2)" and (not batched or name == "AS"):
+                    print(f"      traffic {eng._server.traffic}")
+                if host_differ or not close:
+                    fail(f"{name} {engine} mesh {label}: host fields "
+                         f"{host_differ}, params {err} ({tol})")
+                if replayed and not replay.done:
+                    fail(f"{name} {engine} mesh {label}: the recorded "
+                         "branches were not all taken")
+                if label == "devices=4" and not bitwise:
+                    fail(f"{name} {engine} devices=4: not bitwise phase 6's "
+                         "single-device run")
+                del eng, res
+            if batched:
+                rep, first = out["(2, 2) repeat"], out["(2, 2)"]
+                if not same(rep["params"], first["params"]) or \
+                        rep["rec"] != first["rec"]:
+                    fail(f"{name}: the (2, 2) mesh run does not repeat")
+                if not same(out["(1, 4)"]["params"],
+                            out["devices=4"]["params"]) or \
+                        out["(1, 4)"]["rec"] != out["devices=4"]["rec"]:
+                    fail(f"{name}: mesh_shape=(1, 4) is not devices=4 "
+                         "bitwise")
+                print(f"      (2, 2) repeat bitwise; (1, 4) bitwise "
+                      "devices=4")
+            del record, out
+    return rows, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3702,9 +3983,21 @@ def main() -> None:
           f"{len(TRACED_SETTINGS)} settings on both engines; busy share")
     t0 = time.perf_counter()
     traced = run_traced(torch, k_mod, wrappers, untraced)
-    del untraced
     print(f"  phase 6b: {time.perf_counter() - t0:.1f} s")
     left("6b")
+
+    print(f"== phase 6c: the mesh, every shard on cuda:0 ({len(MESH_SERVER)} "
+          f"server meshes; {len(MESH_SETTINGS)} settings on (2, 2), "
+          "devices=4 and (1, 4))")
+    t0 = time.perf_counter()
+    mesh_server = check_mesh_server(torch, wrappers)
+    mesh_rows, mesh_launches = run_mesh(torch, wrappers, untraced)
+    del untraced
+    for name, c in mesh_launches.items():
+        launches[name] += c
+    print(f"  phase 6c: {time.perf_counter() - t0:.1f} s; its launches "
+          + " ".join(f"{k}={c}" for k, c in mesh_launches.items() if c))
+    left("6c")
 
     print(f"== phase 7: serving, full-width {SERVE_ARCH} (B = {SERVE_BATCH}, "
           f"prompt {SERVE_PROMPT}, {SERVE_NEW} greedy tokens)")
@@ -3738,6 +4031,7 @@ def main() -> None:
                        main_path_sequential=sequential_rows,
                        main_path_vmap=vmap_rows, resume=resume,
                        other_models=other_rows, traced=traced,
+                       mesh_server=mesh_server, mesh=mesh_rows,
                        compression_path=compression, serving=serving,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)

@@ -50,8 +50,19 @@ and ``sqrt`` the norm.
 The engine always hands over the FINAL per-upload weights
 (discount-at-ingest, ``external_discount=True, fedasync_rates=True`` in
 the reference), so the kernels run with ``discount="none"``.  The two
-channels agree bitwise in every mode and on every wire.  The meshes
-come later.
+channels agree bitwise in every mode and on every wire.
+
+On a mesh (``mesh``, :mod:`repro_torch.sharding.flat`: the 1-D pod mesh
+or the 2-D (edge, pod) one) the channel's rows live on their shards:
+each shard's partial is the unnormalized weighted sum of its own rows on
+its own device (the aggregate kernels in mode ``sum``, the q8 / q4 rows
+dequantized per shard, ``safl_aggregate_topk`` on top-k; the streaming
+channel's partial is the shard's bank row), the partials and weight
+masses add in the mesh's order (:func:`~repro_torch.sharding.flat.
+mesh_reduce`), and the one ``_from_sums`` step body takes the server
+step from the sums, in every mode but fedasync, whose mixes stay one
+chain of folds.  :func:`podwise_aggregate` is the same round over a
+K-stacked pytree.
 """
 from __future__ import annotations
 
@@ -70,6 +81,9 @@ from repro_torch.kernels.safl_agg import (
     safl_aggregate_topk, safl_fold, safl_fold_q4, safl_fold_q8,
     safl_fold_topk, screen_rows, screen_rows_q4, screen_rows_q8,
     sdga_aggregate, sdga_aggregate_q4, sdga_aggregate_q8)
+from repro_torch.sharding.flat import (edge_traffic, mesh_size,
+                                       podwise_bank_sums, podwise_sums,
+                                       sum_in_order)
 
 Tree = Any
 
@@ -127,16 +141,6 @@ def fedasync_coefficients(staleness: Sequence[int], fedasync_alpha: float,
     tail = np.concatenate(
         [np.cumprod(one_minus[::-1])[::-1][1:], [np.float32(1.0)]])
     return np.asarray(a * tail, np.float32)
-
-
-def sum_in_order(w: np.ndarray) -> np.float32:
-    """np.float32 sum of ``w`` taken k = 0..K-1, the order the aggregate
-    kernels and their plain versions sum their weights in (numpy's own
-    sum is pairwise above 8 elements)."""
-    s = np.float32(0.0)
-    for x in np.asarray(w, np.float32):
-        s = np.float32(s + x)
-    return s
 
 
 def weighted_mean(stacked, weights):
@@ -278,26 +282,35 @@ def sdga(global_params: Tree, grads_stacked: Tree, staleness,
                                     step=opt.step + 1)
 
 
-def edge_traffic(partial_nbytes: int) -> Dict:
-    """The reference's cross-edge traffic record for a server without a
-    mesh: one partial of ``partial_nbytes`` plus its f32 weight mass."""
-    per_partial = int(partial_nbytes) + 4
-    return {"mesh_shape": (1, 1), "cross_edge_partials": 1,
-            "cross_edge_bytes": per_partial,
-            "flat_cross_bytes": per_partial,
-            "cross_edge_reduction": 1.0}
+def podwise_aggregate(stacked: Tree, weights, target: str,
+                      global_params: Tree = None,
+                      server_lr: float = 1.0) -> Tree:
+    """The server round over a K-stacked pytree (the reference's
+    ``podwise_aggregate``): ``target="grads"`` is :func:`fedsgd` (needs
+    ``global_params``), ``"params"`` the :func:`weighted_mean`.  The
+    engine runs the same round over the flat rows, on a mesh through
+    ``FlatServer(mesh=...)``."""
+    if target == "grads":
+        if global_params is None:
+            raise ValueError("target='grads' needs global_params")
+        return fedsgd(global_params, stacked, weights, server_lr)
+    return weighted_mean(stacked, weights)
 
 
 class FlatServer:
     """Server round over flat rows on one device (the GPU unless the
-    caller asks for the CPU).
+    caller asks for the CPU), or over a mesh's shards (``mesh``; its
+    shard 0's device holds the params and the slow state).
 
     ``step`` takes the buffered channel's rows: the f32 (K, D) tensor, or
     on the quantized wires the ``(q, scales (K, Dq/qblock))`` pair
     (:class:`repro_torch.core.flatbuf.QuantBuffer` views; q int8 (K, Dq)
     on q8, packed (K, Dq/2) bytes on q4), or on top-k the ``(idx, qv,
     scales)`` triple (:class:`repro_torch.core.flatbuf.TopkBuffer`
-    views).  The streaming bank is (1, D) f32, (1, Dq) on q8 and q4.
+    views); on a mesh the list of the shards' row blocks in that form
+    (:class:`repro_torch.core.flatbuf.MeshRows` views,
+    :func:`repro_torch.sharding.flat.shard_rows`).  The streaming bank is
+    (1, D) f32, (1, Dq) on q8 and q4; on a mesh the list of the shards'.
     Slow state (:meth:`init_opt`): sdga's momentum and EMA, fedopt's Adam
     moments, each a (D,) f32 tensor, and a host step count."""
 
@@ -307,7 +320,7 @@ class FlatServer:
     def __init__(self, mode: str, d: int, *, server_lr: float,
                  momentum: float = 0.8, ema_anchor: float = 0.05,
                  wire: str = "f32", qblock: int = QBLOCK,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if mode not in self.MODES:
             raise ValueError(f"aggregation {mode!r} not in {self.MODES}")
         if wire not in self.WIRES:
@@ -325,11 +338,16 @@ class FlatServer:
         self.server_lr = float(server_lr)
         self.momentum = float(momentum)
         self.ema_anchor = float(ema_anchor)
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.home if mesh is not None
+                                     else device)
+        self.mesh = mesh if mesh_size(mesh) > 1 else None
         # the kernels of a quantized wire (None on f32)
         self._qk = _QUANT_KERNELS.get(wire)
         # the unit of exchange: the padded (Dq,) partial on q8 / q4
-        self.traffic = edge_traffic(4 * self.bank_width)
+        self.traffic = edge_traffic(self.mesh, 4 * self.bank_width)
+        if self.mesh is not None:
+            self._pod_reduce = podwise_sums(self.mesh, self._partial_sums)
+            self._bank_reduce = podwise_bank_sums(self.mesh)
 
     @property
     def bank_width(self) -> int:
@@ -378,14 +396,19 @@ class FlatServer:
 
     def _adam(self, p0, g, opt):
         """The reference's ``_adam_step``: bias-corrected Adam, the
-        corrections 1 - b^step computed in f32 on the host."""
+        corrections 1 - b^step computed in f32 on the host.  The square
+        root is the correctly rounded f32 one on either device: the f64
+        root rounded once (exact for an f32 input).  PyTorch's f32
+        ``sqrt`` on the CPU left 13,889 of 2,154,730 lanes an ulp off it
+        (numpy's), so the CPU's step would not equal the card's."""
         step = opt["step"] + 1
         m = ADAM_B1 * opt["m"] + (1 - ADAM_B1) * g
         v = ADAM_B2 * opt["v"] + (1 - ADAM_B2) * torch.square(g)
         sf = np.float32(step)
         mh = m / self._scalar(1 - np.power(np.float32(ADAM_B1), sf))
         vh = v / self._scalar(1 - np.power(np.float32(ADAM_B2), sf))
-        new = p0 - self.server_lr * mh / (torch.sqrt(vh) + ADAM_EPS)
+        root = torch.sqrt(vh.double()).to(torch.float32)
+        new = p0 - self.server_lr * mh / (root + ADAM_EPS)
         return new, {"m": m, "v": v, "step": step}
 
     def _sdga_opt(self, opt, m, e) -> Dict:
@@ -395,6 +418,32 @@ class FlatServer:
         """fedasync's P*p + S; weight mass 1 - P."""
         return (float(pprod) * p0 + s,
                 np.float32(np.float32(1.0) - np.float32(pprod)))
+
+    def _partial_sums(self, rows, w: np.ndarray):
+        """One shard's partial on its device: the unnormalized weighted
+        sum of its rows (the aggregate kernel of the wire in mode
+        ``sum``; the q8 / q4 rows dequantized onto the (Dq,) grid), and
+        its weight mass, the in-order sum of its host weights."""
+        lead = rows[0] if isinstance(rows, tuple) else rows
+        wt = torch.from_numpy(np.ascontiguousarray(w)).to(lead.device)
+        if self.wire == "topk":
+            g = safl_aggregate_topk(*rows, wt, self.d, qblock=self.qblock)
+        elif self._qk is not None:
+            g = self._qk.aggregate(*rows, wt, mode="sum", qblock=self.qblock)
+        else:
+            g = safl_aggregate(rows, wt, mode="sum")
+        return g, sum_in_order(w)
+
+    def _row_payloads(self, buf) -> list:
+        """Each buffered row's payload tuple in slot order, on the
+        server's device."""
+        out = []
+        for part in (buf if self.mesh is not None else [buf]):
+            arrays = part if isinstance(part, tuple) else (part,)
+            for i in range(arrays[0].shape[0]):
+                # a shard's row leaves its device for the server's
+                out.append(tuple(a[i].to(self.device) for a in arrays))
+        return out
 
     def step(self, params_flat: torch.Tensor, buf, wvec: np.ndarray,
              opt: Dict):
@@ -409,13 +458,19 @@ class FlatServer:
             bank = torch.zeros((1, self.bank_width), dtype=torch.float32,
                                device=self.device)
             pprod = np.float32(1.0)
-            for i, a in enumerate(wvec):
-                row = (buf[0][i], buf[1][i]) if quant else (buf[i],)
+            for a, row in zip(wvec, self._row_payloads(buf)):
                 beta = np.float32(1.0) - a
                 bank = self.fold_program(bank, *row, 0, a, beta)
                 pprod = np.float32(pprod * beta)
             new, wsum = self._mix(params_flat, bank[0][:self.d], pprod)
             return new, opt, self._metrics(new, params_flat, wsum)
+        if self.mesh is not None:
+            # per-shard partials, the mesh's tree, one step body
+            gsum, wsum = self._pod_reduce(buf, wvec)
+            new, opt = self._from_sums(params_flat, gsum[:self.d], wsum,
+                                       opt)
+            return new, opt, self._metrics(new, params_flat,
+                                           sum_in_order(wvec))
         w = torch.from_numpy(wvec).to(self.device)
         lr, d = self.server_lr, self.d
         if self.wire == "topk":
@@ -490,15 +545,23 @@ class FlatServer:
             return new, self._sdga_opt(opt, m, e)
         return self._adam(p0, g, opt)
 
-    def finalize(self, params_flat: torch.Tensor, bank: torch.Tensor,
-                 wvec: np.ndarray, opt: Dict, pprod=1.0):
-        """Streaming round from a sealed bank, ``pprod`` fedasync's
-        host-tracked survival product.  Returns (new params, opt, metrics,
-        the bank zeroed for reuse)."""
-        gsum = bank[0][:self.d]
+    def finalize(self, params_flat: torch.Tensor, bank, wvec: np.ndarray,
+                 opt: Dict, pprod=1.0):
+        """Streaming round from a sealed bank (on a mesh the shards'
+        banks, ``wvec`` their weights shard-major; fedasync folds into
+        shard 0's alone), ``pprod`` fedasync's host-tracked survival
+        product.  Returns (new params, opt, metrics, the bank zeroed for
+        reuse)."""
+        banks = bank if self.mesh is not None else [bank]
         if self.mode == "fedasync":
-            new, wsum = self._mix(params_flat, gsum, pprod)
+            new, wsum = self._mix(params_flat, banks[0][0][:self.d], pprod)
         else:
-            wsum = sum_in_order(wvec)
-            new, opt = self._from_sums(params_flat, gsum, wsum, opt)
-        return new, opt, self._metrics(new, params_flat, wsum), bank.zero_()
+            if self.mesh is not None:
+                gsum, wsum = self._bank_reduce(banks, wvec)
+            else:
+                gsum, wsum = bank[0], sum_in_order(wvec)
+            new, opt = self._from_sums(params_flat, gsum[:self.d], wsum,
+                                       opt)
+        zeroed = [b.zero_() for b in banks]
+        return (new, opt, self._metrics(new, params_flat, wsum),
+                zeroed if self.mesh is not None else zeroed[0])

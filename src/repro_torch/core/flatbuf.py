@@ -21,13 +21,15 @@
     the per-upload codec's.
   * :func:`alloc_buffer` / :func:`write_slot` are the buffered f32
     channel's resident (K, D) rows and their in-place row write
-    (:func:`write_rows` a wave's rows at once, a slot past K dropped);
+    (:func:`write_rows` a wave's rows at once, a slot past K dropped),
+    held by :class:`RowBuffer`;
     :class:`QuantBuffer` is its quantized counterpart (int8 (K, Dq) rows,
     or (K, Dq/2) packed bytes on q4, plus (K, Dq/qblock) scales), and
     :class:`TopkBuffer` the sparse one ((K, nk) indices, values and
-    (K, nk/qblock) scales).
+    (K, nk/qblock) scales); :class:`MeshRows` lays any of the three over
+    a mesh's shards, K/N rows each on the shard's device.
   * :class:`AccumBuffer` is the streaming channel: two O(D) sum banks
-    and the host-side weights of the horizon in flight.
+    a shard and the host-side weights of the horizon in flight.
 """
 from __future__ import annotations
 
@@ -357,79 +359,172 @@ def write_rows(buf: torch.Tensor, rows: torch.Tensor, slots) -> None:
     _scatter_rows((buf,), (rows,), slots)
 
 
+class RowBuffer:
+    """The buffered f32 channel's resident (K, D) rows, with the
+    interface of :class:`QuantBuffer`: ``write`` a slot, ``write_rows`` a
+    wave, ``set_rows`` a whole round, ``views`` the rows as the server
+    step takes them."""
+
+    def __init__(self, k: int, d: int, *, device):
+        self.rows = alloc_buffer(k, d, device)
+
+    def write(self, vec: torch.Tensor, slot: int) -> None:
+        write_slot(self.rows, vec, slot)
+
+    def write_rows(self, rows: torch.Tensor, slots) -> None:
+        write_rows(self.rows, rows, slots)
+
+    def set_rows(self, rows: torch.Tensor) -> None:
+        """Adopt a whole round's rows at once (the batched sync round)."""
+        if rows.shape != self.rows.shape or rows.dtype != torch.float32:
+            raise ValueError(f"rows {tuple(rows.shape)} {rows.dtype} do not "
+                             f"fit the buffer's {tuple(self.rows.shape)}")
+        self.rows = rows
+
+    @property
+    def views(self) -> torch.Tensor:
+        return self.rows
+
+
+class MeshRows:
+    """The buffered channel's K rows over a mesh: shard s holds slots
+    [s*K/N, (s+1)*K/N) in a buffer of its own on its device (``make(rows,
+    device)``: a :class:`RowBuffer`, :class:`QuantBuffer` or
+    :class:`TopkBuffer`), with their interface; ``views`` is the list of
+    the shards' views, as the mesh's server step takes them."""
+
+    def __init__(self, make, k: int, mesh):
+        if k % mesh.size:
+            raise ValueError(f"{k} rows do not split over {mesh.size} "
+                             "shards")
+        self.per = k // mesh.size
+        self.devices = list(mesh.devices)
+        self.parts = [make(self.per, dev) for dev in self.devices]
+
+    def write(self, *args) -> None:
+        """``write(*payload, slot)``: the upload into its slot's shard."""
+        *payload, slot = args
+        s, i = divmod(int(slot), self.per)
+        # the row leaves the controller's device for its shard's
+        self.parts[s].write(*(a.to(self.devices[s]) for a in payload), i)
+
+    def write_rows(self, *args) -> None:
+        """``write_rows(*rows, slots)``: each shard's rows of one wave into
+        its buffer; slots past K are dropped."""
+        *rows, slots = args
+        slots = np.asarray(slots, np.int64)
+        for s, part in enumerate(self.parts):
+            lo = s * self.per
+            sel = np.flatnonzero((slots >= lo) & (slots < lo + self.per))
+            if sel.size == 0:
+                continue
+            idx = torch.as_tensor(sel, device=rows[0].device)
+            part.write_rows(*(r.index_select(0, idx).to(self.devices[s])
+                              for r in rows), slots[sel] - lo)
+
+    def set_rows(self, *rows) -> None:
+        """Each shard adopts its block of a whole round's rows."""
+        for s, part in enumerate(self.parts):
+            lo = s * self.per
+            part.set_rows(*(r[lo:lo + self.per].to(self.devices[s])
+                            for r in rows))
+
+    @property
+    def views(self) -> list:
+        return [part.views for part in self.parts]
+
+
 class AccumBuffer:
     """Double-buffered streaming accumulator: the O(D) replacement for the
     buffered (K, D) channel.
 
-    Holds TWO (1, D) f32 sum banks plus the ingest weights of the horizon
-    in flight, in arrival order (the finalize sums them in that order,
-    which is the order the buffered kernel sums its (K,) weights in).
-    ``fold`` folds one upload into the active bank through the server's
-    fold program, which writes the bank row IN PLACE (on CUDA, the
-    ``safl_fold`` / ``safl_fold_q8`` kernel with ``out`` = the row), and
-    tracks fedasync's survival product P = prod(beta) on the host;
-    ``seal`` hands the filled bank to the server round and swaps in the
-    spare; ``release`` returns the finalize's zeroed bank as the new
-    spare.  Channel memory is 2 * D * 4 bytes (D = dq on the q8 wire),
-    flat in the uploads a horizon admits.
+    Holds TWO sets of (1, D) f32 sum banks, one bank a shard (``mesh``'s
+    shards, each on its device; one bank on ``device`` without a mesh),
+    plus each shard's ingest weights of the horizon in flight, in arrival
+    order (the finalize sums a shard's weights in that order, which is the
+    order the buffered kernel sums its (K,) weights in).  ``fold`` folds
+    one upload into its shard's bank through the server's fold program,
+    which writes the bank row IN PLACE (on CUDA, the ``safl_fold`` /
+    ``safl_fold_q8`` kernel with ``out`` = the row), and tracks fedasync's
+    survival product P = prod(beta) on the host; ``seal`` hands the filled
+    banks to the server round and swaps in the spares; ``release`` returns
+    the finalize's zeroed banks as the new spares.  Channel memory is 2 *
+    D * 4 bytes a shard (D = dq on the q8 wire), flat in the uploads a
+    horizon admits.  Banks travel as one (1, D) tensor without a mesh and
+    as the list of the shards' with one.
     """
 
-    def __init__(self, d: int, fold_fn, device):
+    def __init__(self, d: int, fold_fn, device, mesh=None):
         self.d = int(d)
-        self.device = device
+        self.mesh = mesh
+        self.devices = (list(mesh.devices) if mesh is not None
+                        else [torch.device(device)])
+        self.n_rows = len(self.devices)
         self._fold_fn = fold_fn
         self._bank = self._alloc()
         self._spare = self._alloc()
         self._reset_host()
 
-    def _alloc(self) -> torch.Tensor:
-        return torch.zeros((1, self.d), dtype=torch.float32,
-                           device=self.device)
+    def _alloc(self) -> List[torch.Tensor]:
+        return [torch.zeros((1, self.d), dtype=torch.float32, device=dev)
+                for dev in self.devices]
 
     def _reset_host(self) -> None:
-        self._w: List[np.float32] = []
+        self._w: List[List[np.float32]] = [[] for _ in self.devices]
         self._pprod = np.float32(1.0)
         self.count = 0
 
-    def fold(self, payload: Tuple[torch.Tensor, ...], *, w,
-             beta=1.0) -> None:
-        """Fold one upload into the active bank: row 0 becomes
+    def fold(self, payload: Tuple[torch.Tensor, ...], *, w, beta=1.0,
+             shard: int = 0) -> None:
+        """Fold one upload into bank ``shard``: its row becomes
         beta*row + w*payload (payload = (vec,) f32 or (q_row, s_row) q8),
         ``w`` the FINAL ingest weight (discount-at-ingest) and ``beta``
         the decay (1.0 except the fedasync mix, where beta = 1 - a_i)."""
-        self._bank = self._fold_fn(self._bank, *payload, 0, np.float32(w),
-                                   np.float32(beta))
-        self._w.append(np.float32(w))
+        dev = self.devices[shard]
+        # the upload moves to its shard's device (a no-op on one device)
+        payload = tuple(a.to(dev) for a in payload)
+        self._bank[shard] = self._fold_fn(self._bank[shard], *payload, 0,
+                                          np.float32(w), np.float32(beta))
+        self._w[shard].append(np.float32(w))
         self._pprod = np.float32(self._pprod * np.float32(beta))
         self.count += 1
 
-    def skip(self) -> None:
+    def skip(self, *, shard: int = 0) -> None:
         """Count a screened upload without touching the bank: an exact 0.0
         ingest weight keeps ``wvec`` as long as the buffered channel's
         weight vector, so the finalize sums the same weights in the same
         order (adding 0.0 is exact).  Folding with weight 0 instead would
         still poison the bank: 0 x NaN is NaN."""
-        self._w.append(np.float32(0.0))
+        self._w[shard].append(np.float32(0.0))
         self.count += 1
 
     def seal(self):
         """Close the horizon: returns ``(bank, wvec, stats)``, ``wvec`` the
-        np.float32 ingest weights in arrival order and ``stats`` the
-        horizon's upload count and the survival product ``pprod``, and
-        swaps the spare bank in."""
+        np.float32 ingest weights in arrival order (on a mesh each shard's
+        list, shard-major, zero-padded to equal length: the buffered
+        channel's layout of its rows' weights) and ``stats`` the horizon's
+        upload count and the survival product ``pprod``, and swaps the
+        spare banks in."""
         assert self.count > 0, "seal() on an empty horizon"
         assert self._spare is not None, \
             "seal() before release() of the previous horizon's bank"
-        wvec = np.asarray(self._w, np.float32)
+        if self.mesh is None:
+            wvec = np.asarray(self._w[0], np.float32)
+        else:
+            per = max(len(ws) for ws in self._w)
+            wvec = np.zeros((self.n_rows * per,), np.float32)
+            for s, ws in enumerate(self._w):
+                wvec[s * per:s * per + len(ws)] = ws
         stats = {"count": self.count, "pprod": self._pprod}
-        bank = self._bank
+        bank = self._bank if self.mesh is not None else self._bank[0]
         self._bank, self._spare = self._spare, None
         self._reset_host()
         return bank, wvec, stats
 
-    def release(self, zeroed_bank: torch.Tensor) -> None:
-        """Return the finalize's zeroed bank as the new spare."""
-        self._spare = zeroed_bank
+    def release(self, zeroed_bank) -> None:
+        """Return the finalize's zeroed bank(s) as the new spare."""
+        self._spare = (list(zeroed_bank) if self.mesh is not None
+                       else [zeroed_bank])
 
 
 class QuantBuffer:

@@ -89,6 +89,20 @@ and participation match the reference bit for bit.  Parameters live on
 ``device`` (CUDA unless the caller asks for the CPU); the global model is
 a flat (D,) row in the reference's layout.
 
+Multi-device (``devices > 1`` or ``mesh_shape=(E, P)``), on one
+controller: the engine builds the 1-D pod mesh or the 2-D (edge, pod)
+mesh (:mod:`repro_torch.sharding.flat`) over ``device`` (a list of the
+shards' devices, ``"cpu"`` for N shards on the CPU, or the first N GPUs,
+which must be visible).  The buffered channel's K rows live K/N a shard
+on the shards' devices (:class:`repro_torch.core.flatbuf.MeshRows`), the
+streaming channel keeps one bank a shard (upload i folds into the shard
+whose rows hold slot i: :meth:`FLEngine._fold_shard`), a wave's lanes
+train on the device of the shard that owns their row, and the server
+round reduces per-shard ``sum`` partials in the mesh's order before the
+one step body (:class:`repro_torch.core.aggregation.FlatServer`).  The
+schedule, the weights and every other host decision are made once, so
+bytes, staleness and simulated times are the single-device run's.
+
 Tracing (``trace_level`` ``round`` or ``upload``): a
 :class:`repro_torch.obs.trace.SpanTracer` on the simulated clock, fed by
 the three run paths and the scheduler's pops with values the engine
@@ -124,6 +138,7 @@ from repro_torch.core.metrics import (DeviceMetricsRing, MetricsLog,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.quantize import payload_nbytes
 from repro_torch.obs.trace import SpanTracer
+from repro_torch.sharding import flat as shflat
 
 # width of the ``staleness_bins`` histogram (last bin = overflow; filled
 # by the horizon-batched semi-async path only, as in the reference)
@@ -172,8 +187,6 @@ class FLEngine:
         "sched_timing": ("static", "lognormal", "markov"),
         "sched_policy": ("full", "uniform", "seafl", "fedqs", "ratelimit"),
         "batch_clients": (False, True),
-        "devices": (1,),
-        "mesh_shape": (None,),
         "trace_level": ("off", "round", "upload"),
     }
 
@@ -189,6 +202,22 @@ class FLEngine:
                 raise NotImplementedError(
                     f"FLConfig.{field}={val!r} is not ported yet "
                     f"(ported: {ok})")
+        # the mesh: devices=N -> the 1-D pod mesh, mesh_shape=(E, P) ->
+        # the 2-D (edge, pod) mesh (E = 1 builds the 1-D mesh, so the
+        # alias is the devices=P path bit for bit) over ``device`` (a
+        # device list, "cpu", or the first E*P GPUs); shard 0's device is
+        # the engine's own.  A 1-D mesh adds its partials in shard order,
+        # so N need not be a power of two (the reference's engine builds
+        # it through make_hier_mesh, which asserts one)
+        self._mesh = None
+        if fl_cfg.mesh_devices > 1:
+            self._mesh = (
+                shflat.make_hier_mesh(*fl_cfg.mesh_shape, devices=device)
+                if fl_cfg.mesh_shape is not None
+                else shflat.make_pod_mesh(fl_cfg.devices, devices=device))
+            device = self._mesh.home
+        elif isinstance(device, (list, tuple)):
+            device = device[0]
         self.device = dev = resolve_device(device)
         self.cfg = fl_cfg
         self.kind = kind
@@ -258,7 +287,7 @@ class FLEngine:
             fl_cfg.aggregation, self.codec.d, server_lr=fl_cfg.server_lr,
             momentum=fl_cfg.server_momentum or 0.8,
             ema_anchor=fl_cfg.ema_anchor or 0.05, wire=self._wire,
-            qblock=fl_cfg.quant_block, device=dev)
+            qblock=fl_cfg.quant_block, device=dev, mesh=self._mesh)
         self._opt = self._server.init_opt(self._flat_params)
         # model targets on the q8 / q4 wire: the non-trainable state
         # (BatchNorm statistics) ships on the q8 wire beside the weights
@@ -300,30 +329,37 @@ class FLEngine:
         # the batched engine's state: the staleness histogram of
         # ``staleness_bins``, summed over run() calls; the lane execution
         # (resolved at first use); the histogram of wave sizes; the
-        # (n_clients, ...) shard bank; each client's flat row
+        # (n_clients, ...) shard bank on each device that trains lanes;
+        # each client's flat row
         self._staleness_bins = np.zeros(_STALE_BINS, np.int64)
         self.wave_impl_resolved: Optional[str] = None
         self.wave_size_hist: Dict[int, int] = {}
-        self._shard_bank: Optional[Dict] = None
+        self._shard_banks: Dict[torch.device, Dict] = {}
         self._client_flats: Optional[List[torch.Tensor]] = None
+        # the server channel: the streaming banks (one a mesh shard, each
+        # on its device), or the buffered rows (K / N a shard on a mesh)
         self._accum = None
-        self._buf = None
-        self._qbuf = None
+        self._rows = None
         if self._streaming:
             self._accum = flatbuf.AccumBuffer(
-                self._server.bank_width, self._server.fold_program, dev)
-        elif self._wire == "topk":
-            self._qbuf = flatbuf.TopkBuffer(self._horizon_target,
-                                            self.codec.d, self.codec.nk,
-                                            fl_cfg.quant_block, device=dev)
-        elif self._lossy:
-            self._qbuf = flatbuf.QuantBuffer(self._horizon_target,
-                                             self.codec.d,
-                                             fl_cfg.quant_block, device=dev,
-                                             packed=self._wire == "q4")
+                self._server.bank_width, self._server.fold_program, dev,
+                mesh=self._mesh)
         else:
-            self._buf = flatbuf.alloc_buffer(self._horizon_target,
-                                             self.codec.d, dev)
+            codec, qb = self.codec, fl_cfg.quant_block
+
+            def make(k, on):
+                if self._wire == "topk":
+                    return flatbuf.TopkBuffer(k, codec.d, codec.nk, qb,
+                                              device=on)
+                if self._lossy:
+                    return flatbuf.QuantBuffer(k, codec.d, qb, device=on,
+                                               packed=self._wire == "q4")
+                return flatbuf.RowBuffer(k, codec.d, device=on)
+
+            self._rows = (make(self._horizon_target, dev)
+                          if self._mesh is None else
+                          flatbuf.MeshRows(make, self._horizon_target,
+                                           self._mesh))
         # wall seconds inside run() (the folds-per-second gauge)
         self.wall_run_s = 0.0
         # the span tracer (repro_torch.obs.trace), none with tracing off;
@@ -350,6 +386,33 @@ class FLEngine:
         # weighted aggregation bookkeeping costs 0.05 simulated seconds per
         # buffered update; FedSGD's unweighted mean a flat 0.01 s
         return 0.05 * self.cfg.k if self.cfg.aggregation != "fedsgd" else 0.01
+
+    def _fold_shard(self, slot: int) -> int:
+        """The bank the streaming fold of upload ``slot`` goes into.  With
+        a count horizon whose target splits over the N shards, slot i
+        folds into the shard whose block of the buffered channel's rows
+        holds slot i (on the 2-D mesh shard e*P + p of edge e), so each
+        shard's bank sums exactly the rows the buffered channel puts
+        there, in the same order, and the mesh rounds of the two channels
+        agree bitwise; clock horizons deal the slots round-robin.
+        fedasync always folds into bank 0: its mixes are one chain that
+        does not commute."""
+        if self._mesh is None or self.cfg.aggregation == "fedasync":
+            return 0
+        n = self._mesh.size
+        t = self._horizon_target
+        if t is not None and t % n == 0:
+            return min(slot // (t // n), n - 1)
+        return slot % n
+
+    def _row_shard(self, slot: int) -> int:
+        """The shard that owns upload ``slot``'s row: its bank on the
+        streaming channel, its block of K/N rows on the buffered one."""
+        if self._mesh is None:
+            return 0
+        if self._streaming:
+            return self._fold_shard(slot)
+        return slot // (self._horizon_target // self._mesh.size)
 
     def _horizon_due(self, count: int, now: float) -> bool:
         """Aggregation-horizon trigger (``FLConfig.horizon``), the
@@ -533,23 +596,22 @@ class FLEngine:
             fac = entry["fac"] = self._screen_factors(
                 tuple(a[None] for a in payload))[0]
         dropped = fac is not None and fac == np.float32(0.0)
+        slot = len(buffer)
         if self._streaming:
+            shard = self._fold_shard(slot)
             if dropped:
-                self._accum.skip()
+                self._accum.skip(shard=shard)
             else:
                 w = self._weight_vector([staleness], [c.n_samples])[0]
                 if fac is not None:
                     w = np.float32(w * fac)
                 beta = (np.float32(1.0) - w
                         if cfg.aggregation == "fedasync" else 1.0)
-                self._accum.fold(payload, w=w, beta=beta)
+                self._accum.fold(payload, w=w, beta=beta, shard=shard)
         else:
             if dropped:
                 payload = payload[:-1] + (torch.zeros_like(payload[-1]),)
-            if self._lossy:
-                self._qbuf.write(*payload, len(buffer))
-            else:
-                flatbuf.write_slot(self._buf, payload[0], len(buffer))
+            self._rows.write(*payload, slot)
         if cfg.aggregation in _MODEL_TARGETS:
             s_end = self._state_q8(s_end)
         entry["state"] = s_end
@@ -608,9 +670,8 @@ class FLEngine:
         w = self._weight_vector(staleness, sizes)
         if facs is not None:
             w = w * np.asarray(facs, np.float32)
-        buf = self._qbuf.views if self._lossy else self._buf
         self._flat_params, self._opt, m = self._server.step(
-            self._flat_params, buf, w, self._opt)
+            self._flat_params, self._rows.views, w, self._opt)
         self.t_global += 1
         self._broadcast_bytes()
         return m
@@ -894,24 +955,54 @@ class FLEngine:
         return make(self.apply_fn, self.kind, target, cfg.local_epochs,
                     self.codec, self.wave_impl_resolved)
 
-    def _bank(self) -> Dict:
-        """The (n_clients, n_batches, B, ...) shard bank on the device and
-        its host validity bools, made once per engine."""
-        if self._shard_bank is None:
-            self._shard_bank = {
-                f: torch.stack([s[f] for s in self.shards])
-                for f in ("xs", "ys", "mask")}
-            self._shard_bank["valid"] = np.stack(
-                [s["valid"] for s in self.shards])
-        return self._shard_bank
+    def _bank(self, device=None) -> Dict:
+        """The (n_clients, n_batches, B, ...) shard bank on ``device``
+        (the engine's by default) and its host validity bools, made once
+        per engine and device."""
+        dev = self.device if device is None else device
+        if dev not in self._shard_banks:
+            bank = {f: torch.stack([s[f] for s in self.shards]).to(dev)
+                    for f in ("xs", "ys", "mask")}
+            bank["valid"] = np.stack([s["valid"] for s in self.shards])
+            self._shard_banks[dev] = bank
+        return self._shard_banks[dev]
 
     def _train_wave(self, wave_fn, starts: torch.Tensor, states,
-                    cids: List[int]):
+                    cids: List[int], slots: Sequence[int]):
         """Client training of one wave from its (K, D) start rows and
         K-stacked start states, or of the sync round from the global (D,)
-        row and state: the wave call's outputs."""
-        return wave_fn(starts, states, self._bank(), cids,
-                       self.cfg.client_lr)
+        row and state: the wave call's outputs.  Each lane trains on the
+        device of the shard that owns its upload slot's row (one call
+        when they share one, as every shard on one card does); lanes on
+        other devices run there as a wave of their own, and their outputs
+        come back to the engine's device in lane order."""
+        lr = self.cfg.client_lr
+        groups = (None if self._mesh is None else shflat.lane_groups(
+            self._mesh, [self._row_shard(s) for s in slots]))
+        if groups is None or (len(groups) == 1
+                              and groups[0][0] == self.device):
+            return wave_fn(starts, states, self._bank(), cids, lr)
+        outs = []
+        for on, lanes in groups:
+            sub = [cids[i] for i in lanes]
+            if starts.dim() == 1:  # the sync round: one broadcast row
+                outs.append(wave_fn(
+                    starts.to(on), tree.tree_map(lambda v: v.to(on), states),
+                    self._bank(on), sub, lr))
+                continue
+            idx = torch.as_tensor(lanes, device=starts.device)
+            outs.append(wave_fn(
+                starts.index_select(0, idx).to(on),
+                tree.tree_map(lambda v: v.index_select(0, idx).to(on),
+                              states), self._bank(on), sub, lr))
+        order = [i for _, lanes in groups for i in lanes]
+        inv = torch.as_tensor(np.argsort(order), device=self.device)
+
+        def gather(*parts):
+            # each device's lanes come back to the engine's device
+            return torch.cat([p.to(self.device) for p in parts])[inv]
+
+        return tuple(tree.tree_map(gather, *out) for out in zip(*outs))
 
     def _payload_rows(self, vecs: torch.Tensor, cids: List[int]) -> tuple:
         """A wave's (K, D) upload rows serialized on the wire by the
@@ -963,11 +1054,7 @@ class FLEngine:
                 prows = self._zero_screened_rows(prows,
                                                  fac == np.float32(0.0))
         if not self._streaming:
-            slots = [slot for slot, _ in members]
-            if self._lossy:
-                self._qbuf.write_rows(*prows, slots)
-            else:
-                flatbuf.write_rows(self._buf, prows[0], slots)
+            self._rows.write_rows(*prows, [slot for slot, _ in members])
             return
         for row, (slot, _) in enumerate(members):
             h["pend"][slot] = tuple(a[row] for a in prows)
@@ -976,16 +1063,17 @@ class FLEngine:
             payload = h["pend"].pop(i)
             h["next"] += 1
             w = h["w"][i]
+            shard = self._fold_shard(i)
             if hfac is not None:
                 if hfac[i] == np.float32(0.0):
                     # screened: the fold is skipped outright (0 x NaN is
                     # NaN); skip() records the arrival at weight 0.0
-                    self._accum.skip()
+                    self._accum.skip(shard=shard)
                     continue
                 w = np.float32(w * hfac[i])
             beta = (np.float32(1.0) - w
                     if self.cfg.aggregation == "fedasync" else 1.0)
-            self._accum.fold(payload, w=w, beta=beta)
+            self._accum.fold(payload, w=w, beta=beta, shard=shard)
 
     def _eval_round(self, eval_fn, ring: DeviceMetricsRing,
                     m: Dict) -> tuple:
@@ -1015,15 +1103,12 @@ class FLEngine:
                 # rows serialized at once into the buffer
                 cids = [int(cid) for cid in active]
                 vecs, states_k, _ = self._train_wave(
-                    round_fn, self._flat_params, self.global_state, cids)
+                    round_fn, self._flat_params, self.global_state, cids,
+                    range(len(cids)))
                 if cfg.aggregation in _MODEL_TARGETS:
                     # the server sees the q8-shipped state's roundtrip
                     states_k = self._state_q8_rows(states_k)
-                prows = self._payload_rows(vecs, cids)
-                if self._lossy:
-                    self._qbuf.set_rows(*prows)
-                else:
-                    self._buf = prows[0]
+                self._rows.set_rows(*self._payload_rows(vecs, cids))
                 for cid in cids:
                     c = self.clients[cid]
                     c.params, c.model_state = (self.global_params,
@@ -1271,7 +1356,8 @@ class FLEngine:
                                 lambda leaf, rv=rv: leaf[rv], prev_states)
                             for rv in rows])
                 vecs, new_flat, new_states, _ = self._train_wave(
-                    wave_fn, starts, states, cids)
+                    wave_fn, starts, states, cids,
+                    [slot for slot, _ in members])
                 self._ingest_wave(h, members, self._payload_rows(vecs, cids))
                 # the server's view of the uploaded states (the q8
                 # roundtrip for a model target on a lossy wire)

@@ -34,8 +34,12 @@ by default with a directory) and writes ``D/trace.jsonl``,
 ``D/metrics.json``; ``python -m repro_torch.obs.report D/trace.jsonl``
 renders the trace.  ``--trace-jax`` (the reference's flag name) wraps the
 run in ``torch.profiler`` and writes ``D/torch_profile.json``.
-Flags for parts not ported yet (``--devices``, ``--mesh``) are refused
-with a "not ported yet" error when given anything but their default.
+``--devices N`` lays the channel rows and the wave lanes over a 1-D mesh
+of N shards and ``--mesh E P`` over the 2-D (edge, pod) mesh of E*P
+(:mod:`repro_torch.sharding.flat`; ``--mesh 1 P`` is ``--devices P`` bit
+for bit); with ``--device cpu`` the shards share the CPU, with
+``--device cuda`` they take the first N visible GPUs (fewer raises).  The
+summary's ``traffic`` is the mesh's cross-edge record.
 """
 from __future__ import annotations
 
@@ -60,8 +64,6 @@ from repro_torch.prng import prng_key
 #: --json-out summary schema version (the reference's)
 SUMMARY_SCHEMA = 1
 
-#: flags of parts not ported yet -> the only value accepted (the default)
-NOT_PORTED = {"devices": 1, "mesh": None}
 #: server learning rate per aggregation (the reference launcher's table)
 SERVER_LR = {"fedsgd": 0.05, "sdga": 0.05, "fedbuff": 0.05, "fedopt": 0.005}
 
@@ -102,9 +104,18 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="force the sequential per-upload engine "
                          "(batch_clients=False), the parity oracle of the "
                          "default horizon-batched engine")
-    ap.add_argument("--devices", type=int, default=1)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="multi-device SAFL: the channel rows and the "
+                         "batched waves over a 1-D mesh of this many "
+                         "shards (k %% devices == 0); --device cpu puts "
+                         "them on the CPU, --device cuda needs this many "
+                         "visible GPUs")
     ap.add_argument("--mesh", type=int, nargs=2, default=None,
-                    metavar=("E", "P"))
+                    metavar=("E", "P"),
+                    help="hierarchical 2-D (edge, pod) mesh: the P pod "
+                         "partials of an edge tree-reduce, then the E edge "
+                         "partials add (P a power of two, k %% (E*P) == "
+                         "0); --mesh 1 P is --devices P bit for bit")
     ap.add_argument("--wave-impl", default="auto",
                     choices=["auto", "vmap", "map"],
                     help="batched-wave lanes: vmap (one batched step), map "
@@ -209,13 +220,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "reference's flag name) and write its Chrome "
                          "trace into --trace-dir (torch_profile.json)")
     ap.add_argument("--json-out", default="")
-    args = ap.parse_args(argv)
-    for name, default in NOT_PORTED.items():
-        if getattr(args, name) != default:
-            ap.error(f"--{name.replace('_', '-')}="
-                     f"{getattr(args, name)!r} is not ported yet (only "
-                     f"{default!r})")
-    return args
+    return ap.parse_args(argv)
 
 
 def build_model(name: str, ds, device):
@@ -279,6 +284,8 @@ def main(argv=None) -> dict:
                    compress_updates=args.compress, wire=args.wire,
                    topk_frac=args.topk_frac, eval_every=args.eval_every,
                    batch_clients=not args.sequential,
+                   devices=args.devices,
+                   mesh_shape=tuple(args.mesh) if args.mesh else None,
                    wave_impl=args.wave_impl,
                    wave_buckets=not args.no_wave_buckets,
                    server_channel=args.server_channel,
@@ -355,6 +362,9 @@ def main(argv=None) -> dict:
     summary["traffic"] = dict(eng._server.traffic)
     summary = obs_export.to_native(summary)
     print(json.dumps(summary, indent=1))
+    if eng._mesh is not None:
+        print(f"# mesh: {eng._mesh}  cross-edge bytes a round: "
+              f"{summary['traffic']['cross_edge_bytes']}")
     print(f"# device: {device}  sched[{ss['policy']}/{ss['timing']}] "
           f"participation per client: {ss['participation']}")
     print(f"# rejected uploads: {ss['rejected_uploads']}  "

@@ -32,6 +32,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import FLEngine as TEngine  # noqa: E402
 from repro_torch.launch import fl_sim as tfl_sim  # noqa: E402
 from repro_torch.models import vision_cnn as tcnn  # noqa: E402
+from repro_torch.sharding import flat  # noqa: E402
 
 ROUNDS = 4
 N_TEST = 150
@@ -119,13 +120,20 @@ def test_streaming_equals_buffered_bitwise(setup):
 @pytest.mark.parametrize("field,value", [
     ("devices", 3), ("mesh_shape", (1, 1)), ("mesh_shape", (3, 1))])
 def test_unported_settings_raise(setup, field, value):
+    """The mesh settings, refused until the mesh was ported: on the CUDA
+    default they need their GPUs and raise on a host without them; on the
+    CPU the engine builds the mesh."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the CUDA mesh runs in chip_smoke.py")
     shards, te, p_j, _ = setup
     p = params_from_jax(jax.tree_util.tree_map(np.asarray, p_j), "cpu")
     cfg = dataclasses.replace(tpaper.MODES["AS"], **KW,
                               **{field: value})
-    with pytest.raises(NotImplementedError):
-        TEngine(cfg, tcnn.cnn_apply, "image", p, {}, shards, te.x, te.y,
-                device="cpu")
+    with pytest.raises(RuntimeError):
+        TEngine(cfg, tcnn.cnn_apply, "image", p, {}, shards, te.x, te.y)
+    eng = TEngine(cfg, tcnn.cnn_apply, "image", p, {}, shards, te.x, te.y,
+                  device="cpu")
+    assert flat.mesh_size(eng._mesh) == cfg.mesh_devices
 
 
 def test_cuda_without_gpu_raises(setup):
@@ -181,7 +189,15 @@ def test_fl_sim_summary_matches_reference(tmp_path, monkeypatch, capsys,
 
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--mesh", "2", "2"]])
-def test_fl_sim_refuses_unported_flags(flag, capsys):
-    with pytest.raises(SystemExit):
-        tfl_sim.parse_args(flag)
-    assert "not ported yet" in capsys.readouterr().err
+def test_fl_sim_refuses_unported_flags(flag):
+    """``--devices`` and ``--mesh``, refused until the mesh was ported,
+    parse now; on ``--device cuda`` without the mesh's GPUs the run
+    raises."""
+    args = tfl_sim.parse_args(flag)
+    assert (args.devices, args.mesh) == ((2, None) if flag[0] == "--devices"
+                                         else (1, [2, 2]))
+    if torch.cuda.device_count() >= 4:
+        pytest.skip("the mesh's GPUs are visible")
+    with pytest.raises(RuntimeError):
+        tfl_sim.main([*flag, "--device", "cuda", "--rounds", "1",
+                      "--samples", "240", "--clients", "4", "--k", "4"])
