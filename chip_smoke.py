@@ -65,7 +65,8 @@ Phases, each of which exits non-zero on failure:
      B = 100 (the general path).  Flash attention in f32 and bf16, causal and not, at the
      reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
      S 1024, H 16, Hkv 8, hd 128), a ragged S = 200 and two odd H / Hkv
-     (S = 200 at hd 128, S = 130 at hd 64): within
+     (S = 200 at hd 128, S = 130 at hd 64), and zamba2's hd 80 (H 32 /
+     32) and kimi-k2's hd 112 (H 64 / 8) at S = 256 and 200: within
      ``atol=rtol=2e-5`` (f32) and ``2e-2`` (bf16); at the qwen3 shape in
      bf16, at most 2 % of output lanes differing from the plain version
      (the plain version with p rounded to bf16 must differ in more); and
@@ -82,7 +83,9 @@ Phases, each of which exits non-zero on failure:
      K = 4; the q8 screen also over a top-k upload's values), the top-k
      kernels, the int8 pair and flash attention at the
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
-     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``);
+     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``)
+     and at zamba2's shared-attention prefill (B 4, S 512, H 32 / 32,
+     hd 80, bf16);
      the parent designs of the q8 aggregate (fedsgd and avg), of
      quantize and of dequantize beside the package's kernels, through
      ``ctypes``;
@@ -250,6 +253,21 @@ Phases, each of which exits non-zero on failure:
      prompt 200) served on the card against the CPU: logits within
      ``atol=rtol=1e-4`` and the same greedy tokens; (d) the normal draws
      made on the card against numpy's, bitwise
+  7e. the zoo: ``serve.run`` of each of the nine other architectures
+     from ``prng_key(0)`` at full width (``ZOO_FULL_DEPTH`` at full depth,
+     ``ZOO_DEPTH`` cut to their first layers, listed as ``reduced``), B =
+     4 prompts of 512 tokens (the VLM's 1024 patch embeddings before
+     them), 16 greedy tokens, every launch counter reset before and read
+     after (flash attention once per self-attention layer of the
+     prefill: the decoder LMs' layers, the hybrid's groups, the enc-dec's
+     encoder and decoder layers; none in the xLSTM), then a second
+     prefill and 16 decode steps timed (prefill ms, decode ms per token,
+     flash launches per prefill, peak GiB); then each of the ten reduced
+     configs (f32, TF32 off, B = 4, prompt 192, 8 new tokens) served on
+     the card against the CPU: the same greedy tokens, logits within
+     ``SERVE_F32_TOL``; xlstm-125m and granite-moe-1b-a400m sampled at T
+     = 0.8 on both, the same tokens, the card's Gumbel noise within 1 ulp
+     of the CPU's
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -537,7 +555,13 @@ INT8_ROWS = (-(-D_FULL // QB), 37)
 #: 64 rows lie wholly past S
 FLASH_SHAPES = ((2, 128, 4, 4, 64), (2, 256, 8, 2, 32), (2, 64, 2, 1, 128),
                 (8, 1024, 16, 8, 128), (2, 200, 16, 8, 128),
-                (2, 200, 4, 4, 128), (1, 130, 6, 2, 64))
+                (2, 200, 4, 4, 128), (1, 130, 6, 2, 64),
+                # zamba2's hd 80 (32 / 32 heads) and kimi-k2's hd 112
+                # (64 / 8), each also at a ragged S
+                (2, 256, 32, 32, 80), (2, 256, 64, 8, 112),
+                (1, 200, 32, 32, 80), (1, 200, 64, 8, 112))
+#: phase 4: the zamba2 shared attention's prefill shape (B 4, prompt 512)
+FLASH_HD80_SHAPE = (4, 512, 32, 32, 80)
 #: the bf16 flash kernel's symbol: the profiler's flash share sums its
 #: device time, and its ptxas report must show no spills
 FLASH_SYMBOL = "flash_fwd_wgmma_kernel"
@@ -559,6 +583,22 @@ SERVE_PASSES, SERVE_TRACED_STEPS = 3, 4
 #: phase 7 (c): the reduced qwen3 (f32 compute) on the card against the
 #: CPU, the CPU tests' bound against the reference
 SERVE_F32_TOL = 1e-4
+#: phase 7e: the zoo's nine other architectures at full width: B 4,
+#: prompt 512, 16 greedy tokens (cut from phase 7's shape so that nine
+#: models stay within the script's time)
+ZOO_BATCH, ZOO_PROMPT, ZOO_NEW = 4, 512, 16
+ZOO_FULL_DEPTH = ("xlstm-125m", "seamless-m4t-medium",
+                  "granite-moe-1b-a400m", "zamba2-2.7b", "starcoder2-3b",
+                  "minitron-4b")
+#: the depth each of the others is cut to (its first layers; the card
+#: holds about 39 GiB of each): internlm2 24 of 48 layers (f32),
+#: internvl2 22 of 80 (bf16), kimi-k2 2 of 61 (its dense layer and one
+#: MoE layer of 384 experts, bf16)
+ZOO_DEPTH = {"internlm2-20b": 24, "internvl2-76b": 22, "kimi-k2-1t-a32b": 2}
+#: phase 7e: the reduced configs on the card against the CPU (B x prompt
+#: a multiple of the reduced MoE's groups of 64), and the archs sampled
+ZOO_REDUCED_SHAPE = (4, 192, 8)
+ZOO_SAMPLED, ZOO_TEMPERATURE = ("xlstm-125m", "granite-moe-1b-a400m"), 0.8
 
 
 def fail(msg: str) -> None:
@@ -1656,6 +1696,20 @@ def time_kernels(torch, k_mod, q_mod, fa_mod, variants):
             shape=f"B={b} S={s_} H={h}/{hkv} hd={hd} "
                   f"{str(dtype).split('.')[-1]} causal")
         del fq, fk, fv, tq, tk, tv
+    # the zamba2 shared attention's prefill (hd 80: the kernels' 128-wide
+    # tiles with the upper 48 columns zero)
+    fq, fk, fv = flash_inputs(torch, FLASH_HD80_SHAPE, torch.bfloat16, g)
+    b, s_, h, hkv, hd = FLASH_HD80_SHAPE
+    tq, tk, tv = (x.transpose(1, 2) for x in (fq, fk, fv))
+    out["flash_attention hd80"] = dict(
+        ms=t(lambda: fa_mod.flash_attention(fq, fk, fv)),
+        plain_ms=t(lambda: fa_mod.flash_attention_plain(fq, fk, fv)),
+        library_ms=t(lambda: sdpa(tq, tk, tv, is_causal=True,
+                                  enable_gqa=True)),
+        bytes=2 * (fq.numel() + fk.numel()) * fq.element_size(),
+        ops=4 * b * h * hd * s_ * (s_ + 1) // 2, peak=BF16_FLOPS,
+        shape=f"B={b} S={s_} H={h}/{hkv} hd={hd} bfloat16 causal")
+    del fq, fk, fv, tq, tk, tv
     # the main path's three kernels of the other models at their full
     # widths' D: ResNet-18's and VGG-16's (the LSTM's rows are 114,256
     # and 163,074 lanes, launch-bound)
@@ -3843,6 +3897,156 @@ def run_serve(torch, fa_mod, wrappers):
                 normal_max_ulp=ulp, normal_bitwise_share=same)
 
 
+# ---------------------------------------------------------------------------
+# phase 7e: the zoo
+# ---------------------------------------------------------------------------
+
+
+def expected_flash(cfg) -> int:
+    """Flash launches of one prefill: one per self-attention layer."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.family == "audio":
+        return (cfg.enc_layers or cfg.n_layers) + cfg.n_layers
+    return cfg.n_layers
+
+
+def run_zoo(torch, fa_mod, wrappers):
+    """Phase 7e: each of the nine other architectures served at full
+    width (:data:`ZOO_DEPTH` cut), then the ten reduced configs and two
+    sampled ones on the card against the CPU.  Returns (rows, the flash
+    launches of the served runs)."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.configs import ARCHS, get_config, reduced_config
+    from repro_torch.launch import serve
+    B, S, new = ZOO_BATCH, ZOO_PROMPT, ZOO_NEW
+    smi = smi_line()
+    rows, flash_total = [], 0
+    for arch in ARCHS:
+        if arch == SERVE_ARCH:
+            continue
+        cfg = get_config(arch)
+        depth = ZOO_DEPTH.get(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for f in wrappers.values():
+            f.launches = 0
+        wall_ms, res = ms_of(torch, lambda: serve.run(
+            cfg, B, S, new, "cuda", n_layers=depth))
+        counts = {n: f.launches for n, f in wrappers.items() if f.launches}
+        served = res.model.cfg
+        want = expected_flash(served)
+        flash_total += counts.get("flash_attention", 0)
+        n_params = res.model.param_count()
+        inputs = res.inputs
+        prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+        with torch.inference_mode():
+            fa_mod.flash_attention.launches = 0
+            if cfg.family == "ssm":
+                pre_ms, (logits, cache) = ms_of(
+                    torch, lambda: res.model.prefill(res.tokens))
+            else:
+                pre_ms, (logits, cache) = ms_of(
+                    torch, lambda: res.model.prefill(
+                        res.tokens, capacity=S + prefix + new, **inputs))
+            per_prefill = fa_mod.flash_attention.launches
+            tok = torch.argmax(logits, dim=-1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(new):
+                last, cache = res.model.decode_step(cache, tok,
+                                                    S + prefix + i)
+                tok = torch.argmax(last, dim=-1)
+            torch.cuda.synchronize()
+            dec_ms = (time.perf_counter() - t0) * 1e3 / new
+            per_decode = fa_mod.flash_attention.launches - per_prefill
+            finite = bool(torch.isfinite(logits).all()
+                          and torch.isfinite(last).all())
+            del cache, logits, last
+        peak = torch.cuda.max_memory_allocated()
+        row = dict(arch=arch, family=cfg.family, params=n_params,
+                   layers=served.n_layers, full_layers=cfg.n_layers,
+                   reduced=(f"depth {depth} of {cfg.n_layers} layers"
+                            if depth else None),
+                   param_dtype=cfg.param_dtype, hd=cfg.hd, batch=B,
+                   prompt=S, prefix=prefix, new_tokens=new, wall_ms=wall_ms,
+                   run_prefill_ms=res.t_prefill * 1e3,
+                   run_decode_ms=res.t_decode * 1e3, prefill_ms=pre_ms,
+                   decode_ms_per_token=dec_ms, flash_per_prefill=per_prefill,
+                   flash_per_decode=per_decode, launches=counts,
+                   peak_gib=peak / 2 ** 30, gen0=res.gen[0].tolist(),
+                   smi=smi)
+        rows.append(row)
+        print(f"  {arch} ({cfg.family}, {n_params:,} params {cfg.param_dtype}"
+              f", {served.n_layers}"
+              + (f" of {cfg.n_layers} (reduced)" if depth else "")
+              + f" layers, hd {cfg.hd}): serve.run wall {wall_ms / 1e3:.2f} s"
+              f" (init included; its prefill {res.t_prefill * 1e3:.1f} ms); "
+              f"prefill {pre_ms:.2f} ms, decode {dec_ms:.3f} ms per token "
+              f"(B={B}, prompt {S}{f' + {prefix} prefix' if prefix else ''}"
+              f"), flash {per_prefill} per prefill (expected {want}), "
+              f"{per_decode} in decode; peak {peak / 2 ** 30:.2f} GiB; "
+              f"tokens[0] {res.gen[0].tolist()}; {smi}")
+        if counts.get("flash_attention", 0) != want or per_prefill != want \
+                or per_decode or set(counts) - {"flash_attention"}:
+            fail(f"{arch}: launches {counts}, {per_prefill} per prefill; "
+                 f"expected {want} flash launches a prefill and no other")
+        if not finite or res.gen.shape != (B, new):
+            fail(f"{arch}: non-finite logits or gen {res.gen.shape}")
+        del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the ten reduced configs on the card against the CPU
+    rb, rs, rn = ZOO_REDUCED_SHAPE
+    reduced_rows = []
+    for arch in ARCHS:
+        rcfg = reduced_config(get_config(arch))
+        temps = [0.0] + ([ZOO_TEMPERATURE] if arch in ZOO_SAMPLED else [])
+        for temp in temps:
+            on_card = serve.run(rcfg, rb, rs, rn, "cuda", temperature=temp)
+            on_cpu = serve.run(rcfg, rb, rs, rn, "cpu", temperature=temp)
+            err = float((on_card.logits.cpu() - on_cpu.logits).abs().max())
+            ok = torch.allclose(on_card.logits.cpu(), on_cpu.logits,
+                                atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL)
+            same = bool(np.array_equal(on_card.gen, on_cpu.gen))
+            row = dict(arch=arch, temperature=temp, max_abs_err=err,
+                       tokens_equal=same)
+            note = ""
+            if not same:
+                i, j = np.argwhere(on_card.gen != on_cpu.gen)[0]
+                top2 = torch.topk(on_cpu.logits[i], 2).values
+                row["first_differing"] = [int(i), int(j)]
+                note = (f" (first at row {i} step {j}; the prefill's top-2 "
+                        f"margin {float(top2[0] - top2[1]):.3e})")
+            if temp:
+                keys = serve.sample_keys(rn)
+                shape = tuple(on_cpu.logits.shape)
+                noise_ulp = max(max_ulp(
+                    prng.gumbel_torch(k, shape, "cuda").cpu().numpy(),
+                    prng.gumbel_torch(k, shape, "cpu").numpy())
+                    for k in keys)
+                row["gumbel_max_ulp"] = noise_ulp
+                note += f"; Gumbel noise card vs CPU max {noise_ulp} ulp " \
+                        "(tolerance 1)"
+            reduced_rows.append(row)
+            print(f"  reduced {arch} (f32, B={rb}, prompt {rs}, {rn} new"
+                  f"{f', T={temp}' if temp else ', greedy'}), card vs CPU: "
+                  f"prefill logits max|err|={err:.3e} (tolerance "
+                  f"atol=rtol={SERVE_F32_TOL}), tokens "
+                  f"{'equal' if same else 'DIFFER'}{note}")
+            if not (ok and same) or row.get("gumbel_max_ulp", 0) > 1:
+                fail(f"reduced {arch} T={temp} on the card disagrees with "
+                     "the CPU")
+            del on_card, on_cpu
+    return dict(served=rows, reduced=reduced_rows), flash_total
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4003,6 +4207,16 @@ def main() -> None:
           f"prompt {SERVE_PROMPT}, {SERVE_NEW} greedy tokens)")
     serving = run_serve(torch, fa_mod, wrappers)
     launches["flash_attention"] = serving["launches"]["flash_attention"]
+    left(7)
+
+    print(f"== phase 7e: the zoo at full width (B = {ZOO_BATCH}, prompt "
+          f"{ZOO_PROMPT}, {ZOO_NEW} greedy tokens; depth cut: "
+          + ", ".join(f"{a} {d} layers" for a, d in ZOO_DEPTH.items())
+          + "); the reduced configs on the card vs the CPU")
+    t0 = time.perf_counter()
+    zoo, zoo_flash = run_zoo(torch, fa_mod, wrappers)
+    launches["flash_attention"] += zoo_flash
+    print(f"  phase 7e: {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(
         name=name, route="cuda",
@@ -4033,6 +4247,7 @@ def main() -> None:
                        other_models=other_rows, traced=traced,
                        mesh_server=mesh_server, mesh=mesh_rows,
                        compression_path=compression, serving=serving,
+                       zoo=zoo,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

@@ -1,11 +1,15 @@
 """Configurations: the model zoo's :class:`ModelConfig` and the
 federated-learning experiment's :class:`FLConfig` (paper §2, §4).
 
-``ModelConfig`` is a copy of the reference's with the fields the dense
-decoder's serving path reads (the training, distribution, q-chunking,
-MoE, SSM, hybrid, encoder-decoder and VLM fields wait for the paths that
-read them), the same defaults, ``round_up``, ``hd``,
-``padded_vocab`` and the dense checks of ``validate()``.
+``ModelConfig`` is a copy of the reference's: every field with the same
+default, ``round_up``, the properties ``hd``, ``padded_vocab``,
+``d_inner``, ``ssm_heads``, ``is_encoder_decoder`` and
+``supports_long_decode``, and the checks of ``validate()`` (raised as
+``ValueError``).  The fields that only pick an implementation in the
+reference (``remat``, ``scan_layers``, ``attn_impl``,
+``moe_dispatch_impl``, ``sharding``) and the training policy
+(``optimizer``) are accepted; the serving path computes the same
+function under each.
 
 ``FLConfig`` is a copy of the reference's and its ``validate()``: the
 same fields, defaults and checks, so a config written for the reference
@@ -20,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-#: the reference's model families; the port builds ``dense`` only
+#: the reference's model families
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
@@ -30,9 +34,16 @@ def round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (the reference's fields for the dense
-    family, same defaults).  ``dense`` is a pre-norm decoder: GQA
-    attention with RoPE and optional qk RMS-norm, and a gated MLP."""
+    """Architecture description (the reference's fields and defaults).
+
+    ``family`` selects the block stack:
+      dense   — pre-norm decoder (GQA attention + gated MLP)
+      moe     — dense attention + mixture-of-experts MLP
+      ssm     — xLSTM (alternating mLSTM / sLSTM blocks)
+      hybrid  — Mamba2 backbone with a shared attention block every Nth layer
+      audio   — encoder-decoder; the encoder takes frame embeddings
+      vlm     — decoder LM after a patch-embedding prefix
+    """
 
     name: str
     family: str
@@ -48,6 +59,37 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     qk_norm: bool = False
     sliding_window: Optional[int] = None  # native window (starcoder2)
+    long_context_window: int = 8_192  # window used for long_500k decode
+    attn_chunk: int = 0  # 0 -> full-matrix attention; >0 -> q-chunked
+    attn_impl: str = "chunked"  # chunked | online
+    attn_kv_chunk: int = 1_024  # kv tile for attn_impl="online"
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    moe_group_size: int = 1_024
+    first_k_dense: int = 0  # leading dense layers before the MoE stack
+    moe_dispatch_dtype: str = "float32"
+    moe_dispatch_impl: str = "einsum"  # einsum | scatter
+
+    # --- SSM / hybrid (Mamba2) ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    hybrid_attn_every: int = 0  # zamba2: shared attn block every Nth layer
+
+    # --- xLSTM ---
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("mlstm", "slstm")
+
+    # --- encoder-decoder ---
+    enc_layers: int = 0
+
+    # --- modality frontend stub ---
+    n_prefix_tokens: int = 0  # VLM patches
 
     # --- numerics ---
     act: str = "swiglu"  # swiglu | gelu
@@ -56,6 +98,12 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     tie_embeddings: bool = False
     vocab_pad_to: int = 2_048
+
+    # --- distribution / training policy ---
+    sharding: str = "megatron"  # megatron | fsdp
+    optimizer: str = "sgdm"  # sgd | sgdm | adamw
+    remat: bool = True
+    scan_layers: bool = True
     source: str = ""  # citation for the assignment row
 
     @property
@@ -66,15 +114,46 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return round_up(self.vocab_size, self.vocab_pad_to)
 
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        return self.family == "audio"
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """The enc-dec speech model has no long autoregressive mode."""
+        return self.family != "audio"
+
     def validate(self) -> None:
         if self.family not in FAMILIES:
             raise ValueError(f"family {self.family!r} not in {FAMILIES}")
-        if self.d_model % self.n_heads and not self.head_dim:
-            raise ValueError(f"d_model {self.d_model} is not a multiple of "
-                             f"n_heads {self.n_heads} and head_dim is 0")
-        if self.n_heads % self.n_kv_heads:
-            raise ValueError(f"n_heads {self.n_heads} is not a multiple of "
-                             f"n_kv_heads {self.n_kv_heads}")
+        if self.family != "ssm":
+            if self.d_model % self.n_heads and not self.head_dim:
+                raise ValueError(
+                    f"d_model {self.d_model} is not a multiple of n_heads "
+                    f"{self.n_heads} and head_dim is 0")
+            if self.n_heads % self.n_kv_heads:
+                raise ValueError(f"n_heads {self.n_heads} is not a multiple "
+                                 f"of n_kv_heads {self.n_kv_heads}")
+        if self.family == "moe" and not (self.n_experts > 0
+                                         and self.top_k > 0):
+            raise ValueError("the moe family needs n_experts > 0 and "
+                             "top_k > 0")
+        if self.family == "ssm" and not self.block_pattern:
+            raise ValueError("the ssm family needs a block pattern")
+        if self.family == "hybrid" and not (
+                self.hybrid_attn_every > 0
+                and self.n_layers % self.hybrid_attn_every == 0):
+            raise ValueError(
+                f"the hybrid family needs hybrid_attn_every > 0 dividing "
+                f"n_layers {self.n_layers}, got {self.hybrid_attn_every}")
 
 
 @dataclasses.dataclass(frozen=True)

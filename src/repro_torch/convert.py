@@ -8,14 +8,26 @@ import numpy as np
 import torch
 
 
+def _tensor(a, device) -> torch.Tensor:
+    """One leaf, its dtype kept: a bf16 array (``ml_dtypes.bfloat16``,
+    which ``torch.from_numpy`` does not take) through a ``uint16`` view of
+    its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def params_from_jax(tree: Dict[str, object], device) -> Dict[str, object]:
     """The reference's params dict or its non-trainable model state (the
-    leaves already numpy arrays; nested dicts allowed, as the decoder's
-    params and ResNet-18's params and BatchNorm state ``{"bn0": {"mean",
-    "var"}, "s0b0": {"bn1": ...}}`` nest them) -> the same dict of
-    float32 tensors on ``device``, layouts kept as they are (HWIO conv
-    weights, (in, out) dense weights, the decoder's layers stacked on
-    axis 0), which is what this package's models take."""
+    leaves numpy arrays; nested dicts allowed, as the decoder's params and
+    ResNet-18's params and BatchNorm state ``{"bn0": {"mean", "var"},
+    "s0b0": {"bn1": ...}}`` nest them) -> the same dict of tensors on
+    ``device``, each of its leaf's dtype (f32 stays f32, bf16 arrives as
+    bf16 bit for bit), layouts kept as they are (HWIO conv weights,
+    (in, out) dense weights, the decoder's layers stacked on axis 0, the
+    hybrid's Mamba2 layers on axes 0 and 1 as (group, layer)), which is
+    what this package's models take."""
     return {k: params_from_jax(v, device) if isinstance(v, dict)
-            else torch.from_numpy(np.array(v, np.float32)).to(device)
-            for k, v in tree.items()}
+            else _tensor(v, device) for k, v in tree.items()}

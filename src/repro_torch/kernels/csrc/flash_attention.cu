@@ -44,7 +44,12 @@
 //     multiplied.  Rows and keys past S are zero-filled by TMA; keys past
 //     S are masked like the causal ones, rows past S are not stored.
 //     hd 32 runs as hd 64 with the upper 32 columns zero-filled and never
-//     stored.  The causal grid starts the q tiles with the longest kv
+//     stored; hd 80 and 112 run as hd 128 the same way: Q, K and V in two
+//     64-column panels, the second box reaching past hd and zero-filled by
+//     TMA (the tensor map's inner extent is hd), Q K^T over the hd / 16
+//     k-steps that hold data (5 or 7), P V at N = 128 over V's zero
+//     columns (a third and an eighth of its tensor work wasted), the
+//     columns past hd never stored.  The causal grid starts the q tiles with the longest kv
 //     loops first.
 //   Shared memory: (2 + 2 kStages) tiles of 64 x max(hd, 64) bf16 (96 KB at
 //   hd 128), one CTA of 288 threads per SM (the 64 + 32 accumulator
@@ -62,6 +67,9 @@
 // of a row group by shuffles.  p is written transposed over the k tile
 // (k is spent by then) and the thread adds p v into its rows' output
 // columns (hd / 16 of them, in chunks of 4 or 2 contiguous lanes).
+// At hd 80 and 112 a thread owns 5 or 7 output columns, 16 lanes apart
+// (one float a load), where hd 32 / 64 / 128 take chunks of 2 or 4
+// contiguous lanes.
 // Shared memory: (hd + max(hd, 64)) * 68 + 64 * hd floats (100 KB at
 // hd 128, so two CTAs share an SM).  Rows and keys past S (a ragged last
 // tile) are staged as zeros, keys past S are masked like the causal ones,
@@ -100,10 +108,12 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       int S, int H, int Hkv, int causal, float sqrt_hd) {
-  static_assert(HD % 32 == 0 && HD <= 128, "hd must be 32, 64 or 128");
-  constexpr int NC = HD / 16;          // output columns per thread
-  constexpr int VW = NC < 4 ? NC : 4;  // contiguous lanes per chunk
-  constexpr int NCH = NC / VW;         // chunks per thread
+  static_assert(HD % 16 == 0 && HD <= 128, "hd a multiple of 16, <= 128");
+  constexpr int NC = HD / 16;  // output columns per thread
+  // contiguous lanes per chunk: 4 or 2 where they divide NC (hd 32, 64,
+  // 128), else 1 (hd 80, 112: 5 or 7 columns a thread, 16 lanes apart)
+  constexpr int VW = NC % 4 == 0 ? 4 : (NC % 2 == 0 ? 2 : 1);
+  constexpr int NCH = NC / VW;  // chunks per thread
 
   extern __shared__ float smem[];
   float* qT = smem;                       // [HD][kPad]: q, pre-scaled
@@ -226,9 +236,11 @@ flash_fwd_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
         if constexpr (VW == 4) {
           const float4 t = *reinterpret_cast<const float4*>(vp);
           vv[0] = t.x; vv[1] = t.y; vv[2] = t.z; vv[3] = t.w;
-        } else {
+        } else if constexpr (VW == 2) {
           const float2 t = *reinterpret_cast<const float2*>(vp);
           vv[0] = t.x; vv[1] = t.y;
+        } else {
+          vv[0] = *vp;
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -486,7 +498,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                        __nv_bfloat16* __restrict__ o, int B, int S, int H,
                        int group, int causal, float scale_log2, int pair,
                        int n_qt, int n_slots) {
-  static_assert(HD == 32 || HD == 64 || HD == 128, "hd 32, 64 or 128");
+  static_assert(HD == 32 || HD == 64 || HD == 80 || HD == 112 || HD == 128,
+                "hd 32, 64, 80, 112 or 128");
   constexpr int NP = (HD + kPanelCols - 1) / kPanelCols;  // panels per row
   constexpr int N = NP * kPanelCols;   // head dim on the tensor cores
   constexpr int TILE = NP * kPanelBytes;  // one [64][N] bf16 tile
@@ -798,6 +811,12 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch_simt<64>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
                              stream);
+    case 80:
+      return launch_simt<80>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
+                              stream);
+    case 112:
+      return launch_simt<112>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
+                               stream);
     case 128:
       return launch_simt<128>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
                               stream);
@@ -817,6 +836,12 @@ int flash_attention_bf16(const void* q, const void* k, const void* v,
     case 64:
       return launch_wgmma<64>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
                               stream);
+    case 80:
+      return launch_wgmma<80>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
+                              stream);
+    case 112:
+      return launch_wgmma<112>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
+                               stream);
     case 128:
       return launch_wgmma<128>(q, k, v, o, B, S, H, Hkv, causal, sqrt_hd,
                                stream);

@@ -6,7 +6,7 @@ flash_attention`` (its ``pallas_call`` at :91).
 k and v (B, S, Hkv, hd), f32 or bf16, -> (B, S, H, hd) of q's dtype, the
 kv head of q head h being ``h // (H // Hkv)``.  Given CUDA tensors it
 launches a hand-written kernel of ``csrc/flash_attention.cu`` (hd 32,
-64 or 128; any S; any H / Hkv) or raises; given CPU tensors it runs the
+64, 80, 112 or 128; any S; any H / Hkv) or raises; given CPU tensors it runs the
 plain version :func:`flash_attention_plain` (``ref.flash_attention_ref``:
 k and v repeated, f32 softmax, a -inf mask).  Both kernels compute what
 the Pallas kernel computes (f32 scores and running (m, l, acc), masked
@@ -52,8 +52,9 @@ from repro_torch.kernels.checks import check, on_cuda, raise_on, stream_of
 #: the reference's tile sizes (its signature's defaults)
 BLOCK_Q = 128
 BLOCK_K = 128
-#: head dims the CUDA kernels are built for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the CUDA kernels are built for (80: zamba2-2.7b; 112:
+#: kimi-k2-1t-a32b)
+HEAD_DIMS = (32, 64, 80, 112, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 

@@ -1,31 +1,35 @@
-"""Serving launcher: batched prefill, then greedy decode.
+"""Serving launcher: batched prefill, then greedy or sampled decode.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
-        --batch 8 --prompt-len 32 --max-new 64
+        --arch xlstm-125m --batch 8 --prompt-len 32 --max-new 64
 
 The reference launcher's flags (``repro/launch/serve.py``) plus
 ``--device`` (``cuda`` by default; raises when no GPU is visible).  As in
-the reference, ``--reduced`` is always on, so the CLI serves the CPU-smoke
-reduction of the architecture; :func:`run` takes any config and serves the
-full width too (``chip_smoke.py`` drives qwen3-1.7b through it).  The
-weights are drawn from ``PRNGKey(0)`` as the reference draws them, the
-prompts from ``np.random.default_rng(0)``, so the port prints the
-reference's sample token ids.  The ported architectures are the dense
-family's (``qwen3-1.7b``, the default here since the reference's default
-``xlstm-125m`` is not ported); another ``--arch`` and ``--temperature >
-0`` (sampling) are refused.  Prefill attention runs the flash kernel
-(:mod:`repro_torch.kernels.flash_attention`) once per layer; decode
-attention is plain PyTorch, as the reference computes it in XLA.
+the reference, ``--arch`` takes the zoo's ten architectures (default
+``xlstm-125m``) and ``--reduced`` is always on, so the CLI serves the
+CPU-smoke reduction of the architecture; :func:`run` takes any config
+and serves the full width too (``chip_smoke.py`` drives the zoo through
+it).  The weights are drawn from ``PRNGKey(0)`` as the reference draws
+them; the prompts, then the VLM's patch embeddings or the enc-dec's
+frame embeddings, from ``np.random.default_rng(0)`` in the reference's
+order; ``--temperature T > 0`` samples each token after the first as
+``categorical(sub, logits / T)`` with ``key, sub = split(key)`` from
+``PRNGKey(1)`` each step (:func:`repro_torch.prng.categorical_torch`).
+So the port prints the reference's sample token ids.  Prefill attention
+runs the flash kernel (:mod:`repro_torch.kernels.flash_attention`);
+decode attention is plain PyTorch, as the reference computes it in XLA.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
@@ -35,10 +39,11 @@ from repro_torch.prng import prng_key
 
 @dataclasses.dataclass
 class ServeResult:
-    model: DecoderLM
+    model: torch.nn.Module
     tokens: torch.Tensor  # (B, S) prompts on the device
+    inputs: dict  # the VLM's prefix_embeds or the enc-dec's enc_frames
     logits: torch.Tensor  # (B, V) f32, the prefill's last position
-    gen: np.ndarray  # (B, max_new) greedy token ids
+    gen: np.ndarray  # (B, max_new) token ids
     t_prefill: float  # seconds, host clock, device synchronized
     t_decode: float
 
@@ -48,21 +53,61 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@torch.inference_mode()
-def run(cfg, batch: int, prompt_len: int, max_new: int,
-        device="cuda") -> ServeResult:
-    """Build ``cfg``'s model from ``prng_key(0)`` on ``device``, prefill
-    ``batch`` random prompts of ``prompt_len`` tokens with room for
-    ``max_new`` more, and decode ``max_new`` tokens greedily."""
-    device = resolve_device(device)
-    model = build_model(cfg).init(prng_key(0), device)
+def make_inputs(cfg, batch: int, prompt_len: int, device):
+    """The reference launcher's inputs from ``default_rng(0)``: (tokens
+    (B, S), the extra prefill inputs, the prefix length)."""
     B, S = batch, prompt_len
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                              dtype=torch.int64, device=device)
+    inputs, prefix = {}, 0
+    if cfg.family == "vlm":
+        inputs["prefix_embeds"] = torch.as_tensor(
+            rng.normal(0, 0.1, (B, cfg.n_prefix_tokens, cfg.d_model)),
+            dtype=torch.float32, device=device)
+        prefix = cfg.n_prefix_tokens
+    if cfg.family == "audio":
+        inputs["enc_frames"] = torch.as_tensor(
+            rng.normal(0, 0.1, (B, S, cfg.d_model)), dtype=torch.float32,
+            device=device)
+    return tokens, inputs, prefix
+
+
+def sample_keys(n: int):
+    """The reference's sampling keys: from ``PRNGKey(1)``, ``key, sub =
+    split(key)`` before each of ``n`` steps; the ``sub`` keys."""
+    key, subs = prng_key(1), []
+    for _ in range(n):
+        key, sub = prng.split(key, 2)
+        subs.append(sub)
+    return subs
+
+
+@torch.inference_mode()
+def run(cfg, batch: int, prompt_len: int, max_new: int, device="cuda",
+        temperature: float = 0.0,
+        n_layers: Optional[int] = None) -> ServeResult:
+    """Build ``cfg``'s model from ``prng_key(0)`` on ``device``, prefill
+    ``batch`` random prompts of ``prompt_len`` tokens with room for
+    ``max_new`` more, and decode ``max_new`` tokens, greedily or, with
+    ``temperature`` > 0, sampled.  ``n_layers`` (decoder LMs) serves the
+    first layers of the stacks only, at full width."""
+    device = resolve_device(device)
+    if n_layers is None:
+        model = build_model(cfg).init(prng_key(0), device)
+    else:
+        model = DecoderLM.init(cfg, prng_key(0), device, n_layers=n_layers)
+    B, S = batch, prompt_len
+    tokens, inputs, prefix = make_inputs(cfg, B, S, device)
+    temp = torch.tensor(np.float32(temperature), device=device)
+    keys = sample_keys(max_new) if temperature > 0 else None
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = model.prefill(tokens, capacity=S + max_new)
+    if cfg.family == "ssm":
+        logits, cache = model.prefill(tokens)
+    else:
+        logits, cache = model.prefill(tokens, capacity=S + prefix + max_new,
+                                      **inputs)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -72,33 +117,30 @@ def run(cfg, batch: int, prompt_len: int, max_new: int,
     tok = torch.argmax(logits, dim=-1)
     for i in range(max_new):
         outs.append(tok.cpu().numpy())
-        logits, cache = model.decode_step(cache, tok, S + i)
-        tok = torch.argmax(logits, dim=-1)
+        logits, cache = model.decode_step(cache, tok, S + prefix + i)
+        if keys is not None:
+            tok = prng.categorical_torch(keys[i], logits / temp)
+        else:
+            tok = torch.argmax(logits, dim=-1)
     _sync(device)
     t_decode = time.perf_counter() - t0
     gen = np.stack(outs, axis=1)
     if not (np.all(gen >= 0) and np.all(gen < cfg.padded_vocab)):
         raise RuntimeError("decoded token ids outside the vocabulary")
-    return ServeResult(model, tokens, first, gen, t_prefill, t_decode)
+    return ServeResult(model, tokens, inputs, first, gen, t_prefill,
+                       t_decode)
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--arch", default="xlstm-125m", choices=list(ARCHS))
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
-    if args.arch not in ARCHS:
-        ap.error(f"--arch {args.arch} is not ported yet (ported: "
-                 f"{sorted(ARCHS)}; see ROADMAP.md, queue 1)")
-    if args.temperature > 0:
-        ap.error("--temperature > 0 (sampling) is not ported yet; only "
-                 "greedy decode runs (see ROADMAP.md, queue 1)")
-    return args
+    return ap.parse_args(argv)
 
 
 def main(argv=None) -> ServeResult:
@@ -109,7 +151,8 @@ def main(argv=None) -> ServeResult:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    res = run(cfg, args.batch, args.prompt_len, args.max_new, args.device)
+    res = run(cfg, args.batch, args.prompt_len, args.max_new, args.device,
+              temperature=args.temperature)
     B, S, n = args.batch, args.prompt_len, args.max_new
     print(f"arch={cfg.name} prefill({B}x{S}) {res.t_prefill*1e3:.0f} ms; "
           f"decode {n} steps {res.t_decode*1e3:.0f} ms "

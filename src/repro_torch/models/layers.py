@@ -1,5 +1,5 @@
 """Transformer building blocks over plain dicts of tensors: the reference's
-``repro/models/layers.py`` for the dense decoder, in PyTorch.
+``repro/models/layers.py`` in PyTorch.
 
 Every function keeps the reference's signature, parameter layout
 ((in, out) dense weights, so ``x @ w`` reads the same) and order of
@@ -11,18 +11,28 @@ operations, including where the compute dtype rounds:
     f32, with the frequencies computed on the host in f32 in the
     reference's order, ``1 / theta ** (arange(half) / half)``;
   * in :func:`_qkv`, the qk-norm comes before RoPE;
-  * :func:`lm_head` and :func:`decode_attention`'s scores keep f32
-    (the reference's ``preferred_element_type``): a bf16 operand pair is
-    upcast and multiplied in f32, since a bf16 matmul in PyTorch returns
-    bf16, and greedy argmax must not see logits rounded to bf16; decode
-    casts the probabilities to the cache's dtype before the PV product.
+  * :func:`lm_head`, :func:`_sdpa` and the decode attentions keep their
+    scores f32 (the reference's ``preferred_element_type``): a bf16
+    operand pair is upcast and multiplied in f32, since a bf16 matmul in
+    PyTorch returns bf16, and greedy argmax must not see logits rounded
+    to bf16; the probabilities are cast to v's dtype before the PV
+    product;
+  * a division by ``sqrt(hd)`` divides by an f32 tensor on the
+    operand's device (:func:`div_f32`): PyTorch on CUDA turns a division
+    by a host scalar into a multiply by its reciprocal.
 
-:func:`full_attention` runs its self-attention through
+:func:`full_attention` runs causal and non-causal self-attention through
 :func:`repro_torch.kernels.ops.flash_attention` (the CUDA kernel on the
-card, its plain version on the CPU).  That kernel has no window and no
-memory (cross-attention), so both raise here, as do a decode window and
-the ring-buffer cache; the reference's ``constrain_*`` sharding hints are
-no-ops on one device and are dropped.
+card, its plain version on the CPU), and a sliding window too while the
+sequence fits in it (S <= window: the window mask is then the causal
+mask).  A longer windowed sequence and cross-attention run
+:func:`_sdpa` in PyTorch ops, q-chunked as the reference's
+``_chunked_attention`` when ``attn_chunk`` is set: the reference computes
+them in XLA (its Pallas kernel has no window and no memory).  Beyond
+``attn_chunk`` the reference masks causally even where ``causal=False``
+(its chunked and online paths know no other mask); so does this port.
+The reference's ``constrain_*`` sharding hints are no-ops on one device
+and are dropped.
 """
 from __future__ import annotations
 
@@ -38,9 +48,16 @@ from repro_torch.kernels import ops
 Params = Dict[str, object]
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (see ROADMAP.md, "
-                               "queue 1)")
+def div_f32(x: torch.Tensor, v: float) -> torch.Tensor:
+    """``x / f32(v)``, a true division on every device (the divisor an f32
+    tensor on x's device, never a host scalar)."""
+    return x / torch.tensor(np.float32(v), device=x.device)
+
+
+def sqrt_f32(v: int) -> float:
+    """``np.sqrt(v)`` rounded to f32 (the reference divides f32 arrays by
+    it)."""
+    return float(np.float32(np.sqrt(v)))
 
 
 # ---------------------------------------------------------------------------
@@ -146,22 +163,92 @@ def _qkv(params: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
     return q, k, v
 
 
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, Hkv * n_rep, hd), kv head g read by q
+    heads g * n_rep .. g * n_rep + n_rep - 1."""
+    if n_rep == 1:
+        return x
+    return torch.repeat_interleave(x, n_rep, dim=2)
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor, window: Optional[int],
+          causal: bool) -> torch.Tensor:
+    """Boolean (len_q, len_k) mask; True = attend."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    diff = q_pos[:, None].to(torch.int64) - k_pos[None, :].to(torch.int64)
+    if causal:
+        m &= diff >= 0
+    if window is not None:
+        m &= diff < window
+    return m
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q (B, Sq, H, hd), k / v (B, Sk, H, hd), mask (Sq, Sk) or None (all
+    attend) -> (B, Sq, H, hd) of v's dtype: f32 scores over f32
+    ``sqrt(hd)``, masked to -1e30, an f32 softmax, p cast to v's dtype."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
+                          k.to(torch.float32))
+    scores = div_f32(scores, sqrt_f32(hd))
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def _chunked_attention(q, k, v, positions, window, chunk):
+    """The reference's q-chunked attention: each chunk of ``chunk`` query
+    rows against every key under the causal (and window) mask; the
+    largest score tensor is (B, H, chunk, S)."""
+    out = torch.empty_like(q, dtype=v.dtype)
+    for c0 in range(0, q.shape[1], chunk):
+        mask = _mask(positions[c0:c0 + chunk], positions, window,
+                     causal=True)
+        out[:, c0:c0 + chunk] = _sdpa(q[:, c0:c0 + chunk], k, v, mask)
+    return out
+
+
 def full_attention(params: Params, cfg, x: torch.Tensor,
                    positions: torch.Tensor, *, causal: bool = True,
                    window: Optional[int] = None,
                    memory: Optional[torch.Tensor] = None,
                    rope: bool = True, return_kv: bool = False):
-    """Prefill self-attention over the full sequence, through the flash
-    kernel; ``return_kv`` also returns the (roped, un-repeated) K and V
+    """Prefill attention over the full sequence.  ``memory`` (B, Sm, D)
+    makes it cross-attention (keys and values from memory; no mask, no
+    RoPE); ``return_kv`` also returns the (roped, un-repeated) K and V
     for the serving cache."""
-    if window is not None:
-        raise _unported("windowed attention")
-    if memory is not None:
-        raise _unported("cross-attention")
     B, S, _ = x.shape
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    if memory is not None:
+        hd = cfg.hd
+        Sm = memory.shape[1]
+        q = (x @ _cast(params["wq"], x)).reshape(B, S, cfg.n_heads, hd)
+        k = (memory @ _cast(params["wk"], x)).reshape(B, Sm,
+                                                      cfg.n_kv_heads, hd)
+        v = (memory @ _cast(params["wv"], x)).reshape(B, Sm,
+                                                      cfg.n_kv_heads, hd)
+        out = _sdpa(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep), None)
+        return out.reshape(B, S, -1) @ _cast(params["wo"], x)
+
     q, k, v = _qkv(params, cfg, x, positions, rope=rope)
-    out = ops.flash_attention(q.contiguous(), k.contiguous(),
-                              v.contiguous(), causal=causal)
+    chunked = bool(cfg.attn_chunk) and S > cfg.attn_chunk
+    if window is not None and S > window:
+        kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        if chunked:
+            if S % cfg.attn_chunk:
+                raise ValueError(f"S {S} is not a multiple of attn_chunk "
+                                 f"{cfg.attn_chunk}")
+            out = _chunked_attention(q, kr, vr, positions, window,
+                                     cfg.attn_chunk)
+        else:
+            out = _sdpa(q, kr, vr, _mask(positions, positions, window,
+                                         causal))
+    else:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal or chunked)
     out = out.reshape(B, S, -1) @ _cast(params["wo"], x)
     if return_kv:
         return out, (k, v)
@@ -172,11 +259,13 @@ def decode_attention(params: Params, cfg, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
                      *, window: Optional[int] = None):
     """Single-token decode.  x: (B, 1, D); cache_[kv]: (B, C, Hkv, hd), C
-    the capacity; ``pos`` the absolute position of the new token.  The
-    new K and V are written into the cache in place (the reference
-    returns updated copies).  Returns (out, cache_k, cache_v)."""
-    if window is not None:
-        raise _unported("windowed (ring-buffer) decode")
+    the capacity (the full sequence, or a ring buffer of the window);
+    ``pos`` the absolute position of the new token.  Without a window
+    the new K and V go to slot min(pos, C - 1) and slots <= pos attend;
+    with one, to slot pos % C, and a slot attends when the position it
+    holds (pos - ((pos - i) mod C)) is >= 0 and within the window.  The
+    cache is written in place (the reference returns updated copies).
+    Returns (out, cache_k, cache_v)."""
     B = x.shape[0]
     hd = cfg.hd
     n_kv = cfg.n_kv_heads
@@ -184,19 +273,37 @@ def decode_attention(params: Params, cfg, x: torch.Tensor,
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = _qkv(params, cfg, x, positions)
     C = cache_k.shape[1]
-    slot = min(pos, C - 1)
+    slot = min(pos, C - 1) if window is None else pos % C
     cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
-    valid = torch.arange(C, device=x.device) <= pos
+    idx = torch.arange(C, device=x.device)
+    if window is None:
+        valid = idx <= pos
+    else:
+        p_at = pos - torch.remainder(pos - idx, C)
+        valid = (p_at >= 0) & (p_at > pos - window)
     # grouped GQA: q head g * n_rep + r reads kv head g, never repeated
     qg = q.reshape(B, n_kv, n_rep, hd)
     scores = torch.einsum("bgrd,bcgd->bgrc", qg.to(torch.float32),
-                          cache_k.to(torch.float32)) / float(np.sqrt(hd))
-    scores = scores.masked_fill(~valid, -1e30)
+                          cache_k.to(torch.float32))
+    scores = div_f32(scores, sqrt_f32(hd)).masked_fill(~valid, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrc,bcgd->bgrd", probs.to(cache_v.dtype), cache_v)
     out = out.reshape(B, 1, -1) @ _cast(params["wo"], x)
     return out, cache_k, cache_v
+
+
+def cross_attention_decode(params: Params, cfg, x: torch.Tensor,
+                           mem_k: torch.Tensor,
+                           mem_v: torch.Tensor) -> torch.Tensor:
+    """Decode-time cross-attention of x (B, 1, D) against the encoder's
+    K / V (B, Sm, Hkv, hd) computed at prefill."""
+    B = x.shape[0]
+    hd = cfg.hd
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q = (x @ _cast(params["wq"], x)).reshape(B, 1, cfg.n_heads, hd)
+    out = _sdpa(q, _repeat_kv(mem_k, n_rep), _repeat_kv(mem_v, n_rep), None)
+    return out.reshape(B, 1, -1).to(x.dtype) @ _cast(params["wo"], x)
 
 
 # ---------------------------------------------------------------------------

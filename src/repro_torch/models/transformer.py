@@ -1,23 +1,40 @@
-"""The dense decoder LM (the reference's ``models/transformer.py:65-118``
-decoder layer and ``:121-289 _build_decoder_lm``), as ``nn.Module``s for
-serving: prefill fills a KV cache, decode steps against it.
+"""The model zoo's stacks for serving (the reference's
+``models/transformer.py``): prefill fills a KV cache or recurrent state,
+decode steps against it.
 
-:class:`DecoderLM` holds the embedding, the final norm, the head and an
-``nn.ModuleList`` of :class:`DecoderLayer`; each module keeps its
-parameters in the reference's nested-dict layout (``(in, out)`` dense
-weights), so :func:`repro_torch.convert.params_from_jax` copies the
-reference's tree across leaf by leaf (the reference stacks layer i's
-leaves at index i of axis 0).  :meth:`DecoderLM.init` draws every
-weight from a reference key in the reference's order (``split(key, 5)``
--> embed, dense stack, moe stack, head, projector; the stack splits its
-key into ``n_layers``, each layer in 2, attention then MLP), so
-``init(prng_key(0))`` gives the reference's ``init(PRNGKey(0))``, drawn
-on the device (:func:`repro_torch.prng.normal_torch`, bitwise
-``jax.random.normal``).
+  * :class:`DecoderLM` (dense, moe, vlm; the reference's
+    ``_build_decoder_lm``, ``:121-284``): the ``first_k_dense`` dense
+    layers, then the MoE layers (:mod:`.moe`, a shared expert beside
+    the routed ones); the VLM projects its patch-embedding prefix and
+    puts it before the prompt, so decode runs at ``pos = S + n_prefix +
+    i``.
+  * :class:`HybridLM` (zamba2, ``:292-406``): groups of Mamba2 layers
+    (:mod:`.ssm`), the one shared attention block after each group with
+    a KV cache of its own per group.
+  * :class:`XLSTMLM` (``:414-493``): mLSTM / sLSTM pairs (:mod:`.xlstm`);
+    prefill hands the mLSTM's closed-form states and the sLSTM's carry to
+    decode.
+  * :class:`EncDecLM` (seamless, ``:501-658``): a non-causal encoder over
+    frame embeddings, a causal decoder with cross-attention whose K / V
+    are computed once at prefill.
 
-Parameters take no gradient: this is the serving path.  The KV cache is
-``{"k", "v"}`` of (n_layers, B, capacity, Hkv, hd) in the compute dtype,
-updated in place by decode.
+Each module keeps its parameters in the reference's nested-dict layout
+(``(in, out)`` dense weights), so :func:`repro_torch.convert.params_from_jax`
+copies the reference's tree across leaf by leaf (the reference stacks
+layer i's leaves at index i of axis 0; the hybrid's Mamba2 layers at
+(group, layer) of axes 0 and 1), and ``init`` draws every weight from a
+reference key in the reference's order, so ``init(prng_key(0))`` gives
+the reference's ``init(PRNGKey(0))``, drawn on the device
+(:func:`repro_torch.prng.normal_torch`, bitwise ``jax.random.normal``).
+
+Self-attention at prefill goes through the flash kernel
+(:func:`repro_torch.models.layers.full_attention`): once a layer in the
+decoder LMs, once a group in the hybrid, once a layer in both of the
+enc-dec's stacks.  ``decode_step(cache, tokens, pos, window=None)``
+passes ``window`` to every attention layer, as the reference's does
+(prefill keeps ``cfg.sliding_window``).  Parameters take no gradient:
+this is the serving path.  KV caches are (layers, B, capacity, Hkv, hd)
+in the compute dtype, written in place by decode.
 """
 from __future__ import annotations
 
@@ -30,16 +47,13 @@ from torch import nn
 from repro_torch import prng
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
-
-
-def _require_dense(cfg) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(see ROADMAP.md, queue 1)")
 
 
 class ParamTree(nn.Module):
@@ -75,84 +89,67 @@ def _leaves(tree, prefix=()):
 
 
 class DecoderLayer(ParamTree):
-    """Pre-norm decoder layer: ``{"ln1", "attn", "ln2", "mlp"}``."""
+    """Pre-norm decoder layer: ``{"ln1", "attn", "ln2", "mlp"}``, or
+    ``"moe"`` in place of ``"mlp"``."""
 
     def __init__(self, cfg, tree: Dict[str, object]):
         super().__init__(tree)
         self.cfg = cfg
+        self.use_moe = "moe" in tree
 
     @staticmethod
-    def init_tree(cfg, key: prng.Key, dtype, device) -> Dict[str, object]:
+    def init_tree(cfg, key: prng.Key, dtype, device,
+                  use_moe: bool = False) -> Dict[str, object]:
         k1, k2 = prng.split(key, 2)
-        return {
+        p = {
             "ln1": layers.rmsnorm_init(cfg.d_model, dtype, device),
             "attn": layers.attention_init(k1, cfg, dtype, device),
             "ln2": layers.rmsnorm_init(cfg.d_model, dtype, device),
-            "mlp": layers.mlp_init(k2, cfg, dtype, device),
         }
+        if use_moe:
+            p["moe"] = moe_lib.moe_init(k2, cfg, dtype, device)
+        else:
+            p["mlp"] = layers.mlp_init(k2, cfg, dtype, device)
+        return p
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def _ffn(self, p, h: torch.Tensor) -> torch.Tensor:
+        if self.use_moe:
+            return moe_lib.moe_apply(p["moe"], self.cfg, h)[0]
+        return layers.mlp(p["mlp"], self.cfg, h)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                window: Optional[int] = None):
         """Prefill: (B, S, D) -> ((B, S, D), (k, v))."""
         cfg, p = self.cfg, self.tree
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         attn, kv = layers.full_attention(p["attn"], cfg, h, positions,
-                                         window=cfg.sliding_window,
-                                         return_kv=True)
+                                         window=window, return_kv=True)
         x = x + attn
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + layers.mlp(p["mlp"], cfg, h), kv
+        return x + self._ffn(p, h), kv
 
     def decode(self, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-               pos: int) -> torch.Tensor:
+               pos: int, window: Optional[int] = None) -> torch.Tensor:
         """One token: (B, 1, D) -> (B, 1, D), the cache written in
         place."""
         cfg, p = self.cfg, self.tree
         h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
         attn, _, _ = layers.decode_attention(p["attn"], cfg, h, ck, cv, pos,
-                                             window=cfg.sliding_window)
+                                             window=window)
         x = x + attn
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + layers.mlp(p["mlp"], cfg, h)
+        return x + self._ffn(p, h)
 
 
-class DecoderLM(nn.Module):
-    """The dense decoder LM: embedding, ``layers`` (a ``ModuleList`` of
-    :class:`DecoderLayer`), final norm and untied head (the tied head
-    reads the embedding)."""
+class _LM(nn.Module):
+    """The embedding, final norm and head (``top``) that every stack
+    shares."""
 
-    def __init__(self, cfg, top: Dict[str, object], layer_trees):
+    def __init__(self, cfg, top: Dict[str, object]):
         super().__init__()
-        _require_dense(cfg)
+        cfg.validate()
         self.cfg = cfg
         self.top = ParamTree(top)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, t) for t in layer_trees)
-
-    @classmethod
-    def from_tree(cls, cfg, tree: Dict[str, object]) -> "DecoderLM":
-        """From the reference's params layout: ``layers_dense`` leaves
-        stacked on axis 0 (layer i reads views of index i)."""
-        stack = tree["layers_dense"]
-        return cls(cfg, {k: v for k, v in tree.items()
-                         if k != "layers_dense"},
-                   [_index(stack, i) for i in range(cfg.n_layers)])
-
-    @classmethod
-    def init(cls, cfg, key: prng.Key, device="cuda") -> "DecoderLM":
-        """Weights drawn from the reference key ``key`` on ``device`` (the
-        GPU unless the caller asks for the CPU)."""
-        device = resolve_device(device)
-        dtype = _dtype(cfg.param_dtype)
-        ke, kd, _km, kh, _kp = prng.split(key, 5)
-        top = {
-            "embed": layers.embed_init(ke, cfg.padded_vocab, cfg.d_model,
-                                       dtype, device),
-            "ln_f": layers.rmsnorm_init(cfg.d_model, dtype, device),
-        }
-        if not cfg.tie_embeddings:
-            top["head"] = layers.dense_init(kh, cfg.d_model,
-                                            cfg.padded_vocab, dtype, device)
-        return cls(cfg, top, [DecoderLayer.init_tree(cfg, k, dtype, device)
-                              for k in prng.split(kd, cfg.n_layers)])
 
     def param_count(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -167,30 +164,398 @@ class DecoderLM(nn.Module):
         return self.top.tree["embed"][tokens].to(
             _dtype(self.cfg.compute_dtype))
 
-    def prefill(self, tokens: torch.Tensor, capacity: Optional[int] = None):
-        """tokens (B, S) -> (logits of the last position (B, V) f32, the
-        KV cache with room for ``capacity`` >= S positions)."""
-        cfg = self.cfg
+    @staticmethod
+    def _top(cfg, ke, kh, dtype, device, tied: bool = False):
+        top = {
+            "embed": layers.embed_init(ke, cfg.padded_vocab, cfg.d_model,
+                                       dtype, device),
+            "ln_f": layers.rmsnorm_init(cfg.d_model, dtype, device),
+        }
+        if not tied:
+            top["head"] = layers.dense_init(kh, cfg.d_model,
+                                            cfg.padded_vocab, dtype, device)
+        return top
+
+
+def _kv_cache(cfg, n: int, B: int, capacity: int, dtype, device):
+    shape = (n, B, capacity, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+class DecoderLM(_LM):
+    """Dense, MoE and VLM decoders: embedding, ``layers`` (a
+    ``ModuleList`` of :class:`DecoderLayer`: the dense ones, then the MoE
+    ones), final norm and untied head (the tied head reads the
+    embedding), and the VLM's ``projector``."""
+
+    def __init__(self, cfg, top: Dict[str, object], layer_trees):
+        super().__init__(cfg, top)
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"DecoderLM serves dense, moe and vlm, not "
+                             f"{cfg.family!r}")
+        self.layers = nn.ModuleList(DecoderLayer(cfg, t) for t in layer_trees)
+
+    @staticmethod
+    def n_dense(cfg) -> int:
+        return cfg.first_k_dense if cfg.family == "moe" else cfg.n_layers
+
+    @classmethod
+    def from_tree(cls, cfg, tree: Dict[str, object]) -> "DecoderLM":
+        """From the reference's params layout: ``layers_dense`` then
+        ``layers_moe``, leaves stacked on axis 0 (layer i reads views of
+        index i)."""
+        n_dense = cls.n_dense(cfg)
+        trees = [_index(tree["layers_dense"], i) for i in range(n_dense)]
+        trees += [_index(tree["layers_moe"], i)
+                  for i in range(cfg.n_layers - n_dense)]
+        return cls(cfg, {k: v for k, v in tree.items()
+                         if k not in ("layers_dense", "layers_moe")}, trees)
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda",
+             n_layers: Optional[int] = None) -> "DecoderLM":
+        """Weights drawn from the reference key ``key`` on ``device`` (the
+        GPU unless the caller asks for the CPU): ``split(key, 5)`` ->
+        embed, dense stack, moe stack, head, projector; each stack's key
+        split into its layers, each layer's in 2 (attention, then MLP or
+        MoE).  ``n_layers`` draws only the first layers of ``cfg``'s
+        stacks (in the stacks' order) and serves a model of that depth
+        (``cfg.n_layers`` replaced), the full width kept."""
+        device = resolve_device(device)
+        dtype = _dtype(cfg.param_dtype)
+        n_dense = cls.n_dense(cfg)
+        depth = cfg.n_layers if n_layers is None else n_layers
+        ke, kd, km, kh, kp = prng.split(key, 5)
+        top = cls._top(cfg, ke, kh, dtype, device, cfg.tie_embeddings)
+        if cfg.family == "vlm":
+            top["projector"] = layers.dense_init(kp, cfg.d_model,
+                                                 cfg.d_model, dtype, device)
+        trees = [DecoderLayer.init_tree(cfg, k, dtype, device)
+                 for k in prng.split(kd, n_dense)[:depth]] if n_dense else []
+        n_moe = cfg.n_layers - n_dense
+        if n_moe and depth > len(trees):
+            trees += [DecoderLayer.init_tree(cfg, k, dtype, device, True)
+                      for k in prng.split(km, n_moe)[:depth - len(trees)]]
+        if depth != cfg.n_layers:
+            cfg = dataclasses.replace(
+                cfg, n_layers=depth,
+                first_k_dense=min(cfg.first_k_dense, depth))
+        return cls(cfg, top, trees)
+
+    def _inputs(self, tokens: torch.Tensor, prefix_embeds=None):
         x = self._embed(tokens)
+        if self.cfg.family == "vlm" and prefix_embeds is not None:
+            cdt = x.dtype
+            pre = (prefix_embeds.to(cdt)
+                   @ self.top.tree["projector"].to(cdt))
+            x = torch.cat([pre, x], dim=1)
+        return x
+
+    def prefill(self, tokens: torch.Tensor, capacity: Optional[int] = None,
+                prefix_embeds: Optional[torch.Tensor] = None):
+        """tokens (B, S) (after the VLM's ``prefix_embeds`` (B, P, D), if
+        given) -> (logits of the last position (B, V) f32, the KV cache
+        with room for ``capacity`` >= P + S positions)."""
+        cfg = self.cfg
+        x = self._inputs(tokens, prefix_embeds)
         B, S = x.shape[0], x.shape[1]
         capacity = max(capacity or S, S)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        shape = (cfg.n_layers, B, capacity, cfg.n_kv_heads, cfg.hd)
-        cache = {"k": torch.zeros(shape, dtype=x.dtype, device=x.device),
-                 "v": torch.zeros(shape, dtype=x.dtype, device=x.device)}
+        cache = _kv_cache(cfg, len(self.layers), B, capacity, x.dtype,
+                          x.device)
         for i, layer in enumerate(self.layers):
-            x, (k, v) = layer(x, positions)
+            x, (k, v) = layer(x, positions, cfg.sliding_window)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         return self._logits(x[:, -1:])[:, 0], cache
 
-    def decode_step(self, cache, tokens: torch.Tensor, pos: int):
+    def decode_step(self, cache, tokens: torch.Tensor, pos: int,
+                    window: Optional[int] = None):
         """tokens (B,) at absolute position ``pos`` -> (logits (B, V) f32,
-        the cache, written in place)."""
+        the cache, written in place); ``window`` masks (and, on a cache
+        of the window's capacity, rings) every layer's attention."""
         x = self._embed(tokens)[:, None, :]
         for i, layer in enumerate(self.layers):
-            x = layer.decode(x, cache["k"][i], cache["v"][i], pos)
+            x = layer.decode(x, cache["k"][i], cache["v"][i], pos, window)
         return self._logits(x)[:, 0], cache
+
+
+class HybridLM(_LM):
+    """Zamba2: ``mamba`` (a ``ModuleList`` of ``{"ln", "ssm"}`` trees,
+    group g's layer l at index g * per_group + l) and ``shared``, the one
+    attention + MLP block applied after each group."""
+
+    def __init__(self, cfg, top, mamba_trees, shared_tree):
+        super().__init__(cfg, top)
+        self.per_group = cfg.hybrid_attn_every - 1
+        self.n_groups = cfg.n_layers // cfg.hybrid_attn_every
+        self.mamba = nn.ModuleList(ParamTree(t) for t in mamba_trees)
+        self.shared = DecoderLayer(cfg, shared_tree)
+
+    @classmethod
+    def from_tree(cls, cfg, tree) -> "HybridLM":
+        G, L = (cfg.n_layers // cfg.hybrid_attn_every,
+                cfg.hybrid_attn_every - 1)
+        mamba = [_index(_index(tree["mamba"], g), l)
+                 for g in range(G) for l in range(L)]
+        return cls(cfg, {k: tree[k] for k in ("embed", "ln_f", "head")},
+                   mamba, tree["shared_attn"])
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "HybridLM":
+        """``split(key, 4)`` -> embed, mamba, shared attention, head; the
+        mamba key split into groups, each group's into its layers."""
+        device = resolve_device(device)
+        dtype = _dtype(cfg.param_dtype)
+        ke, km, ka, kh = prng.split(key, 4)
+        G, L = (cfg.n_layers // cfg.hybrid_attn_every,
+                cfg.hybrid_attn_every - 1)
+        mamba = [{"ln": layers.rmsnorm_init(cfg.d_model, dtype, device),
+                  "ssm": ssm_lib.ssm_init(k, cfg, dtype, device)}
+                 for gk in prng.split(km, G) for k in prng.split(gk, L)]
+        shared = DecoderLayer.init_tree(cfg, ka, dtype, device)
+        return cls(cfg, cls._top(cfg, ke, kh, dtype, device), mamba, shared)
+
+    def prefill(self, tokens: torch.Tensor,
+                capacity: Optional[int] = None):
+        """-> (last-position logits, ``{"ssm": {"ssm": (G, L, B, H, P, N)
+        f32, "conv": (G, L, B, k - 1, Ch)}, "k", "v": (G, B, capacity,
+        Hkv, hd)}``)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        B, S = tokens.shape
+        capacity = max(capacity or S, S)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        G, L = self.n_groups, self.per_group
+        cache = _kv_cache(cfg, G, B, capacity, x.dtype, x.device)
+        states = []
+        for g in range(G):
+            for l in range(L):
+                lp = self.mamba[g * L + l].tree
+                h = layers.rmsnorm(lp["ln"], x, cfg.norm_eps)
+                y, st = ssm_lib.ssd_forward(lp["ssm"], cfg, h,
+                                            return_state=True)
+                x = x + y
+                states.append(st)
+            x, (k, v) = self.shared(x, positions, None)
+            cache["k"][g, :, :S] = k
+            cache["v"][g, :, :S] = v
+        cache["ssm"] = {
+            n: torch.stack([st[n] for st in states]).reshape(
+                G, L, *states[0][n].shape) for n in ("ssm", "conv")}
+        return self._logits(x[:, -1:])[:, 0], cache
+
+    def decode_step(self, cache, tokens: torch.Tensor, pos: int,
+                    window: Optional[int] = None):
+        cfg = self.cfg
+        x = self._embed(tokens)[:, None, :]
+        L = self.per_group
+        ss, cs = cache["ssm"]["ssm"], cache["ssm"]["conv"]
+        for g in range(self.n_groups):
+            for l in range(L):
+                lp = self.mamba[g * L + l].tree
+                h = layers.rmsnorm(lp["ln"], x, cfg.norm_eps)
+                y, st = ssm_lib.ssd_decode_step(
+                    lp["ssm"], cfg, h, {"ssm": ss[g, l], "conv": cs[g, l]})
+                x = x + y
+                ss[g, l] = st["ssm"]
+                cs[g, l] = st["conv"]
+            x = self.shared.decode(x, cache["k"][g], cache["v"][g], pos,
+                                   window)
+        return self._logits(x)[:, 0], cache
+
+
+class XLSTMLM(_LM):
+    """xLSTM: ``mblocks`` and ``sblocks``, one of each a pair."""
+
+    def __init__(self, cfg, top, mtrees, strees):
+        super().__init__(cfg, top)
+        if tuple(cfg.block_pattern) != ("mlstm", "slstm"):
+            raise ValueError("the xLSTM stack takes alternating (mlstm, "
+                             f"slstm) pairs, not {cfg.block_pattern}")
+        self.mblocks = nn.ModuleList(ParamTree(t) for t in mtrees)
+        self.sblocks = nn.ModuleList(ParamTree(t) for t in strees)
+
+    @classmethod
+    def from_tree(cls, cfg, tree) -> "XLSTMLM":
+        n = cfg.n_layers // 2
+        return cls(cfg, {k: tree[k] for k in ("embed", "ln_f", "head")},
+                   [_index(tree["mblocks"], i) for i in range(n)],
+                   [_index(tree["sblocks"], i) for i in range(n)])
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "XLSTMLM":
+        """``split(key, 4)`` -> embed, mLSTM blocks, sLSTM blocks, head."""
+        device = resolve_device(device)
+        dtype = _dtype(cfg.param_dtype)
+        ke, k1, k2, kh = prng.split(key, 4)
+        n = cfg.n_layers // 2
+        return cls(cfg, cls._top(cfg, ke, kh, dtype, device),
+                   [xlstm.mlstm_block_init(k, cfg, dtype, device)
+                    for k in prng.split(k1, n)],
+                   [xlstm.slstm_block_init(k, cfg, dtype, device)
+                    for k in prng.split(k2, n)])
+
+    def prefill(self, tokens: torch.Tensor,
+                capacity: Optional[int] = None):
+        """-> (last-position logits, ``{"m": (C, n, m), "s": (c, n, h,
+        m)}``, each leaf stacked over the pairs); ``capacity`` is unused
+        (the state is O(1))."""
+        del capacity
+        x = self._embed(tokens)
+        mst, sst = [], []
+        for mb, sb in zip(self.mblocks, self.sblocks):
+            x, st = xlstm.mlstm_block(mb.tree, self.cfg, x,
+                                      return_state=True)
+            mst.append(st)
+            x, st = xlstm.slstm_block(sb.tree, self.cfg, x)
+            sst.append(st)
+        return self._logits(x[:, -1:])[:, 0], {"m": _stack(mst),
+                                               "s": _stack(sst)}
+
+    def decode_step(self, cache, tokens: torch.Tensor, pos: int,
+                    window: Optional[int] = None):
+        del pos, window  # recurrent: no positions, no window
+        x = self._embed(tokens)[:, None, :]
+        mst, sst = [], []
+        for i, (mb, sb) in enumerate(zip(self.mblocks, self.sblocks)):
+            x, st = xlstm.mlstm_block(
+                mb.tree, self.cfg, x, tuple(t[i] for t in cache["m"]),
+                decode=True)
+            mst.append(st)
+            x, st = xlstm.slstm_block(sb.tree, self.cfg, x,
+                                      tuple(t[i] for t in cache["s"]))
+            sst.append(st)
+        return self._logits(x)[:, 0], {"m": _stack(mst), "s": _stack(sst)}
+
+
+class EncDecLM(_LM):
+    """The audio encoder-decoder: ``enc`` (``{"ln1", "attn", "ln2",
+    "mlp"}``) and ``dec`` (``{"ln1", "attn", "lnx", "xattn", "ln2",
+    "mlp"}``) layers; ``top`` adds the encoder's final norm ``ln_enc``."""
+
+    def __init__(self, cfg, top, enc_trees, dec_trees):
+        super().__init__(cfg, top)
+        self.enc = nn.ModuleList(ParamTree(t) for t in enc_trees)
+        self.dec = nn.ModuleList(ParamTree(t) for t in dec_trees)
+
+    @classmethod
+    def from_tree(cls, cfg, tree) -> "EncDecLM":
+        Le = cfg.enc_layers or cfg.n_layers
+        return cls(cfg, {k: tree[k] for k in ("embed", "ln_enc", "ln_f",
+                                              "head")},
+                   [_index(tree["enc"], i) for i in range(Le)],
+                   [_index(tree["dec"], i) for i in range(cfg.n_layers)])
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "EncDecLM":
+        """``split(key, 4)`` -> embed, encoder, decoder, head; an encoder
+        layer's key split in 2 (attention, MLP), a decoder layer's in 3
+        (self-attention, cross-attention, MLP)."""
+        device = resolve_device(device)
+        dtype = _dtype(cfg.param_dtype)
+        ke, k1, k2, kh = prng.split(key, 4)
+        D = cfg.d_model
+
+        def enc_layer(key):
+            a, m = prng.split(key, 2)
+            return {"ln1": layers.rmsnorm_init(D, dtype, device),
+                    "attn": layers.attention_init(a, cfg, dtype, device),
+                    "ln2": layers.rmsnorm_init(D, dtype, device),
+                    "mlp": layers.mlp_init(m, cfg, dtype, device)}
+
+        def dec_layer(key):
+            a, xa, m = prng.split(key, 3)
+            return {"ln1": layers.rmsnorm_init(D, dtype, device),
+                    "attn": layers.attention_init(a, cfg, dtype, device),
+                    "lnx": layers.rmsnorm_init(D, dtype, device),
+                    "xattn": layers.attention_init(xa, cfg, dtype, device),
+                    "ln2": layers.rmsnorm_init(D, dtype, device),
+                    "mlp": layers.mlp_init(m, cfg, dtype, device)}
+
+        top = cls._top(cfg, ke, kh, dtype, device)
+        top["ln_enc"] = layers.rmsnorm_init(D, dtype, device)
+        return cls(cfg, top,
+                   [enc_layer(k) for k in
+                    prng.split(k1, cfg.enc_layers or cfg.n_layers)],
+                   [dec_layer(k) for k in prng.split(k2, cfg.n_layers)])
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Frame embeddings (B, T, D) -> the encoder's memory (B, T, D):
+        non-causal self-attention through the flash kernel."""
+        cfg = self.cfg
+        x = frames.to(_dtype(cfg.compute_dtype))
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)
+        for layer in self.enc:
+            lp = layer.tree
+            h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            x = x + layers.full_attention(lp["attn"], cfg, h, positions,
+                                          causal=False)
+            h = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+            x = x + layers.mlp(lp["mlp"], cfg, h)
+        return layers.rmsnorm(self.top.tree["ln_enc"], x, cfg.norm_eps)
+
+    def prefill(self, tokens: torch.Tensor, capacity: Optional[int] = None,
+                enc_frames: Optional[torch.Tensor] = None):
+        """-> (last-position logits, ``{"k", "v": (L, B, capacity, Hkv,
+        hd), "mk", "mv": (L, B, T, Hkv, hd)}``: the decoder's KV cache and
+        each layer's cross-attention K / V of the encoder's memory)."""
+        cfg = self.cfg
+        mem = self.encode(enc_frames)
+        x = self._embed(tokens)
+        B, S = tokens.shape
+        capacity = max(capacity or S, S)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        L, Sm, hd = cfg.n_layers, mem.shape[1], cfg.hd
+        cache = _kv_cache(cfg, L, B, capacity, x.dtype, x.device)
+        mshape = (L, B, Sm, cfg.n_kv_heads, hd)
+        cache["mk"] = torch.empty(mshape, dtype=mem.dtype, device=x.device)
+        cache["mv"] = torch.empty(mshape, dtype=mem.dtype, device=x.device)
+        for i, layer in enumerate(self.dec):
+            lp = layer.tree
+            h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            a, (k, v) = layers.full_attention(lp["attn"], cfg, h, positions,
+                                              return_kv=True)
+            x = x + a
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+            h = layers.rmsnorm(lp["lnx"], x, cfg.norm_eps)
+            x = x + layers.full_attention(lp["xattn"], cfg, h, positions,
+                                          memory=mem)
+            h = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+            x = x + layers.mlp(lp["mlp"], cfg, h)
+            xa = lp["xattn"]
+            cache["mk"][i] = (mem @ xa["wk"].to(mem.dtype)).reshape(
+                B, Sm, cfg.n_kv_heads, hd)
+            cache["mv"][i] = (mem @ xa["wv"].to(mem.dtype)).reshape(
+                B, Sm, cfg.n_kv_heads, hd)
+        return self._logits(x[:, -1:])[:, 0], cache
+
+    def decode_step(self, cache, tokens: torch.Tensor, pos: int,
+                    window: Optional[int] = None):
+        cfg = self.cfg
+        x = self._embed(tokens)[:, None, :]
+        for i, layer in enumerate(self.dec):
+            lp = layer.tree
+            h = layers.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+            a, _, _ = layers.decode_attention(
+                lp["attn"], cfg, h, cache["k"][i], cache["v"][i], pos,
+                window=window)
+            x = x + a
+            h = layers.rmsnorm(lp["lnx"], x, cfg.norm_eps)
+            x = x + layers.cross_attention_decode(
+                lp["xattn"], cfg, h, cache["mk"][i], cache["mv"][i])
+            h = layers.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+            x = x + layers.mlp(lp["mlp"], cfg, h)
+        return self._logits(x)[:, 0], cache
+
+
+def _stack(states):
+    """A list of per-layer tuples of tensors -> a tuple of stacked
+    tensors."""
+    return tuple(torch.stack(ts) for ts in zip(*states))
 
 
 def _index(tree, i: int):
@@ -199,18 +564,22 @@ def _index(tree, i: int):
             for k, v in tree.items()}
 
 
+#: the stack of each family
+STACKS = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
+          "hybrid": HybridLM, "ssm": XLSTMLM, "audio": EncDecLM}
+
+
 @dataclasses.dataclass
 class Model:
     """The reference's ``Model`` surface for serving: ``init(key)`` ->
     the module; ``prefill``, ``decode_step`` and ``param_count`` are the
     module's methods."""
     cfg: object
-    init: Callable[..., DecoderLM]
+    init: Callable[..., nn.Module]
 
 
 def build_model(cfg) -> Model:
-    """The model of ``cfg`` (dense only; the other families raise)."""
+    """The model of ``cfg``, any family."""
     cfg.validate()
-    _require_dense(cfg)
-    return Model(cfg, lambda key, device="cuda": DecoderLM.init(
-        cfg, key, device))
+    cls = STACKS[cfg.family]
+    return Model(cfg, lambda key, device="cuda": cls.init(cfg, key, device))

@@ -30,8 +30,14 @@ Two twins of the draws:
     stochastic rounding, which draws one lane per coordinate of every
     upload (2.15 M at the paper CNN's width), so the draws never cross
     from the host, and for the model inits (the paper CNN's drawn on the
-    CPU, the transformer's 2.04 G lanes at qwen3-1.7b's full width on
-    its device).
+    CPU, the zoo's on its device: 2.04 G lanes at qwen3-1.7b's full
+    width); :func:`normal_torch` counts on past 2**32 lanes into the
+    counter's high word, as ``jax.random`` does (kimi-k2's expert draws
+    hold 5.6 G lanes each);
+  * :func:`gumbel_torch` and :func:`categorical_torch`, serving's
+    sampling: ``jax.random.gumbel`` over :func:`uniform_range_torch`
+    (``jax.random.uniform`` with ``minval`` / ``maxval``) and the Gumbel
+    max of ``jax.random.categorical``, bitwise on the CPU.
 """
 from __future__ import annotations
 
@@ -259,14 +265,18 @@ def _rotl_t(x: torch.Tensor, r: int) -> torch.Tensor:
 
 def _bits_torch(key: Key, start: int, n: int, device) -> torch.Tensor:
     """Lanes ``start .. start + n`` of :func:`_random_bits`, as int64 in
-    [0, 2**32) on ``device``: threefry2x32 in int64 PyTorch ops, every
-    word held in [0, 2**32) by masking after each add and shift (integer
-    ops are exact on every device, so the bits equal the numpy twin's)."""
+    [0, 2**32) on ``device``: threefry2x32 in int64 PyTorch ops over the
+    counter pair (lane >> 32, lane & 0xFFFFFFFF), as ``jax.random`` counts
+    past 2**32 lanes; every word held in [0, 2**32) by masking after each
+    add and shift (integer ops are exact on every device, so the bits
+    equal the numpy twin's)."""
     k0, k1 = (int(v) for v in np.asarray(key, _U32))
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
-    x1 = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    x0 = torch.full_like(x1, ks[0])
-    x1 = (x1 + ks[1]) & _MASK
+    lane = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    # the counter pair is the lane's 64-bit index, high word first
+    x0 = ((lane >> 32) + ks[0]) & _MASK
+    x1 = ((lane & _MASK) + ks[1]) & _MASK
+    del lane
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0 = (x0 + x1) & _MASK
@@ -283,11 +293,15 @@ def _unit_torch(bits: torch.Tensor) -> torch.Tensor:
         - 1.0
 
 
-def _lanes(shape) -> Tuple[tuple, int]:
+def _lanes(shape, start: int = 0, limit: int = 2 ** 32) -> Tuple[tuple, int]:
+    """(shape, lane count); lanes ``start .. start + n`` must lie below
+    ``limit``: 2**32 for a draw made in one pass, which would otherwise
+    hold 2**32 int64 words at once (:func:`normal_torch` draws in chunks
+    and counts on into the counter's high word)."""
     shape = tuple(int(x) for x in np.atleast_1d(shape))
     n = int(np.prod(shape, dtype=np.int64))
-    if n >= 2 ** 32:
-        raise ValueError(f"{n} lanes exceed the 32-bit counter")
+    if start < 0 or start + n >= limit:
+        raise ValueError(f"lanes {start} + {n} reach {limit}")
     return shape, n
 
 
@@ -304,18 +318,54 @@ def uniform_torch(key: Key, shape, device) -> torch.Tensor:
 NORMAL_CHUNK = 1 << 24
 
 
-def normal_torch(key: Key, shape, device) -> torch.Tensor:
+def normal_torch(key: Key, shape, device, start: int = 0) -> torch.Tensor:
     """:func:`normal` made on ``device``: the same bits and the same
     erfinv steps in PyTorch ops, in passes of :data:`NORMAL_CHUNK` lanes
     (the bits of lane i depend on i alone).  Equal to the numpy twin
-    bit for bit on every device."""
-    shape, n = _lanes(shape)
+    bit for bit on every device.  ``start`` > 0 gives lanes ``start ..``
+    of a larger draw of the same key: a slice along the leading axis of
+    a draw too large to make at once."""
+    shape, n = _lanes(shape, start, limit=2 ** 62)
     out = torch.empty(n, dtype=torch.float32, device=device)
+    if out.device.type == "meta":  # shapes only
+        return out.reshape(shape)
     lo = float(_NORMAL_LO)
-    for start in range(0, n, NORMAL_CHUNK):
-        m = min(NORMAL_CHUNK, n - start)
-        u = torch.clamp(_unit_torch(_bits_torch(key, start, m, device))
+    for i in range(0, n, NORMAL_CHUNK):
+        m = min(NORMAL_CHUNK, n - i)
+        u = torch.clamp(_unit_torch(_bits_torch(key, start + i, m, device))
                         * 2.0 + lo, min=lo)
-        out[start:start + m] = float(_SQRT2) * _erfinv(u, torch, _torch_to,
-                                                        _torch_view)
+        out[i:i + m] = float(_SQRT2) * _erfinv(u, torch, _torch_to,
+                                                _torch_view)
     return out.reshape(shape)
+
+
+def uniform_range_torch(key: Key, shape, device, minval: float,
+                        maxval: float) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)``
+    (f32) on ``device``: the unit draw ``f`` of :func:`uniform_torch`,
+    then ``max(minval, f * (maxval - minval) + minval)`` with the bounds
+    and their difference rounded to f32, as ``jax.random`` scales and
+    clamps it (the multiply-add rounded once, XLA's FMA)."""
+    shape, n = _lanes(shape)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = float(np.float32(hi - lo))
+    f = _unit_torch(_bits_torch(key, 0, n, device))
+    u = _fma(f, span, float(lo), _torch_to)
+    return torch.clamp(u, min=float(lo)).reshape(shape)
+
+
+def gumbel_torch(key: Key, shape, device) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` (f32, the default "low" mode):
+    ``-log(-log(u))`` with u uniform on [tiny, 1), the logs XLA's f32
+    log (:func:`_log`).  Bitwise ``jax.random.gumbel`` on the CPU."""
+    u = uniform_range_torch(key, shape, device, _F32_TINY, 1.0)
+    inner = -_log(u, torch, _torch_to, _torch_view)
+    return -_log(inner, torch, _torch_to, _torch_view)
+
+
+def categorical_torch(key: Key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)``: the Gumbel-max
+    trick, ``argmax(gumbel(key, logits.shape) + logits)`` over the last
+    axis (the first index of a tie, as ``jnp.argmax``); f32 logits."""
+    g = gumbel_torch(key, logits.shape, logits.device)
+    return torch.argmax(g + logits, dim=-1)

@@ -94,6 +94,20 @@ def test_flash_attention_ragged(dtype, causal):
            TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 4, 80), (2, 200, 8, 1, 112)],
+                         ids=["hd80", "hd112-ragged"])
+def test_flash_attention_head_dims_80_112(shape, causal, dtype):
+    """zamba2's hd 80 and kimi-k2's hd 112 (the CUDA kernels run them in
+    128-wide tiles, the columns past hd zero), against the reference."""
+    (tq, tk, tv), (jq, jk, jv) = _qkv(shape[-1], *shape, dtype)
+    got = tfa.flash_attention(tq, tk, tv, causal=causal)
+    assert got.shape == tq.shape
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal),
+           TOL[dtype])
+
+
 # ---------------------------------------------------------------------------
 # a CPU model of the bf16 CUDA kernel's rounding
 # ---------------------------------------------------------------------------
@@ -147,6 +161,8 @@ def _bf16_kernel_model(q, k, v, causal=True, split_p=True):
     ((1, 200, 4, 4, 64), True),    # ragged last tile, MHA
     ((1, 256, 8, 2, 32), True),    # hd 32 (the kernel pads it to 64)
     ((2, 130, 6, 2, 64), False),   # an odd H / Hkv
+    ((1, 256, 4, 4, 80), True),    # hd 80 (the kernel pads it to 128)
+    ((1, 200, 8, 1, 112), False),  # hd 112, ragged
 ])
 def test_bf16_kernel_model_keeps_p_at_f32_precision(shape, causal):
     """The bf16 kernel's rounding, rehearsed on the CPU: within the bf16

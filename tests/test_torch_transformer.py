@@ -17,7 +17,9 @@ f32 compute).
     its PV product, and the two frameworks round other bf16 products at
     other places (seen: 4.0e-2 at logits up to 3.7);
   * ``serve --device cpu`` prints the reference's sample token ids on
-    the same flags; another arch, a window and sampling are refused.
+    the same flags; an arch outside the zoo is refused; the window and
+    cross-attention paths equal the reference's (the rest of the zoo in
+    ``test_torch_zoo*.py``).
 """
 import dataclasses
 
@@ -212,12 +214,12 @@ def test_prefill_bf16_compute():
     (["--batch", "4", "--prompt-len", "24", "--max-new", "20"], (4, 24, 20)),
 ], ids=["defaults", "small"])
 def test_serve_prints_reference_tokens(monkeypatch, capsys, flags, shape):
-    """The CLIs on the same flags print the same sample token ids (the
-    reference's default arch is another, so it is always named there)."""
+    """The CLIs on the same flags print the same sample token ids (both
+    default to xlstm-125m, so qwen3 is named on both)."""
     monkeypatch.setattr("sys.argv", ["serve", "--arch", ARCH, *flags])
     jserve.main()
     j_out = capsys.readouterr().out
-    res = tserve.main([*flags, "--device", "cpu"])
+    res = tserve.main(["--arch", ARCH, *flags, "--device", "cpu"])
     t_out = capsys.readouterr().out
 
     def ids(out):
@@ -231,32 +233,62 @@ def test_serve_prints_reference_tokens(monkeypatch, capsys, flags, shape):
     assert res.gen.shape == (B, n)
 
 
-@pytest.mark.parametrize("flags", [["--arch", "xlstm-125m"],
-                                   ["--arch", "zamba2-2.7b"],
-                                   ["--temperature", "0.7"]])
-def test_serve_refuses_unported(flags, capsys):
+@pytest.mark.parametrize("flags", [["--arch", "gpt-2"],
+                                   ["--arch", "qwen3"],
+                                   ["--arch", "zamba2-7b"]])
+def test_serve_refuses_unported(flags, monkeypatch, capsys):
+    """Every architecture of the reference's zoo is served; an --arch
+    outside it is refused, as the reference's launcher refuses it."""
     with pytest.raises(SystemExit):
         tserve.parse_args(flags)
-    assert "not ported yet" in capsys.readouterr().err
+    assert "invalid choice" in capsys.readouterr().err
+    monkeypatch.setattr("sys.argv", ["serve", *flags])
+    with pytest.raises(SystemExit):
+        jserve.main()
+    assert "invalid choice" in capsys.readouterr().err
 
 
 def test_unported_paths_raise(f32):
-    _, tcfg, _, _, tm = f32
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("starcoder2-3b")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(dataclasses.replace(tcfg, family="moe"))
-    x = torch.zeros((1, 8, tcfg.d_model))
-    pos = torch.arange(8, dtype=torch.int32)
-    attn = tm.layers[0].tree["attn"]
-    with pytest.raises(NotImplementedError, match="windowed"):
-        tlayers.full_attention(attn, tcfg, x, pos, window=4)
-    with pytest.raises(NotImplementedError, match="cross-attention"):
-        tlayers.full_attention(attn, tcfg, x, pos, memory=x)
-    windowed = dataclasses.replace(tcfg, sliding_window=16)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        DecoderLM.init(windowed, prng_key(0), "cpu").prefill(
-            torch.zeros((1, 4), dtype=torch.int64))
+    """What the port still refuses: an arch outside the zoo (KeyError, as
+    the reference's ``ARCHS[...]``).  The paths this test once saw
+    refused now equal the reference's: attention under a window (within
+    it: the flash kernel; past it: the window mask), cross-attention,
+    and a windowed decoder's prefill."""
+    jcfg, tcfg, jm, jp, tm = f32
+    with pytest.raises(KeyError):
+        get_config("gpt-2")
+    with pytest.raises(KeyError):
+        jget_config("gpt-2")
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1, 8, tcfg.d_model)).astype(np.float32)
+    mem = rng.standard_normal((1, 5, tcfg.d_model)).astype(np.float32)
+    pos = np.arange(8, dtype=np.int32)
+    attn_t = tm.layers[0].tree["attn"]
+    attn_j = jax.tree_util.tree_map(lambda a: a[0], jp["layers_dense"])[
+        "attn"]
+    for kw in (dict(window=4), dict(window=16)):
+        np.testing.assert_allclose(
+            tlayers.full_attention(attn_t, tcfg, torch.from_numpy(x),
+                                   torch.from_numpy(pos), **kw).numpy(),
+            np.asarray(jlayers.full_attention(attn_j, jcfg, jnp.asarray(x),
+                                              jnp.asarray(pos), **kw)),
+            atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        tlayers.full_attention(attn_t, tcfg, torch.from_numpy(x),
+                               torch.from_numpy(pos),
+                               memory=torch.from_numpy(mem)).numpy(),
+        np.asarray(jlayers.full_attention(attn_j, jcfg, jnp.asarray(x),
+                                          jnp.asarray(pos),
+                                          memory=jnp.asarray(mem))),
+        atol=2e-5, rtol=2e-5)
+    jw, tw = _cfgs(sliding_window=16)
+    toks = rng.integers(0, 512, (1, 40))
+    jl, _ = jbuild(jw).prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    with torch.inference_mode():
+        tl, _ = DecoderLM(tw, tm.top.tree, [layer.tree for layer in
+                                            tm.layers]).prefill(
+            torch.from_numpy(toks))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
 
 
 def test_cuda_default_without_gpu_raises():
