@@ -66,7 +66,10 @@ Phases, each of which exits non-zero on failure:
      reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
      S 1024, H 16, Hkv 8, hd 128), a ragged S = 200 and two odd H / Hkv
      (S = 200 at hd 128, S = 130 at hd 64), and zamba2's hd 80 (H 32 /
-     32) and kimi-k2's hd 112 (H 64 / 8) at S = 256 and 200: within
+     32) and kimi-k2's hd 112 (H 64 / 8) at S = 256 and 200; and at
+     every shape, causality and dtype that phase 7e's prefills launch it
+     with (bf16, B 4: S 512 for eight archs, the enc-dec's encoder
+     non-causal, internvl2's S 1536 after its patches): within
      ``atol=rtol=2e-5`` (f32) and ``2e-2`` (bf16); at the qwen3 shape in
      bf16, at most 2 % of output lanes differing from the plain version
      (the plain version with p rounded to bf16 must differ in more); and
@@ -255,14 +258,15 @@ Phases, each of which exits non-zero on failure:
      made on the card against numpy's, bitwise
   7e. the zoo: ``serve.run`` of each of the nine other architectures
      from ``prng_key(0)`` at full width (``ZOO_FULL_DEPTH`` at full depth,
-     ``ZOO_DEPTH`` cut to their first layers, listed as ``reduced``), B =
-     4 prompts of 512 tokens (the VLM's 1024 patch embeddings before
-     them), 16 greedy tokens, every launch counter reset before and read
-     after (flash attention once per self-attention layer of the
-     prefill: the decoder LMs' layers, the hybrid's groups, the enc-dec's
-     encoder and decoder layers; none in the xLSTM), then a second
-     prefill and 16 decode steps timed (prefill ms, decode ms per token,
-     flash launches per prefill, peak GiB); then each of the ten reduced
+     ``ZOO_DEPTH`` served as the same config with fewer layers, listed as
+     ``reduced``), B = 4 prompts of 512 tokens (the VLM's 1024 patch
+     embeddings before them), 16 greedy tokens, every launch counter
+     reset before and read after (flash attention once per
+     self-attention layer of the prefill: the decoder LMs' layers, the
+     hybrid's groups, the enc-dec's encoder and decoder layers; none in
+     the xLSTM), then ``serve.generate`` run again on the same model and
+     inputs and timed warm (prefill ms, decode ms per token, flash
+     launches per serve, peak GiB); then each of the ten reduced
      configs (f32, TF32 off, B = 4, prompt 192, 8 new tokens) served on
      the card against the CPU: the same greedy tokens, logits within
      ``SERVE_F32_TOL``; xlstm-125m and granite-moe-1b-a400m sampled at T
@@ -590,8 +594,9 @@ ZOO_BATCH, ZOO_PROMPT, ZOO_NEW = 4, 512, 16
 ZOO_FULL_DEPTH = ("xlstm-125m", "seamless-m4t-medium",
                   "granite-moe-1b-a400m", "zamba2-2.7b", "starcoder2-3b",
                   "minitron-4b")
-#: the depth each of the others is cut to (its first layers; the card
-#: holds about 39 GiB of each): internlm2 24 of 48 layers (f32),
+#: the depth each of the others is cut to (the same config with fewer
+#: layers, drawn from its own key split; the card holds about 39 GiB of
+#: each): internlm2 24 of 48 layers (f32),
 #: internvl2 22 of 80 (bf16), kimi-k2 2 of 61 (its dense layer and one
 #: MoE layer of 384 experts, bf16)
 ZOO_DEPTH = {"internlm2-20b": 24, "internvl2-76b": 22, "kimi-k2-1t-a32b": 2}
@@ -1203,40 +1208,69 @@ def flash_plain_bf16_p(torch, q, k, v):
     return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
 
 
+def zoo_flash_shapes():
+    """{((B, S, H, Hkv, hd), causal, compute dtype): archs} for every
+    flash launch of phase 7e's prefills: the decoder LMs' and the
+    hybrid's causal self-attention over the prompt (after the VLM's
+    patches), the enc-dec's non-causal encoder over its frames and its
+    causal decoder.  No zoo prompt passes its config's window or
+    ``attn_chunk``, so each of these layers runs the kernel."""
+    from repro_torch.configs import ARCHS, get_config
+    out = {}
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        if arch == SERVE_ARCH or cfg.family == "ssm":
+            continue
+        S = ZOO_PROMPT + (cfg.n_prefix_tokens if cfg.family == "vlm" else 0)
+        assert S <= min(cfg.sliding_window or S, cfg.attn_chunk or S)
+        shape = (ZOO_BATCH, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+        for causal in (False, True) if cfg.family == "audio" else (True,):
+            out.setdefault((shape, causal, cfg.compute_dtype), []).append(
+                arch)
+    return out
+
+
 def check_flash(torch, fa_mod, report, worst):
     """Flash attention against its plain version on every shape of
-    :data:`FLASH_SHAPES`, f32 and bf16, causal and not, within
-    :data:`FLASH_TOL`; at the qwen3 prefill shape in bf16, at most
+    :data:`FLASH_SHAPES`, f32 and bf16, causal and not, and at every
+    shape, causality and dtype that phase 7e's prefills launch it with
+    (:func:`zoo_flash_shapes`), within :data:`FLASH_TOL`; at the qwen3
+    prefill shape in bf16, at most
     :data:`FLASH_BF16_DIFF_SHARE` of the output lanes differ from the
     plain version's, a share that the plain version with p rounded to
     bf16 must exceed; and causality: on S = 128, outputs before
     position 100 unchanged when the keys and values after it change."""
     g = torch.Generator(device="cuda").manual_seed(9)
     by_dtype = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[-1]
+    cases = [(shape, causal, name)
+             for name in ("float32", "bfloat16") for causal in (True, False)
+             for shape in FLASH_SHAPES]
+    zoo = zoo_flash_shapes()
+    cases += list(zoo)
+    for shape, causal, name in cases:
         tol = FLASH_TOL[name]
-        for causal in (True, False):
-            for shape in FLASH_SHAPES:
-                q, k, v = flash_inputs(torch, shape, dtype, g)
-                got = fa_mod.flash_attention(q, k, v, causal=causal)
-                want = fa_mod.flash_attention_plain(q, k, v, causal=causal)
-                got, want = got.float(), want.float()
-                err = float((got - want).abs().max())
-                ok = (got.dtype == want.dtype and torch.allclose(
-                    got, want, atol=tol, rtol=tol))
-                info = dict(shape=list(shape), dtype=name, causal=causal)
-                report.append(dict(kernel="flash_attention",
-                                   max_abs_err=err, tolerance=tol, **info))
-                print(f"  flash_attention (B,S,H,Hkv,hd)={shape} {name} "
-                      f"causal={causal}: max|err|={err:.3e}  (tolerance: "
-                      f"atol=rtol={tol})")
-                if not ok:
-                    fail(f"flash_attention {info} differs from its plain "
-                         "version")
-                worst["flash_attention"] = max(
-                    worst.get("flash_attention", 0.0), err)
-                by_dtype[name] = max(by_dtype.get(name, 0.0), err)
+        q, k, v = flash_inputs(torch, shape, getattr(torch, name), g)
+        got = fa_mod.flash_attention(q, k, v, causal=causal)
+        want = fa_mod.flash_attention_plain(q, k, v, causal=causal)
+        del q, k, v
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        ok = (got.dtype == want.dtype and torch.allclose(
+            got, want, atol=tol, rtol=tol))
+        del got, want
+        archs = zoo.get((shape, causal, name))
+        info = dict(shape=list(shape), dtype=name, causal=causal)
+        report.append(dict(kernel="flash_attention", max_abs_err=err,
+                           tolerance=tol, zoo=archs, **info))
+        print(f"  flash_attention (B,S,H,Hkv,hd)={shape} {name} "
+              f"causal={causal}"
+              + (f" ({', '.join(archs)} prefill)" if archs else "")
+              + f": max|err|={err:.3e}  (tolerance: atol=rtol={tol})")
+        if not ok:
+            fail(f"flash_attention {info} differs from its plain version")
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0),
+                                       err)
+        by_dtype[name] = max(by_dtype.get(name, 0.0), err)
     q, k, v = flash_inputs(torch, FLASH_SHAPES[3], torch.bfloat16, g)
     want = fa_mod.flash_attention_plain(q, k, v)
     share_kernel = float((fa_mod.flash_attention(q, k, v) != want).float()
@@ -3931,43 +3965,28 @@ def run_zoo(torch, fa_mod, wrappers):
             continue
         cfg = get_config(arch)
         depth = ZOO_DEPTH.get(arch)
+        served = cfg if depth is None else dataclasses.replace(
+            cfg, n_layers=depth, first_k_dense=min(cfg.first_k_dense, depth))
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for f in wrappers.values():
             f.launches = 0
-        wall_ms, res = ms_of(torch, lambda: serve.run(
-            cfg, B, S, new, "cuda", n_layers=depth))
+        wall_ms, res = ms_of(torch, lambda: serve.run(served, B, S, new,
+                                                      "cuda"))
         counts = {n: f.launches for n, f in wrappers.items() if f.launches}
-        served = res.model.cfg
         want = expected_flash(served)
         flash_total += counts.get("flash_attention", 0)
         n_params = res.model.param_count()
-        inputs = res.inputs
-        prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
-        with torch.inference_mode():
-            fa_mod.flash_attention.launches = 0
-            if cfg.family == "ssm":
-                pre_ms, (logits, cache) = ms_of(
-                    torch, lambda: res.model.prefill(res.tokens))
-            else:
-                pre_ms, (logits, cache) = ms_of(
-                    torch, lambda: res.model.prefill(
-                        res.tokens, capacity=S + prefix + new, **inputs))
-            per_prefill = fa_mod.flash_attention.launches
-            tok = torch.argmax(logits, dim=-1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(new):
-                last, cache = res.model.decode_step(cache, tok,
-                                                    S + prefix + i)
-                tok = torch.argmax(last, dim=-1)
-            torch.cuda.synchronize()
-            dec_ms = (time.perf_counter() - t0) * 1e3 / new
-            per_decode = fa_mod.flash_attention.launches - per_prefill
-            finite = bool(torch.isfinite(logits).all()
-                          and torch.isfinite(last).all())
-            del cache, logits, last
+        tokens, inputs, prefix = serve.make_inputs(served, B, S, "cuda")
+        fa_mod.flash_attention.launches = 0
+        logits, gen, pre_s, dec_s = serve.generate(res.model, tokens, inputs,
+                                                   prefix, new)
+        per_serve = fa_mod.flash_attention.launches
+        pre_ms, dec_ms = pre_s * 1e3, dec_s * 1e3 / new
+        finite = bool(torch.isfinite(logits).all()
+                      and torch.isfinite(res.logits).all())
+        del logits, tokens, inputs
         peak = torch.cuda.max_memory_allocated()
         row = dict(arch=arch, family=cfg.family, params=n_params,
                    layers=served.n_layers, full_layers=cfg.n_layers,
@@ -3977,8 +3996,8 @@ def run_zoo(torch, fa_mod, wrappers):
                    prompt=S, prefix=prefix, new_tokens=new, wall_ms=wall_ms,
                    run_prefill_ms=res.t_prefill * 1e3,
                    run_decode_ms=res.t_decode * 1e3, prefill_ms=pre_ms,
-                   decode_ms_per_token=dec_ms, flash_per_prefill=per_prefill,
-                   flash_per_decode=per_decode, launches=counts,
+                   decode_ms_per_token=dec_ms, flash_per_serve=per_serve,
+                   launches=counts,
                    peak_gib=peak / 2 ** 30, gen0=res.gen[0].tolist(),
                    smi=smi)
         rows.append(row)
@@ -3989,14 +4008,16 @@ def run_zoo(torch, fa_mod, wrappers):
               f" (init included; its prefill {res.t_prefill * 1e3:.1f} ms); "
               f"prefill {pre_ms:.2f} ms, decode {dec_ms:.3f} ms per token "
               f"(B={B}, prompt {S}{f' + {prefix} prefix' if prefix else ''}"
-              f"), flash {per_prefill} per prefill (expected {want}), "
-              f"{per_decode} in decode; peak {peak / 2 ** 30:.2f} GiB; "
+              f"), flash {per_serve} per serve (expected {want}, all in "
+              f"the prefill); peak {peak / 2 ** 30:.2f} GiB; "
               f"tokens[0] {res.gen[0].tolist()}; {smi}")
-        if counts.get("flash_attention", 0) != want or per_prefill != want \
-                or per_decode or set(counts) - {"flash_attention"}:
-            fail(f"{arch}: launches {counts}, {per_prefill} per prefill; "
-                 f"expected {want} flash launches a prefill and no other")
-        if not finite or res.gen.shape != (B, new):
+        if counts.get("flash_attention", 0) != want or per_serve != want \
+                or set(counts) - {"flash_attention"}:
+            fail(f"{arch}: launches {counts}, {per_serve} in the warm "
+                 f"serve; expected {want} flash launches a serve and no "
+                 "other")
+        if not finite or gen.shape != (B, new) \
+                or res.gen.shape != (B, new):
             fail(f"{arch}: non-finite logits or gen {res.gen.shape}")
         del res
     gc.collect()

@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -33,7 +32,6 @@ from repro_torch import prng
 from repro_torch.configs import ARCHS, get_config, reduced_config
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.transformer import DecoderLM
 from repro_torch.prng import prng_key
 
 
@@ -41,7 +39,6 @@ from repro_torch.prng import prng_key
 class ServeResult:
     model: torch.nn.Module
     tokens: torch.Tensor  # (B, S) prompts on the device
-    inputs: dict  # the VLM's prefix_embeds or the enc-dec's enc_frames
     logits: torch.Tensor  # (B, V) f32, the prefill's last position
     gen: np.ndarray  # (B, max_new) token ids
     t_prefill: float  # seconds, host clock, device synchronized
@@ -84,26 +81,19 @@ def sample_keys(n: int):
 
 
 @torch.inference_mode()
-def run(cfg, batch: int, prompt_len: int, max_new: int, device="cuda",
-        temperature: float = 0.0,
-        n_layers: Optional[int] = None) -> ServeResult:
-    """Build ``cfg``'s model from ``prng_key(0)`` on ``device``, prefill
-    ``batch`` random prompts of ``prompt_len`` tokens with room for
-    ``max_new`` more, and decode ``max_new`` tokens, greedily or, with
-    ``temperature`` > 0, sampled.  ``n_layers`` (decoder LMs) serves the
-    first layers of the stacks only, at full width."""
-    device = resolve_device(device)
-    if n_layers is None:
-        model = build_model(cfg).init(prng_key(0), device)
-    else:
-        model = DecoderLM.init(cfg, prng_key(0), device, n_layers=n_layers)
-    B, S = batch, prompt_len
-    tokens, inputs, prefix = make_inputs(cfg, B, S, device)
+def generate(model, tokens: torch.Tensor, inputs: dict, prefix: int,
+             max_new: int, temperature: float = 0.0):
+    """Prefill ``tokens`` (after ``inputs``' ``prefix`` positions) with room
+    for ``max_new`` more, and decode ``max_new`` tokens, greedily or, with
+    ``temperature`` > 0, sampled.  -> (the prefill's last logits (B, V)
+    f32, the token ids (B, max_new), prefill seconds, decode seconds)."""
+    device = tokens.device
+    S = tokens.shape[1]
     temp = torch.tensor(np.float32(temperature), device=device)
     keys = sample_keys(max_new) if temperature > 0 else None
     _sync(device)
     t0 = time.perf_counter()
-    if cfg.family == "ssm":
+    if model.cfg.family == "ssm":
         logits, cache = model.prefill(tokens)
     else:
         logits, cache = model.prefill(tokens, capacity=S + prefix + max_new,
@@ -124,11 +114,23 @@ def run(cfg, batch: int, prompt_len: int, max_new: int, device="cuda",
             tok = torch.argmax(logits, dim=-1)
     _sync(device)
     t_decode = time.perf_counter() - t0
-    gen = np.stack(outs, axis=1)
+    return first, np.stack(outs, axis=1), t_prefill, t_decode
+
+
+@torch.inference_mode()
+def run(cfg, batch: int, prompt_len: int, max_new: int, device="cuda",
+        temperature: float = 0.0) -> ServeResult:
+    """Build ``cfg``'s model from ``prng_key(0)`` on ``device``, and serve
+    ``batch`` random prompts of ``prompt_len`` tokens through
+    :func:`generate`."""
+    device = resolve_device(device)
+    model = build_model(cfg).init(prng_key(0), device)
+    tokens, inputs, prefix = make_inputs(cfg, batch, prompt_len, device)
+    first, gen, t_prefill, t_decode = generate(model, tokens, inputs, prefix,
+                                               max_new, temperature)
     if not (np.all(gen >= 0) and np.all(gen < cfg.padded_vocab)):
         raise RuntimeError("decoded token ids outside the vocabulary")
-    return ServeResult(model, tokens, inputs, first, gen, t_prefill,
-                       t_decode)
+    return ServeResult(model, tokens, first, gen, t_prefill, t_decode)
 
 
 def parse_args(argv=None):

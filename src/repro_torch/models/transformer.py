@@ -213,34 +213,26 @@ class DecoderLM(_LM):
                          if k not in ("layers_dense", "layers_moe")}, trees)
 
     @classmethod
-    def init(cls, cfg, key: prng.Key, device="cuda",
-             n_layers: Optional[int] = None) -> "DecoderLM":
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "DecoderLM":
         """Weights drawn from the reference key ``key`` on ``device`` (the
         GPU unless the caller asks for the CPU): ``split(key, 5)`` ->
         embed, dense stack, moe stack, head, projector; each stack's key
         split into its layers, each layer's in 2 (attention, then MLP or
-        MoE).  ``n_layers`` draws only the first layers of ``cfg``'s
-        stacks (in the stacks' order) and serves a model of that depth
-        (``cfg.n_layers`` replaced), the full width kept."""
+        MoE)."""
         device = resolve_device(device)
         dtype = _dtype(cfg.param_dtype)
         n_dense = cls.n_dense(cfg)
-        depth = cfg.n_layers if n_layers is None else n_layers
         ke, kd, km, kh, kp = prng.split(key, 5)
         top = cls._top(cfg, ke, kh, dtype, device, cfg.tie_embeddings)
         if cfg.family == "vlm":
             top["projector"] = layers.dense_init(kp, cfg.d_model,
                                                  cfg.d_model, dtype, device)
         trees = [DecoderLayer.init_tree(cfg, k, dtype, device)
-                 for k in prng.split(kd, n_dense)[:depth]] if n_dense else []
+                 for k in prng.split(kd, n_dense)] if n_dense else []
         n_moe = cfg.n_layers - n_dense
-        if n_moe and depth > len(trees):
+        if n_moe:
             trees += [DecoderLayer.init_tree(cfg, k, dtype, device, True)
-                      for k in prng.split(km, n_moe)[:depth - len(trees)]]
-        if depth != cfg.n_layers:
-            cfg = dataclasses.replace(
-                cfg, n_layers=depth,
-                first_k_dense=min(cfg.first_k_dense, depth))
+                      for k in prng.split(km, n_moe)]
         return cls(cfg, top, trees)
 
     def _inputs(self, tokens: torch.Tensor, prefix_embeds=None):
