@@ -272,6 +272,33 @@ Phases, each of which exits non-zero on failure:
      ``SERVE_F32_TOL``; xlstm-125m and granite-moe-1b-a400m sampled at T
      = 0.8 on both, the same tokens, the card's Gumbel noise within 1 ulp
      of the CPU's
+  8. the training path: (a) ``repro_torch.launch.train.run`` of the
+     full-width qwen3-1.7b (28 layers, f32 params, bf16 compute, AdamW,
+     remat, weights from ``prng_key(0)``), B = 4 x 1024 tokens of the
+     synthetic stream, 6 steps, the launch counters reset before and
+     read after (training launches no kernel of the port: its attention
+     is the PyTorch form, never flash), every loss finite, each step's
+     loss, the median step time without the first, tokens/s and the
+     peak memory printed beside the card's name and power limit; then
+     the same run again, its losses and params bitwise the first's; then
+     a step's split, ``value_and_grad`` against the AdamW update (medians
+     of 3), and one step under ``torch.profiler`` (busy share, GEMM
+     time, the top kernels);
+     (b) ``launch.steps.make_fl_train_step`` at qwen3-1.7b's full width
+     cut to 8 of its 28 layers (``reduced``), 2 pods, fedsgd (1 inner
+     step) and fedavg (2), weights (1, 1) and (1, 0), 2 rounds each of B
+     = 8 x 256 timed (round time; the peak memory read after them),
+     then a third round whose ``safl_aggregate`` output is held bitwise
+     against the plain version on the same rows: exactly one
+     ``safl_aggregate`` launch a round, the pods in sync (drift 0),
+     finite losses; (c) the ten reduced
+     configs (f32, TF32 off, B = 4 x 64, 2 steps) on the card against
+     the CPU: at each step the loss and metrics within 1e-5 relative and
+     every gradient leaf within 1e-4 of the CPU's largest, both devices
+     then updated with the CPU's gradients: params and optimizer state
+     within ``rtol=1e-5, atol=1e-6`` (bitwise expected: the optimizer's
+     FMAs round from f64 on both devices); (d) the flash wrapper raises on a
+     differentiable bf16 input and launches nothing
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -604,6 +631,25 @@ ZOO_DEPTH = {"internlm2-20b": 24, "internvl2-76b": 22, "kimi-k2-1t-a32b": 2}
 #: a multiple of the reduced MoE's groups of 64), and the archs sampled
 ZOO_REDUCED_SHAPE = (4, 192, 8)
 ZOO_SAMPLED, ZOO_TEMPERATURE = ("xlstm-125m", "granite-moe-1b-a400m"), 0.8
+#: phase 8 (a): the full-width qwen3-1.7b trained through train.run (f32
+#: params, bf16 compute, AdamW, remat), B 4 x S 1024 of the synthetic
+#: stream for 6 steps, then the same run again (bitwise)
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1024, 6, 3e-3
+#: phase 8 (b): the FL train step at qwen3-1.7b's full width, its depth
+#: cut to FL_LAYERS of 28 layers; 2 pods, B 8 x S 256 a round, FL_ROUNDS
+#: timed rounds of each (aggregation, inner steps, pod weights), then one
+#: round that holds the aggregate against its plain version
+FL_LAYERS, FL_BATCH, FL_SEQ, FL_ROUNDS = 8, 8, 256, 2
+FL_SETTINGS = (("fedsgd", 1, (1.0, 1.0)), ("fedsgd", 1, (1.0, 0.0)),
+               ("fedavg", 2, (1.0, 1.0)), ("fedavg", 2, (1.0, 0.0)))
+#: phase 8 (c): the reduced configs trained on the card against the CPU
+#: (B x S; f32, TF32 off), 2 steps; the CPU tests' bounds against the
+#: reference: the loss 1e-5 relative, a gradient 1e-4 of its leaf's
+#: largest, params rtol 1e-5 / atol 1e-6
+TRAIN_REDUCED_SHAPE, TRAIN_REDUCED_STEPS = (4, 64), 2
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-6
 
 
 def fail(msg: str) -> None:
@@ -4068,6 +4114,391 @@ def run_zoo(torch, fa_mod, wrappers):
     return dict(served=rows, reduced=reduced_rows), flash_total
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+
+def train_full(torch, wrappers, smi):
+    """Phase 8 (a): the full-width qwen3-1.7b through train.run, twice."""
+    import numpy as np
+
+    from repro_torch import tree as treemod
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    cfg = get_config(TRAIN_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    runs = []
+    for rep in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        for f in wrappers.values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = train.run(cfg, steps=TRAIN_STEPS, batch=B, seq=S, lr=TRAIN_LR,
+                        device="cuda", log_every=1,
+                        log=(lambda line: print("  " + line)) if rep == 0
+                        else None)
+        wall = time.perf_counter() - t0
+        counts = {n: f.launches for n, f in wrappers.items() if f.launches}
+        if counts:
+            fail(f"training launched kernels {counts}; expected none (its "
+                 "attention is the PyTorch form)")
+        if not all(np.isfinite(res.losses)):
+            fail(f"non-finite training loss: {res.losses}")
+        med = statistics.median(res.step_s[1:])
+        runs.append(dict(losses=res.losses, step_ms=[t * 1e3 for t in
+                                                     res.step_s],
+                         median_step_ms=med * 1e3, tokens_per_s=B * S / med,
+                         peak_gib=res.peak_bytes / 2 ** 30, wall_s=wall,
+                         params=res.n_params))
+        host = [leaf.cpu() for leaf in treemod.tree_leaves(res.params)]
+        del res
+        runs[-1]["host_params"] = host
+        print(f"  run {rep + 1}: {TRAIN_STEPS} steps, B={B} x S={S}: "
+              f"median step {med * 1e3:.1f} ms without the first "
+              f"(first {runs[-1]['step_ms'][0]:.1f} ms), {B * S / med:,.0f} "
+              "tokens/s,"
+              f" peak {runs[-1]['peak_gib']:.2f} GiB, wall {wall:.1f} s "
+              f"(init included); {smi}")
+    same_loss = runs[0]["losses"] == runs[1]["losses"]
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(runs[0].pop("host_params"),
+                          runs[1].pop("host_params")))
+    print(f"  repeat: losses {'bitwise' if same_loss else 'DIFFER'}, "
+          f"params {'bitwise' if same_params else 'DIFFER'}")
+    if not (same_loss and same_params):
+        fail("a second training run from the same key and stream is not "
+             "bitwise the first")
+    split = train_split(torch, cfg, smi)
+    row = dict(arch=TRAIN_ARCH, batch=B, seq=S, steps=TRAIN_STEPS,
+               lr=TRAIN_LR, optimizer=cfg.optimizer, remat=cfg.remat,
+               runs=runs, repeat_bitwise=True, split=split, smi=smi)
+    print(json.dumps({"phase": "8a", "arch": TRAIN_ARCH,
+                      "losses": runs[0]["losses"],
+                      "median_step_ms": runs[0]["median_step_ms"],
+                      "tokens_per_s": runs[0]["tokens_per_s"],
+                      "peak_gib": runs[0]["peak_gib"],
+                      "repeat_bitwise": True, "smi": smi}))
+    return row
+
+
+def train_split(torch, cfg, smi):
+    """Where a full-width training step's time goes: ``value_and_grad``
+    and the AdamW update (in place) timed apart (host clock, device
+    synchronized; medians of 3 after a warm step), then one step under
+    ``torch.profiler``: the device's busy share and its top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.prng import prng_key
+    import numpy as np
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_model(cfg)
+    params = model.init_params(prng_key(0), "cuda")
+    vg = steps.value_and_grad(model.train_loss)
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+    state = opt.init(params)
+    batch = train.to_device(train.synthetic_lm_batch(
+        np.random.default_rng(0), cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ),
+        "cuda")
+    vg_ms, upd_ms = [], []
+    for i in range(4):
+        ms, (_, grads) = ms_of(torch, lambda: vg(params, batch))
+        vg_ms.append(ms)
+        ms, _ = ms_of(torch, lambda: opt.update(params, grads, state, i))
+        upd_ms.append(ms)
+        del grads
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, grads = vg(params, batch)
+        opt.update(params, grads, state, 4)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    del grads, params, state
+    spans, by_name = [], collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += (b - max(a, end)) / 1e3
+            end = b
+    top = by_name.most_common(6)
+    gemm = sum(v for k, v in by_name.items()
+               if any(t in k.lower() for t in ("gemm", "xmma", "cutlass")))
+    out = dict(vg_ms=statistics.median(vg_ms[1:]),
+               update_ms=statistics.median(upd_ms[1:]),
+               profiled_wall_ms=wall_ms, busy_ms=busy if spans else None,
+               device_events=len(spans), gemm_ms=gemm,
+               top=[[k, v] for k, v in top])
+    print(f"  step split (medians of 3 after a warm step): value_and_grad "
+          f"{out['vg_ms']:.1f} ms, AdamW update {out['update_ms']:.1f} ms; "
+          f"one profiled step: wall {wall_ms:.1f} ms, "
+          + (f"device busy {busy:.1f} ms ({busy / wall_ms:.1%}), GEMM "
+             f"kernels {gemm:.1f} ms, {len(spans)} device events; top: "
+             + "; ".join(f"{k} {v:.1f} ms" for k, v in top)
+             if spans else "the profiler saw no device activity")
+          + f"; {smi}")
+    return out
+
+
+def train_fl(torch, k_mod, wrappers, smi):
+    """Phase 8 (b): the FL train step at qwen3-1.7b's full width, depth
+    cut: FL_ROUNDS timed rounds of each setting, the peak read after
+    them, then one round whose aggregate is held against its plain
+    version (its check outside the times and the peak).  Returns (rows,
+    its safl_aggregate launches)."""
+    import numpy as np
+
+    from repro_torch import tree as treemod
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.prng import prng_key
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=FL_LAYERS)
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    init = model.init_params(prng_key(0), "cuda")
+    d = model.param_count(init)
+    held = []
+    real = steps.ops.safl_aggregate
+
+    def checked(u, w, *a, **k):
+        out = real(u, w, *a, **k)
+        want = k_mod.safl_aggregate_plain(u, w, *a, **k)
+        same = bool(torch.equal(out, want))
+        held.append(dict(bitwise=same, max_abs_err=0.0 if same else
+                         float((out - want).abs().max())))
+        del want
+        return out
+
+    rows, total = [], 0
+    try:
+        for agg, inner, weights in FL_SETTINGS:
+            step, opt = steps.make_fl_train_step(
+                model, cfg, aggregation=agg, lr=TRAIN_LR, inner_steps=inner)
+            ps = treemod.tree_map(lambda x: torch.stack([x, x]), init)
+            os_ = treemod.tree_map(lambda x: torch.stack([x, x]),
+                                   opt.init(init))
+            rng = np.random.default_rng(0)
+            torch.cuda.reset_peak_memory_stats()
+            for f in wrappers.values():
+                f.launches = 0
+            round_ms, losses, peak = [], [], None
+            for rnd in range(FL_ROUNDS + 1):
+                if rnd == FL_ROUNDS:  # the held round
+                    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                    steps.ops.safl_aggregate = checked
+                batch = train.to_device(train.synthetic_lm_batch(
+                    rng, cfg.vocab_size, FL_BATCH, FL_SEQ), "cuda")
+                before = k_mod.safl_aggregate.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ps, os_, met = step(ps, os_, batch, rnd, weights)
+                loss = float(met["loss"])
+                torch.cuda.synchronize()
+                if rnd < FL_ROUNDS:
+                    round_ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss)
+                n = k_mod.safl_aggregate.launches - before
+                synced = all(torch.equal(leaf[0], leaf[1])
+                             for leaf in treemod.tree_leaves(ps))
+                drift = 0.0 if synced else max(
+                    float((leaf[0] - leaf[1]).abs().max())
+                    for leaf in treemod.tree_leaves(ps))
+                if n != 1 or drift or not np.isfinite(loss):
+                    fail(f"FL {agg} inner {inner} w={weights} round {rnd}: "
+                         f"{n} safl_aggregate launches (expected 1), pod "
+                         f"drift {drift}, loss {loss}")
+            steps.ops.safl_aggregate = real
+            if not held[-1]["bitwise"]:
+                fail(f"FL {agg} w={weights}: safl_aggregate "
+                     f"{held[-1]['max_abs_err']:.3e} from its plain version "
+                     "on the same rows")
+            counts = {k: f.launches for k, f in wrappers.items()
+                      if f.launches}
+            if set(counts) != {"safl_aggregate"}:
+                fail(f"FL {agg}: launches {counts}")
+            total += counts["safl_aggregate"]
+            rows.append(dict(aggregation=agg, inner_steps=inner,
+                             weights=list(weights), losses=losses,
+                             round_ms=round_ms, launches=counts,
+                             peak_gib=peak, d=d))
+            print(f"  FL {agg} (inner {inner}) weights {weights}: "
+                  f"{FL_ROUNDS} timed rounds and 1 held, B={FL_BATCH} x "
+                  f"S={FL_SEQ} on 2 pods, losses "
+                  f"{[round(x, 4) for x in losses]}, round ms "
+                  f"{[round(x, 1) for x in round_ms]}, safl_aggregate "
+                  f"{counts['safl_aggregate']} launches (1 a round; "
+                  f"(2, {d:,}) f32 rows, bitwise the plain version in the "
+                  f"held round), pod drift 0, peak {peak:.2f} GiB over the "
+                  f"timed rounds; {smi}")
+            del ps, os_, step, opt
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        steps.ops.safl_aggregate = real
+    del init
+    # the kernel at the FL step's shape: K = 2 rows of D, mode avg
+    gc.collect()
+    torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    u = torch.randn((2, d), device="cuda", generator=g)
+    w = torch.tensor([1.0, 0.5], device="cuda")
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    before = k_mod.safl_aggregate.launches
+    kernel_ms = time_ms(torch, lambda: k_mod.safl_aggregate(u, w, mode="avg"),
+                        flush, n=10, hold=True)
+    k_mod.safl_aggregate.launches = before  # timing, not the path
+    plain_ms = time_ms(torch, lambda: k_mod.safl_aggregate_plain(
+        u, w, mode="avg"), flush, n=5)
+    bound_ms = 3 * d * 4 / HBM_BYTES_PER_S * 1e3
+    timing = dict(d=d, k=2, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, share=bound_ms / kernel_ms)
+    print(f"  safl_aggregate (avg) at the FL step's shape (2, {d:,}): "
+          f"{kernel_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes, "
+          f"{3 * d * 4 / 1e9:.2f} GB), {bound_ms / kernel_ms:.1%} of it; "
+          f"plain {plain_ms:.4f} ms; {smi}")
+    del u, w, flush
+    print(json.dumps({"phase": "8b", "arch": TRAIN_ARCH,
+                      "reduced": f"depth {FL_LAYERS} of 28 layers",
+                      "d": d, "safl_aggregate_launches": total,
+                      "round_ms": {f"{r['aggregation']}{r['weights']}":
+                                   r["round_ms"] for r in rows},
+                      "safl_aggregate_ms": kernel_ms, "smi": smi}))
+    return dict(arch=TRAIN_ARCH, layers=FL_LAYERS, full_layers=28,
+                reduced=f"depth {FL_LAYERS} of 28 layers", pods=2,
+                batch=FL_BATCH, seq=FL_SEQ, settings=rows,
+                safl_aggregate_timing=timing, smi=smi), total
+
+
+def train_reduced(torch):
+    """Phase 8 (c): the ten reduced configs, card against CPU."""
+    import numpy as np
+
+    from repro_torch import tree as treemod
+    from repro_torch.configs import ARCHS, get_config, reduced_config
+    from repro_torch.launch import steps, train
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+    from repro_torch.prng import prng_key
+    B, S = TRAIN_REDUCED_SHAPE
+    rows = []
+    for arch in ARCHS:
+        cfg = reduced_config(get_config(arch))
+        model = build_model(cfg)
+        vg = steps.value_and_grad(model.train_loss)
+        opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+        p_cpu = model.init_params(prng_key(0), "cpu")
+        p_gpu = treemod.tree_map(lambda x: x.to("cuda"), p_cpu)
+        s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
+        rng = np.random.default_rng(0)
+        worst = dict(loss=0.0, grad=0.0, params=0.0)
+        bitwise = True
+        for step in range(TRAIN_REDUCED_STEPS):
+            data = train.add_extras(train.synthetic_lm_batch(
+                rng, cfg.vocab_size, B, S), cfg, rng)
+            (lc, mc), gc_ = vg(p_cpu, train.to_device(data, "cpu"))
+            (lg, mg), gg = vg(p_gpu, train.to_device(data, "cuda"))
+            for name, a, b in [("total", lg, lc)] + [
+                    (k, mg[k], mc[k]) for k in mc]:
+                rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-6)
+                worst["loss"] = max(worst["loss"], rel)
+                if rel > TRAIN_LOSS_RTOL:
+                    fail(f"reduced {arch} step {step}: {name} "
+                         f"{float(a)} on the card, {float(b)} on the CPU")
+            for a, b in zip(treemod.tree_leaves(gg),
+                            treemod.tree_leaves(gc_)):
+                scale = max(float(b.abs().max()), 1e-30)
+                err = float((a.cpu() - b).abs().max()) / scale
+                worst["grad"] = max(worst["grad"], err)
+                if err > TRAIN_GRAD_TOL:
+                    fail(f"reduced {arch} step {step}: a gradient leaf "
+                         f"{err:.3e} of its largest from the CPU's")
+            p_cpu, s_cpu = opt.update(p_cpu, gc_, s_cpu, step)
+            p_gpu, s_gpu = opt.update(
+                p_gpu, treemod.tree_map(lambda x: x.to("cuda"), gc_), s_gpu,
+                step)
+            for a, b in zip(treemod.tree_leaves((p_gpu, s_gpu)),
+                            treemod.tree_leaves((p_cpu, s_cpu))):
+                a = a.cpu()
+                bitwise = bitwise and torch.equal(a, b)
+                err = float(((a - b).abs() - TRAIN_RTOL * b.abs()).max())
+                worst["params"] = max(worst["params"], err)
+                if err > TRAIN_ATOL:
+                    fail(f"reduced {arch} step {step}: params or optimizer "
+                         "state outside rtol=1e-5, atol=1e-6 of the CPU's")
+        rows.append(dict(arch=arch, optimizer=cfg.optimizer, batch=B, seq=S,
+                         steps=TRAIN_REDUCED_STEPS,
+                         loss_max_rel=worst["loss"],
+                         grad_max_rel=worst["grad"],
+                         params_bitwise=bitwise))
+        print(f"  reduced {arch} ({cfg.family}, {cfg.optimizer}, B={B} x "
+              f"S={S}, {TRAIN_REDUCED_STEPS} steps), card vs CPU: loss max "
+              f"rel {worst['loss']:.2e} (tolerance {TRAIN_LOSS_RTOL}), "
+              f"gradients max {worst['grad']:.2e} of a leaf's largest "
+              f"(tolerance {TRAIN_GRAD_TOL}), params and state after the "
+              f"same gradients {'bitwise' if bitwise else 'within bounds'}")
+    print(json.dumps({"phase": "8c", "reduced": [
+        {k: r[k] for k in ("arch", "loss_max_rel", "grad_max_rel",
+                           "params_bitwise")} for r in rows]}))
+    return rows
+
+
+def check_flash_refusal(torch, fa_mod):
+    """Phase 8 (d): a differentiable bf16 input raises, launching
+    nothing."""
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    k = torch.randn(1, 128, 2, 64, device="cuda", dtype=torch.bfloat16)
+    before = fa_mod.flash_attention.launches
+    for fn in (fa_mod.flash_attention, ops.flash_attention):
+        try:
+            fn(q, k, k)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            fail("flash_attention took a differentiable input")
+    if fa_mod.flash_attention.launches != before:
+        fail("the refused flash_attention call launched")
+    with torch.no_grad():
+        out = fa_mod.flash_attention(q, k, k)
+    print(f"  (d) flash_attention with a bf16 q that requires grad: "
+          f"RuntimeError ({msg[:60]}...), no launch; under no_grad it runs "
+          f"({tuple(out.shape)})")
+    print(json.dumps({"phase": "8d", "flash_refuses_grad": True}))
+    return dict(refused=True, message=msg)
+
+
+def run_training(torch, k_mod, fa_mod, wrappers):
+    """Phase 8: (a)-(d).  Returns (rows, the FL step's safl_aggregate
+    launches)."""
+    smi = smi_line()
+    t0 = time.perf_counter()
+    full = train_full(torch, wrappers, smi)
+    print(f"  (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fl, fl_launches = train_fl(torch, k_mod, wrappers, smi)
+    print(f"  (b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    reduced = train_reduced(torch)
+    print(f"  (c): {time.perf_counter() - t0:.1f} s")
+    refusal = check_flash_refusal(torch, fa_mod)
+    return dict(full=full, fl=fl, reduced=reduced,
+                flash_refusal=refusal), fl_launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4238,6 +4669,16 @@ def main() -> None:
     zoo, zoo_flash = run_zoo(torch, fa_mod, wrappers)
     launches["flash_attention"] += zoo_flash
     print(f"  phase 7e: {time.perf_counter() - t0:.1f} s")
+    left("7e")
+
+    print(f"== phase 8: training: full-width {TRAIN_ARCH} (B = {TRAIN_BATCH}"
+          f", S {TRAIN_SEQ}, {TRAIN_STEPS} steps, twice); the FL step at "
+          f"its full width, {FL_LAYERS} of 28 layers, 2 pods; the reduced "
+          "configs on the card vs the CPU; the flash refusal")
+    t0 = time.perf_counter()
+    training, fl_launches = run_training(torch, k_mod, fa_mod, wrappers)
+    launches["safl_aggregate"] += fl_launches
+    print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(
         name=name, route="cuda",
@@ -4268,7 +4709,7 @@ def main() -> None:
                        other_models=other_rows, traced=traced,
                        mesh_server=mesh_server, mesh=mesh_rows,
                        compression_path=compression, serving=serving,
-                       zoo=zoo,
+                       zoo=zoo, training=training,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

@@ -25,6 +25,12 @@ scores -1e30, the kv loop stopping at the causal triangle,
 - f32: ``flash_fwd_simt_kernel`` on the CUDA cores, 64 x 64 tiles of f32
   (the tensor cores would multiply in TF32); within ``2e-5``.
 
+The kernels have no backward (nor has the reference's Pallas kernel: its
+training attention is XLA's).  Their output is written through a raw
+pointer and carries no ``grad_fn``, so with grad mode on a CUDA q, k or
+v that requires grad raises instead of losing its gradient; training runs
+:func:`repro_torch.models.layers.full_attention` with ``train=True``.
+
 ``block_q`` and ``block_k`` are accepted for the reference's signature;
 the kernels choose their own tiles and mask a ragged last tile, so they
 take any S (the Pallas kernel asserts ``S % block == 0``).  The bf16
@@ -84,6 +90,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     del block_q, block_k  # the CUDA kernels' tiles are their own
     if not on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward, and q, k or "
+            "v requires grad; the training forward computes attention in "
+            "PyTorch ops (models.layers.full_attention(..., train=True))")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k: expected (B, S, H, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}")

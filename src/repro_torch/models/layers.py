@@ -21,18 +21,30 @@ operations, including where the compute dtype rounds:
     operand's device (:func:`div_f32`): PyTorch on CUDA turns a division
     by a host scalar into a multiply by its reciprocal.
 
-:func:`full_attention` runs causal and non-causal self-attention through
-:func:`repro_torch.kernels.ops.flash_attention` (the CUDA kernel on the
-card, its plain version on the CPU), and a sliding window too while the
-sequence fits in it (S <= window: the window mask is then the causal
-mask).  A longer windowed sequence and cross-attention run
-:func:`_sdpa` in PyTorch ops, q-chunked as the reference's
-``_chunked_attention`` when ``attn_chunk`` is set: the reference computes
-them in XLA (its Pallas kernel has no window and no memory).  Beyond
+:func:`full_attention` has two forms, picked by its ``train`` argument,
+which the training forwards of :mod:`.transformer` pass down:
+
+  * serving (``train=False``, prefill): causal and non-causal
+    self-attention through :func:`repro_torch.kernels.ops.flash_attention`
+    (the CUDA kernel on the card, its plain version on the CPU), and a
+    sliding window too while the sequence fits in it (S <= window: the
+    window mask is then the causal mask).  A longer windowed sequence
+    runs :func:`_sdpa` in PyTorch ops, q-chunked as the reference's
+    ``_chunked_attention`` when ``attn_chunk`` is set.
+  * training (``train=True``): the reference's XLA forms in PyTorch ops
+    under autograd, chosen by the reference's rules: the online softmax
+    (:func:`_online_attention`) for ``attn_impl="online"`` when S splits
+    into its chunks, the q-chunked form beyond ``attn_chunk``, else one
+    :func:`_sdpa` under the causal / window mask.  The CUDA flash kernel
+    has no backward (neither has the reference's Pallas kernel), and its
+    wrapper refuses a differentiable input.
+
+Cross-attention runs :func:`_sdpa` in both forms: the reference computes
+it in XLA (its Pallas kernel has no window and no memory).  Beyond
 ``attn_chunk`` the reference masks causally even where ``causal=False``
 (its chunked and online paths know no other mask); so does this port.
 The reference's ``constrain_*`` sharding hints are no-ops on one device
-and are dropped.
+and are dropped.  :func:`cross_entropy` is the training loss.
 """
 from __future__ import annotations
 
@@ -203,23 +215,79 @@ def _chunked_attention(q, k, v, positions, window, chunk):
     """The reference's q-chunked attention: each chunk of ``chunk`` query
     rows against every key under the causal (and window) mask; the
     largest score tensor is (B, H, chunk, S)."""
-    out = torch.empty_like(q, dtype=v.dtype)
-    for c0 in range(0, q.shape[1], chunk):
-        mask = _mask(positions[c0:c0 + chunk], positions, window,
-                     causal=True)
-        out[:, c0:c0 + chunk] = _sdpa(q[:, c0:c0 + chunk], k, v, mask)
-    return out
+    S = q.shape[1]
+    if S % chunk:
+        raise ValueError(f"S {S} is not a multiple of attn_chunk {chunk}")
+    return torch.cat([
+        _sdpa(q[:, c0:c0 + chunk], k, v,
+              _mask(positions[c0:c0 + chunk], positions, window,
+                    causal=True))
+        for c0 in range(0, S, chunk)], dim=1)
+
+
+def _online_attention(q, k, v, positions, window, q_chunk: int,
+                      kv_chunk: int) -> torch.Tensor:
+    """The reference's flash-style online softmax in plain ops: for each
+    chunk of ``q_chunk`` query rows, a loop over every chunk of
+    ``kv_chunk`` keys carrying the running max m (from -1e30), denominator
+    l and f32 accumulator; f32 scores times the f32 ``1 / sqrt(hd)``,
+    masked to -1e30 (causal, and the window), p cast to v's dtype before
+    P V, ``acc / max(l, 1e-20)`` cast to q's dtype.  Every kv chunk is
+    visited, masked or not, as the reference's scan visits them."""
+    B, S, H, hd = q.shape
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    f32 = torch.float32
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, hd)
+    outs = []
+    for q0 in range(0, S, q_chunk):
+        q_i, qpos = qh[:, :, q0:q0 + q_chunk], positions[q0:q0 + q_chunk]
+        m = torch.full((B, H, q_chunk), -1e30, dtype=f32, device=q.device)
+        l = torch.zeros((B, H, q_chunk), dtype=f32, device=q.device)
+        acc = torch.zeros((B, H, q_chunk, hd), dtype=f32, device=q.device)
+        for k0 in range(0, S, kv_chunk):
+            k_j, v_j = kh[:, :, k0:k0 + kv_chunk], vh[:, :, k0:k0 + kv_chunk]
+            s = torch.einsum("bhqd,bhkd->bhqk", q_i.to(f32),
+                             k_j.to(f32)) * scale
+            mask = _mask(qpos, positions[k0:k0 + kv_chunk], window,
+                         causal=True)
+            s = s.masked_fill(~mask, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(v_j.dtype), v_j).to(f32)
+            m = m_new
+        out = acc / torch.maximum(l, l.new_tensor(1e-20))[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.cat(outs, dim=2).transpose(1, 2)
+
+
+def _train_attention(cfg, q, k, v, positions, window, causal):
+    """Self-attention of the training forward (q, k, v roped, k and v
+    repeated to q's heads): the reference's choice among its XLA forms."""
+    S = q.shape[1]
+    chunk, kv_chunk = cfg.attn_chunk, min(cfg.attn_kv_chunk, S)
+    if (cfg.attn_impl == "online" and chunk and S > chunk
+            and S % chunk == 0 and S % kv_chunk == 0):
+        return _online_attention(q, k, v, positions, window, chunk,
+                                 kv_chunk)
+    if chunk and S > chunk:
+        return _chunked_attention(q, k, v, positions, window, chunk)
+    return _sdpa(q, k, v, _mask(positions, positions, window, causal))
 
 
 def full_attention(params: Params, cfg, x: torch.Tensor,
                    positions: torch.Tensor, *, causal: bool = True,
                    window: Optional[int] = None,
                    memory: Optional[torch.Tensor] = None,
-                   rope: bool = True, return_kv: bool = False):
-    """Prefill attention over the full sequence.  ``memory`` (B, Sm, D)
-    makes it cross-attention (keys and values from memory; no mask, no
-    RoPE); ``return_kv`` also returns the (roped, un-repeated) K and V
-    for the serving cache."""
+                   rope: bool = True, return_kv: bool = False,
+                   train: bool = False):
+    """Attention over the full sequence: the serving prefill's form, or
+    with ``train`` the training forward's (see the module's docstring).
+    ``memory`` (B, Sm, D) makes it cross-attention (keys and values from
+    memory; no mask, no RoPE); ``return_kv`` also returns the (roped,
+    un-repeated) K and V for the serving cache."""
     B, S, _ = x.shape
     n_rep = cfg.n_heads // cfg.n_kv_heads
     if memory is not None:
@@ -235,12 +303,13 @@ def full_attention(params: Params, cfg, x: torch.Tensor,
 
     q, k, v = _qkv(params, cfg, x, positions, rope=rope)
     chunked = bool(cfg.attn_chunk) and S > cfg.attn_chunk
-    if window is not None and S > window:
+    if train:
+        out = _train_attention(cfg, q, _repeat_kv(k, n_rep),
+                               _repeat_kv(v, n_rep), positions, window,
+                               causal)
+    elif window is not None and S > window:
         kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
         if chunked:
-            if S % cfg.attn_chunk:
-                raise ValueError(f"S {S} is not a multiple of attn_chunk "
-                                 f"{cfg.attn_chunk}")
             out = _chunked_attention(q, kr, vr, positions, window,
                                      cfg.attn_chunk)
         else:
@@ -346,3 +415,24 @@ def lm_head(embed: torch.Tensor, head: Optional[torch.Tensor],
     the product in f32."""
     w = embed.t() if tie else head
     return x.to(torch.float32) @ w.to(x.dtype).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """logits (B, S, V), targets (B, S) -> the mean NLL over the valid
+    tokens, in f32: ``logsumexp - the target's logit``, averaged, or with
+    ``mask`` summed over the masked tokens and divided by ``max(sum mask,
+    1)``."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    nll = logz - torch.gather(logits, -1,
+                              targets[..., None].to(torch.int64))[..., 0]
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(torch.float32)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

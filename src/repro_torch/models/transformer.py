@@ -27,14 +27,30 @@ reference key in the reference's order, so ``init(prng_key(0))`` gives
 the reference's ``init(PRNGKey(0))``, drawn on the device
 (:func:`repro_torch.prng.normal_torch`, bitwise ``jax.random.normal``).
 
-Self-attention at prefill goes through the flash kernel
+Serving: self-attention at prefill goes through the flash kernel
 (:func:`repro_torch.models.layers.full_attention`): once a layer in the
 decoder LMs, once a group in the hybrid, once a layer in both of the
 enc-dec's stacks.  ``decode_step(cache, tokens, pos, window=None)``
 passes ``window`` to every attention layer, as the reference's does
-(prefill keeps ``cfg.sliding_window``).  Parameters take no gradient:
-this is the serving path.  KV caches are (layers, B, capacity, Hkv, hd)
-in the compute dtype, written in place by decode.
+(prefill keeps ``cfg.sliding_window``).  The modules' parameters take no
+gradient.  KV caches are (layers, B, capacity, Hkv, hd) in the compute
+dtype, written in place by decode.
+
+Training is functional over the reference's params tree (the layers
+stacked on axis 0, as :func:`init_params` draws it and
+:func:`repro_torch.convert.params_from_jax` carries it across):
+``forward(cfg, params, batch)`` and ``train_loss(cfg, params, batch) ->
+(loss, metrics)``, the reference's per family (``:176-195, 318-340,
+434-454, 566-584``): the decoders return ``loss + 0.01 * aux`` (the MoE
+layers' Switch aux losses summed) with ``{"loss", "aux"}``, the others
+``{"loss"}``.  Each stack's leaves are unbound into per-layer views once
+(their gradients stack back in one op); attention runs the training form
+(``full_attention(..., train=True)``, never the flash kernel); the
+embedding lookup is ``F.embedding``, whose backward is deterministic on
+the card; with ``cfg.remat`` each of the reference's scanned bodies runs
+under ``torch.utils.checkpoint`` (non-reentrant, nothing saved but its
+inputs), as ``_maybe_remat`` does (``:54-56``).  Gradients come from
+autograd: :func:`repro_torch.launch.steps.value_and_grad`.
 """
 from __future__ import annotations
 
@@ -42,9 +58,12 @@ import dataclasses
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import prng
+from repro_torch import tree as treemod
 from repro_torch.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_lib
@@ -95,7 +114,6 @@ class DecoderLayer(ParamTree):
     def __init__(self, cfg, tree: Dict[str, object]):
         super().__init__(tree)
         self.cfg = cfg
-        self.use_moe = "moe" in tree
 
     @staticmethod
     def init_tree(cfg, key: prng.Key, dtype, device,
@@ -112,21 +130,11 @@ class DecoderLayer(ParamTree):
             p["mlp"] = layers.mlp_init(k2, cfg, dtype, device)
         return p
 
-    def _ffn(self, p, h: torch.Tensor) -> torch.Tensor:
-        if self.use_moe:
-            return moe_lib.moe_apply(p["moe"], self.cfg, h)[0]
-        return layers.mlp(p["mlp"], self.cfg, h)
-
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 window: Optional[int] = None):
         """Prefill: (B, S, D) -> ((B, S, D), (k, v))."""
-        cfg, p = self.cfg, self.tree
-        h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
-        attn, kv = layers.full_attention(p["attn"], cfg, h, positions,
-                                         window=window, return_kv=True)
-        x = x + attn
-        h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + self._ffn(p, h), kv
+        x, _, kv = decoder_layer(self.cfg, self.tree, x, positions, window)
+        return x, kv
 
     def decode(self, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                pos: int, window: Optional[int] = None) -> torch.Tensor:
@@ -138,7 +146,30 @@ class DecoderLayer(ParamTree):
                                              window=window)
         x = x + attn
         h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + self._ffn(p, h)
+        return x + _ffn(cfg, p, h)[0]
+
+
+def _ffn(cfg, p, h: torch.Tensor):
+    """The layer's MLP or MoE -> (y, the MoE's aux loss; 0.0 for an MLP,
+    so serving launches nothing for it)."""
+    if "moe" in p:
+        return moe_lib.moe_apply(p["moe"], cfg, h)
+    return layers.mlp(p["mlp"], cfg, h), 0.0
+
+
+def decoder_layer(cfg, p, x: torch.Tensor, positions: torch.Tensor,
+                  window: Optional[int] = None, *, train: bool = False):
+    """The pre-norm decoder layer of tree ``p`` (the reference's
+    ``_decoder_layer_apply``): (B, S, D) -> ((B, S, D), aux, (k, v));
+    ``train`` picks the training form of attention."""
+    h = layers.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    attn, kv = layers.full_attention(p["attn"], cfg, h, positions,
+                                     window=window, return_kv=True,
+                                     train=train)
+    x = x + attn
+    h = layers.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    y, aux = _ffn(cfg, p, h)
+    return x + y, aux, kv
 
 
 class _LM(nn.Module):
@@ -213,27 +244,36 @@ class DecoderLM(_LM):
                          if k not in ("layers_dense", "layers_moe")}, trees)
 
     @classmethod
-    def init(cls, cfg, key: prng.Key, device="cuda") -> "DecoderLM":
-        """Weights drawn from the reference key ``key`` on ``device`` (the
-        GPU unless the caller asks for the CPU): ``split(key, 5)`` ->
-        embed, dense stack, moe stack, head, projector; each stack's key
-        split into its layers, each layer's in 2 (attention, then MLP or
-        MoE)."""
-        device = resolve_device(device)
+    def parts(cls, cfg, key: prng.Key, device):
+        """The weights drawn from the reference key ``key`` on ``device``:
+        ``split(key, 5)`` -> embed, dense stack, moe stack, head,
+        projector; each stack's key split into its layers, each layer's
+        in 2 (attention, then MLP or MoE).  -> (the top tree, [(stack
+        name, a layer's init of its key, the layers' keys)])."""
         dtype = _dtype(cfg.param_dtype)
         n_dense = cls.n_dense(cfg)
+        n_moe = cfg.n_layers - n_dense
         ke, kd, km, kh, kp = prng.split(key, 5)
         top = cls._top(cfg, ke, kh, dtype, device, cfg.tie_embeddings)
         if cfg.family == "vlm":
             top["projector"] = layers.dense_init(kp, cfg.d_model,
                                                  cfg.d_model, dtype, device)
-        trees = [DecoderLayer.init_tree(cfg, k, dtype, device)
-                 for k in prng.split(kd, n_dense)] if n_dense else []
-        n_moe = cfg.n_layers - n_dense
+        stacks = []
+        if n_dense:
+            stacks.append(("layers_dense", lambda k: DecoderLayer.init_tree(
+                cfg, k, dtype, device), prng.split(kd, n_dense)))
         if n_moe:
-            trees += [DecoderLayer.init_tree(cfg, k, dtype, device, True)
-                      for k in prng.split(km, n_moe)]
-        return cls(cfg, top, trees)
+            stacks.append(("layers_moe", lambda k: DecoderLayer.init_tree(
+                cfg, k, dtype, device, True), prng.split(km, n_moe)))
+        return top, stacks
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "DecoderLM":
+        """Weights drawn from the reference key ``key`` (:meth:`parts`) on
+        ``device`` (the GPU unless the caller asks for the CPU)."""
+        top, stacks = cls.parts(cfg, key, resolve_device(device))
+        return cls(cfg, top, [make(k) for _, make, keys in stacks
+                              for k in keys])
 
     def _inputs(self, tokens: torch.Tensor, prefix_embeds=None):
         x = self._embed(tokens)
@@ -295,19 +335,30 @@ class HybridLM(_LM):
                    mamba, tree["shared_attn"])
 
     @classmethod
-    def init(cls, cfg, key: prng.Key, device="cuda") -> "HybridLM":
+    def parts(cls, cfg, key: prng.Key, device):
         """``split(key, 4)`` -> embed, mamba, shared attention, head; the
-        mamba key split into groups, each group's into its layers."""
-        device = resolve_device(device)
+        mamba key split into groups, each group's into its layers.  ->
+        (the top tree with ``shared_attn``, a mamba layer's init of its
+        key, the groups' lists of layer keys)."""
         dtype = _dtype(cfg.param_dtype)
         ke, km, ka, kh = prng.split(key, 4)
         G, L = (cfg.n_layers // cfg.hybrid_attn_every,
                 cfg.hybrid_attn_every - 1)
-        mamba = [{"ln": layers.rmsnorm_init(cfg.d_model, dtype, device),
-                  "ssm": ssm_lib.ssm_init(k, cfg, dtype, device)}
-                 for gk in prng.split(km, G) for k in prng.split(gk, L)]
-        shared = DecoderLayer.init_tree(cfg, ka, dtype, device)
-        return cls(cfg, cls._top(cfg, ke, kh, dtype, device), mamba, shared)
+        top = cls._top(cfg, ke, kh, dtype, device)
+        top["shared_attn"] = DecoderLayer.init_tree(cfg, ka, dtype, device)
+
+        def mamba(k):
+            return {"ln": layers.rmsnorm_init(cfg.d_model, dtype, device),
+                    "ssm": ssm_lib.ssm_init(k, cfg, dtype, device)}
+        return top, mamba, [prng.split(gk, L) for gk in prng.split(km, G)]
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "HybridLM":
+        """Weights drawn from the reference key ``key`` (:meth:`parts`)."""
+        top, mamba, groups = cls.parts(cfg, key, resolve_device(device))
+        shared = top.pop("shared_attn")
+        return cls(cfg, top, [mamba(k) for keys in groups for k in keys],
+                   shared)
 
     def prefill(self, tokens: torch.Tensor,
                 capacity: Optional[int] = None):
@@ -377,17 +428,26 @@ class XLSTMLM(_LM):
                    [_index(tree["sblocks"], i) for i in range(n)])
 
     @classmethod
-    def init(cls, cfg, key: prng.Key, device="cuda") -> "XLSTMLM":
-        """``split(key, 4)`` -> embed, mLSTM blocks, sLSTM blocks, head."""
-        device = resolve_device(device)
+    def parts(cls, cfg, key: prng.Key, device):
+        """``split(key, 4)`` -> embed, mLSTM blocks, sLSTM blocks, head.
+        -> (the top tree, [(stack name, a block's init, the keys)])."""
         dtype = _dtype(cfg.param_dtype)
         ke, k1, k2, kh = prng.split(key, 4)
         n = cfg.n_layers // 2
-        return cls(cfg, cls._top(cfg, ke, kh, dtype, device),
-                   [xlstm.mlstm_block_init(k, cfg, dtype, device)
-                    for k in prng.split(k1, n)],
-                   [xlstm.slstm_block_init(k, cfg, dtype, device)
-                    for k in prng.split(k2, n)])
+        return cls._top(cfg, ke, kh, dtype, device), [
+            ("mblocks", lambda k: xlstm.mlstm_block_init(k, cfg, dtype,
+                                                         device),
+             prng.split(k1, n)),
+            ("sblocks", lambda k: xlstm.slstm_block_init(k, cfg, dtype,
+                                                         device),
+             prng.split(k2, n))]
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "XLSTMLM":
+        """Weights drawn from the reference key ``key`` (:meth:`parts`)."""
+        top, stacks = cls.parts(cfg, key, resolve_device(device))
+        return cls(cfg, top, *([make(k) for k in keys]
+                               for _, make, keys in stacks))
 
     def prefill(self, tokens: torch.Tensor,
                 capacity: Optional[int] = None):
@@ -441,11 +501,11 @@ class EncDecLM(_LM):
                    [_index(tree["dec"], i) for i in range(cfg.n_layers)])
 
     @classmethod
-    def init(cls, cfg, key: prng.Key, device="cuda") -> "EncDecLM":
+    def parts(cls, cfg, key: prng.Key, device):
         """``split(key, 4)`` -> embed, encoder, decoder, head; an encoder
         layer's key split in 2 (attention, MLP), a decoder layer's in 3
-        (self-attention, cross-attention, MLP)."""
-        device = resolve_device(device)
+        (self-attention, cross-attention, MLP).  -> (the top tree with
+        ``ln_enc``, [(stack name, a layer's init, the keys)])."""
         dtype = _dtype(cfg.param_dtype)
         ke, k1, k2, kh = prng.split(key, 4)
         D = cfg.d_model
@@ -468,10 +528,16 @@ class EncDecLM(_LM):
 
         top = cls._top(cfg, ke, kh, dtype, device)
         top["ln_enc"] = layers.rmsnorm_init(D, dtype, device)
-        return cls(cfg, top,
-                   [enc_layer(k) for k in
-                    prng.split(k1, cfg.enc_layers or cfg.n_layers)],
-                   [dec_layer(k) for k in prng.split(k2, cfg.n_layers)])
+        return top, [
+            ("enc", enc_layer, prng.split(k1, cfg.enc_layers or cfg.n_layers)),
+            ("dec", dec_layer, prng.split(k2, cfg.n_layers))]
+
+    @classmethod
+    def init(cls, cfg, key: prng.Key, device="cuda") -> "EncDecLM":
+        """Weights drawn from the reference key ``key`` (:meth:`parts`)."""
+        top, stacks = cls.parts(cfg, key, resolve_device(device))
+        return cls(cfg, top, *([make(k) for k in keys]
+                               for _, make, keys in stacks))
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """Frame embeddings (B, T, D) -> the encoder's memory (B, T, D):
@@ -561,17 +627,221 @@ STACKS = {"dense": DecoderLM, "moe": DecoderLM, "vlm": DecoderLM,
           "hybrid": HybridLM, "ssm": XLSTMLM, "audio": EncDecLM}
 
 
+# ===========================================================================
+# Training: functional over the reference's params tree
+# ===========================================================================
+
+
+def _stacked(make, keys):
+    """``make(key)`` of each key -> one tree of (len(keys), ...) leaves,
+    filled a layer at a time (one layer's tree beside the stack)."""
+    out = None
+    for i, k in enumerate(keys):
+        t = make(k)
+        if out is None:
+            out = treemod.tree_map(
+                lambda leaf: leaf.new_empty((len(keys),) + leaf.shape), t)
+        treemod.tree_map(lambda o, leaf: o[i].copy_(leaf), out, t)
+    return out
+
+
+def init_params(cfg, key: prng.Key, device="cuda") -> Dict[str, object]:
+    """The reference's ``init(key)``: the params tree, each stack's layers
+    on axis 0 (the hybrid's Mamba2 layers (group, layer) on axes 0 and
+    1), drawn from ``key`` on ``device`` as :meth:`init` draws the
+    serving module's."""
+    device = resolve_device(device)
+    cls = STACKS[cfg.family]
+    if cls is HybridLM:
+        top, mamba, groups = cls.parts(cfg, key, device)
+        return {**top, "mamba": _stacked(lambda keys: _stacked(mamba, keys),
+                                         groups)}
+    top, stacks = cls.parts(cfg, key, device)
+    return {**top, **{name: _stacked(make, keys)
+                      for name, make, keys in stacks}}
+
+
+def _unstack(stacked, n: int):
+    """A tree of (n, ...) leaves -> n trees of views, one ``unbind`` a
+    leaf, so that autograd stacks the n layers' gradients in one op."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in stacked.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _n(stacked) -> int:
+    return treemod.tree_leaves(stacked)[0].shape[0]
+
+
+def _remat(cfg, fn):
+    """``fn`` run under ``torch.utils.checkpoint`` with ``cfg.remat``:
+    only its inputs are kept; the backward recomputes the rest."""
+    if not cfg.remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _embed(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, params["embed"]).to(
+        _dtype(cfg.compute_dtype))
+
+
+def _head(cfg, params, x: torch.Tensor, tied: bool = False):
+    x = layers.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return layers.lm_head(params["embed"], params.get("head"), x, tied)
+
+
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
+def _decoder_forward(cfg, params, batch, window=None):
+    """Dense, MoE, VLM -> (logits (B, P + S, V) f32, the summed aux)."""
+    x = _embed(cfg, params, batch["tokens"])
+    if cfg.family == "vlm" and "prefix_embeds" in batch:
+        cdt = x.dtype
+        pre = batch["prefix_embeds"].to(cdt) @ params["projector"].to(cdt)
+        x = torch.cat([pre, x], dim=1)
+    positions = _positions(x)
+    window = window or cfg.sliding_window
+    body = _remat(cfg, lambda x, lp: decoder_layer(
+        cfg, lp, x, positions, window, train=True)[:2])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name in ("layers_dense", "layers_moe"):
+        if name in params:
+            for lp in _unstack(params[name], _n(params[name])):
+                x, a = body(x, lp)
+                aux = aux + a
+    return _head(cfg, params, x, cfg.tie_embeddings), aux
+
+
+def _hybrid_forward(cfg, params, batch):
+    """Groups of Mamba2 layers (each its own remat body), the shared
+    attention block after each group -> logits."""
+    x = _embed(cfg, params, batch["tokens"])
+    positions = _positions(x)
+
+    def mamba(x, lp):
+        h = layers.rmsnorm(lp["ln"], x, cfg.norm_eps)
+        return x + ssm_lib.ssd_forward(lp["ssm"], cfg, h)
+    body = _remat(cfg, mamba)
+    for group in _unstack(params["mamba"], _n(params["mamba"])):
+        for lp in _unstack(group, _n(group)):
+            x = body(x, lp)
+        x = decoder_layer(cfg, params["shared_attn"], x, positions, None,
+                          train=True)[0]
+    return _head(cfg, params, x)
+
+
+def _xlstm_forward(cfg, params, batch):
+    """mLSTM / sLSTM pairs (a pair one remat body) -> logits."""
+    x = _embed(cfg, params, batch["tokens"])
+
+    def pair(x, mp, sp):
+        x, _ = xlstm.mlstm_block(mp, cfg, x)
+        return xlstm.slstm_block(sp, cfg, x)[0]
+    body = _remat(cfg, pair)
+    n = _n(params["mblocks"])
+    for mp, sp in zip(_unstack(params["mblocks"], n),
+                      _unstack(params["sblocks"], n)):
+        x = body(x, mp, sp)
+    return _head(cfg, params, x)
+
+
+def _encdec_forward(cfg, params, batch):
+    """The non-causal encoder over ``enc_frames``, then the decoder with
+    cross-attention to its memory -> logits."""
+    eps = cfg.norm_eps
+    x = batch["enc_frames"].to(_dtype(cfg.compute_dtype))
+    positions = _positions(x)
+
+    def enc(x, lp):
+        h = layers.rmsnorm(lp["ln1"], x, eps)
+        x = x + layers.full_attention(lp["attn"], cfg, h, positions,
+                                      causal=False, train=True)
+        h = layers.rmsnorm(lp["ln2"], x, eps)
+        return x + layers.mlp(lp["mlp"], cfg, h)
+    body = _remat(cfg, enc)
+    for lp in _unstack(params["enc"], _n(params["enc"])):
+        x = body(x, lp)
+    mem = layers.rmsnorm(params["ln_enc"], x, eps)
+
+    x = _embed(cfg, params, batch["tokens"])
+    positions = _positions(x)
+
+    def dec(x, lp):
+        h = layers.rmsnorm(lp["ln1"], x, eps)
+        x = x + layers.full_attention(lp["attn"], cfg, h, positions,
+                                      train=True)
+        h = layers.rmsnorm(lp["lnx"], x, eps)
+        x = x + layers.full_attention(lp["xattn"], cfg, h, positions,
+                                      memory=mem, train=True)
+        h = layers.rmsnorm(lp["ln2"], x, eps)
+        return x + layers.mlp(lp["mlp"], cfg, h)
+    body = _remat(cfg, dec)
+    for lp in _unstack(params["dec"], _n(params["dec"])):
+        x = body(x, lp)
+    return _head(cfg, params, x)
+
+
+_FORWARDS = {"hybrid": _hybrid_forward, "ssm": _xlstm_forward,
+             "audio": _encdec_forward}
+
+
+def forward(cfg, params, batch):
+    """The training forward of ``params`` on ``batch`` (``tokens`` (B, S)
+    int64; the VLM's ``prefix_embeds`` (B, P, D), the enc-dec's
+    ``enc_frames`` (B, T, D)) -> logits (B, S, V) f32, and for the
+    decoders (dense, moe, vlm; logits (B, P + S, V)) the summed aux
+    loss beside them."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _decoder_forward(cfg, params, batch)
+    return _FORWARDS[cfg.family](cfg, params, batch)
+
+
+def train_loss(cfg, params, batch):
+    """-> (the loss to differentiate, metrics): the next-token cross
+    entropy over ``tokens`` (``loss_mask`` (B, S - 1) optional); the
+    decoders add ``0.01 * aux`` and report ``{"loss", "aux"}``, the rest
+    ``{"loss"}``."""
+    tokens = batch["tokens"]
+    out = forward(cfg, params, batch)
+    decoder = cfg.family in ("dense", "moe", "vlm")
+    logits, aux = out if decoder else (out, None)
+    if cfg.family == "vlm" and "prefix_embeds" in batch:
+        logits = logits[:, batch["prefix_embeds"].shape[1]:]
+    loss = layers.cross_entropy(logits[:, :-1], tokens[:, 1:],
+                                batch.get("loss_mask"))
+    if not decoder:
+        return loss, {"loss": loss}
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+
+
+def param_count(params) -> int:
+    return sum(leaf.numel() for leaf in treemod.tree_leaves(params))
+
+
 @dataclasses.dataclass
 class Model:
-    """The reference's ``Model`` surface for serving: ``init(key)`` ->
-    the module; ``prefill``, ``decode_step`` and ``param_count`` are the
-    module's methods."""
+    """The reference's ``Model`` surface: ``init(key, device)`` -> the
+    serving module (whose ``prefill``, ``decode_step`` and
+    ``param_count`` are its methods); ``init_params(key, device)`` -> the
+    params tree that ``forward(params, batch)`` and ``train_loss(params,
+    batch)`` take; ``param_count(params)``."""
     cfg: object
     init: Callable[..., nn.Module]
+    init_params: Callable[..., Dict[str, object]]
+    forward: Callable
+    train_loss: Callable
+    param_count: Callable[[Dict[str, object]], int] = param_count
 
 
 def build_model(cfg) -> Model:
     """The model of ``cfg``, any family."""
     cfg.validate()
     cls = STACKS[cfg.family]
-    return Model(cfg, lambda key, device="cuda": cls.init(cfg, key, device))
+    return Model(
+        cfg, lambda key, device="cuda": cls.init(cfg, key, device),
+        lambda key, device="cuda": init_params(cfg, key, device),
+        lambda params, batch: forward(cfg, params, batch),
+        lambda params, batch: train_loss(cfg, params, batch))

@@ -6,7 +6,11 @@ sLSTM (scalar memory) is a recurrent scan in both.  The stabilisers keep
 the reference's order: log-sigmoid forget gates, the running max ``m``
 started at -1e30, ``exp`` of the differences, the normaliser's floor
 ``exp(-m)`` (mLSTM) or 1 (sLSTM).  Divisions by ``sqrt(hd)`` divide by
-the f32 root on the operand's device (:func:`layers.div_f32`).
+the f32 root on the operand's device (:func:`layers.div_f32`).  The
+training forward differentiates both blocks as they are: the sLSTM's
+time loop writes each step's h into a fresh buffer that nothing has
+saved, and its normaliser's floor ``max(n, 1)`` is ``torch.maximum``,
+whose gradient at a tie is ``jnp.maximum``'s.
 
 Blocks (xlstm-125m, d_ff = 0: the projections live in the blocks): mLSTM
 block = norm, up-projection to 2 x 2D, mLSTM * silu(gate),
@@ -175,6 +179,7 @@ def slstm_scan(p: Params, x: torch.Tensor, n_heads: int, state=None):
     if state is None:
         state = slstm_state_init(B, D, n_heads, x.device)
     c, n, h, m = state
+    one = torch.ones((), dtype=_F32, device=x.device)
     pre_seq = pre_all.reshape(B, S, 4, n_heads, hd)
     hs = torch.empty((B, S, n_heads, hd), dtype=_F32, device=x.device)
     for t in range(S):
@@ -189,7 +194,9 @@ def slstm_scan(p: Params, x: torch.Tensor, n_heads: int, state=None):
         f_s = torch.exp(logf + m - m_new)
         c = f_s * c + i_s * zt
         n = f_s * n + i_s
-        h = o * c / torch.clamp(n, min=1.0)
+        # max(n, 1), not clamp: at the tie (n is exactly 1 after the
+        # first step) the reference's gradient goes half to each side
+        h = o * c / torch.maximum(n, one)
         m = m_new
         hs[:, t] = h
     out = hs.reshape(B, S, D).to(x.dtype)
