@@ -299,6 +299,20 @@ Phases, each of which exits non-zero on failure:
      within ``rtol=1e-5, atol=1e-6`` (bitwise expected: the optimizer's
      FMAs round from f64 on both devices); (d) the flash wrapper raises on a
      differentiable bf16 input and launches nothing
+  9. the dry run (``repro_torch.launch.dryrun``, on the meta device, no
+     GPU): (a) ``run_pair`` of one pair of each kind (``DRYRUN_PAIRS``:
+     train, prefill, decode and long-context decode over four families,
+     seamless' sanctioned long_500k SKIP among them) on both production
+     meshes, records into ``chiprun_out/dryrun_torch``; a FAIL fails the
+     script; (b) its accounting held against one more, untimed step on
+     the card: phase 8a's full-width qwen3-1.7b, B = 4 x 1024 tokens of
+     the same stream (int32, as the dry run's specs), AdamW, on a
+     one-device mesh: the record's FLOPs exactly a ``FlopCounterMode``
+     count around the card step, its ``memory.argument_size_B`` exactly
+     the bytes of the real params, optimizer state and batch (nothing
+     else allocated), and its ``peak_live_B_global`` against
+     ``torch.cuda.max_memory_allocated()`` over the step, the ratio
+     within ``DRYRUN_PEAK_RATIO``
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -650,6 +664,16 @@ FL_SETTINGS = (("fedsgd", 1, (1.0, 1.0)), ("fedsgd", 1, (1.0, 0.0)),
 TRAIN_REDUCED_SHAPE, TRAIN_REDUCED_STEPS = (4, 64), 2
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 TRAIN_RTOL, TRAIN_ATOL = 1e-5, 1e-6
+#: phase 9 (a): one dry-run pair of each kind (arch, shape), on both
+#: production meshes
+DRYRUN_PAIRS = (("xlstm-125m", "train_4k"), ("qwen3-1.7b", "prefill_32k"),
+                ("seamless-m4t-medium", "decode_32k"),
+                ("granite-moe-1b-a400m", "long_500k"),
+                ("seamless-m4t-medium", "long_500k"))
+#: phase 9 (b): the bounds of the dry run's peak live bytes over the card
+#: step's max_memory_allocated, set from the first reading on one H100
+#: (0.9991: the card adds its cuBLAS workspace and 512-byte rounding)
+DRYRUN_PEAK_RATIO = (0.99, 1.01)
 
 
 def fail(msg: str) -> None:
@@ -4499,6 +4523,125 @@ def run_training(torch, k_mod, fa_mod, wrappers):
                 flash_refusal=refusal), fl_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dry run, and its accounting against a step on the card
+# ---------------------------------------------------------------------------
+
+
+def run_dryrun(torch, smi):
+    """Phase 9: (a) the dry run's pairs on both production meshes; (b) its
+    accounting of phase 8a's step against one more step on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import numpy as np
+
+    from repro_torch import tree as treemod
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import AxisMesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.prng import prng_key
+
+    out_dir = os.path.join(ROOT, "chiprun_out", "dryrun_torch")
+    t0 = time.perf_counter()
+    pairs = []
+    for arch, shape in DRYRUN_PAIRS:
+        for mesh in ("single", "multi"):
+            rec = dryrun.run_pair(arch, shape, mesh, out_dir)
+            pairs.append({k: rec.get(k) for k in (
+                "arch", "shape", "mesh", "status", "reason", "error",
+                "trace_s", "model_flops", "flops_global",
+                "useful_flops_ratio", "peak_live_B_global", "memory",
+                "collective_bytes", "bottleneck")})
+            print(f"  [{rec['status']}] {arch} x {shape} x {mesh}: "
+                  + (f"{rec['trace_s']} s, flops {rec['flops_global']:.4e}"
+                     f" (model {rec['model_flops']:.4e}), peak live "
+                     f"{rec['peak_live_B_global'] / 2**30:,.1f} GiB, "
+                     f"argument {rec['memory']['argument_size_B']:,} B a "
+                     f"device, {rec['bottleneck']}"
+                     if rec["status"] == "OK" else
+                     rec.get("reason") or rec.get("error")))
+            if rec["status"] == "FAIL" or (
+                    rec["status"] == "SKIP" and (arch, shape) != (
+                        "seamless-m4t-medium", "long_500k")):
+                fail(f"dry run {arch} x {shape} x {mesh}: {rec['status']} "
+                     f"{rec.get('error', rec.get('reason'))}")
+    wall_a = time.perf_counter() - t0
+    print(json.dumps({"phase": "9a", "records": len(pairs),
+                      "ok": sum(r["status"] == "OK" for r in pairs),
+                      "skip": sum(r["status"] == "SKIP" for r in pairs),
+                      "wall_s": wall_a}))
+
+    # (b) phase 8a's step: the dry run's record on a one-device mesh ...
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    shape = InputShape("phase9b", TRAIN_SEQ, TRAIN_BATCH, "train")
+    rec = dryrun.measure(cfg, shape, AxisMesh({"data": 1, "model": 1}))
+    # ... and the same step on the card: phase 8a's model, optimizer and
+    # first batch (int32 tokens, as the dry run's specs give them)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if hasattr(torch._C, "_cuda_clearCublasWorkspaces"):
+        torch._C._cuda_clearCublasWorkspaces()
+    before = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    params = model.init_params(prng_key(0), "cuda")
+    step_fn, opt = make_train_step(model, cfg, lr=TRAIN_LR)
+    state = opt.init(params)
+    toks = train.synthetic_lm_batch(np.random.default_rng(0),
+                                    cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ)
+    batch = {"tokens": torch.as_tensor(toks["tokens"]).to("cuda")}
+    args = treemod.tree_leaves(params) + treemod.tree_leaves(state) + [
+        batch["tokens"]]
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        step_fn(params, state, batch, 0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    flops = fc.get_total_flops()
+    del params, state, batch, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = rec["peak_live_B_global"] / peak
+    row = dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               optimizer=cfg.optimizer, meta_flops=rec["flops_global"],
+               card_flops=flops, meta_argument_B=rec["memory"][
+                   "argument_size_B"], card_argument_B=arg_bytes,
+               card_allocated_B=held,
+               meta_peak_live_B=rec["peak_live_B_global"],
+               card_peak_B=peak, peak_ratio=ratio,
+               meta_trace_s=rec["trace_s"], op_bytes=rec["op_bytes_global"],
+               model_flops=rec["model_flops"],
+               wall_s=time.perf_counter() - t0, smi=smi)
+    print(f"  (b) {TRAIN_ARCH} B {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"{cfg.optimizer}: FLOPs dry run {rec['flops_global']:,.0f} / "
+          f"card {flops:,}; argument bytes dry run "
+          f"{rec['memory']['argument_size_B']:,} / card {arg_bytes:,} "
+          f"(allocated {held:,}); peak live dry run "
+          f"{rec['peak_live_B_global']:,} B "
+          f"({rec['peak_live_B_global'] / 2**30:.2f} GiB) / card "
+          f"max_memory_allocated {peak:,} B ({peak / 2**30:.2f} GiB): "
+          f"ratio {ratio:.4f} (bounds {DRYRUN_PEAK_RATIO}); op bytes "
+          f"{rec['op_bytes_global']:,.0f}; {smi}")
+    print(json.dumps({"phase": "9b", **{k: v for k, v in row.items()
+                                        if k != "smi"}}))
+    if flops != rec["flops_global"]:
+        fail(f"the dry run's FLOPs {rec['flops_global']} are not the card "
+             f"step's {flops}")
+    if arg_bytes != rec["memory"]["argument_size_B"]:
+        fail(f"the dry run's argument bytes "
+             f"{rec['memory']['argument_size_B']} are not the card's "
+             f"{arg_bytes}")
+    if not DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1]:
+        fail(f"the dry run's peak over the card's, {ratio:.4f}, is outside "
+             f"{DRYRUN_PEAK_RATIO}")
+    return dict(pairs=pairs, wall_a_s=wall_a, step=row)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4679,6 +4822,14 @@ def main() -> None:
     training, fl_launches = run_training(torch, k_mod, fa_mod, wrappers)
     launches["safl_aggregate"] += fl_launches
     print(f"  phase 8: {time.perf_counter() - t0:.1f} s")
+    left(8)
+
+    print(f"== phase 9: the dry run ({len(DRYRUN_PAIRS)} pairs x 2 meshes, "
+          f"meta device); its accounting of {TRAIN_ARCH}'s step (B = "
+          f"{TRAIN_BATCH}, S {TRAIN_SEQ}) against the card")
+    t0 = time.perf_counter()
+    dry = run_dryrun(torch, smi_line())
+    print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
 
     kernels = [dict(
         name=name, route="cuda",
@@ -4709,7 +4860,7 @@ def main() -> None:
                        other_models=other_rows, traced=traced,
                        mesh_server=mesh_server, mesh=mesh_rows,
                        compression_path=compression, serving=serving,
-                       zoo=zoo, training=training,
+                       zoo=zoo, training=training, dryrun=dry,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

@@ -15,7 +15,8 @@ from repro_torch.configs import (
     minitron_4b, qwen3_1_7b, seamless_m4t_medium, starcoder2_3b,
     xlstm_125m, zamba2_2_7b,
 )
-from repro_torch.configs.base import FLConfig, ModelConfig  # noqa: F401
+from repro_torch.configs.base import (INPUT_SHAPES, FLConfig,  # noqa: F401
+                                      InputShape, ModelConfig)
 
 #: the zoo, in the reference's order
 ARCHS = {

@@ -11,6 +11,9 @@ reference (``remat``, ``scan_layers``, ``attn_impl``,
 (``optimizer``) are accepted; the serving path computes the same
 function under each.
 
+``InputShape`` and ``INPUT_SHAPES`` are the reference's four input
+shapes of the zoo (the dry run's, :mod:`repro_torch.launch.dryrun`).
+
 ``FLConfig`` is a copy of the reference's and its ``validate()``: the
 same fields, defaults and checks, so a config written for the reference
 means the same experiment here.  ``batch_clients=True`` (the default, as
@@ -26,6 +29,23 @@ from typing import Optional, Tuple
 
 #: the reference's model families
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+#: the zoo's four input shapes (the reference's ``INPUT_SHAPES``)
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 def round_up(x: int, m: int) -> int:

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import prng
+from repro_torch.kernels.checks import trips
 from repro_torch.models import layers
 
 Params = Dict[str, object]
@@ -172,7 +173,9 @@ def slstm_state_init(B: int, D: int, n_heads: int, device):
 
 def slstm_scan(p: Params, x: torch.Tensor, n_heads: int, state=None):
     """x (B, S, D) -> ((B, S, D), the carry (c, n, h, m)): the recurrent
-    scan over time."""
+    scan over time (every step; five under the dry run's counter, which
+    counts a middle one ``S - 4`` times:
+    :func:`repro_torch.kernels.checks.trips`)."""
     B, S, D = x.shape
     hd = D // n_heads
     pre_all = (x @ p["w"].to(x.dtype)).to(_F32) + p["b"]  # (B, S, 4D)
@@ -182,7 +185,7 @@ def slstm_scan(p: Params, x: torch.Tensor, n_heads: int, state=None):
     one = torch.ones((), dtype=_F32, device=x.device)
     pre_seq = pre_all.reshape(B, S, 4, n_heads, hd)
     hs = torch.empty((B, S, n_heads, hd), dtype=_F32, device=x.device)
-    for t in range(S):
+    for t in trips(S):
         rec = torch.einsum("ghde,bhe->bghd", p["r"], h)  # (B, 4, H, hd)
         pre = pre_seq[:, t] + rec
         zt = torch.tanh(pre[:, 0])
