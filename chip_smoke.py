@@ -14,12 +14,13 @@ Phases, each of which exits non-zero on failure:
      sets it
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
-     ``flash_attention.cu``, and ``aggregate_variants.cu`` and
-     ``quantize_variants.cu``, the q4 and q8 aggregates' and quantize's
-     parent designs), started together; the ptxas report must show no
-     spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two top-k
-     kernels, the f32 screen, the q4 and q8 folds, the q4 and q8
-     aggregates and the int8 pair's B = 512 kernels
+     ``flash_attention.cu``, ``int8dot.cu``, and ``aggregate_variants.cu``
+     and ``quantize_variants.cu``, the q4 and q8 aggregates' and
+     quantize's parent designs), started together; the ptxas report must
+     show no spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two
+     top-k kernels, the f32 screen, the q4 and q8 folds, the q4 and q8
+     aggregates, the int8 pair's B = 512 kernels and the two int8-dot
+     kernels
   3. each of the nine aggregation kernels (f32, q8 and packed-int4 q4
      rows) against its plain PyTorch version on the card, at the main
      path's shapes (D = 2,154,730, Dq = 2,155,008, K = 4) and at a
@@ -62,11 +63,17 @@ Phases, each of which exits non-zero on failure:
      levels -128 and +-127, a zero row and scales NaN, Inf, -Inf, 0 and
      negative, every non-NaN lane bitwise and NaN lanes in the same
      places; each on its B = 512 path, on a copy one element in and at
-     B = 100 (the general path).  Flash attention in f32 and bf16, causal and not, at the
+     B = 100 (the general path).  The int8-dot kernel of the q8 round's
+     large-K regime at the CNN's D for K = 32, 33, 64 and 128, its
+     coefficient scales made and given (the mesh's form), and at the odd
+     D = 4099 with K = 64 and at qblock 64: bitwise; rows one byte in
+     refused.
+     Flash attention in f32 and bf16, causal and not, at the
      reference test sweep's shapes, the full-width qwen3 prefill's (B 8,
      S 1024, H 16, Hkv 8, hd 128), a ragged S = 200 and two odd H / Hkv
-     (S = 200 at hd 128, S = 130 at hd 64), and zamba2's hd 80 (H 32 /
-     32) and kimi-k2's hd 112 (H 64 / 8) at S = 256 and 200; and at
+     (S = 200 at hd 128, S = 130 at hd 64), zamba2's hd 80 (H 32 /
+     32) and kimi-k2's hd 112 (H 64 / 8) at S = 256 and 200, and phase
+     11's batched serving prefill (B 16, S 32, H 16 / 8, hd 128); and at
      every shape, causality and dtype that phase 7e's prefills launch it
      with (bf16, B 4: S 512 for eight archs, the enc-dec's encoder
      non-causal, internvl2's S 1536 after its patches): within
@@ -80,7 +87,8 @@ Phases, each of which exits non-zero on failure:
      place into an aligned and into an odd bank row; the timer's floor,
      a one-element ``add_`` timed the same way), beside the bound
      (the larger of the bytes at 3.35 TB/s and the operations at the
-     dtype's dense peak: 67 TFLOP/s f32, 989 TFLOP/s bf16), the plain
+     dtype's dense peak: 67 TFLOP/s f32, 989 TFLOP/s bf16, 1,979 TOP/s
+     int8), the plain
      version and, where one exists, one PyTorch library call computing
      the same function (the screens at K = 1, the path's shape, and
      K = 4; the q8 screen also over a top-k upload's values), the top-k
@@ -88,7 +96,8 @@ Phases, each of which exits non-zero on failure:
      qwen3 prefill's shape in bf16 (f32 beside it; the library call
      ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)``)
      and at zamba2's shared-attention prefill (B 4, S 512, H 32 / 32,
-     hd 80, bf16);
+     hd 80, bf16), and the int8-dot kernel at K = 32, 64 and 128 beside
+     ``safl_aggregate_q8`` (fedsgd) on the same rows;
      the parent designs of the q8 aggregate (fedsgd and avg), of
      quantize and of dequantize beside the package's kernels, through
      ``ctypes``;
@@ -313,6 +322,23 @@ Phases, each of which exits non-zero on failure:
      else allocated), and its ``peak_live_B_global`` against
      ``torch.cuda.max_memory_allocated()`` over the step, the ratio
      within ``DRYRUN_PEAK_RATIO``
+  10. the q8 round's large-K int8-dot regime, ``REPRO_INT8_DOT=1`` set in
+     the process and removed after: (a) the full-width CNN (phase 6's
+     setup with 64 clients), sync, q8 wire, K = 64, 3 rounds of fedsgd
+     and fedavg: one int8-dot launch a round and no fused q8 aggregate,
+     every other counter 0; (b) ``fl_sim --mode sync --wire q8 --clients
+     64 --k 64`` the same; (c) both settings at phase 5's size card
+     against CPU (host fields equal, params within ``REGIME_CPU_RTOL`` of
+     the run's movement); (d) the server round at the CNN's D on one
+     device and on the (2, 2) mesh, every shard on cuda:0: card bitwise
+     the CPU, the mesh within ``REGIME_MESH_LEVELS`` coefficient levels
+     of the single device; (e) the variable unset: the same fedsgd run
+     makes no int8-dot launch
+  11. the examples: ``examples/torch_serve_batched.py`` with its
+     defaults, and its loop on the full-width qwen3-1.7b (16 requests of
+     8-32 tokens, 48 new, one flash launch a layer); and
+     ``examples/torch_distributed_pretrain.py`` under fedsgd and fedavg,
+     20 steps each, one ``safl_aggregate`` launch a step, drift 0
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -338,6 +364,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
+INT8_OPS = 1979e12  # H100 SXM dense int8 on the tensor cores
 D_FULL = 2_154_730
 K_MAIN = 4
 D_RAGGED, K_RAGGED = 4099, 3
@@ -352,7 +379,7 @@ KERNELS = ("safl_fold", "safl_aggregate", "sdga_aggregate", "safl_fold_q8",
            "screen_rows_q8", "safl_fold_q4", "safl_aggregate_q4",
            "sdga_aggregate_q4", "screen_rows_q4", "safl_fold_topk",
            "safl_aggregate_topk", "quantize_int8", "dequantize_int8",
-           "flash_attention")
+           "flash_attention", "weighted_sum_q8_int8dot")
 REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_aggregate": "src/repro/kernels/safl_agg.py:136",
             "sdga_aggregate": "src/repro/kernels/safl_agg.py:323",
@@ -369,18 +396,22 @@ REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
             "safl_aggregate_topk": "src/repro/kernels/safl_agg.py:779",
             "quantize_int8": "src/repro/kernels/quantize.py:96",
             "dequantize_int8": "src/repro/kernels/quantize.py:121",
-            "flash_attention": "src/repro/kernels/flash_attention.py:76"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:76",
+            # not a TPU kernel: the reference's XLA int8 einsum
+            "weighted_sum_q8_int8dot": "src/repro/kernels/ref.py:224"}
 #: the CUDA sources, each built by its own nvcc, all started together
-SOURCES = ("safl_agg", "quantize", "flash_attention")
+SOURCES = ("safl_agg", "quantize", "flash_attention", "int8dot")
 #: other designs built beside them: the q4 and q8 aggregates' parent
 #: kernels, which phase 3 holds the new ones against under the poly
 #: discount, and the quantize kernel's; phase 4 times the parents
 VARIANT_SOURCES = ("aggregate_variants", "quantize_variants")
 INT8_KERNELS = ("quantize_int8", "dequantize_int8")
 #: the source of each kernel: the int8 pair in csrc/quantize.cu, flash
-#: attention in csrc/flash_attention.cu, every other in csrc/safl_agg.cu
+#: attention in csrc/flash_attention.cu, the int8-dot reduction in
+#: csrc/int8dot.cu, every other in csrc/safl_agg.cu
 SOURCE_OF = {name: "quantize" if name in INT8_KERNELS else
-             "flash_attention" if name == "flash_attention" else "safl_agg"
+             name if name == "flash_attention" else
+             "int8dot" if name == "weighted_sum_q8_int8dot" else "safl_agg"
              for name in KERNELS}
 SDGA_KW = dict(server_lr=0.05, momentum=0.8, ema_anchor=0.05,
                ema_decay=0.95)
@@ -588,6 +619,34 @@ DRAW_SHAPE = (-(-D_FULL // QB), QB)
 NK_FULL = 421 * QB
 #: the aggregation modes the top-k wire carries (gradient targets)
 TOPK_AGGREGATIONS = ("fedsgd", "fedbuff", "fedopt", "sdga")
+#: phase 3 and 4: the int8-dot kernel's row counts at the CNN's D (the
+#: regime's threshold, one past it, the regime's K = 64 and twice that)
+INT8DOT_K = (32, 33, 64, 128)
+#: phase 10: the q8 round's int8-dot regime (REPRO_INT8_DOT=1): K = 64
+#: clients, all aggregated each sync round, 3 rounds, under fedsgd (SS)
+#: and fedavg (SA)
+REGIME_K, REGIME_ROUNDS, REGIME_SETTINGS = 64, 3, ("SS", "SA")
+#: phase 10: the card's regime runs against the CPU's at phase 5's size,
+#: relative to the run's own movement (a gradient that differs in its
+#: last bits can round to the next int8 level, on the wire or among the
+#: coefficients): 5x the largest reading on one H100, 7.864e-4 (SA; SS
+#: 4.030e-5), well inside phase 5's q8 bound of 2e-2
+REGIME_CPU_RTOL = 4e-3
+#: phase 10: the (2, 2) mesh round against the single device's, in
+#: coefficient levels: the mesh quantizes each block's coefficients w_k *
+#: s_kb on the grid of the unnormalized weights, the single device on that
+#: of w / sum(w), so a coefficient may land one level apart, which moves
+#: a lane by at most 127 levels of the block's coefficient scale (times
+#: the server lr under fedsgd).  The reference's own bound for this
+#: parity, atol = rtol = 2e-5 at D = 5000 (tests/test_multidevice.py),
+#: does not hold at the CNN's D: fedavg read 8.356e-4 on one H100, 0.999
+#: levels (one coefficient one level apart; fedsgd's unit weights give
+#: both the same grid: 0 levels, 2.384e-7 of f32 rounding)
+REGIME_MESH_LEVELS = 4
+#: phase 11: the batched serving example's requests and new tokens
+SERVE_BATCHED_REQUESTS, SERVE_BATCHED_NEW = 16, 48
+#: phase 11: the pretraining example's steps under each aggregation
+PRETRAIN_STEPS = 20
 #: rows of the int8 pair's checks and timings: the paper CNN's 4,209
 #: blocks of 512, and a ragged count (not a multiple of the 8 rows a
 #: quantize block takes)
@@ -604,7 +663,10 @@ FLASH_SHAPES = ((2, 128, 4, 4, 64), (2, 256, 8, 2, 32), (2, 64, 2, 1, 128),
                 # zamba2's hd 80 (32 / 32 heads) and kimi-k2's hd 112
                 # (64 / 8), each also at a ragged S
                 (2, 256, 32, 32, 80), (2, 256, 64, 8, 112),
-                (1, 200, 32, 32, 80), (1, 200, 64, 8, 112))
+                (1, 200, 32, 32, 80), (1, 200, 64, 8, 112),
+                # phase 11's batched serving of the full-width qwen3: 16
+                # requests left-padded to the longest prompt, 32 tokens
+                (SERVE_BATCHED_REQUESTS, 32, 16, 8, 128))
 #: phase 4: the zamba2 shared attention's prefill shape (B 4, prompt 512)
 FLASH_HD80_SHAPE = (4, 512, 32, 32, 80)
 #: the bf16 flash kernel's symbol: the profiler's flash share sums its
@@ -1256,6 +1318,48 @@ def check_int8(torch, q_mod, report, worst):
     torch.cuda.synchronize()
 
 
+def check_int8dot(torch, i8_mod, report, worst):
+    """The int8-dot kernel against its plain version: at the CNN's D
+    (Dq = 2,155,008, its last block 234 lanes of 512 and the rest
+    padding) for each K of :data:`INT8DOT_K`, with the coefficient scales
+    the kernel makes and with given ones (the mesh's form: 1.5 times the
+    rows' own, so every level moves); at the odd D = 4099 with K = 64 and
+    read as qblock 64 (16 threads a block): bitwise; a copy of those rows
+    one byte in is refused without a launch."""
+    from repro_torch.kernels import ref
+    g = torch.Generator(device="cuda").manual_seed(11)
+    name = "weighted_sum_q8_int8dot"
+
+    def held(q, s, w, qblock=QB, cs=None, **info):
+        compare(torch, report, worst, name,
+                i8_mod.weighted_sum_q8_int8dot(q, s, w, qblock, cs),
+                i8_mod.weighted_sum_q8_int8dot_plain(q, s, w, qblock, cs),
+                True, **info)
+
+    for k in INT8DOT_K:
+        q, s = q8_rows(torch, k, D_FULL, g)
+        w = agg_weights(torch, k, "avg", "none", g)
+        held(q, s, w, k=k, dq=dq_of(D_FULL))
+        held(q, s, w, cs=ref.int8dot_coeff_scale(s, w) * 1.5, k=k,
+             dq=dq_of(D_FULL), coeff_scale="given")
+        del q, s
+    q, s = q8_rows(torch, REGIME_K, D_RAGGED, g)
+    w = agg_weights(torch, REGIME_K, "avg", "none", g)
+    held(q, s, w, k=REGIME_K, d=D_RAGGED)
+    before = i8_mod.weighted_sum_q8_int8dot.launches
+    try:
+        i8_mod.weighted_sum_q8_int8dot(misaligned(torch, q), s, w)
+        fail(f"{name} took rows one byte in")
+    except ValueError as e:
+        print(f"  {name} on rows one byte in: refused ({e})")
+    if i8_mod.weighted_sum_q8_int8dot.launches != before:
+        fail(f"{name} launched on rows one byte in")
+    s64 = torch.rand((REGIME_K, dq_of(D_RAGGED) // 64), device="cuda",
+                     generator=g) * 0.01
+    held(q, s64, w, qblock=64, k=REGIME_K, d=D_RAGGED)
+    torch.cuda.synchronize()
+
+
 def flash_inputs(torch, shape, dtype, g):
     b, s, h, hkv, hd = shape
     return tuple(torch.randn((b, s, n, hd), device="cuda",
@@ -1559,7 +1663,7 @@ def raw_call(torch, fn, argtypes, *args):
     return call
 
 
-def time_kernels(torch, k_mod, q_mod, fa_mod, variants):
+def time_kernels(torch, k_mod, q_mod, fa_mod, i8_mod, variants):
     """Phase 4's timings: the records by kernel, the timer's floor, and the
     parent designs of the kernels this slice redesigned (``variants``:
     the variant sources' libraries), timed in the same way through
@@ -1814,6 +1918,30 @@ def time_kernels(torch, k_mod, q_mod, fa_mod, variants):
         ops=4 * b * h * hd * s_ * (s_ + 1) // 2, peak=BF16_FLOPS,
         shape=f"B={b} S={s_} H={h}/{hkv} hd={hd} bfloat16 causal")
     del fq, fk, fv, tq, tk, tv
+    # the int8-dot regime's kernel at K = 32, 64 (its record) and 128,
+    # beside the fused q8 aggregate it stands in for (fedsgd, unit
+    # weights) on the same rows; no one PyTorch call computes it (each
+    # block is its own (1, K) x (K, 512) integer product)
+    for kk in INT8DOT_K[0:1] + INT8DOT_K[2:]:
+        qk, sk = q8_rows(torch, kk, d, g)
+        wk = 0.5 + 3.5 * torch.rand((kk,), device="cuda", generator=g)
+        onesk = torch.ones((kk,), device="cuda")
+        key = ("weighted_sum_q8_int8dot" if kk == REGIME_K
+               else f"weighted_sum_q8_int8dot K={kk}")
+        out[key] = dict(
+            ms=t(lambda: i8_mod.weighted_sum_q8_int8dot(qk, sk, wk)),
+            plain_ms=t(lambda: i8_mod.weighted_sum_q8_int8dot_plain(
+                qk, sk, wk)),
+            library_ms=None, bytes=kk * dq + kk * nb * 4 + kk * 4 + dq * 4,
+            ops=2 * kk * dq, peak=INT8_OPS, shape=f"K={kk} Dq={dq}")
+        out[f"safl_aggregate_q8 K={kk}"] = dict(
+            ms=t(lambda: k_mod.safl_aggregate_q8(
+                qk, sk, onesk, p, server_lr=lr, mode="fedsgd")),
+            plain_ms=t(lambda: k_mod.safl_aggregate_q8_plain(
+                qk, sk, onesk, p, server_lr=lr, mode="fedsgd")),
+            library_ms=None, bytes=kk * dq + kk * nb * 4 + 2 * d * 4,
+            ops=3 * kk * d + 3 * d, shape=f"K={kk} Dq={dq} mode=fedsgd")
+        del qk, sk
     # the main path's three kernels of the other models at their full
     # widths' D: ResNet-18's and VGG-16's (the LSTM's rows are 114,256
     # and 163,074 lanes, launch-bound)
@@ -4642,6 +4770,333 @@ def run_dryrun(torch, smi):
     return dict(pairs=pairs, wall_a_s=wall_a, step=row)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the q8 round's int8-dot regime on the card
+# ---------------------------------------------------------------------------
+
+
+def per_round_launches(eng, kernels):
+    """Count, server round by server round, the launches each wrapper of
+    ``kernels`` makes: a list of tuples, one a round."""
+    seen = []
+    agg = eng._aggregate
+
+    def aggregate(*a, _agg=agg, **k):
+        before = [f.launches for f in kernels]
+        out = _agg(*a, **k)
+        seen.append(tuple(f.launches - b for f, b in zip(kernels, before)))
+        return out
+
+    eng._aggregate = aggregate
+    return seen
+
+
+def regime_mesh_server(torch, i8_mod, wrappers):
+    """The regime's server round at the CNN's full D on K = 64 q8 rows,
+    fedsgd (unit weights) and fedavg (data sizes): on one device and on
+    the (2, 2) mesh with every shard on cuda:0, each on the card and on
+    the CPU.  Card and CPU bitwise (the kernel is bitwise its plain
+    version, the rest the same ops); one int8-dot launch on the single
+    device, one a shard on the mesh; the mesh round within
+    :data:`REGIME_MESH_LEVELS` coefficient levels of the single device's
+    in every lane (plus 1e-6 of f32 rounding)."""
+    import numpy as np
+
+    from repro_torch.core.aggregation import FlatServer
+    from repro_torch.kernels import ref
+    from repro_torch.launch.fl_sim import SERVER_LR
+    from repro_torch.sharding import flat
+    name = "weighted_sum_q8_int8dot"
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rows = q8_rows(torch, REGIME_K, D_FULL, g)
+    on_cpu = tuple(a.cpu() for a in rows)
+    p = torch.randn((D_FULL,), device="cuda", generator=g)
+    sizes = np.random.default_rng(12).integers(
+        1, 100, REGIME_K).astype(np.float32)
+    out = []
+    for mode, w in (("fedsgd", np.ones(REGIME_K, np.float32)),
+                    ("fedavg", sizes)):
+        got = {}
+        for where in ("cuda", "cpu"):
+            for shape in (None, (2, 2)):
+                mesh = None if shape is None else card_mesh(
+                    torch, shape, "cpu" if where == "cpu"
+                    else [torch.device("cuda", 0)] * 4)
+                srv = FlatServer(mode, D_FULL,
+                                 server_lr=SERVER_LR.get(mode, 1.0),
+                                 wire="q8", device=where, mesh=mesh)
+                buf = flat.shard_rows(rows if where == "cuda" else on_cpu,
+                                      mesh)
+                pp = p if where == "cuda" else p.cpu()
+                for f in wrappers.values():
+                    f.launches = 0
+                new, _, _ = srv.step(pp, buf, w, srv.init_opt(pp))
+                torch.cuda.synchronize()
+                got[where, shape] = (new.cpu(), {
+                    n: f.launches for n, f in wrappers.items()
+                    if f.launches})
+        single, mesh22 = got["cuda", None], got["cuda", (2, 2)]
+        bitwise = all(torch.equal(got["cuda", sh][0], got["cpu", sh][0])
+                      for sh in (None, (2, 2)))
+        diff = (mesh22[0] - single[0]).abs()
+        err = float(diff.max())
+        # a lane's move for one coefficient level on the single device's
+        # grid (its weights normalized as FlatServer normalizes them)
+        wn = w / max(flat.xla_sum(w), np.float32(1e-12))
+        level = 127 * ref.int8dot_coeff_scale(
+            rows[1], torch.from_numpy(wn).cuda()).repeat_interleave(QB)
+        level = (level[:D_FULL] * (1.0 if mode == "fedavg"
+                                   else SERVER_LR[mode])).cpu()
+        levels = float(((diff - 1e-6).clamp_min(0) / level).max())
+        launches = (single[1], mesh22[1])
+        print(f"  regime server {mode} K={REGIME_K} D={D_FULL:,}: card vs "
+              f"CPU {'bitwise' if bitwise else 'DIFFER'} (single device "
+              f"and (2, 2)); (2, 2) on cuda:0 vs the single device "
+              f"max|err|={err:.3e}, {levels:.3f} coefficient levels "
+              f"(tolerance {REGIME_MESH_LEVELS} levels + 1e-6); launches "
+              f"single {single[1]}, (2, 2) {mesh22[1]}")
+        out.append(dict(mode=mode, card_cpu_bitwise=bitwise,
+                        mesh_vs_single_max_abs_err=err,
+                        mesh_vs_single_levels=levels,
+                        launches_single=single[1], launches_mesh=mesh22[1]))
+        if not (bitwise and levels <= REGIME_MESH_LEVELS
+                and launches == ({name: 1}, {name: 4})):
+            fail(f"regime server {mode}: card vs CPU bitwise {bitwise}, "
+                 f"mesh vs single {err:.3e} ({levels:.3f} levels), "
+                 f"launches {launches}")
+    del rows, on_cpu, p
+    return out
+
+
+def run_int8dot_regime(torch, i8_mod, k_mod, wrappers, smi):
+    """Phase 10: the q8 round's int8-dot regime, ``REPRO_INT8_DOT=1`` set
+    in this process and removed after.  (a) the full-width CNN engine
+    (phase 6's setup with 64 clients), sync, q8 wire, K = 64, 3 rounds of
+    fedsgd (SS) and fedavg (SA): every round one int8-dot launch and no
+    fused q8 aggregate, every other counter 0, finite params and eval;
+    (b) ``fl_sim`` as its CLI runs the regime (``--mode sync --wire q8
+    --clients 64 --k 64``); (c) the same two settings at phase 5's size
+    (64 clients) on the card and on the CPU: host fields equal, params
+    within :data:`REGIME_CPU_RTOL` of the CPU run's movement; (d)
+    :func:`regime_mesh_server`.  Then (e) with the variable unset, run (a)'s
+    fedsgd again: no int8-dot launch, the fused q8 aggregate once a round.
+    Returns (rows, the int8-dot launches of the regime's runs)."""
+    import io
+
+    from repro_torch.launch import fl_sim
+    name = "weighted_sum_q8_int8dot"
+    per_kernels = (i8_mod.weighted_sum_q8_int8dot, k_mod.safl_aggregate_q8)
+    kw = dict(k=REGIME_K, wire="q8")
+    rows, total = dict(full=[], small=[]), 0
+    setup = make_setup(width=32, hw=32, samples=2000, clients=REGIME_K)
+    os.environ["REPRO_INT8_DOT"] = "1"
+    try:
+        for setting in REGIME_SETTINGS:
+            eng = build_engine(torch, setup, setting, "cuda", **kw)
+            per = per_round_launches(eng, per_kernels)
+            eng, res, counts, wall, split, finite, drawn = run_engine(
+                torch, eng, wrappers, REGIME_ROUNDS)
+            check_run(torch, f"regime {setting}", kw, {name: REGIME_ROUNDS},
+                      eng, res, counts, finite, drawn, rounds=REGIME_ROUNDS)
+            if per != [(1, 0)] * REGIME_ROUNDS:
+                fail(f"regime {setting}: (int8-dot, safl_aggregate_q8) "
+                     f"launches by round {per}")
+            total += counts[name]
+            acc = [round(r.accuracy, 4) for r in res.metrics.records]
+            print(f"  regime {setting} full width (D = {D_FULL:,}), K = "
+                  f"{REGIME_K}, {REGIME_ROUNDS} rounds: acc/round {acc}, "
+                  f"(int8-dot, safl_aggregate_q8) launches by round {per}, "
+                  f"wall {wall:.3f} s: {split_line(split)}; {smi}")
+            rows["full"].append(dict(setting=setting, accuracy=acc,
+                                     per_round=per, wall_s=wall,
+                                     split_s=split, launches=counts))
+            del eng
+        for f in wrappers.values():
+            f.launches = 0
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            summary = fl_sim.main([
+                "--mode", "sync", "--wire", "q8", "--clients",
+                str(REGIME_K), "--k", str(REGIME_K), "--rounds",
+                str(REGIME_ROUNDS), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        counts = {n: f.launches for n, f in wrappers.items() if f.launches}
+        print(f"  fl_sim --mode sync --wire q8 --clients {REGIME_K} --k "
+              f"{REGIME_K} --rounds {REGIME_ROUNDS} (REPRO_INT8_DOT=1): "
+              f"launches {counts}, wall {wall:.3f} s")
+        if counts != {name: REGIME_ROUNDS}:
+            fail(f"fl_sim in the regime: launches {counts}")
+        total += counts[name]
+        rows["fl_sim"] = dict(launches=counts, wall_s=wall,
+                              log=log.getvalue()[-4000:],
+                              summary_keys=sorted(summary))
+        small = make_setup(width=4, hw=8, samples=2000, clients=REGIME_K)
+        for setting in REGIME_SETTINGS:
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                eng = build_engine(torch, small, setting, dev, **kw)
+                p0 = eng._flat_params.cpu()
+                for f in wrappers.values():
+                    f.launches = 0
+                res = eng.run(REGIME_ROUNDS)
+                counts = {n: f.launches for n, f in wrappers.items()
+                          if f.launches}
+                runs[dev] = (eng, run_record(eng, res, counts, {}))
+            (ec, rc), (eg, rg) = runs["cpu"], runs["cuda"]
+            host_differ = [key for key in HOST_FIELDS if rc[key] != rg[key]]
+            pc, pg = ec._flat_params, eg._flat_params.cpu()
+            rel = float((pc - pg).norm() / (pc - p0).norm())
+            print(f"  regime {setting} small (width 4, 8x8, {REGIME_K} "
+                  f"clients) card vs CPU, {REGIME_ROUNDS} rounds: host "
+                  f"fields {'equal' if not host_differ else host_differ}, "
+                  f"params relative to the CPU run's movement {rel:.3e} "
+                  f"(tolerance {REGIME_CPU_RTOL}); launches card "
+                  f"{rg['launches']}, CPU {rc['launches']}")
+            rows["small"].append(dict(setting=setting, rel=rel,
+                                      host_differ=host_differ,
+                                      launches=rg["launches"]))
+            if host_differ or not rel <= REGIME_CPU_RTOL or \
+                    rg["launches"] != {name: REGIME_ROUNDS} or \
+                    rc["launches"]:
+                fail(f"regime {setting} small: card vs CPU {host_differ}, "
+                     f"rel {rel:.3e}, launches {rg['launches']} / "
+                     f"{rc['launches']}")
+            total += rg["launches"][name]
+            del runs, ec, eg
+        rows["mesh_server"] = regime_mesh_server(torch, i8_mod, wrappers)
+        total += sum(r["launches_single"][name] + r["launches_mesh"][name]
+                     for r in rows["mesh_server"])
+    finally:
+        del os.environ["REPRO_INT8_DOT"]
+    eng = build_engine(torch, setup, "SS", "cuda", **kw)
+    per = per_round_launches(eng, per_kernels)
+    eng, res, counts, wall, _, finite, drawn = run_engine(
+        torch, eng, wrappers, REGIME_ROUNDS)
+    check_run(torch, "SS q8 K=64, REPRO_INT8_DOT unset", kw,
+              {"safl_aggregate_q8": REGIME_ROUNDS}, eng, res, counts, finite,
+              drawn, rounds=REGIME_ROUNDS)
+    print(f"  REPRO_INT8_DOT unset, SS full width K = {REGIME_K}: "
+          f"(int8-dot, safl_aggregate_q8) launches by round {per}")
+    rows["unset"] = dict(per_round=per, launches=counts)
+    del eng
+    print(json.dumps({"phase": "10", "int8dot_launches": total,
+                      "full_width_wall_s": [r["wall_s"]
+                                            for r in rows["full"]],
+                      "small_rel": [r["rel"] for r in rows["small"]],
+                      "mesh_vs_single_levels": [
+                          r["mesh_vs_single_levels"]
+                          for r in rows["mesh_server"]],
+                      "unset_per_round": per, "smi": smi}))
+    return rows, total
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the two LLM examples
+# ---------------------------------------------------------------------------
+
+
+def load_example(name):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(torch, wrappers, smi):
+    """Phase 11: (a) ``examples/torch_serve_batched.py`` with its defaults
+    (the reduced xlstm-125m, 16 requests, 48 new tokens) on the card;
+    (b) its loop on the full-width qwen3-1.7b: 16 requests of 8-32
+    tokens, 48 new, one flash launch a layer in the prefill, every id
+    inside the vocabulary; (c) ``examples/torch_distributed_pretrain.py``
+    under fedsgd and fedavg, 20 steps each: one ``safl_aggregate`` launch
+    a step, the drift between the pods 0.  Returns (rows, flash launches,
+    safl_aggregate launches)."""
+    import math
+
+    from repro_torch.configs import get_config
+    serve_ex = load_example("torch_serve_batched")
+    pretrain_ex = load_example("torch_distributed_pretrain")
+    rows = {}
+
+    def counts():
+        return {n: f.launches for n, f in wrappers.items() if f.launches}
+
+    def reset():
+        for f in wrappers.values():
+            f.launches = 0
+
+    reset()
+    t0 = time.perf_counter()
+    out = serve_ex.main([])
+    wall = time.perf_counter() - t0
+    if counts() or out["batch"] != SERVE_BATCHED_REQUESTS:
+        fail(f"torch_serve_batched defaults: launches {counts()}, batch "
+             f"{out['batch']}")
+    rows["serve_defaults"] = dict(wall_s=wall, lens=out["lens"],
+                                  steps=out["steps"],
+                                  t_prefill=out["t_prefill"],
+                                  t_decode=out["t_decode"])
+    print(json.dumps({"phase": "11a", "example": "torch_serve_batched",
+                      "arch": "xlstm-125m (reduced)", "wall_s": wall,
+                      "prefill_s": out["t_prefill"],
+                      "decode_s": out["t_decode"], "steps": out["steps"],
+                      "smi": smi}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(SERVE_ARCH)
+    reset()
+    t0 = time.perf_counter()
+    out = serve_ex.run(cfg, SERVE_BATCHED_REQUESTS, SERVE_BATCHED_NEW,
+                       "cuda")
+    wall = time.perf_counter() - t0
+    flash = counts().get("flash_attention", 0)
+    shape = (out["batch"], out["prompt"], cfg.n_heads, cfg.n_kv_heads,
+             cfg.hd)
+    if counts() != {"flash_attention": expected_flash(cfg)} or \
+            shape not in FLASH_SHAPES or min(out["lens"]) <= 0:
+        fail(f"torch_serve_batched on full-width {SERVE_ARCH}: launches "
+             f"{counts()}, prefill shape {shape}, lengths {out['lens']}")
+    tokens = sum(out["lens"])
+    rows["serve_full"] = dict(arch=SERVE_ARCH, wall_s=wall, lens=out["lens"],
+                              steps=out["steps"], prefill_shape=shape,
+                              t_prefill=out["t_prefill"],
+                              t_decode=out["t_decode"], launches=counts())
+    print(json.dumps({"phase": "11b", "example": "torch_serve_batched",
+                      "arch": SERVE_ARCH, "full_width": True,
+                      "requests": out["batch"], "max_prompt": out["prompt"],
+                      "tokens": tokens, "steps": out["steps"],
+                      "wall_s": wall, "prefill_s": out["t_prefill"],
+                      "decode_s": out["t_decode"],
+                      "decode_tokens_per_s": tokens / out["t_decode"],
+                      "flash_launches": flash, "smi": smi}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    safl = 0
+    rows["pretrain"] = []
+    for agg in ("fedsgd", "fedavg"):
+        reset()
+        out = pretrain_ex.run(steps=PRETRAIN_STEPS, aggregation=agg,
+                              device="cuda")
+        if out["drift"] != 0.0 or counts() != {
+                "safl_aggregate": PRETRAIN_STEPS} or \
+                not all(math.isfinite(x) for x in out["losses"]):
+            fail(f"torch_distributed_pretrain {agg}: drift {out['drift']}, "
+                 f"launches {counts()}, losses {out['losses']}")
+        safl += PRETRAIN_STEPS
+        rows["pretrain"].append(dict(aggregation=agg, **out))
+        print(json.dumps({"phase": "11c", "example":
+                          "torch_distributed_pretrain", "aggregation": agg,
+                          "steps": PRETRAIN_STEPS, "wall_s": out["wall_s"],
+                          "loss_first_last": [out["losses"][0],
+                                              out["losses"][-1]],
+                          "drift": out["drift"], "smi": smi}))
+    return rows, flash, safl
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4650,9 +5105,11 @@ def main() -> None:
 
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import int8dot as i8_mod
     from repro_torch.kernels import quantize as q_mod
     from repro_torch.kernels import safl_agg as k_mod
-    wrappers = {**k_mod.KERNELS, **q_mod.KERNELS, **fa_mod.KERNELS}
+    wrappers = {**k_mod.KERNELS, **q_mod.KERNELS, **fa_mod.KERNELS,
+                **i8_mod.KERNELS}
     if sorted(wrappers) != sorted(KERNELS):
         fail(f"kernel wrappers {sorted(wrappers)} are not {sorted(KERNELS)}")
 
@@ -4706,7 +5163,9 @@ def main() -> None:
             # the mangled names' length prefixes tell the pair apart
             # (quantize_int8_b512_kernel is a substring of the other)
             ("quantize", "25quantize_int8_b512_kernel", 1),
-            ("quantize", "27dequantize_int8_b512_kernel", 1)):
+            ("quantize", "27dequantize_int8_b512_kernel", 1),
+            # the coefficient scales made or given
+            ("int8dot", "int8dot_kernel", 2)):
         spilled = spills(infos[source]["log"], symbol)
         print(f"  {symbol}: {len(spilled)} instantiations, spill bytes "
               f"{sorted(spilled.values())} (tolerance: 0)")
@@ -4737,13 +5196,14 @@ def main() -> None:
                           variants["aggregate_variants"], wire)
     check_topk(torch, k_mod, check_rows, worst)
     check_int8(torch, q_mod, check_rows, worst)
+    check_int8dot(torch, i8_mod, check_rows, worst)
     check_draws(torch, check_rows)
     check_flash(torch, fa_mod, check_rows, worst)
     left(3)
 
     print("== phase 4: timings (L2 flushed before each launch)")
     timing, floor_ms, parent_ms = time_kernels(torch, k_mod, q_mod, fa_mod,
-                                               variants)
+                                               i8_mod, variants)
     one_launch = check_one_launch(torch, k_mod, q_mod)
     codec_ms = time_codec(torch)
     left(4)
@@ -4830,6 +5290,26 @@ def main() -> None:
     t0 = time.perf_counter()
     dry = run_dryrun(torch, smi_line())
     print(f"  phase 9: {time.perf_counter() - t0:.1f} s")
+    left(9)
+
+    print(f"== phase 10: the q8 round's int8-dot regime (REPRO_INT8_DOT=1), "
+          f"K = {REGIME_K}, {REGIME_ROUNDS} rounds of "
+          f"{', '.join(REGIME_SETTINGS)}")
+    t0 = time.perf_counter()
+    regime, launches["weighted_sum_q8_int8dot"] = run_int8dot_regime(
+        torch, i8_mod, k_mod, wrappers, smi_line())
+    regime["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 10: {regime['wall_s']:.1f} s")
+    left(10)
+
+    print(f"== phase 11: the examples: batched serving (defaults, and "
+          f"{SERVE_ARCH} at full width), cross-pod pretraining")
+    t0 = time.perf_counter()
+    examples, ex_flash, ex_safl = run_examples(torch, wrappers, smi_line())
+    examples["wall_s"] = time.perf_counter() - t0
+    launches["flash_attention"] += ex_flash
+    launches["safl_aggregate"] += ex_safl
+    print(f"  phase 11: {examples['wall_s']:.1f} s")
 
     kernels = [dict(
         name=name, route="cuda",
@@ -4861,6 +5341,7 @@ def main() -> None:
                        mesh_server=mesh_server, mesh=mesh_rows,
                        compression_path=compression, serving=serving,
                        zoo=zoo, training=training, dryrun=dry,
+                       int8dot_regime=regime, examples=examples,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

@@ -52,6 +52,17 @@ The engine always hands over the FINAL per-upload weights
 the reference), so the kernels run with ``discount="none"``.  The two
 channels agree bitwise in every mode and on every wire.
 
+On the q8 wire, a buffered round of K >= 32 rows takes the reference's
+large-K int8-dot regime when ``REPRO_INT8_DOT=1`` opens its gate
+(:func:`repro_torch.kernels.ref.int8dot_auto`; closed by default on both
+devices): the weighted mean is one
+:func:`~repro_torch.kernels.int8dot.weighted_sum_q8_int8dot` launch over
+the normalized weights (the reference's ``q8_mean``), and each mode steps
+from it in PyTorch ops; on a mesh each shard's partial is that kernel over
+its unnormalized weights, on coefficient scales maxed over every shard.
+fedasync keeps its fold program.  The streaming channel never takes the
+regime, so there the two channels differ, as the reference's do.
+
 On a mesh (``mesh``, :mod:`repro_torch.sharding.flat`: the 1-D pod mesh
 or the 2-D (edge, pod) one) the channel's rows live on their shards:
 each shard's partial is the unnormalized weighted sum of its own rows on
@@ -75,15 +86,17 @@ import torch
 from repro_torch import tree
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
+from repro_torch.kernels.int8dot import weighted_sum_q8_int8dot
 from repro_torch.kernels.quantize import BLOCK as QBLOCK
 from repro_torch.kernels.safl_agg import (
     safl_aggregate, safl_aggregate_q4, safl_aggregate_q8,
     safl_aggregate_topk, safl_fold, safl_fold_q4, safl_fold_q8,
     safl_fold_topk, screen_rows, screen_rows_q4, screen_rows_q8,
     sdga_aggregate, sdga_aggregate_q4, sdga_aggregate_q8)
-from repro_torch.sharding.flat import (edge_traffic, mesh_size,
+from repro_torch.sharding.flat import (edge_traffic, mesh_max, mesh_size,
                                        podwise_bank_sums, podwise_sums,
-                                       sum_in_order)
+                                       shard_weights, sum_in_order,
+                                       xla_sum)
 
 Tree = Any
 
@@ -419,14 +432,39 @@ class FlatServer:
         return (float(pprod) * p0 + s,
                 np.float32(np.float32(1.0) - np.float32(pprod)))
 
-    def _partial_sums(self, rows, w: np.ndarray):
+    def _int8dot(self, k: int) -> bool:
+        """Whether a buffered round of ``k`` rows (the global K on a mesh)
+        takes the q8 wire's int8-dot regime (:func:`ref.int8dot_auto`);
+        fedasync keeps its fold program, as in the reference's engine
+        form."""
+        return (self.wire == "q8" and self.mode != "fedasync"
+                and ref.int8dot_auto(k))
+
+    def _mesh_coeff_scale(self, buf, wvec) -> torch.Tensor:
+        """The int8-dot regime's coefficient scales on a mesh: each
+        shard's :func:`ref.int8dot_coeff_scale` of its unnormalized
+        weights, then their elementwise max on the home device (the
+        reference's ``pmax`` over both axes), so every shard quantizes its
+        coefficients on one grid."""
+        return mesh_max([
+            ref.int8dot_coeff_scale(
+                s, torch.from_numpy(np.ascontiguousarray(w)).to(s.device))
+            for (_, s), w in zip(buf, shard_weights(self.mesh, buf, wvec))])
+
+    def _partial_sums(self, rows, w: np.ndarray, coeff_scale=None):
         """One shard's partial on its device: the unnormalized weighted
         sum of its rows (the aggregate kernel of the wire in mode
-        ``sum``; the q8 / q4 rows dequantized onto the (Dq,) grid), and
-        its weight mass, the in-order sum of its host weights."""
+        ``sum``; the q8 / q4 rows dequantized onto the (Dq,) grid; in the
+        int8-dot regime, given ``coeff_scale``, the int8-dot kernel on
+        that grid), and its weight mass, the in-order sum of its host
+        weights."""
         lead = rows[0] if isinstance(rows, tuple) else rows
         wt = torch.from_numpy(np.ascontiguousarray(w)).to(lead.device)
-        if self.wire == "topk":
+        if coeff_scale is not None:
+            g = weighted_sum_q8_int8dot(
+                *rows, wt, self.qblock,
+                coeff_scale=coeff_scale.to(lead.device))
+        elif self.wire == "topk":
             g = safl_aggregate_topk(*rows, wt, self.d, qblock=self.qblock)
         elif self._qk is not None:
             g = self._qk.aggregate(*rows, wt, mode="sum", qblock=self.qblock)
@@ -465,10 +503,17 @@ class FlatServer:
             new, wsum = self._mix(params_flat, bank[0][:self.d], pprod)
             return new, opt, self._metrics(new, params_flat, wsum)
         if self.mesh is not None:
-            # per-shard partials, the mesh's tree, one step body
-            gsum, wsum = self._pod_reduce(buf, wvec)
+            # per-shard partials, the mesh's tree, one step body; the
+            # int8-dot regime keys on the global K
+            kw = ({"coeff_scale": self._mesh_coeff_scale(buf, wvec)}
+                  if self._int8dot(len(wvec)) else {})
+            gsum, wsum = self._pod_reduce(buf, wvec, **kw)
             new, opt = self._from_sums(params_flat, gsum[:self.d], wsum,
                                        opt)
+            return new, opt, self._metrics(new, params_flat,
+                                           sum_in_order(wvec))
+        if self._int8dot(len(wvec)):
+            new, opt = self._int8dot_step(params_flat, buf, wvec, opt)
             return new, opt, self._metrics(new, params_flat,
                                            sum_in_order(wvec))
         w = torch.from_numpy(wvec).to(self.device)
@@ -509,6 +554,19 @@ class FlatServer:
                 new = g
         return new, opt, self._metrics(new, params_flat, sum_in_order(wvec))
 
+    def _int8dot_step(self, p0, buf, wvec: np.ndarray, opt):
+        """The single device's round in the int8-dot regime, as the
+        reference's ``q8_mean`` and step: the weights normalized on the
+        host, ``w / max(sum w, 1e-12)`` (the sum in the reference's jitted
+        order, :func:`~repro_torch.sharding.flat.xla_sum`), one int8-dot
+        launch for the mean,
+        then each mode's step in PyTorch ops in the reference's op order
+        (the fused q8 aggregate is not launched)."""
+        wn = wvec / max(xla_sum(wvec), np.float32(1e-12))
+        g = weighted_sum_q8_int8dot(
+            *buf, torch.from_numpy(wn).to(self.device), self.qblock)
+        return self._step_from_mean(p0, g[:self.d], opt)
+
     def fold_program(self, bank: torch.Tensor, *args) -> torch.Tensor:
         """``fold_program(bank, *payload, ridx, w, beta)``: bank[ridx] <-
         beta*bank[ridx] + w*payload, in place (payload = (vec,) f32,
@@ -532,7 +590,12 @@ class FlatServer:
         """The reference's ``_from_sums`` in its op order
         (``p0 - lr * (gsum / wsafe)``), so the result equals the buffered
         ``step`` bitwise."""
-        g = gsum / self._scalar(max(wsum, np.float32(1e-12)))
+        return self._step_from_mean(
+            p0, gsum / self._scalar(max(wsum, np.float32(1e-12))), opt)
+
+    def _step_from_mean(self, p0, g, opt):
+        """Each mode's server step from the weighted mean ``g`` (fedasync
+        aside), in the reference's op order."""
         if self.mode == "fedavg":
             return g, opt
         if self.mode in ("fedsgd", "fedbuff"):

@@ -11,6 +11,8 @@ Host scalars (fold weights, survival factors) are np.float32 values.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -189,6 +191,42 @@ def screen_sumsq_q4_ref(p: torch.Tensor, scales: torch.Tensor,
                         qblock: int) -> torch.Tensor:
     """Packed int4 screening: unpack the nibbles, then the q8 rule."""
     return screen_sumsq_q8_ref(unpack_q4_ref(p), scales, qblock)
+
+
+# --------------- the q8 round's large-K int8-dot regime ---------------
+
+#: rows at which the int8-dot regime may engage (the reference's constant)
+INT8_DOT_MIN_K = 32
+
+
+def int8dot_auto(k: int) -> bool:
+    """Whether the buffered q8 round of K rows takes the int8-dot regime
+    (:func:`repro_torch.kernels.int8dot.weighted_sum_q8_int8dot`).
+
+    ``REPRO_INT8_DOT=1`` / ``=0`` override the platform gate exactly as
+    the reference's ``int8dot_auto`` reads them, and the ``K >=
+    INT8_DOT_MIN_K`` threshold always holds.  The platform gate itself
+    is closed on both devices: on the CPU the reference closes it (XLA
+    emulates the int8 GEMM), and the port's card path is the counterpart
+    of the reference's Pallas backend, which runs the q8 aggregate kernel
+    at every K.  So with the variable unset every round keeps the fused
+    ``safl_aggregate_q8`` / ``sdga_aggregate_q8`` path and its launches.
+    """
+    env = os.environ.get("REPRO_INT8_DOT", "").strip()
+    if env in ("0", "1"):
+        return env == "1" and k >= INT8_DOT_MIN_K
+    return False
+
+
+def int8dot_coeff_scale(scales: torch.Tensor,
+                        w: torch.Tensor) -> torch.Tensor:
+    """(nb,) per-block absmax scale of the reduction coefficients c_kb =
+    w_k * s_kb, as the reference's jitted ``int8dot_coeff_scale`` computes
+    it: the column absmax over K times f32(1/127) (XLA's rewrite of
+    ``absmax / 127``).  The mesh takes the elementwise max of every
+    shard's, so each shard quantizes on the single device's grid."""
+    c = w.to(torch.float32)[:, None] * scales
+    return c.abs().amax(dim=0) * INV_127
 
 
 # ------------------------- top-k sparse wire -------------------------

@@ -153,6 +153,25 @@ def sum_in_order(w) -> np.float32:
     return s
 
 
+def xla_sum(w) -> np.float32:
+    """np.float32 sum of the host vector ``w`` in the order the
+    reference's jitted ``jnp.sum`` takes on XLA's CPU backend: up to 32
+    elements one after another from 0 (:func:`sum_in_order`); beyond, the
+    vector zero-padded (half the padding in front, the odd one behind) to
+    windows of 32, each window summed so, and the window sums reduced the
+    same way (XLA's tree-reduction rewrite).  The int8-dot regime's mean
+    normalizes its weights by it (``FlatServer``)."""
+    w = np.asarray(w, np.float32).reshape(-1)
+    while len(w) > 32:
+        n = -(-len(w) // 32)
+        pad = n * 32 - len(w)
+        x = np.concatenate([np.zeros(pad // 2, np.float32), w,
+                            np.zeros(pad - pad // 2, np.float32)])
+        w = np.array([sum_in_order(x[i * 32:(i + 1) * 32])
+                      for i in range(n)], np.float32)
+    return sum_in_order(w)
+
+
 def _add(a, b):
     """a + b, ``b`` first moved to ``a``'s device where it is a tensor."""
     if isinstance(b, torch.Tensor):
@@ -209,23 +228,39 @@ def shard_rows(x, mesh: Optional[Mesh]):
     return [x[s * per:(s + 1) * per].to(mesh.devices[s]) for s in range(n)]
 
 
-def podwise_sums(mesh: Mesh, partial_fn: Callable) -> Callable:
-    """The server reduction over the mesh: ``partial_fn(rows_s, w_s) ->
-    (gsum_s, wsum_s)`` is one shard's unnormalized weighted row sum (on
-    its device) and weight mass (host np.float32); the returned callable
-    maps the per-shard rows and the full host weight vector (shard-major,
-    each shard's slice ``len(wvec) / N`` long) to the reduced ``(gsum,
-    wsum)`` (:func:`mesh_reduce`)."""
+def shard_weights(mesh: Mesh, shard_bufs: Sequence,
+                  wvec: np.ndarray) -> List[np.ndarray]:
+    """The full host weight vector (shard-major) cut into each shard's
+    slice, ``len(wvec) / N`` long."""
     n = mesh.size
+    wvec = np.asarray(wvec, np.float32)
+    if len(shard_bufs) != n or len(wvec) % n:
+        raise ValueError(f"{len(shard_bufs)} shard buffers and "
+                         f"{len(wvec)} weights for {n} shards")
+    per = len(wvec) // n
+    return [wvec[s * per:(s + 1) * per] for s in range(n)]
 
-    def reduce(shard_bufs: Sequence, wvec: np.ndarray):
-        wvec = np.asarray(wvec, np.float32)
-        if len(shard_bufs) != n or len(wvec) % n:
-            raise ValueError(f"{len(shard_bufs)} shard buffers and "
-                             f"{len(wvec)} weights for {n} shards")
-        per = len(wvec) // n
-        parts = [partial_fn(buf, wvec[s * per:(s + 1) * per])
-                 for s, buf in enumerate(shard_bufs)]
+
+def mesh_max(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The elementwise max of one tensor a shard, on shard 0's device
+    (the reference's ``pmax`` over every mesh axis; max is exact, so the
+    order does not matter)."""
+    out = parts[0]
+    for p in parts[1:]:
+        out = torch.maximum(out, p.to(out.device))
+    return out
+
+
+def podwise_sums(mesh: Mesh, partial_fn: Callable) -> Callable:
+    """The server reduction over the mesh: ``partial_fn(rows_s, w_s,
+    **kw) -> (gsum_s, wsum_s)`` is one shard's unnormalized weighted row
+    sum (on its device) and weight mass (host np.float32); the returned
+    callable maps the per-shard rows and the full host weight vector
+    (:func:`shard_weights`), and keyword arguments every shard gets, to
+    the reduced ``(gsum, wsum)`` (:func:`mesh_reduce`)."""
+    def reduce(shard_bufs: Sequence, wvec: np.ndarray, **kw):
+        parts = [partial_fn(buf, w, **kw) for buf, w in
+                 zip(shard_bufs, shard_weights(mesh, shard_bufs, wvec))]
         return (mesh_reduce(mesh, [g for g, _ in parts]),
                 mesh_reduce(mesh, [m for _, m in parts]))
 
