@@ -14,9 +14,10 @@ Phases, each of which exits non-zero on failure:
      sets it
   2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
      ``nvcc`` per source (``safl_agg.cu``, ``quantize.cu``,
-     ``flash_attention.cu``, ``int8dot.cu``, and ``aggregate_variants.cu``
-     and ``quantize_variants.cu``, the q4 and q8 aggregates' and
-     quantize's parent designs), started together; the ptxas report must
+     ``flash_attention.cu``, ``int8dot.cu``, and ``aggregate_variants.cu``,
+     ``quantize_variants.cu`` and ``flash_variants.cu``, the q4 and q8
+     aggregates', quantize's and the bf16 flash kernel's parent designs),
+     started together; the ptxas report must
      show no spills in the bf16 flash kernel (``FLASH_SYMBOL``), the two
      top-k kernels, the f32 screen, the q4 and q8 folds, the q4 and q8
      aggregates, the int8 pair's B = 512 kernels and the two int8-dot
@@ -73,7 +74,8 @@ Phases, each of which exits non-zero on failure:
      S 1024, H 16, Hkv 8, hd 128), a ragged S = 200 and two odd H / Hkv
      (S = 200 at hd 128, S = 130 at hd 64), zamba2's hd 80 (H 32 /
      32) and kimi-k2's hd 112 (H 64 / 8) at S = 256 and 200, and phase
-     11's batched serving prefill (B 16, S 32, H 16 / 8, hd 128); and at
+     11's batched serving prefill (B 16, S 32, H 16 / 8, hd 128) and
+     phase 12's quickstart prefill (B 4, S 32, H 4 / 2, hd 64); and at
      every shape, causality and dtype that phase 7e's prefills launch it
      with (bf16, B 4: S 512 for eight archs, the enc-dec's encoder
      non-causal, internvl2's S 1536 after its patches): within
@@ -99,8 +101,9 @@ Phases, each of which exits non-zero on failure:
      hd 80, bf16), and the int8-dot kernel at K = 32, 64 and 128 beside
      ``safl_aggregate_q8`` (fedsgd) on the same rows;
      the parent designs of the q8 aggregate (fedsgd and avg), of
-     quantize and of dequantize beside the package's kernels, through
-     ``ctypes``;
+     quantize, of dequantize and of the bf16 flash kernel (p in two bf16
+     terms, at the qwen3 prefill shape) beside the package's kernels,
+     through ``ctypes``;
      3 calls of each screen (f32, q8, q4; K = 1), of the q4, q8 and top-k
      folds (beta 1, in place), of the q4 and q8 aggregates (K = 4,
      fedsgd), of quantize and dequantize at (4209, 512) and
@@ -339,6 +342,22 @@ Phases, each of which exits non-zero on failure:
      8-32 tokens, 48 new, one flash launch a layer); and
      ``examples/torch_distributed_pretrain.py`` under fedsgd and fedavg,
      20 steps each, one ``safl_aggregate`` launch a step, drift 0
+  12. the last two examples at their defaults: (a)
+     ``examples/torch_quickstart.py`` through ``main``, then its three
+     parts again: each part's launches (training none; SAFL fedsgd and
+     fedavg a ``safl_fold`` an admitted upload; the prefill one f32
+     ``flash_attention`` a layer, at a shape phase 3 checks), summing to
+     ``main``'s, and the repeat bitwise; part 1 card vs CPU as phase 8c
+     holds a reduced config; part 2 card vs CPU taking the card's ReLU /
+     max-pool branches (``repro_torch.models.kinks``): bytes, staleness,
+     participation and simulated times exact, params within phase 5's
+     f32 bound, accuracy within ``EXAMPLE_ACC_SAMPLES`` test samples;
+     part 3 on the CPU from the card's trained params: the same ids,
+     logits within ``SERVE_F32_TOL``; (b)
+     ``examples/torch_safl_paper_sim.py`` (SS, SA, AS, AA; 30 rounds, 16
+     clients) through ``main``, each mode's launches (an aggregate a sync
+     round, a fold an admitted upload), its loop again bitwise, and on
+     the CPU on the card's branches, each mode checked as part 2
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -403,8 +422,10 @@ REPLACES = {"safl_fold": "src/repro/kernels/safl_agg.py:221",
 SOURCES = ("safl_agg", "quantize", "flash_attention", "int8dot")
 #: other designs built beside them: the q4 and q8 aggregates' parent
 #: kernels, which phase 3 holds the new ones against under the poly
-#: discount, and the quantize kernel's; phase 4 times the parents
-VARIANT_SOURCES = ("aggregate_variants", "quantize_variants")
+#: discount, the quantize kernel's, and the bf16 flash kernel's (p in two
+#: bf16 terms); phase 4 times the parents
+VARIANT_SOURCES = ("aggregate_variants", "quantize_variants",
+                   "flash_variants")
 INT8_KERNELS = ("quantize_int8", "dequantize_int8")
 #: the source of each kernel: the int8 pair in csrc/quantize.cu, flash
 #: attention in csrc/flash_attention.cu, the int8-dot reduction in
@@ -647,6 +668,10 @@ REGIME_MESH_LEVELS = 4
 SERVE_BATCHED_REQUESTS, SERVE_BATCHED_NEW = 16, 48
 #: phase 11: the pretraining example's steps under each aggregation
 PRETRAIN_STEPS = 20
+#: phase 12: the quickstart's and the paper simulation's accuracy, card
+#: against the CPU taking the card's branches: within 2 test samples, as
+#: the CPU tests hold the engine to the reference
+EXAMPLE_ACC_SAMPLES = 2
 #: rows of the int8 pair's checks and timings: the paper CNN's 4,209
 #: blocks of 512, and a ragged count (not a multiple of the 8 rows a
 #: quantize block takes)
@@ -666,7 +691,10 @@ FLASH_SHAPES = ((2, 128, 4, 4, 64), (2, 256, 8, 2, 32), (2, 64, 2, 1, 128),
                 (1, 200, 32, 32, 80), (1, 200, 64, 8, 112),
                 # phase 11's batched serving of the full-width qwen3: 16
                 # requests left-padded to the longest prompt, 32 tokens
-                (SERVE_BATCHED_REQUESTS, 32, 16, 8, 128))
+                (SERVE_BATCHED_REQUESTS, 32, 16, 8, 128),
+                # phase 12's quickstart: the reduced qwen3's prefill (B 4,
+                # S 32, H 4 / 2, hd 64; f32)
+                (4, 32, 4, 2, 64))
 #: phase 4: the zamba2 shared attention's prefill shape (B 4, prompt 512)
 FLASH_HD80_SHAPE = (4, 512, 32, 32, 80)
 #: the bf16 flash kernel's symbol: the profiler's flash share sums its
@@ -1668,6 +1696,8 @@ def time_kernels(torch, k_mod, q_mod, fa_mod, i8_mod, variants):
     parent designs of the kernels this slice redesigned (``variants``:
     the variant sources' libraries), timed in the same way through
     ``ctypes`` beside the package's kernels through ``ctypes``."""
+    import numpy as np
+
     from repro_torch.kernels.ref import INV_127
     g = torch.Generator(device="cuda").manual_seed(1)
     d, k = D_FULL, K_MAIN
@@ -1904,6 +1934,21 @@ def time_kernels(torch, k_mod, q_mod, fa_mod, i8_mod, variants):
             shape=f"B={b} S={s_} H={h}/{hkv} hd={hd} "
                   f"{str(dtype).split('.')[-1]} causal")
         del fq, fk, fv, tq, tk, tv
+    # the bf16 kernel's parent design (p in two bf16 terms,
+    # csrc/flash_variants.cu) beside the package's three-term kernel, both
+    # through ctypes
+    fq, fk, fv = flash_inputs(torch, FLASH_SHAPES[3], torch.bfloat16, g)
+    b, s_, h, hkv, hd = FLASH_SHAPES[3]
+    fo = torch.empty_like(fq)
+    args = (fq.data_ptr(), fk.data_ptr(), fv.data_ptr(), fo.data_ptr(), b,
+            s_, h, hkv, hd, 1, float(np.float32(np.sqrt(hd))))
+    for design, fn in (("parent, two terms", variants["flash_variants"]
+                        .flash_attention_bf16),
+                       ("package, three terms",
+                        fa_mod._lib().flash_attention_bf16)):
+        parents[f"flash_attention bf16, {design} (ctypes)"] = t(raw_call(
+            torch, fn, fa_mod._lib().flash_attention_bf16.argtypes, *args))
+    del fq, fk, fv, fo
     # the zamba2 shared attention's prefill (hd 80: the kernels' 128-wide
     # tiles with the upper 48 columns zero)
     fq, fk, fv = flash_inputs(torch, FLASH_HD80_SHAPE, torch.bfloat16, g)
@@ -5097,6 +5142,329 @@ def run_examples(torch, wrappers, smi):
     return rows, flash, safl
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the quickstart and the paper's simulation
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def engine_launches(wrappers):
+    """Every ``FLEngine.run`` in the block: (engine, result, the launches
+    it made by kernel)."""
+    from repro_torch.core import FLEngine
+    real, runs = FLEngine.run, []
+
+    def run(self, *args, **kwargs):
+        before = {n: f.launches for n, f in wrappers.items()}
+        res = real(self, *args, **kwargs)
+        runs.append((self, res, {n: f.launches - before[n]
+                                 for n, f in wrappers.items()
+                                 if f.launches != before[n]}))
+        return res
+    FLEngine.run = run
+    try:
+        yield runs
+    finally:
+        FLEngine.run = real
+
+
+def fl_launches(eng, res, rounds) -> dict:
+    """The launches a paper-CNN run of the example makes: a fold an
+    admitted upload (semi-async, the streaming channel), one aggregate a
+    round (sync, the buffered channel)."""
+    if eng.cfg.mode == "semi_async":
+        return {"safl_fold": int(res.participation.sum())}
+    return {"safl_aggregate": rounds}
+
+
+def same_fl_run(torch, a, b) -> bool:
+    """Two runs of one setting bitwise: final flat params, every round's
+    accuracy, loss, bytes, staleness and simulated time."""
+    (ea, ra), (eb, rb) = a, b
+    fields = ("accuracy", "loss", "tx_bytes", "rx_bytes", "mean_staleness",
+              "sim_time")
+    return (torch.equal(ea._flat_params, eb._flat_params)
+            and [[getattr(r, f) for f in fields] for r in ra.metrics.records]
+            == [[getattr(r, f) for f in fields] for r in rb.metrics.records])
+
+
+def fl_card_vs_cpu(torch, name, card, cpu, p0, n_test) -> dict:
+    """A card run against the CPU's run of the same code taking the card's
+    branches: bytes, staleness, participation and simulated times exact,
+    params within phase 5's f32 bound, every round's accuracy within
+    ``EXAMPLE_ACC_SAMPLES`` test samples."""
+    (eg, rg), (ec, rc) = card, cpu
+    same_host = (eg.tx_bytes == ec.tx_bytes and eg.rx_bytes == ec.rx_bytes
+                 and rg.staleness_hist == rc.staleness_hist
+                 and list(rg.participation) == list(rc.participation)
+                 and [r.sim_time for r in rg.metrics.records]
+                 == [r.sim_time for r in rc.metrics.records])
+    acc = max(abs(a.accuracy - b.accuracy) * n_test for a, b in zip(
+        rg.metrics.records, rc.metrics.records))
+    err, rel, close, tol = params_distance(
+        torch, {}, eg._flat_params.cpu(), ec._flat_params, p0)
+    print(f"    {name} card vs CPU on the card's branches: bytes/schedule "
+          f"{'equal' if same_host else 'DIFFER'}, params max|err|="
+          f"{err:.3e} rel {rel:.3e} ({tol}), accuracy at most {acc:.2f} "
+          f"test samples apart (tolerance {EXAMPLE_ACC_SAMPLES})")
+    if not (same_host and close and acc <= EXAMPLE_ACC_SAMPLES + 1e-6):
+        fail(f"phase 12 {name}: the card disagrees with the CPU")
+    return dict(host_equal=same_host, params_max_abs_err=err,
+                params_rel_to_movement=rel, accuracy_samples=acc)
+
+
+def quickstart_train_vs_cpu(torch, qs) -> dict:
+    """Phase 12, quickstart part 1, as phase 8c holds a reduced config: at
+    each of its steps the loss within ``TRAIN_LOSS_RTOL`` and every
+    gradient leaf within ``TRAIN_GRAD_TOL`` of the CPU's largest, both
+    devices then updated with the CPU's gradients: params and optimizer
+    state bitwise."""
+    from repro_torch import tree as treemod
+    from repro_torch.launch import steps
+    from repro_torch.optim import make_optimizer
+    from repro_torch.prng import prng_key
+    from repro_torch.models import build_model
+    cfg = qs.lm_config()
+    model = build_model(cfg)
+    vg = steps.value_and_grad(model.train_loss)
+    opt = make_optimizer(cfg.optimizer, lr=qs.LR)
+    p_cpu = model.init_params(prng_key(0), "cpu")
+    p_gpu = treemod.tree_map(lambda x: x.to("cuda"), p_cpu)
+    s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
+    b_cpu, b_gpu = qs.token_batch(cfg, "cpu"), qs.token_batch(cfg, "cuda")
+    if not torch.equal(b_cpu["tokens"], b_gpu["tokens"].cpu()):
+        fail("phase 12: the quickstart's batch differs on the card")
+    worst = dict(loss=0.0, grad=0.0)
+    bitwise = True
+    for step in range(qs.STEPS):
+        (lc, mc), gc_ = vg(p_cpu, b_cpu)
+        (lg, mg), gg = vg(p_gpu, b_gpu)
+        for a, b in [(lg, lc)] + [(mg[k], mc[k]) for k in mc]:
+            worst["loss"] = max(worst["loss"], abs(float(a) - float(b))
+                                / max(abs(float(b)), 1e-6))
+        for a, b in zip(treemod.tree_leaves(gg), treemod.tree_leaves(gc_)):
+            worst["grad"] = max(worst["grad"], float(
+                (a.cpu() - b).abs().max()) / max(float(b.abs().max()),
+                                                 1e-30))
+        p_cpu, s_cpu = opt.update(p_cpu, gc_, s_cpu, step)
+        p_gpu, s_gpu = opt.update(
+            p_gpu, treemod.tree_map(lambda x: x.to("cuda"), gc_), s_gpu,
+            step)
+        bitwise = bitwise and all(
+            torch.equal(a.cpu(), b) for a, b in zip(
+                treemod.tree_leaves((p_gpu, s_gpu)),
+                treemod.tree_leaves((p_cpu, s_cpu))))
+    print(f"    part 1 card vs CPU, {qs.STEPS} steps at the same params: "
+          f"loss max rel {worst['loss']:.2e} (tolerance {TRAIN_LOSS_RTOL}),"
+          f" gradients max {worst['grad']:.2e} of a leaf's largest "
+          f"(tolerance {TRAIN_GRAD_TOL}), params and state after the same "
+          f"gradients {'bitwise' if bitwise else 'DIFFER'}")
+    if worst["loss"] > TRAIN_LOSS_RTOL or worst["grad"] > TRAIN_GRAD_TOL \
+            or not bitwise:
+        fail("phase 12: the quickstart's training on the card disagrees "
+             "with the CPU")
+    return dict(loss_max_rel=worst["loss"], grad_max_rel=worst["grad"],
+                updates_bitwise=bitwise)
+
+
+def run_quickstart(torch, wrappers, smi):
+    """Phase 12 (a): ``examples/torch_quickstart.py`` on the card at its
+    defaults through ``main``; then its three parts again, part 2 with
+    its ReLU / max-pool branches recorded (``repro_torch.models.kinks``):
+    each part's launches (part 1 none, part 2 a fold an admitted upload,
+    part 3 one flash launch a layer of the prefill, at a shape phase 3
+    checks), their sum ``main``'s, and the repeat bitwise (losses, params
+    and optimizer state, both engines' params and records, every decode
+    step's ids and logits); then the CPU: part 1 as phase 8c holds a
+    reduced config, part 2 on the card's branches, part 3 from the card's
+    trained params (the same ids, the logits within ``SERVE_F32_TOL``)."""
+    from repro_torch import tree as treemod
+    from repro_torch.models import kinks
+    qs = load_example("torch_quickstart")
+
+    def quiet(line):
+        del line
+
+    def counts():
+        return {n: f.launches for n, f in wrappers.items() if f.launches}
+
+    def reset():
+        for f in wrappers.values():
+            f.launches = 0
+
+    reset()
+    t0 = time.perf_counter()
+    first = qs.main([])
+    wall = time.perf_counter() - t0
+    total = counts()
+    parts = {}
+    reset()
+    lm = qs.train("cuda", log=quiet)
+    parts["train"] = counts()
+    reset()
+    record = kinks.Record()
+    with engine_launches(wrappers) as runs, record:
+        fl = qs.federate("cuda", log=quiet)
+    parts["federate"] = counts()
+    reset()
+    dec = qs.decode(lm["cfg"], lm["params"], lm["batch"], log=quiet)
+    parts["decode"] = counts()
+    cfg = lm["cfg"]
+    shape = (qs.B, qs.S, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    want = {"train": {}, "decode": {"flash_attention": cfg.n_layers},
+            "federate": {}}
+    for eng, res, c in runs:
+        exp = fl_launches(eng, res, qs.ROUNDS)
+        if c != exp:
+            fail(f"phase 12 quickstart {eng.cfg.aggregation}: launches {c}"
+                 f", expected {exp}")
+        for n, v in exp.items():
+            want["federate"][n] = want["federate"].get(n, 0) + v
+    summed = collections.Counter()
+    for c in parts.values():
+        summed.update(c)
+    print(f"  quickstart main on the card: {wall:.1f} s, launches {total}; "
+          "by part: " + ", ".join(f"{k} {v}" for k, v in parts.items()))
+    if parts != want or dict(summed) != total or shape not in FLASH_SHAPES:
+        fail(f"phase 12 quickstart: launches by part {parts}, expected "
+             f"{want}, main's {total}, prefill shape {shape}")
+    repeat = (lm["losses"] == first["train"]["losses"]
+              and all(torch.equal(a, b) for a, b in zip(
+                  treemod.tree_leaves((lm["params"], lm["ostate"])),
+                  treemod.tree_leaves((first["train"]["params"],
+                                       first["train"]["ostate"]))))
+              and all(same_fl_run(torch, fl[a], first["federate"][a])
+                      for a in fl)
+              and dec["ids"] == first["decode"]["ids"]
+              and all(torch.equal(a, b) for a, b in zip(
+                  dec["logits"], first["decode"]["logits"])))
+    print(f"  quickstart parts again: repeat "
+          f"{'bitwise' if repeat else 'DIFFERS'} (losses, params and state, "
+          "both engines' params and records, ids and logits)")
+    if not repeat:
+        fail("phase 12: the quickstart's second run on the card differs")
+    trained = quickstart_train_vs_cpu(torch, qs)
+    free = [abs(a - b) / abs(b) for a, b in zip(
+        lm["losses"], qs.train("cpu", log=quiet)["losses"])]
+    print(f"    part 1 free-running (AdamW, each device on its own "
+          f"gradients): loss rel " + " ".join(f"{x:.1e}" for x in free))
+    replay = kinks.Replay(record.choices)
+    with engine_launches(wrappers) as cpu_runs, replay:
+        qs.federate("cpu", log=quiet)
+    if not replay.done:
+        fail("phase 12: the CPU's quickstart part 2 left card branches "
+             "untaken")
+    _, _, (p0, _, _) = qs.fl_setup("cpu")
+    fed = {}
+    for (eg, rg, _), (ec, rc, _) in zip(runs, cpu_runs):
+        fed[eg.cfg.aggregation] = fl_card_vs_cpu(
+            torch, f"part 2 {eg.cfg.aggregation}", (eg, rg), (ec, rc),
+            ec.codec.ravel(p0), qs.N_TEST)
+    print(f"    (the CPU on the card's {len(record.choices)} branch points, "
+          f"{replay.flips} units the other side of its own, margin "
+          f"{replay.margin:.1e})")
+    dec_cpu = qs.decode(cfg, treemod.tree_map(lambda x: x.cpu(),
+                                              lm["params"]),
+                        {"tokens": lm["batch"]["tokens"].cpu()}, log=quiet)
+    logit_err = max(float((a - b).abs().max()) for a, b in zip(
+        dec["logits"], dec_cpu["logits"]))
+    close = all(torch.allclose(a, b, atol=SERVE_F32_TOL, rtol=SERVE_F32_TOL)
+                for a, b in zip(dec["logits"], dec_cpu["logits"]))
+    print(f"    part 3 card vs CPU from the card's params: ids "
+          f"{'equal' if dec['ids'] == dec_cpu['ids'] else 'DIFFER'}, logits "
+          f"max|err| {logit_err:.3e} (atol=rtol={SERVE_F32_TOL})")
+    if dec["ids"] != dec_cpu["ids"] or not close:
+        fail("phase 12: the quickstart's decode on the card disagrees with "
+             "the CPU")
+    row = dict(wall_s=wall, launches=total, launches_by_part=parts,
+               losses=lm["losses"], last_ids=dec["last"], train=trained,
+               train_free_rel=free, federate=fed, logits_max_err=logit_err,
+               branch_points=len(record.choices), flips=replay.flips)
+    print(json.dumps({"phase": "12a", "example": "torch_quickstart",
+                      "wall_s": wall, "launches_by_part": parts,
+                      "loss": lm["losses"][-1], "last_ids": dec["last"],
+                      "smi": smi}))
+    return row, total
+
+
+def run_paper_sim(torch, wrappers, smi):
+    """Phase 12 (b): ``examples/torch_safl_paper_sim.py`` on the card at
+    its defaults (30 rounds, 16 clients) through ``main``, then its loop
+    again with the ReLU / max-pool branches recorded: each mode's
+    launches (a fold an admitted upload under AS / AA, an aggregate a
+    round under SS / SA), the repeat bitwise; then the loop on the CPU
+    taking the card's branches, each mode checked as part 2 is."""
+    from repro_torch.models import kinks
+    sim = load_example("torch_safl_paper_sim")
+    rounds, clients = 30, 16
+    for f in wrappers.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    with engine_launches(wrappers) as runs:
+        first = sim.main([])
+    wall = time.perf_counter() - t0
+    modes = {}
+    for (eng, res, c), (tag, run) in zip(runs, first.items()):
+        exp = fl_launches(eng, res, rounds)
+        modes[tag] = dict(launches=c, summary=run["summary"])
+        if c != exp:
+            fail(f"phase 12 paper sim {tag}: launches {c}, expected {exp}")
+    record = kinks.Record()
+    t1 = time.perf_counter()
+    with record:
+        again = sim.simulate(rounds, clients, "cuda")
+    wall_again = time.perf_counter() - t1
+    repeat = all(
+        same_fl_run(torch, (again[t]["engine"], again[t]["result"]),
+                    (first[t]["engine"], first[t]["result"]))
+        and again[t]["curve"] == first[t]["curve"] for t in first)
+    print(f"  paper sim main on the card: {wall:.1f} s (recorded again: "
+          f"{wall_again:.1f} s), launches by mode "
+          + ", ".join(f"{t} {m['launches']}" for t, m in modes.items())
+          + f"; repeat {'bitwise' if repeat else 'DIFFERS'}")
+    if not repeat:
+        fail("phase 12: the paper simulation's second run on the card "
+             "differs")
+    replay = kinks.Replay(record.choices)
+    t1 = time.perf_counter()
+    with replay:
+        cpu = sim.simulate(rounds, clients, "cpu")
+    wall_cpu = time.perf_counter() - t1
+    if not replay.done:
+        fail("phase 12: the CPU's paper simulation left card branches "
+             "untaken")
+    _, _, (p0, _, _) = sim.setup(clients, "cpu")
+    for tag in first:
+        ec = cpu[tag]["engine"]
+        modes[tag]["card_vs_cpu"] = fl_card_vs_cpu(
+            torch, f"paper sim {tag}",
+            (again[tag]["engine"], again[tag]["result"]),
+            (ec, cpu[tag]["result"]), ec.codec.ravel(p0), sim.N_TEST)
+    print(f"    (the CPU on the card's {len(record.choices)} branch points "
+          f"in {wall_cpu:.1f} s, {replay.flips} units the other side of "
+          f"its own, margin {replay.margin:.1e})")
+    total = collections.Counter()
+    for m in modes.values():
+        total.update(m["launches"])
+    print(json.dumps({"phase": "12b", "example": "torch_safl_paper_sim",
+                      "wall_s": wall, "launches_by_mode": {
+                          t: m["launches"] for t, m in modes.items()},
+                      "best": {t: m["summary"]["best_accuracy"]
+                               for t, m in modes.items()}, "smi": smi}))
+    return dict(wall_s=wall, modes=modes, branch_points=len(record.choices),
+                flips=replay.flips), dict(total)
+
+
+def run_examples_fl(torch, wrappers, smi):
+    """Phase 12: (a) the quickstart, (b) the paper simulation.  Returns
+    (rows, launches by kernel)."""
+    quick, ql = run_quickstart(torch, wrappers, smi)
+    paper, pl = run_paper_sim(torch, wrappers, smi)
+    launches = collections.Counter(ql)
+    launches.update(pl)
+    return dict(quickstart=quick, paper_sim=paper), dict(launches)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5310,6 +5678,17 @@ def main() -> None:
     launches["flash_attention"] += ex_flash
     launches["safl_aggregate"] += ex_safl
     print(f"  phase 11: {examples['wall_s']:.1f} s")
+    left(11)
+
+    print("== phase 12: the quickstart (training, SAFL fedsgd and fedavg, "
+          "serving) and the paper's simulation (SS, SA, AS, AA), each twice "
+          "on the card and once on the CPU")
+    t0 = time.perf_counter()
+    examples_fl, ex_launches = run_examples_fl(torch, wrappers, smi_line())
+    examples_fl["wall_s"] = time.perf_counter() - t0
+    for name, c in ex_launches.items():
+        launches[name] += c
+    print(f"  phase 12: {examples_fl['wall_s']:.1f} s")
 
     kernels = [dict(
         name=name, route="cuda",
@@ -5342,6 +5721,7 @@ def main() -> None:
                        compression_path=compression, serving=serving,
                        zoo=zoo, training=training, dryrun=dry,
                        int8dot_regime=regime, examples=examples,
+                       examples_fl=examples_fl,
                        allocated_bytes=allocated, kernels=kernels, device=device), f, indent=1,
                   default=str)
     print(smi)

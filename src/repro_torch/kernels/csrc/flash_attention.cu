@@ -24,14 +24,17 @@
 //     from shared memory, both K-major; the f32 scores are scaled by
 //     log2(e) / sqrt(hd) (from the caller's f32 sqrt(hd)) and the softmax
 //     runs in base 2, which moves p by a few f32 ulp, not a bf16 step.
-//   * O += P V with p kept at f32 precision: p = p_hi + p_lo, both bf16
-//     (p_hi = bf16_rn(p), p_lo = bf16_rn(p - p_hi), about 2^-16 relative
-//     left), two wgmma m64nNk16 into the same f32 accumulator with A from
-//     registers (the S accumulator's fragment is the A operand's layout)
-//     and V read MN-major (the descriptor's transpose bit).  Rounding p to
-//     bf16 alone would move about 40 % of the bf16 output lanes at the
-//     prefill shape; the split moves well under 1 %.  It costs a third
-//     more tensor work: 51.6 GFLOP issued for the 34.4 counted.
+//   * O += P V with p kept at f32 precision: p = p_hi + p_lo + p_lo2,
+//     three bf16 terms (p_hi = bf16_rn(p), p_lo = bf16_rn(p - p_hi),
+//     p_lo2 = bf16_rn(p - p_hi - p_lo), about 2^-24 relative left), three
+//     wgmma m64nNk16 into the same f32 accumulator with A from registers
+//     (the S accumulator's fragment is the A operand's layout) and V read
+//     MN-major (the descriptor's transpose bit).  Rounding p to bf16 alone
+//     moves 41.95 % of the bf16 output lanes off the bf16 nearest the f64
+//     answer at the prefill shape; two terms 0.2255 %, three 0.1034 %, the
+//     f32 plain version 0.0343 % (tools/flash_p_split.py).  It costs
+//     twice the P V product's tensor work: 68.8 GFLOP issued for the 34.4
+//     counted.
 //   * One CTA per (q tile, pair of q heads or pair of 64-row tiles, batch
 //     row): two consumer warpgroups of 64 q rows each share every K / V
 //     tile.  When H / Hkv is even the two warpgroups take two heads of
@@ -79,6 +82,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// The bf16 terms p is split into before P V: 3 (p_hi + p_lo + p_lo2),
+// the kernel's; 2 (p_hi + p_lo, no third wgmma a 16-key step) is the
+// parent design that csrc/flash_variants.cu builds for chip_smoke.py
+// phase 4 and tools/flash_p_split.py.
+#ifndef FLASH_P_TERMS
+#define FLASH_P_TERMS 3
+#endif
 
 namespace {
 
@@ -640,8 +651,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
 
-    // p = p_hi + p_lo in bf16 pairs: A fragments of the four 16-key steps
+    // p = p_hi + p_lo (+ p_lo2) in bf16 pairs: A fragments of the four
+    // 16-key steps
     uint32_t p_hi[4][4], p_lo[4][4];
+#if FLASH_P_TERMS == 3
+    uint32_t p_lo2[4][4];
+#endif
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -649,8 +664,14 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         const float x0 = sc[8 * kk + 2 * e], x1 = sc[8 * kk + 2 * e + 1];
         const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
         p_hi[kk][e] = bf16x2_bits(hi);
-        p_lo[kk][e] = bf16x2_bits(__floats2bfloat162_rn(
-            x0 - __low2float(hi), x1 - __high2float(hi)));
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(
+            x0 - __low2float(hi), x1 - __high2float(hi));
+        p_lo[kk][e] = bf16x2_bits(lo);
+#if FLASH_P_TERMS == 3
+        p_lo2[kk][e] = bf16x2_bits(__floats2bfloat162_rn(
+            x0 - __low2float(hi) - __low2float(lo),
+            x1 - __high2float(hi) - __high2float(lo)));
+#endif
       }
 
     mbar_wait(&v_full[s], parity);
@@ -659,6 +680,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < 4; ++kk) {
       fence_regs(p_hi[kk]);
       fence_regs(p_lo[kk]);
+#if FLASH_P_TERMS == 3
+      fence_regs(p_lo2[kk]);
+#endif
     }
     wgmma_fence();
 #pragma unroll
@@ -669,6 +693,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           smem_desc(v_addr + kk * 2 * kSwizzleAtom, kPanelBytes, kSwizzleAtom);
       wgmma_rs<N>(acc, p_hi[kk], dv);
       wgmma_rs<N>(acc, p_lo[kk], dv);
+#if FLASH_P_TERMS == 3
+      wgmma_rs<N>(acc, p_lo2[kk], dv);
+#endif
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -677,6 +704,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < 4; ++kk) {
       fence_regs(p_hi[kk]);
       fence_regs(p_lo[kk]);
+#if FLASH_P_TERMS == 3
+      fence_regs(p_lo2[kk]);
+#endif
     }
     mbar_arrive(&empty[s]);
   }

@@ -17,11 +17,11 @@ scores -1e30, the kv loop stopping at the causal triangle,
   products on the tensor cores (``wgmma``, f32 accumulators), K / V
   tiles loaded by TMA into a two-stage ring by a producer warp and shared
   by two consumer warpgroups (two q heads of one kv head, or 128 rows of
-  one head), p split into bf16 ``p_hi + p_lo`` so that P V keeps p at f32
-  precision.  Within one bf16 step (the reference tests' ``2e-2``) of the
-  plain version, and at the qwen3 prefill shape differing from it in
-  well under 2 % of the output lanes (rounding p to bf16 alone moves
-  about 40 %).
+  one head), p split into three bf16 terms ``p_hi + p_lo + p_lo2`` so
+  that P V keeps p at f32 precision.  Within one bf16 step (the reference
+  tests' ``2e-2``) of the plain version, and at the qwen3 prefill shape
+  differing from it in about 0.1 % of the output lanes (rounding p to
+  bf16 alone moves about 42 %, two terms 0.23 %).
 - f32: ``flash_fwd_simt_kernel`` on the CUDA cores, 64 x 64 tiles of f32
   (the tensor cores would multiply in TF32); within ``2e-5``.
 
@@ -41,7 +41,7 @@ Bound: the bytes of q, k, v and o read or written once,
 ``(2 B S H hd + 2 B S Hkv hd) * itemsize`` at the HBM rate, against the
 FLOPs of the two products, ``4 B H hd S (S + 1) / 2`` causal or
 ``4 B H hd S^2`` not, at the card's dense peak for the dtype (the bf16
-kernel issues half again the P V product for the p split).
+kernel issues the P V product three times, once a term of p).
 """
 from __future__ import annotations
 

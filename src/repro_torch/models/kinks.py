@@ -19,11 +19,12 @@ conv model cannot be held to each other to a float bound unless they
 take the same branches.
 
 :class:`Record` notes a run's choices in call order: each ``relu``'s
-``x > 0``, each ``max_pool2d``'s argmax and each ``round``'s integers.
-:class:`Replay` makes another run take them: ``relu(x)`` becomes ``x *
-mask``, a pool gathers its input at the recorded argmax (both
-differentiable) and ``round`` returns the recorded integers, so the
-replaying run follows the recorded run's branches and what is left
+``x > 0``, each ``max_pool2d``'s argmax, each ``round``'s integers and
+each ``sort``'s permutation.  :class:`Replay` makes another run take
+them: ``relu(x)`` becomes ``x * mask``, a pool gathers its input at the
+recorded argmax (both differentiable), ``round`` returns the recorded
+integers and ``sort`` the input gathered at the recorded permutation, so
+the replaying run follows the recorded run's branches and what is left
 between the two is rounding.  It counts the units where its own choice
 differs (``flips``) and keeps the largest distance of such a unit's
 input from the branch point, over the largest |input| of its call
@@ -43,9 +44,9 @@ def _strip(kwargs):
 
 
 class Record(TorchFunctionMode):
-    """Under it, every ``F.relu``, ``F.max_pool2d`` and ``torch.round``
-    call runs as usual and notes its choice in ``choices`` (on the call's
-    device)."""
+    """Under it, every ``F.relu``, ``F.max_pool2d``, ``torch.round`` and
+    ``torch.sort`` call runs as usual and notes its choice in ``choices``
+    (on the call's device)."""
 
     def __init__(self):
         super().__init__()
@@ -63,12 +64,17 @@ class Record(TorchFunctionMode):
             out = func(*args, **kwargs)
             self.choices.append(("round", out))
             return out
+        elif func is torch.sort:
+            out = func(*args, **kwargs)
+            self.choices.append(("sort", out.indices))
+            return out
         return func(*args, **kwargs)
 
 
 class Replay(TorchFunctionMode):
-    """Under it, the i-th ``F.relu`` / ``F.max_pool2d`` / ``torch.round``
-    call takes the i-th recorded choice (moved to the call's device)."""
+    """Under it, the i-th ``F.relu`` / ``F.max_pool2d`` / ``torch.round`` /
+    ``torch.sort`` call takes the i-th recorded choice (moved to the
+    call's device)."""
 
     def __init__(self, choices):
         super().__init__()
@@ -122,6 +128,16 @@ class Replay(TorchFunctionMode):
             self._note(own != rec, (x - (own + rec) / 2).abs()
                        + (own - rec).abs() - 1, x)
             return rec
+        if func is torch.sort:
+            x = args[0]
+            own = func(*args, **kwargs)
+            idx = self._next("sort", own.indices.shape, x.device)
+            dim = kwargs.get("dim", args[1] if len(args) > 1 else -1)
+            vals = torch.gather(x, dim, idx)
+            # a swapped pair's keys lie within rounding of each other
+            self._note(own.indices != idx, (own.values - vals).abs(),
+                       x.detach())
+            return torch.return_types.sort((vals, idx))
         return func(*args, **kwargs)
 
     @property

@@ -37,7 +37,9 @@ Two twins of the draws:
   * :func:`gumbel_torch` and :func:`categorical_torch`, serving's
     sampling: ``jax.random.gumbel`` over :func:`uniform_range_torch`
     (``jax.random.uniform`` with ``minval`` / ``maxval``) and the Gumbel
-    max of ``jax.random.categorical``, bitwise on the CPU.
+    max of ``jax.random.categorical``, bitwise on the CPU;
+  * :func:`randint`, ``jax.random.randint`` (int32) bit for bit, in
+    integer PyTorch ops: the quickstart's token batch.
 """
 from __future__ import annotations
 
@@ -352,6 +354,52 @@ def uniform_range_torch(key: Key, shape, device, minval: float,
     f = _unit_torch(_bits_torch(key, 0, n, device))
     u = _fma(f, span, float(lo), _torch_to)
     return torch.clamp(u, min=float(lo)).reshape(shape)
+
+
+_I32_MIN, _I32_MAX = -2 ** 31, 2 ** 31 - 1
+
+
+def _rem_u32(x, span: int):
+    """XLA's unsigned remainder: ``x % span``, and ``x`` where ``span`` is
+    0."""
+    return x if span == 0 else x % span
+
+
+def _mul_u32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``x * m`` wrapped to 32 bits, for ``x`` and ``m`` in [0, 2**32):
+    ``m`` in two 16-bit halves, so no int64 product overflows."""
+    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _MASK
+
+
+def randint(key: Key, shape, minval: int, maxval: int,
+            device="cpu") -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, JAX's
+    default without 64-bit mode) on ``device``, bit for bit: JAX's
+    ``_randint`` in int64 PyTorch ops masked to 32 bits (PyTorch has no
+    uint32 remainder on every device).  The key is split in two, each half
+    draws a row of 32-bit words (:func:`_bits_torch`); with ``span =
+    maxval - minval`` (1 where ``maxval <= minval``, one more where
+    ``maxval`` lies past the int32 range) and ``multiplier = (2**16 %
+    span)**2 % span``, the draw is ``minval + ((hi % span) * multiplier +
+    lo % span) % span``, every product and sum wrapped to 32 bits as
+    uint32 arithmetic wraps; the bounds are clipped to int32 first."""
+    shape, n = _lanes(shape)
+    minval, maxval = int(minval), int(maxval)
+    beyond = maxval > _I32_MAX
+    lo = min(max(minval, _I32_MIN), _I32_MAX)
+    hi = min(max(maxval, _I32_MIN), _I32_MAX)
+    if hi <= lo:
+        span = 1
+    else:
+        span = (hi - lo + int(beyond)) & _MASK
+    mult = _rem_u32(2 ** 16, span)
+    mult = _rem_u32((mult * mult) & _MASK, span)
+    k1, k2 = split(key, 2)
+    higher = _rem_u32(_bits_torch(k1, 0, n, device), span)
+    lower = _rem_u32(_bits_torch(k2, 0, n, device), span)
+    offset = _rem_u32((_mul_u32(higher, mult) + lower) & _MASK, span)
+    out = (offset + lo) & _MASK
+    return (out - ((out >> 31) << 32)).to(torch.int32).reshape(shape)
 
 
 def gumbel_torch(key: Key, shape, device) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing in src/repro_torch/ or chip_smoke.py
-imports jax or the reference package repro."""
+"""The port stands alone: nothing in src/repro_torch/, the port's
+examples (examples/torch_*.py) or chip_smoke.py imports jax or the
+reference package repro."""
 import ast
 import pathlib
 
@@ -8,7 +9,8 @@ import pytest
 pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+MODULES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+FILES = MODULES + sorted((ROOT / "examples").glob("torch_*.py")) + [
     ROOT / "chip_smoke.py"]
 
 
@@ -40,7 +42,7 @@ def test_port_modules_import_without_a_gpu():
     """Every module imports on a CPU-only host (no triton, no nvcc):
     kernels are built inside the call that launches them."""
     import importlib
-    for path in FILES[:-1]:
+    for path in MODULES:
         rel = path.relative_to(ROOT / "src").with_suffix("")
         name = ".".join(p for p in rel.parts if p != "__init__")
         importlib.import_module(name)

@@ -4,7 +4,8 @@ helpers in the port against the reference, on the CPU:
   * the codec's top-k emit programs against the reference's jitted ones
     (bitwise: indices, int8 values, scales and error-feedback residual),
     on rows with planted ties (equal magnitudes of both signs, runs of
-    zeros), and the sparse buffer's layout;
+    zeros), and the sparse buffer's layout; the ranking's sort a branch
+    point that ``models.kinks`` records and replays;
   * the plain versions of ``safl_fold_topk`` / ``safl_aggregate_topk``
     against the reference's oracles and its Pallas kernels in interpret
     mode (bitwise: every version adds the rows' terms in row order, and
@@ -169,6 +170,40 @@ def test_torch_topk_breaks_ties_otherwise():
     got = torch.topk(_t(np.abs(x)), tc.nk).indices.numpy()
     assert not np.array_equal(got, np.asarray(want))
     np.testing.assert_array_equal(tc._rank(_t(x)).numpy(), np.asarray(want))
+
+
+def test_topk_ranking_replays_recorded_branch_points():
+    """The ranking's sort is a branch point (``models.kinks``): two keys
+    within rounding of each other swap between two f32 runs.  A run
+    replaying a recorded run takes its permutation (the codec's kept
+    lanes and their order), counts the lanes it ranked otherwise and
+    their keys' distance; a run without a swap replays bitwise."""
+    from repro_torch.models import kinks
+    codec = tflatbuf.PytreeCodec({"w": torch.zeros(3001)}, qblock=64,
+                                 topk_frac=0.1)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=codec.dq).astype(np.float32))
+    rank = codec._rank(x)
+    order = torch.sort(x.abs(), descending=True, stable=True).indices
+    k = int(order[codec.nk - 1])  # the last lane kept
+    j = int(order[codec.nk])  # the first lane dropped
+    y = x.clone()
+    y[j] = np.nextafter(np.float32(abs(x[k])), np.float32(np.inf)) \
+        * np.sign(float(x[j]))
+    rec = kinks.Record()
+    with rec:
+        want = codec._rank(x)
+    assert torch.equal(want, rank) and len(rec.choices) == 1
+    replay = kinks.Replay(rec.choices)
+    with replay:
+        got = codec._rank(y)
+    assert torch.equal(got, rank) and replay.done
+    assert not torch.equal(codec._rank(y), rank)  # y alone swaps k and j
+    assert replay.flips == 2 and replay.margin < 1e-6
+    replay = kinks.Replay(rec.choices)
+    with replay:
+        assert torch.equal(codec._rank(x), rank)
+    assert replay.flips == 0
 
 
 @pytest.mark.parametrize("d,frac,qblock", [(1, 0.1, 8), (3001, 0.1, 512),

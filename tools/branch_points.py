@@ -19,11 +19,19 @@ round (:mod:`repro_torch.models.kinks`).
      4 rounds, both engines) on torch's thread pool, recorded, and on one
      thread, free and taking the pool run's branches: each one-thread
      run's distance from the pool run over its movement, and how many
-     units the replay found on the other side of its own choice.
+     units the replay found on the other side of its own choice;
+  5. ``case <test id> ...``: the same for any test that runs the port's
+     engine (``FLEngine.run``), named by its pytest id: the test runs
+     three times in this process, on torch's pool with every engine run's
+     branches recorded, then on one thread free, then on one thread with
+     each engine run taking the pool run's branches; for each engine run
+     the one-thread runs' distance from the pool run over its movement,
+     and each of the three test outcomes (a bound the one-thread run
+     breaks and the replay keeps is a branch point, not a port fault).
 
 Run from the repo root: ``PYTHONPATH=src python tools/branch_points.py
-[steps] [engines] [onednn] [horizons]`` (the first three without
-arguments).  CPU only.
+[steps] [engines] [onednn] [horizons] [case <test id> ...]`` (the first
+three without arguments).  CPU only.
 """
 import contextlib
 import os
@@ -190,7 +198,77 @@ def horizons():
               f"{rep.margin:.1e}")
 
 
+def _engine_runs(threads, mode_of):
+    """Patch ``FLEngine.run`` so that engine run i runs on ``threads``
+    torch threads under ``mode_of(i)``; returns the list that gathers
+    each run's (start, end) flat params and mode, and the undo."""
+    from repro_torch.core import FLEngine
+    real, runs = FLEngine.run, []
+
+    def run(self, *args, **kwargs):
+        mode = mode_of(len(runs))
+        n = torch.get_num_threads()
+        p0 = self._flat_params.clone()
+        torch.set_num_threads(threads)
+        try:
+            with mode:
+                out = real(self, *args, **kwargs)
+        finally:
+            torch.set_num_threads(n)
+        runs.append((p0, self._flat_params.clone(), mode))
+        return out
+
+    FLEngine.run = run
+
+    def undo():
+        FLEngine.run = real
+    return runs, undo
+
+
+def case(test_ids):
+    """Part 5: each test id on the pool (recorded), on one thread free and
+    on one thread taking the pool run's branches."""
+    import pytest
+    n_threads = torch.get_num_threads()
+    for tid in test_ids:
+        out = {}
+        for label, threads, mode_of in (
+                ("pool", n_threads, lambda i: kinks.Record()),
+                ("one thread", 1, lambda i: contextlib.nullcontext()),
+                ("one thread on the pool's branches", 1,
+                 lambda i: kinks.Replay(out["pool"][1][i][2].choices))):
+            runs, undo = _engine_runs(threads, mode_of)
+            try:
+                rc = pytest.main([tid, "-q", "-p", "no:cacheprovider",
+                                  "-p", "no:randomly", "--no-header",
+                                  "-o", "console_output_style=classic"])
+            finally:
+                undo()
+            out[label] = ("passed" if rc == 0 else "FAILED", runs)
+        pool = out["pool"][1]
+        for i, (p0, want, rec) in enumerate(pool):
+            move = float((want - p0).norm())
+            parts = []
+            for label in ("one thread", "one thread on the pool's branches"):
+                got = out[label][1][i][1]
+                parts.append(f"{label} {float((got - want).norm()) / move:.3e}"
+                             f" (max|err| {float((got - want).abs().max()):.3e})")
+            rep = out["one thread on the pool's branches"][1][i][2]
+            print(f"case {tid} engine run {i} ({n_threads} threads, "
+                  f"{len(rec.choices)} branch points): distance from the "
+                  f"pool run over its movement: " + "; ".join(parts)
+                  + f"; {rep.flips} units the other side of the one-thread "
+                  f"run's own, margin {rep.margin:.1e}, every choice taken "
+                  f"{rep.done}")
+        print(f"case {tid}: test " + ", ".join(
+            f"{label} {res}" for label, (res, _) in out.items()))
+
+
 if __name__ == "__main__":
-    for part in sys.argv[1:] or ("steps", "engines", "onednn"):
-        {"steps": steps, "engines": engines, "onednn": onednn,
-         "horizons": horizons}[part]()
+    args = sys.argv[1:] or ["steps", "engines", "onednn"]
+    if args[0] == "case":
+        case(args[1:])
+    else:
+        for part in args:
+            {"steps": steps, "engines": engines, "onednn": onednn,
+             "horizons": horizons}[part]()
